@@ -1,31 +1,47 @@
 #!/usr/bin/env python3
-"""Smoke run of malva_tpu_torch on one CUDA card: kernels, then the main path.
+"""Smoke run of malva_tpu_torch on one CUDA card: kernels, then the main paths.
 
     python3 chip_smoke.py              # everything (needs one card)
     python3 chip_smoke.py --kernels-only
 
 1. Prints torch's and CUDA's versions and the card's name and power limit.
-2. Builds the CUDA kernels from ``malva_tpu_torch/csrc`` with nvcc.
+2. Builds the CUDA kernels from ``malva_tpu_torch/csrc`` with nvcc, one
+   process per source.
 3. Holds each kernel against its plain PyTorch version on the card, at
-   the main path's shapes, with zero tolerance (integer hashing and
+   the main path's shapes, with zero tolerance (integer hashing, keys and
    counters are exact): K1 hash-only on 2^21 packed contexts and K1 fused
    on a synthetic -b 1 index (2^33 bits at a bit density of 2^-6, a 1M-key
    exact map); K2 hash-only and scan on a 2^20-position chunk with N,
-   lowercase and IUPAC bytes.  Times both with CUDA events.
+   lowercase and IUPAC bytes; K3 on a 2^25-window read chunk (reads joined
+   by 0xFF, with N, lowercase and reads shorter than ref_k), and the whole
+   device sort-count step against the host counter's sort-count of the
+   same windows.  Times each with CUDA events.  Then the f32 genotype
+   model on 2^20 seeded variants, on the card and on the CPU.
 4. Runs ``malva-tpu-torch run -k 35 -r 43 -b 1 -f AF`` on the chr-scale
    synthetic input (tools/make_synth_scale.py: 10 Mbp, 100k records x 50
    samples, 5x reads) with ``--backend cuda`` and, on a separate copy of
-   the inputs, ``--backend host``; the VCFs must be byte-identical and
-   both kernels must have launched in the cuda run.
+   the inputs, ``--backend host``; the VCFs must be byte-identical, all
+   three kernels must have launched in the cuda run (the reads are
+   counted on the card, with no host counting producer).  Then the cuda
+   run once more on a third copy with ``--spill-dir``: the device spill
+   counter, the same three kernels, and the host run's VCF.
+5. Runs ``batch`` over the 5x reads and a 3x read set of the same genome
+   and VCF, with ``--backend cuda`` and ``--backend host``: per-sample
+   VCFs byte-identical, the 5x one equal to the ``run`` VCF, all three
+   kernels launched and the device index uploaded once in the cuda leg.
+   The cuda leg runs with ``--profile-dir``; its trace gives the device
+   time of each kernel and the device's busy share of the leg.
 
-Any failure raises and the exit code is not 0.  The last two lines are
-one JSON object of kernel results and the ``{"ok": true, ...}`` line.
+Any failure raises and the exit code is not 0.  The last lines are the
+phase walls, the card's name and power limit, one JSON object of kernel
+results and the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import filecmp
 import io
 import json
 import os
@@ -45,6 +61,10 @@ N_AND = 6                    # bit density 2^-6
 MAP_KEYS = 1 << 20
 LANES = 1 << 21
 CHUNK = 1 << 20
+WINDOWS = 1 << 25            # K3: the counter's chunk_kmers
+VARIANTS = 1 << 20           # genotype model
+MIN_RECORDS = 50000          # VCF records the chr-scale run must give
+SYNTH = ["--mbp", "10", "--variants", "100000", "--samples", "50", "--seed", "7"]
 
 
 def log(msg: str) -> None:
@@ -228,7 +248,115 @@ def kernel_phase(device) -> list[dict]:
                     "replaces": "malva_tpu/ops/pallas_kernels.py:222",
                     "max_abs_err": err2, "ms": ms, "plain_ms": plain_ms,
                     "positions": CHUNK})
+    del ix, bf_words, ctx_k, ctx_p, seq
+    results.append(seq_count_check(device))
     return results
+
+
+def read_chunk():
+    """WINDOWS + REF_K - 1 bytes of reads joined by 0xFF (the counter's
+    layout): mostly ACGT, with N and lowercase bases, and reads of 10 to
+    300 bases (some shorter than ref_k).  Returns (chunk, reads)."""
+    rng = np.random.default_rng(3)
+    alpha = np.frombuffer(b"ACGT" * 40 + b"acgtN", dtype=np.uint8)
+    chunk = alpha[rng.integers(0, alpha.shape[0], WINDOWS + REF_K - 1)]
+    seps = np.cumsum(rng.integers(11, 302, WINDOWS // 100))
+    seps = seps[seps < chunk.shape[0] - 1]
+    chunk[seps] = 0xFF
+    chunk[-1] = 0xFF
+    reads = [r for r in chunk.tobytes().split(b"\xff") if r]
+    return chunk, reads
+
+
+def host_sorted_counts(reads: list[bytes]):
+    """The host counter's sort-count of every pure-ACGT window of the
+    reads: native read_kmers + _sorted_counts, or numpy where the native
+    library is missing."""
+    from malva_tpu.count.counter import _sorted_counts, _windows_of_read
+    from malva_tpu.ops.seq import canonical, pack_2bit
+    from malva_tpu.utils import native
+
+    packed = native.read_kmers(reads, REF_K)
+    if packed is None:
+        packed = pack_2bit(canonical(np.concatenate([_windows_of_read(r, REF_K)
+                                                     for r in reads])))
+    return _sorted_counts(packed)
+
+
+def seq_count_check(device) -> dict:
+    """K3 against its plain version, and the device sort-count step
+    against the host counter, on one counter chunk."""
+    import torch
+
+    from malva_tpu_torch.count.device_count import (
+        device_seq_sorted_counts,
+        make_seq_sort_count_step,
+    )
+    from malva_tpu_torch.ops import kernels
+
+    chunk, reads = read_chunk()
+    seq = torch.from_numpy(chunk).to(device)
+    keys, valid = kernels.seq_pack(seq, WINDOWS, REF_K)
+    pk, pv = kernels.seq_pack_plain(seq, WINDOWS, REF_K)
+    torch.cuda.synchronize()
+    err = max_abs_err([keys >> 32, keys & 0xFFFFFFFF, valid], [pk >> 32, pk & 0xFFFFFFFF, pv])
+    n_valid = int(valid.sum())
+    del keys, valid, pk, pv
+    if not 0 < n_valid < WINDOWS:
+        raise AssertionError(f"K3 check: {n_valid} valid windows of {WINDOWS}")
+
+    step = make_seq_sort_count_step(REF_K, WINDOWS, device)
+    got_k, got_c = device_seq_sorted_counts(step, chunk)
+    want_k, want_c = host_sorted_counts(reads)
+    if not (np.array_equal(got_k, want_k) and np.array_equal(got_c, want_c)):
+        raise AssertionError(f"device sort-count disagrees with the host counter: "
+                             f"{got_k.shape[0]} vs {want_k.shape[0]} distinct keys")
+    ms = cuda_ms(lambda: kernels.seq_pack(seq, WINDOWS, REF_K), iters=20)
+    step_ms = cuda_ms(lambda: step(seq, WINDOWS), iters=10)
+    plain_ms = cuda_ms(lambda: kernels.seq_pack_plain(seq, WINDOWS, REF_K), iters=3, warmup=1)
+    log(f"K3 == plain ({n_valid} valid windows); step == host sort-count "
+        f"({got_k.shape[0]} distinct keys, {int(got_c.sum())} windows); K3 {ms:.4f} ms, "
+        f"step {step_ms:.4f} ms, plain K3 {plain_ms:.4f} ms per {WINDOWS} windows")
+    return {"name": "seq_pack", "route": "cuda", "source": "malva_tpu_torch/csrc/seq_count.cu",
+            "replaces": "malva_tpu/count/device_count.py:64 (XLA, no Pallas counterpart)",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "step_ms": step_ms,
+            "windows": WINDOWS, "distinct": int(got_k.shape[0])}
+
+
+def genotype_phase() -> dict:
+    """The f32 genotype model on 2^20 seeded variants of up to 4 alleles,
+    on the card and on the CPU: the results must be identical."""
+    import torch
+
+    from malva_tpu_torch.models.genotype import make_genotype_fn
+
+    rng = np.random.default_rng(4)
+    A = 4
+    n_all = rng.integers(1, A + 1, VARIANTS).astype(np.int32)
+    pad = np.arange(A)[None, :] < n_all[:, None]
+    cov = rng.integers(0, 80, (VARIANTS, A)).astype(np.int32) * pad
+    cov[rng.random(VARIANTS) < 0.02, 0] = 250
+    freqs = np.where(pad, rng.random((VARIANTS, A)), 0).astype(np.float32)
+    freqs /= np.maximum(freqs.sum(axis=1, keepdims=True), np.float32(1e-9))
+    args = [torch.from_numpy(a) for a in (cov, freqs, n_all)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        fn = make_genotype_fn(A, False, 0.001, 200, dev)
+        fn(*args)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = [r.cpu().numpy() for r in fn(*args)]
+        out[dev] = (res, time.perf_counter() - t0)
+    diff = {name: int((a != b).sum()) for name, a, b in
+            zip(("g1", "g2", "gq"), out["cuda"][0], out["cpu"][0])}
+    gq_err = int(np.abs(out["cuda"][0][2].astype(np.int64) - out["cpu"][0][2]).max())
+    log(f"genotype model, {VARIANTS} variants: rows that differ cuda vs cpu {diff}, "
+        f"max |gq diff| {gq_err}; {out['cuda'][1]:.6g} s on the card, {out['cpu'][1]:.6g} s "
+        f"on the CPU (host clock, with the copy back)")
+    if any(diff.values()):
+        raise AssertionError(f"genotype model: cuda and cpu differ: {diff}")
+    return {"variants": VARIANTS, "cuda_s": out["cuda"][1], "cpu_s": out["cpu"][1]}
 
 
 class _Tee(io.TextIOBase):
@@ -245,24 +373,59 @@ class _Tee(io.TextIOBase):
         self.real.flush()
 
 
-def run_leg(backend: str, src: str, work: str) -> tuple[str, str]:
-    """``run`` on a private copy of the inputs -> (vcf path, stderr)."""
+def cli_leg(argv: list[str], out_path: str | None = None) -> tuple[str, float]:
+    """One malva-tpu-torch command in this process -> (stderr, wall s)."""
     from malva_tpu_torch import cli
 
-    os.makedirs(work)
-    for name in ("synth.fa", "synth.vcf", "synth.fq"):
-        shutil.copy(os.path.join(src, name), os.path.join(work, name))
-    vcf = os.path.join(work, "out.vcf")
     tee = _Tee(sys.stderr)
     t0 = time.perf_counter()
-    with open(vcf, "w") as out, contextlib.redirect_stderr(tee):
-        rc = cli.main(["run", "--backend", backend, "-k", str(K), "-r", str(REF_K), "-b", "1",
-                       "-f", "AF", *(os.path.join(work, n) for n in
-                                     ("synth.fa", "synth.vcf", "synth.fq"))], out=out)
+    with contextlib.ExitStack() as stack:
+        out = stack.enter_context(open(out_path, "w")) if out_path else None
+        stack.enter_context(contextlib.redirect_stderr(tee))
+        rc = cli.main(argv, out=out)
+    wall = time.perf_counter() - t0
     if rc != 0:
-        raise RuntimeError(f"run --backend {backend} exited {rc}")
-    log(f"run --backend {backend}: {time.perf_counter() - t0:.6g} s wall")
-    return vcf, tee.buf.getvalue()
+        raise RuntimeError(f"{' '.join(argv[:3])} exited {rc}")
+    log(f"{' '.join(argv[:3])}: {wall:.6g} s wall")
+    return tee.buf.getvalue(), wall
+
+
+def stage(src: str, work: str, names: dict[str, str]) -> list[str]:
+    """Private copies of the inputs (src name -> work name)."""
+    os.makedirs(work)
+    for a, b in names.items():
+        shutil.copy(os.path.join(src, a), os.path.join(work, b))
+    return [os.path.join(work, b) for b in names.values()]
+
+
+def run_leg(backend: str, src: str, work: str, spill: bool = False) -> tuple[str, str, float]:
+    """``run`` on a private copy of the inputs, counting through a spill
+    directory inside it when ``spill`` -> (vcf path, stderr, wall)."""
+    fa, vcf, fq = stage(src, work, {n: n for n in ("synth.fa", "synth.vcf", "synth.fq")})
+    out = os.path.join(work, "out.vcf")
+    opt = ["--spill-dir", os.path.join(work, "spill")] if spill else []
+    err, wall = cli_leg(["run", "--backend", backend, "-k", str(K), "-r", str(REF_K), "-b", "1",
+                         "-f", "AF", *opt, fa, vcf, fq], out)
+    return out, err, wall
+
+
+def batch_leg(backend: str, src: str, reads3: str, work: str,
+              profile: str | None = None) -> tuple[dict, str, float]:
+    """``batch`` over the 5x and 3x reads on private copies, building its
+    own index, traced into ``profile`` when given -> ({file name: VCF
+    bytes}, stderr, wall)."""
+    fa, vcf, fq5 = stage(src, work, {"synth.fa": "synth.fa", "synth.vcf": "synth.vcf",
+                                     "synth.fq": "synth.fq"})
+    fq3 = os.path.join(work, "synth3x.fq")
+    shutil.copy(reads3, fq3)
+    out_dir = os.path.join(work, "out")
+    err, wall = cli_leg(["batch", "--backend", backend, "-k", str(K), "-r", str(REF_K), "-b",
+                         "1", "-f", "AF", "-o", out_dir,
+                         *(["--profile-dir", profile] if profile else []), fa, vcf, fq5, fq3])
+    vcfs = {n: open(os.path.join(out_dir, n), "rb").read() for n in sorted(os.listdir(out_dir))}
+    if sorted(vcfs) != ["synth.malva.vcf", "synth3x.malva.vcf"]:
+        raise AssertionError(f"batch --backend {backend} wrote {sorted(vcfs)}")
+    return vcfs, err, wall
 
 
 def phase_walls(stderr: str) -> dict:
@@ -271,8 +434,39 @@ def phase_walls(stderr: str) -> dict:
     walls: dict[str, float] = {}
     for m in re.finditer(r"\[malva-tpu-torch/([^\]]+)\] Execution Time ([0-9.e+-]+)s", stderr):
         name = re.sub(r"^Processed \d+ variants$", "Processed variants (heartbeats)", m.group(1))
+        name = re.sub(r"^Counters ready: .*/", "Counters ready: ", name)
         walls[name] = round(walls.get(name, 0.0) + float(m.group(2)), 6)
     return walls
+
+
+def trace_summary(trace_dir: str) -> dict:
+    """Device time by kernel from the torch.profiler trace of a leg: the
+    summed durations of each kernel of the port (ms), of all kernels and
+    copies, and the device's busy share of the traced window."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    if len(files) != 1:
+        raise AssertionError(f"--profile-dir wrote {files}, not one trace")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    out = {"trace_events": len(events), "device_events": len(device)}
+    if not device:
+        out["device"] = "not measured: the trace holds no device activity"
+        return out
+    for name in ("callstep_kernel", "ref_scan_kernel", "seq_pack_kernel"):
+        out[f"{name}_ms"] = sum(e["dur"] for e in device if name in e["name"]) / 1e3
+    busy = sum(e["dur"] for e in device)
+    span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+    out.update({"device_busy_ms": busy / 1e3, "traced_window_s": span / 1e6,
+                "device_busy_share": busy / span,
+                "kernels_ms": sum(e["dur"] for e in device if e["cat"] == "kernel") / 1e3})
+    return out
+
+
+def check_launches(name: str, launches: dict) -> None:
+    for kernel, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {kernel} did not launch in the {name}")
 
 
 def main_path_phase() -> dict:
@@ -280,39 +474,90 @@ def main_path_phase() -> dict:
 
     tmp = tempfile.mkdtemp(prefix="malva_smoke_")
     try:
-        src = os.path.join(tmp, "in")
+        # the 5x and the 3x inputs side by side; the generator draws the
+        # reads last, so the genome and the VCF of the two are the same
+        src, src3 = os.path.join(tmp, "in"), os.path.join(tmp, "in3")
         t0 = time.perf_counter()
-        subprocess.run([sys.executable, os.path.join(REPO, "tools", "make_synth_scale.py"), src,
-                        "--mbp", "10", "--variants", "100000", "--samples", "50",
-                        "--coverage", "5", "--seed", "7"], check=True)
-        log(f"chr-scale input generated in {time.perf_counter() - t0:.6g} s")
+        gens = [subprocess.Popen([sys.executable, os.path.join(REPO, "tools", "make_synth_scale.py"),
+                                  d, *SYNTH, "--coverage", cov])
+                for d, cov in ((src, "5"), (src3, "3"))]
+        if any(g.wait() != 0 for g in gens):
+            raise RuntimeError("tools/make_synth_scale.py failed")
+        for name in ("synth.fa", "synth.vcf"):
+            if not filecmp.cmp(os.path.join(src, name), os.path.join(src3, name), shallow=False):
+                raise AssertionError(f"the 3x input's {name} differs from the 5x input's")
+        log(f"chr-scale inputs (5x and 3x reads) generated in {time.perf_counter() - t0:.6g} s")
 
         kernels.reset_launches()
-        vcf_cuda, err_cuda = run_leg("cuda", src, os.path.join(tmp, "cuda"))
+        vcf_cuda, err_cuda, wall_cuda = run_leg("cuda", src, os.path.join(tmp, "cuda"))
         launches = dict(kernels.LAUNCHES)
-        vcf_host, err_host = run_leg("host", src, os.path.join(tmp, "host"))
+        vcf_host, err_host, wall_host = run_leg("host", src, os.path.join(tmp, "host"))
 
         a, b = open(vcf_cuda, "rb").read(), open(vcf_host, "rb").read()
         if a != b:
             raise AssertionError(f"cuda and host VCFs differ ({len(a)} vs {len(b)} bytes)")
         n_rec = sum(1 for ln in a.splitlines() if not ln.startswith(b"#"))
-        if n_rec < 50000:
+        if n_rec < MIN_RECORDS:
             raise AssertionError(f"only {n_rec} VCF records")
-        for name, n in launches.items():
-            if n <= 0:
-                raise AssertionError(f"kernel {name} did not launch in the cuda run")
-        walls = {"cuda": phase_walls(err_cuda), "host": phase_walls(err_host)}
+        check_launches("cuda run", launches)
+        if "counting overlapped" in err_cuda or "sort-count on cuda" not in err_cuda:
+            raise AssertionError("the cuda run did not count the reads on the card")
+
+        # the cuda run again, counting through a spill directory: the device
+        # spill counter (one segment per piece, a manifest per read batch)
+        kernels.reset_launches()
+        vcf_spill, err_spill, wall_spill = run_leg("cuda", src, os.path.join(tmp, "spill"),
+                                                   spill=True)
+        spill_launches = dict(kernels.LAUNCHES)
+        if open(vcf_spill, "rb").read() != b:
+            raise AssertionError("the cuda run with --spill-dir differs from the host run")
+        check_launches("cuda run with --spill-dir", spill_launches)
+        if ("counting overlapped" in err_spill
+                or not re.search(r"\[malva-tpu-torch/spill\] .*sort-count on cuda", err_spill)):
+            raise AssertionError("the cuda run with --spill-dir did not count on the card")
+        log(f"run --spill-dir VCF == host run's; launches {spill_launches}")
+        walls = {"run cuda": phase_walls(err_cuda), "run host": phase_walls(err_host),
+                 "run cuda spill": phase_walls(err_spill)}
         m = re.search(r"call step: (\d+) distinct k-mers in (\d+) steps, "
-                      r"kernel time ([0-9.e+-]+) ms", err_cuda)
+                      r"step time ([0-9.e+-]+) ms", err_cuda)
         if m is None:
             raise AssertionError("the cuda run logged no call-step line")
         rows, ms = int(m.group(1)), float(m.group(3))
-        log(f"VCFs byte-identical ({n_rec} records); launches {launches}")
-        log(f"phase walls in s: {json.dumps(walls)}")
-        log(f"call step: {rows} distinct k-mers, {ms} ms kernel time, "
+        log(f"run VCFs byte-identical ({n_rec} records); launches {launches}")
+        log(f"call step: {rows} distinct k-mers, {ms} ms step time (CUDA events), "
             f"{rows / (ms / 1e3):.6g} k-mers/s")
-        return {"launches": launches, "records": n_rec, "distinct_kmers": rows,
-                "call_kernel_ms": ms, "walls": walls}
+
+        reads3 = os.path.join(src3, "synth.fq")
+        kernels.reset_launches()
+        prof = os.path.join(tmp, "trace")
+        out_cuda, berr_cuda, bwall_cuda = batch_leg("cuda", src, reads3, os.path.join(tmp, "bc"),
+                                                    prof)
+        batch_launches = dict(kernels.LAUNCHES)
+        out_host, berr_host, bwall_host = batch_leg("host", src, reads3, os.path.join(tmp, "bh"))
+        if out_cuda != out_host:
+            raise AssertionError("batch: cuda and host VCFs differ for "
+                                 f"{[n for n in out_cuda if out_cuda[n] != out_host.get(n)]}")
+        if out_cuda["synth.malva.vcf"] != a:
+            raise AssertionError("batch: the 5x sample's VCF differs from the run VCF")
+        if out_cuda["synth.malva.vcf"] == out_cuda["synth3x.malva.vcf"]:
+            raise AssertionError("batch: the 5x and 3x VCFs are equal")
+        check_launches("cuda batch", batch_launches)
+        n_up = len(re.findall(r"device index uploaded", berr_cuda))
+        if n_up != 1:
+            raise AssertionError(f"batch: the device index was uploaded {n_up} times")
+        walls.update({"batch cuda": phase_walls(berr_cuda), "batch host": phase_walls(berr_host)})
+        trace = trace_summary(prof)
+        log(f"batch --backend cuda under torch.profiler: {json.dumps(trace)}")
+        log(f"batch VCFs byte-identical per sample, 5x == run; launches {batch_launches}; "
+            f"one device index upload")
+        log(f"phase walls in s: {json.dumps(walls)}")
+        return {"launches": launches, "spill_launches": spill_launches,
+                "batch_launches": batch_launches, "records": n_rec,
+                "distinct_kmers": rows, "call_step_event_ms": ms, "walls": walls,
+                "batch_trace": trace,
+                "legs_s": {"run cuda": wall_cuda, "run host": wall_host,
+                           "run cuda spill": wall_spill,
+                           "batch cuda": bwall_cuda, "batch host": bwall_host}}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -370,10 +615,24 @@ def main() -> int:
         if "registers" in line or "spill" in line or "error" in line.lower():
             log(f"nvcc: {line.strip()}")
 
+    walls = {}
+    t0 = time.perf_counter()
     results = kernel_phase(torch.device("cuda"))
-    main = None if args.kernels_only else main_path_phase()
+    walls["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    genotype = genotype_phase()
+    walls["genotype model"] = time.perf_counter() - t0
+    main = None
+    if not args.kernels_only:
+        t0 = time.perf_counter()
+        main = main_path_phase()
+        walls["run and batch"] = time.perf_counter() - t0
+        walls.update(main["legs_s"])
     for r in results:
         r["launches"] = main["launches"][r["name"]] if main else None
+        r["spill_launches"] = main["spill_launches"][r["name"]] if main else None
+        r["batch_launches"] = main["batch_launches"][r["name"]] if main else None
+    print(json.dumps({"phase_walls_s": walls, "genotype": genotype}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": results}), flush=True)
     if args.kernels_only:

@@ -1,11 +1,14 @@
-"""Command line: ``malva-tpu-torch index | call | run``.
+"""Command line: ``malva-tpu-torch index | call | run | batch``.
 
 Counterpart of ``malva_tpu/cli.py``, whose parser, config, index
 persistence and overlapped counting producer it reuses.  ``--backend``
-takes ``auto | host | cuda``.  The producer (``python -m
-malva_tpu.count.spill``) is jax-free; it is started with a host-backend
-copy of the config, since ``malva_tpu``'s backend check imports jax for
-any other backend.  ``batch`` is not ported yet.
+takes ``auto | host | cuda``.  ``run`` starts the producer (``python -m
+malva_tpu.count.spill``, jax-free) only where ``malva_tpu`` would: reads
+that route to the card are counted there, inline, after the index phase.
+The producer gets a host-backend copy of the config, since
+``malva_tpu``'s backend check imports jax for any other backend.
+``--profile-dir`` writes a ``torch.profiler`` trace of the command
+(CPU, and CUDA on a card) into that directory when it ends.
 """
 
 from __future__ import annotations
@@ -15,12 +18,19 @@ import os
 import sys
 
 from malva_tpu.cli import _config, _finish_count_producer, _parser as _base_parser
-from malva_tpu.cli import _start_count_producer
-from malva_tpu.pipeline import index_matches_config, load_index, save_index, save_index_async
+from malva_tpu.cli import _start_count_producer, _try_save_index
+from malva_tpu.pipeline import (
+    DEVICE_MIN_READ_BYTES,
+    index_matches_config,
+    load_index,
+    save_index,
+    save_index_async,
+)
+from malva_tpu.utils.config import Config
 from malva_tpu.utils.timing import PhaseTimer
 
-from .backend import BACKENDS
-from .pipeline import TAG, build_index, call
+from .backend import BACKENDS, resolve
+from .pipeline import TAG, _file_size, build_index, call, call_batch
 
 
 def _parser():
@@ -30,7 +40,39 @@ def _parser():
             if action.dest == "backend":
                 action.choices = BACKENDS
                 action.help = "where the device work runs (auto routes by size)"
+            if action.dest == "profile_dir":
+                action.help = "write a torch.profiler trace into this directory"
     return p
+
+
+def _overlaps_counting(cfg: Config) -> bool:
+    """Whether ``run`` may start the overlapped counting producer: not when
+    the reads route to the card, which counts them (malva_tpu/cli.py:277).
+    malva_tpu's ``_start_count_producer`` makes its other checks."""
+    return resolve(cfg, _file_size(cfg.sample_path), DEVICE_MIN_READ_BYTES) != "cuda"
+
+
+class _Profile:
+    """torch.profiler over the whole command; the trace is exported into
+    ``trace_dir`` when the command ends (jax.profiler.start_trace's
+    counterpart in malva_tpu/cli.py:117-124)."""
+
+    def __init__(self, trace_dir: str):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        self.dir, self.prof = trace_dir, profile(activities=acts)
+        self.prof.start()
+
+    def stop(self) -> None:
+        self.prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        path = os.path.join(self.dir, f"{TAG}.{os.getpid()}.pt.trace.json")
+        self.prof.export_chrome_trace(path)
+        print(f"[{TAG}] torch.profiler trace -> {path}", file=sys.stderr)
 
 
 def main(argv: list[str] | None = None, out=None) -> int:
@@ -55,13 +97,17 @@ def _main(argv: list[str] | None, out) -> int:
 
     tune_malloc()
     args = _parser().parse_args(argv)
-    if args.cmd == "batch" or args.profile_dir:
-        what = "batch" if args.cmd == "batch" else "--profile-dir"
-        print(f"ERROR: {what} is not supported by {TAG} yet; use malva-tpu", file=sys.stderr)
-        return 2
     cfg = _config(args)
     timer = PhaseTimer(TAG, out=sys.stderr)
+    prof = _Profile(args.profile_dir) if args.profile_dir else None
+    try:
+        return _dispatch(args, cfg, timer, out)
+    finally:
+        if prof is not None:
+            prof.stop()
 
+
+def _dispatch(args, cfg: Config, timer: PhaseTimer, out) -> int:
     if args.cmd == "index":
         index = build_index(cfg, timer)
         if args.malvax:
@@ -90,21 +136,19 @@ def _main(argv: list[str] | None, out) -> int:
         call(cfg, index, out, timer)
         return 0
 
-    # run: reuse a persisted index whose fingerprint matches, else build it
-    # with the counting producer overlapped (malva_tpu/cli.py:196-252)
+    if args.cmd == "batch":
+        return _batch(args, cfg, timer)
+
+    # run: reuse a persisted index whose fingerprint matches, else build it,
+    # with the counting producer overlapped where malva_tpu overlaps it
+    # (malva_tpu/cli.py:196-252)
     path = cfg.index_path()
-    producer = saver = index = None
-    if os.path.exists(path):
-        ok, why = index_matches_config(path, cfg)
-        if ok:
-            print(f"[{TAG}] reusing index {path}", file=sys.stderr)
-            index = load_index(path)
-        else:
-            print(f"[{TAG}] existing index {path} was built with different options "
-                  f"({why}); rebuilding", file=sys.stderr)
+    producer = saver = None
+    index = _reusable_index(cfg)
     if index is None:
         try:
-            producer = _start_count_producer(dataclasses.replace(cfg, backend="host"))
+            if _overlaps_counting(cfg):
+                producer = _start_count_producer(dataclasses.replace(cfg, backend="host"))
             index = build_index(cfg, timer)
         except BaseException:
             if producer is not None:
@@ -128,6 +172,48 @@ def _main(argv: list[str] | None, out) -> int:
 
             shutil.rmtree(producer[1], ignore_errors=True)
     timer.pelapsed("Execution completed")
+    return 0
+
+
+def _reusable_index(cfg: Config):
+    """The persisted index when its fingerprint matches ``cfg``, else None."""
+    path = cfg.index_path()
+    if not os.path.exists(path):
+        return None
+    ok, why = index_matches_config(path, cfg)
+    if ok:
+        print(f"[{TAG}] reusing index {path}", file=sys.stderr)
+        return load_index(path)
+    print(f"[{TAG}] existing index {path} was built with different options ({why}); "
+          f"rebuilding", file=sys.stderr)
+    return None
+
+
+def _batch(args, cfg: Config, timer: PhaseTimer) -> int:
+    """``batch``: one index, one VCF per read set in ``--out-dir``
+    (malva_tpu/cli.py:156-194)."""
+    index = _reusable_index(cfg)
+    if index is None:
+        index = build_index(cfg, timer)
+        _try_save_index(index, cfg.index_path(), cfg, timer)
+    os.makedirs(args.out_dir, exist_ok=True)
+    names: list[str] = []
+    seen: dict[str, int] = {}
+    for sp in args.sample:
+        base = os.path.basename(sp).split(".")[0]
+        n = seen.get(base, 0)
+        seen[base] = n + 1
+        names.append(os.path.join(args.out_dir, f"{base}.{n}.malva.vcf" if n
+                                  else f"{base}.malva.vcf"))
+    outs = []
+    try:
+        for name in names:
+            outs.append(open(name, "w"))
+        call_batch(cfg, index, args.sample, outs, timer)
+    finally:
+        for f in outs:
+            f.close()
+    print(f"[{TAG}] wrote: " + " ".join(names), file=sys.stderr)
     return 0
 
 

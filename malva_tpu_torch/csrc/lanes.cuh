@@ -68,6 +68,49 @@ MALVA_HD void canonical_bytes(const uint8_t* s, int n, uint8_t* out) {
   }
 }
 
+constexpr int kMaxWords64 = (kMaxLen + 31) / 32;
+
+// 2-bit code of a base (A=0 C=1 G=2 T=3, either case), or 4 for any
+// other byte.  Lowercase counts as its uppercase, as after seq.upper.
+MALVA_HD uint32_t base_code(uint8_t b) {
+  switch (b | 0x20) {
+    case 'a': return 0;
+    case 'c': return 1;
+    case 'g': return 2;
+    case 't': return 3;
+    default: return 4;
+  }
+}
+
+// Canonical 2-bit form of one ref_k window of raw bytes, for the sample
+// counter: false when a byte is not A/C/G/T (KMC skips such k-mers), else
+// `words` holds the lexicographic min of the forward codes and the
+// reverse complement (3 - code, read backwards), base j in word j / 32
+// at bit 2 * (31 - j % 32) (malva_tpu/ops/seq.py pack_2bit).  Equal to
+// the strcmp/RCN canonical form on pure-ACGT windows, since code order
+// is ASCII order and 3 - code is the RCN complement.
+MALVA_HD bool canonical_window(const uint8_t* s, int ref_k, uint64_t* words) {
+  const int w = (ref_k + 31) / 32;
+  uint64_t fwd[kMaxWords64], rc[kMaxWords64];
+  for (int i = 0; i < w; ++i) fwd[i] = rc[i] = 0;
+  for (int j = 0; j < ref_k; ++j) {
+    const uint64_t c = base_code(s[j]);
+    if (c > 3) return false;
+    const int r = ref_k - 1 - j;
+    fwd[j >> 5] |= c << (2 * (31 - (j & 31)));
+    rc[r >> 5] |= (3 - c) << (2 * (31 - (r & 31)));
+  }
+  bool take_fwd = true;  // a palindrome's two forms are equal
+  for (int i = 0; i < w; ++i) {
+    if (fwd[i] != rc[i]) {
+      take_fwd = fwd[i] < rc[i];
+      break;
+    }
+  }
+  for (int i = 0; i < w; ++i) words[i] = take_fwd ? fwd[i] : rc[i];
+  return true;
+}
+
 MALVA_HD bool bit_is_set(const uint32_t* words, uint64_t idx) {
   return (words[idx >> 5] >> (idx & 31)) & 1u;
 }

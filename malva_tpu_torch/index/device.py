@@ -150,9 +150,11 @@ def apply_sample_counts_stream(index, batches, cfg: Config, device, batch: int =
     buffered up to ``batch`` rows a step.
 
     Returns ``{"rows", "steps", "kernel_ms", "upload_s", "writeback_s"}``:
-    rows through the step, on a CUDA device the summed device time of the
-    steps (else None), and the host wall of the index upload and of the
-    write-back."""
+    rows through the step; on a CUDA device the summed time between CUDA
+    events recorded just before and after each step (else None), which is
+    the device time plus any delay in launching the step while another
+    Python thread holds the GIL; and the host wall of the index upload and
+    of the write-back."""
     t0 = time.perf_counter()
     if dev is None:
         dev = DeviceIndex.from_host(index, cfg, device)
@@ -267,9 +269,9 @@ def build_context_device(index, refs_used: list[np.ndarray], cfg: Config, device
 
 
 def log_step_rate(stats: dict) -> None:
-    """One stderr line with the call step's rows and device rate."""
+    """One stderr line with the call step's rows and event-timed rate."""
     ms = stats["kernel_ms"]
     rate = f"{stats['rows'] / (ms / 1e3):.6g} k-mers/s" if ms else "not measured"
     print(f"[malva-tpu-torch/metrics] call step: {stats['rows']} distinct k-mers in "
-          f"{stats['steps']} steps, kernel time {ms} ms, device rate {rate}; index upload "
+          f"{stats['steps']} steps, step time {ms} ms (CUDA events), rate {rate}; index upload "
           f"{stats['upload_s']:.6g} s, write-back {stats['writeback_s']:.6g} s", file=sys.stderr)

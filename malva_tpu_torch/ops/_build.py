@@ -1,9 +1,10 @@
 """Build and bind the CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles the kernels for ``sm_90a`` into a shared library with a
-plain C interface, which ``ctypes`` loads.  The build runs at first use,
-only from the sources in this package, into ``build/kernels/`` at the
-repository root; the file name carries a digest of the sources and
+``nvcc`` compiles each kernel source for ``sm_90a`` into an object, one
+process per source, all at once, and links the objects into one shared
+library with a plain C interface, which ``ctypes`` loads.  The build runs
+at first use, only from the sources in this package, into
+``build/kernels/`` at the repository root; the file name carries a digest of the sources and
 flags, so an edited source builds anew.  A failed build raises: nothing
 falls back.
 """
@@ -19,10 +20,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "kernels"
-SOURCES = ("callstep.cu", "ref_scan.cu")
+SOURCES = ("callstep.cu", "ref_scan.cu", "seq_count.cu")
 HEADERS = ("xxh3.cuh", "lanes.cuh")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib: ctypes.CDLL | None = None
 build_log = ""  # nvcc's output of the last build in this process (ptxas -v)
@@ -44,15 +45,32 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with nvcc's output if any fails."""
+    global build_log
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    build_log += "".join(outs)
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed (rc={p.returncode}):\n{out}")
+
+
 def _compile(so: Path) -> None:
     global build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.tmp{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
     tmp = so.with_suffix(f".tmp{os.getpid()}")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc={res.returncode}):\n{build_log}")
+    build_log = ""
+    try:
+        _run_all([[nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+                  for s, o in zip(SOURCES, objs)])
+        _run_all([[nvcc(), *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, so)
 
 
@@ -71,6 +89,7 @@ def library() -> ctypes.CDLL:
         "malva_callstep": [p, p, i64, i, i, i, p, p, p, p, i64, i64, i64, i, p],
         "malva_window_hash": [p, i64, i, i, p, p],
         "malva_ref_scan": [p, i64, i, i, p, p, i64, p],
+        "malva_seq_pack": [p, i64, i, p, p, p],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

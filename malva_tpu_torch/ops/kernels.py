@@ -1,4 +1,4 @@
-"""The two hand-written kernels of the device main path, their wrappers and
+"""The three hand-written kernels of the device main path, their wrappers and
 their plain PyTorch versions.
 
 Counterpart of ``malva_tpu/ops/pallas_kernels.py``.  Each wrapper takes
@@ -17,6 +17,12 @@ falls back.  ``LAUNCHES`` counts kernel launches per wrapper.
   ``index/device.py:697 make_ref_scan_step_pallas``.  It is bound by the
   hashing of two canonical strings per reference position plus one
   random 4-byte alt-filter read; hits end in one ``atomicOr``.
+
+* K3 ``seq_pack`` (``csrc/seq_count.cu``) has no Pallas counterpart: it
+  replaces the XLA front end of ``malva_tpu/count/device_count.py:64
+  make_seq_sort_count_step`` (window matrix, validity, canonical form,
+  2-bit pack) with one pass over the raw read chunk; the sort and run
+  count after it are torch's (``count/device_count.py``).
 
 ``callstep_hash`` / ``window_hash`` are the kernels' hash-only modes,
 which write exactly the TPU kernels' outputs so the card can check them
@@ -39,7 +45,7 @@ from .packed import canonical_center, decode_byte_cols, popcount32
 from .seq import canonical_decision, complement
 from .xxh3 import check_bloom_size, xxh3_64_cols, xxh3_mod_size
 
-LAUNCHES = {"callstep": 0, "ref_scan": 0}
+LAUNCHES = {"callstep": 0, "ref_scan": 0, "seq_pack": 0}
 MAX_LEN = 240  # csrc/lanes.cuh kMaxLen
 
 
@@ -249,3 +255,60 @@ def ref_scan(bf_words, ctx_words, seq, n_pos: int, *, k: int, ref_k: int,
     _launch("malva_ref_scan", seq.device, seq.data_ptr(), n_pos, k, ref_k, bf_words.data_ptr(),
             ctx_words.data_ptr(), size_bits)
     LAUNCHES["ref_scan"] += 1
+
+
+# -- K3: sample counter front end --------------------------------------------
+
+
+def _code_table(device) -> torch.Tensor:
+    """Byte -> 2-bit code (A/a=0 C/c=1 G/g=2 T/t=3), 4 for any other byte."""
+    table = torch.full((256,), 4, dtype=torch.int64, device=device)
+    for code, (up, low) in enumerate((b"Aa", b"Cc", b"Gg", b"Tt")):
+        table[up] = table[low] = code
+    return table
+
+
+def seq_pack_plain(seq: torch.Tensor, n_pos: int, ref_k: int):
+    """Plain K3: for each of the first n_pos ref_k windows of a uint8
+    sequence, ``(keys, valid)``.  ``valid`` (bool) is True iff every byte
+    is A/C/G/T in either case; ``keys`` is (n_pos, ceil(ref_k/32)) int64
+    holding the uint64 words of the canonical 2-bit key (pack_2bit
+    layout), 0 for an invalid window.  Computed in 16-base words on int64
+    lanes, since this torch cannot shift uint64."""
+    table = _code_table(seq.device)
+    n16 = (ref_k + 15) // 16
+    fwd = [torch.zeros(n_pos, dtype=torch.int64, device=seq.device) for _ in range(n16)]
+    rc = [torch.zeros_like(f) for f in fwd]
+    valid = torch.ones(n_pos, dtype=torch.bool, device=seq.device)
+    for j in range(ref_k):
+        c = table[seq[j : j + n_pos].to(torch.int64)]
+        valid &= c < 4
+        c &= 3
+        r = ref_k - 1 - j
+        fwd[j // 16] |= c << (2 * (15 - j % 16))
+        rc[r // 16] |= (3 - c) << (2 * (15 - r % 16))
+    take_fwd = canonical_decision(fwd, rc)
+    w32 = [torch.where(take_fwd, f, b) for f, b in zip(fwd, rc)]
+    if n16 % 2:
+        w32.append(torch.zeros_like(w32[0]))
+    # hi * 2^32 on the signed reading of hi sets bit 63 without overflow
+    cols = [((w32[2 * i] ^ 0x80000000) - 0x80000000) * (1 << 32) | w32[2 * i + 1]
+            for i in range(len(w32) // 2)]
+    keys = torch.stack(cols, dim=1)
+    return torch.where(valid[:, None], keys, 0), valid
+
+
+def seq_pack(seq: torch.Tensor, n_pos: int, ref_k: int):
+    """K3: ``(keys, valid)`` of the first n_pos windows of a uint8 read
+    chunk (at least n_pos + ref_k - 1 bytes); see :func:`seq_pack_plain`."""
+    _check_seq(seq, n_pos, ref_k)
+    if not _on_cuda(seq):
+        return seq_pack_plain(seq, n_pos, ref_k)
+    _check(seq, torch.uint8, "seq")
+    _check_lengths(1, ref_k)
+    keys = torch.empty((n_pos, (ref_k + 31) // 32), dtype=torch.int64, device=seq.device)
+    valid = torch.empty(n_pos, dtype=torch.bool, device=seq.device)
+    _launch("malva_seq_pack", seq.device, seq.data_ptr(), n_pos, ref_k, keys.data_ptr(),
+            valid.data_ptr())
+    LAUNCHES["seq_pack"] += 1
+    return keys, valid

@@ -1,15 +1,17 @@
-"""Index and call phases with the device work on a torch device.
+"""Index, call and batch phases with the device work on a torch device.
 
 Counterpart of ``malva_tpu/pipeline.py``.  The host layers are
 ``malva_tpu``'s, imported and not copied: reference and VCF reading,
-signature extraction, the host Bloom/exact-map build, sample counting,
+signature extraction, the host Bloom/exact-map build, the host counter,
 the host apply, coverage, genotyping and VCF output.  What differs is
-the device branches: the context scan (K2) in :func:`build_index` and
-the call step (K1) in :func:`call`.
+the device branches: the context scan (K2) in :func:`build_index`, the
+sample sort-count (K3, ``count/``) and the call step (K1) in
+:func:`call` and :func:`call_batch`.
 
-``malva_tpu``'s own ``build_index``, ``call`` and ``_sample_kmers`` load
-jax for any backend but ``host``, so they are never called here; the
-functions below call its jax-free helpers instead.
+``malva_tpu``'s own ``build_index``, ``call``, ``call_batch`` and
+``_sample_kmers`` load jax for any backend but ``host``, so they are
+never called here; the functions below call its jax-free helpers
+instead.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import sys
 
 import numpy as np
 
-from malva_tpu.count.counter import count_reads_kmers
+from malva_tpu.count.counter import load_kmc_dump
 from malva_tpu.index.bloom_filter import BF
 from malva_tpu.index.kmap import KMAP
 from malva_tpu.io.fasta import load_reference
@@ -28,19 +30,29 @@ from malva_tpu.pipeline import (
     DEVICE_MIN_READ_BYTES,
     DEVICE_MIN_REF_POSITIONS,
     Index,
+    _flat_query_info,
     _genotype_and_emit,
     _iter_extract_batches,
     _iter_pass2_batches,
     _kmc_batches,
     _kmc_est_kmers,
     _prefetch,
+    _reset_counters,
+    _scan_and_assign,
+    _weights_from_planes,
     apply_sample_counts,
+    cleaned_header,
+    format_variants,
+    genotype_block,
+    open_variant_reader,
 )
 from malva_tpu.utils.config import Config
 from malva_tpu.utils.timing import PhaseTimer
 
 from .backend import device_for
+from .count.counter import count_reads_kmers
 from .index.device import (
+    DeviceIndex,
     apply_sample_counts_device,
     apply_sample_counts_stream,
     build_context_device,
@@ -113,18 +125,13 @@ def _host_context_scan(index: Index, refs, used_names: list[str], cfg: Config) -
                 index.context_bf.add_keys(np.ascontiguousarray(windows[hits]))
 
 
-def _note_host_counting() -> None:
-    print(f"[{TAG}] sample k-mers are counted by the native host counter "
-          f"(the device sort-count is not ported yet); the counts are identical",
-          file=sys.stderr)
-
-
 def call(cfg: Config, index: Index, out=None, timer: PhaseTimer | None = None,
          device=None) -> dict | None:
-    """malva_tpu.pipeline.call with the call step on a torch device when
-    the backend resolves to one (or ``device`` is given).  Covers the
-    spill stream, the KMC stream and the in-RAM path.  Returns the call
-    step's stats (index/device.py) when the device path ran, else None."""
+    """malva_tpu.pipeline.call with the sample counting and the call step
+    on a torch device where each routes to one (or ``device`` is given).
+    Covers the spill stream, the KMC stream and the in-RAM path.  Returns
+    the call step's stats (index/device.py) when the device path ran,
+    else None."""
     out = out if out is not None else sys.stdout
     timer = timer or PhaseTimer(TAG)
     refs = load_reference(cfg.fasta_path, cfg.strip_chr)
@@ -135,38 +142,25 @@ def call(cfg: Config, index: Index, out=None, timer: PhaseTimer | None = None,
     stats = None
 
     if cfg.spill_dir and not (cfg.from_kmc_dump or cfg.from_kmc_db):
-        from malva_tpu.count.spill import count_reads_kmers_spill
+        from .count.spill import count_reads_kmers_spill
 
-        try:
-            nbytes = os.path.getsize(cfg.sample_path)
-        except OSError:
-            nbytes = 0
-        dev = device_for(cfg, nbytes, DEVICE_MIN_READ_BYTES, device)
-        batches = count_reads_kmers_spill(cfg.sample_path, cfg.ref_k, cfg.spill_dir,
-                                          use_device=False)
+        dev = device_for(cfg, _file_size(cfg.sample_path), DEVICE_MIN_READ_BYTES, device)
+        batches = count_reads_kmers_spill(cfg.sample_path, cfg.ref_k, cfg.spill_dir, device=dev)
         if dev is not None:
-            _note_host_counting()
             stats = apply_sample_counts_stream(index, _prefetch(batches), cfg, dev)
         else:
             for keys, cnts in _prefetch(batches):
                 apply_sample_counts(index, keys, cnts, cfg)
         timer.pelapsed("Sample k-mer counting + BF weights (spill)")
     elif cfg.from_kmc_dump or cfg.from_kmc_db:
-        dev = device_for(cfg, _kmc_est_kmers(cfg, cfg.sample_path), DEVICE_MIN_KMERS, device)
-        batches = _kmc_batches(cfg, cfg.sample_path)
-        if dev is not None:
-            stats = apply_sample_counts_stream(index, batches, cfg, dev)
-        else:
-            for contexts, counts in batches:
-                apply_sample_counts(index, contexts, counts, cfg)
+        stats = _apply_kmc_stream(cfg, index, cfg.sample_path,
+                                  _kmc_target(cfg, cfg.sample_path, device))
         timer.pelapsed("Sample k-mer stream + BF weights")
     else:
-        contexts, counts = count_reads_kmers(cfg.sample_path, cfg.ref_k, use_device=False,
-                                             return_packed=True)
+        contexts, counts = _sample_kmers(cfg, cfg.sample_path, device)
         timer.pelapsed("Sample k-mer counting")
         dev = device_for(cfg, contexts.shape[0], DEVICE_MIN_KMERS, device)
         if dev is not None:
-            _note_host_counting()
             stats = apply_sample_counts_device(index, contexts, counts, cfg, dev)
         else:
             apply_sample_counts(index, contexts, counts, cfg)
@@ -177,3 +171,104 @@ def call(cfg: Config, index: Index, out=None, timer: PhaseTimer | None = None,
     _genotype_and_emit(cfg, index, refs, out, timer, batches=pass2)
     return stats
 
+
+def _file_size(path: str) -> int:
+    try:
+        return os.path.getsize(path)
+    except OSError:
+        return 0
+
+
+def _sample_kmers(cfg: Config, path: str, device=None):
+    """-> (contexts, counts), as malva_tpu.pipeline._sample_kmers: 2-bit
+    packed uint64 rows from the counter, with the sort-count on a torch
+    device when the reads route to one (or ``device`` is given), or ASCII
+    rows from an external KMC dump or database."""
+    if cfg.from_kmc_dump:
+        return load_kmc_dump(path, cfg.ref_k)
+    if cfg.from_kmc_db:
+        from malva_tpu.io.kmc import load_kmc_db
+
+        return load_kmc_db(path, cfg.ref_k)
+    dev = device_for(cfg, _file_size(path), DEVICE_MIN_READ_BYTES, device)
+    return count_reads_kmers(path, cfg.ref_k, device=dev, return_packed=True)
+
+
+def _kmc_target(cfg: Config, path: str, device=None):
+    """The torch device an external KMC artifact's call step runs on, or
+    None for the host apply (routed by its estimated k-mer count)."""
+    return device_for(cfg, _kmc_est_kmers(cfg, path), DEVICE_MIN_KMERS, device)
+
+
+def _apply_kmc_stream(cfg: Config, index: Index, path: str, target,
+                      dev: DeviceIndex | None = None) -> dict | None:
+    """Stream an external KMC artifact through the call step on
+    ``target`` (reusing ``dev`` when given), or through the host apply
+    when ``target`` is None; the step's stats, or None on the host."""
+    batches = _kmc_batches(cfg, path)
+    if target is not None:
+        return apply_sample_counts_stream(index, batches, cfg, target, dev=dev)
+    for contexts, counts in batches:
+        apply_sample_counts(index, contexts, counts, cfg)
+    return None
+
+
+def call_batch(cfg: Config, index: Index, sample_paths: list[str], outs: list,
+               timer: PhaseTimer | None = None, device=None) -> None:
+    """malva_tpu.pipeline.call_batch on one torch device: N read sets
+    against one index, one VCF to each of ``outs``.
+
+    Phase A counts each sample (on the device where it routes there) and
+    runs its call step into a per-sample counter plane; the device index
+    is uploaded once, at the first sample that routes to the device, and
+    each later sample restarts it from the zeroed host counters.  Phase B
+    makes one pass over the VCF and answers every sample from its plane
+    (malva_tpu's host helpers, unchanged).  The index's counter state is
+    unspecified after this returns."""
+    timer = timer or PhaseTimer(TAG)
+    refs = load_reference(cfg.fasta_path, cfg.strip_chr)
+    timer.pelapsed("Reference processed")
+
+    dev = None
+    planes: list[tuple[np.ndarray, np.ndarray]] = []
+    for sample_path in sample_paths:
+        _reset_counters(index)
+        kmc = cfg.from_kmc_dump or cfg.from_kmc_db
+        if kmc:
+            target = _kmc_target(cfg, sample_path, device)
+        else:
+            contexts, counts = _sample_kmers(cfg, sample_path, device)
+            target = device_for(cfg, contexts.shape[0], DEVICE_MIN_KMERS, device)
+        if target is not None and dev is None:
+            dev = DeviceIndex.from_host(index, cfg, target)
+            print(f"[{TAG}] device index uploaded to {target} once for "
+                  f"{len(sample_paths)} samples", file=sys.stderr)
+        if kmc:
+            stats = _apply_kmc_stream(cfg, index, sample_path, target, dev=dev)
+        elif target is not None:
+            stats = apply_sample_counts_device(index, contexts, counts, cfg, target, dev=dev)
+        else:
+            stats = None
+            apply_sample_counts(index, contexts, counts, cfg)
+        if stats is not None:
+            log_step_rate(stats)
+        planes.append((index.bf.counts.astype(np.uint16),  # truncation == mod 2^16
+                       index.ref_bf.snapshot_values()))
+        timer.pelapsed(f"Counters ready: {sample_path}")
+
+    reader = open_variant_reader(cfg.vcf_path, cfg.samples)
+    header = cleaned_header(reader.meta_lines, cfg.verbose)
+    for out in outs:
+        out.write(header)
+    n = 0
+    for flat in _prefetch(_iter_pass2_batches(cfg, refs)):
+        qinfo = _flat_query_info(index, flat)  # resolve queries once
+        for (bf_plane, kmap_plane), out in zip(planes, outs):
+            for v in flat.all_vars:
+                v.computed_gts = []
+            _scan_and_assign(_weights_from_planes(qinfo, bf_plane, kmap_plane), flat)
+            genotype_block(flat.all_vars, cfg.max_coverage, cfg.haploid, cfg.error_rate)
+            for line in format_variants(flat.all_vars, cfg.haploid, cfg.verbose):
+                out.write(line + "\n")
+        n += len(flat.all_vars)
+    timer.pelapsed(f"VCF parsing and genotyping ({n} variants x {len(planes)} samples)")

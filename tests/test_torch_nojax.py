@@ -32,6 +32,24 @@ out = io.StringIO()
 stats = pipeline.call(cfg, index, out, device="cpu")
 assert stats["rows"] > 0 and out.getvalue().count("\n") > 50
 
+# device counting, batch and the genotype model, all on CPU tensors
+import torch
+from malva_tpu_torch.count.counter import count_reads_kmers
+from malva_tpu_torch.count.spill import count_reads_kmers_spill
+from malva_tpu_torch.models.genotype import make_genotype_fn
+
+keys, counts = count_reads_kmers(inputs[2], 43, device="cpu", chunk_kmers=4096)
+assert keys.shape[0] > 0
+assert sum(k.shape[0] for k, _ in count_reads_kmers_spill(
+    inputs[2], 43, f"{work}/spill", device="cpu", chunk_kmers=4096)) == keys.shape[0]
+outs = [io.StringIO(), io.StringIO()]
+pipeline.call_batch(cfg, index, [inputs[2], inputs[2]], outs, device="cpu")
+assert outs[0].getvalue() == outs[1].getvalue() == out.getvalue()
+g1, g2, gq = make_genotype_fn(3, False, 0.001, 200, "cpu")(
+    torch.tensor([[10, 12, 0]], dtype=torch.int32), torch.tensor([[0.5, 0.5, 0.0]]),
+    torch.tensor([2], dtype=torch.int32))
+assert (int(g1), int(g2)) == (0, 1)
+
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not loaded, loaded
 print("NO-JAX-OK")

@@ -123,3 +123,57 @@ def test_backend_resolution(monkeypatch):
     with pytest.raises(ValueError):
         backend.resolve(Config(backend="device"))
     assert backend.device_for(Config(backend="host", bf_size=1 << 20), device="cpu").type == "cpu"
+
+
+def test_run_overlaps_counting_only_where_malva_tpu_does(monkeypatch, tmp_path):
+    """`run` starts the overlapped counting producer as malva_tpu/cli.py:
+    263-278 does: not for reads that route to the card, which are counted
+    there; malva_tpu's _start_count_producer makes the other checks."""
+    import torch
+
+    from malva_tpu_torch import cli
+
+    def producer(c):  # the decision `run` makes, without starting a process
+        return cli._overlaps_counting(c) and cli._start_count_producer(c) is not None
+
+    reads = tmp_path / "reads.fq"
+    with open(reads, "wb") as f:
+        f.truncate(1 << 27)  # sparse: above the overlap and device read floors
+    small = tmp_path / "small.fq"
+    small.write_bytes(b">r\nACGT\n")
+    for name in ("MALVA_NO_OVERLAP", "MALVA_OVERLAP_MIN_BYTES"):
+        monkeypatch.delenv(name, raising=False)
+
+    def cfg(backend, path=reads, **kw):
+        return Config(sample_path=str(path), bf_size=1 << 33, backend=backend, **kw)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert not cli._overlaps_counting(cfg("cuda"))
+    assert not cli._overlaps_counting(cfg("auto"))
+    assert cli._overlaps_counting(cfg("host"))
+    assert not producer(cfg("host", from_kmc_dump=True))
+    assert not producer(cfg("host", small))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli._overlaps_counting(cfg("auto"))  # no card: the host counts it
+    monkeypatch.setenv("MALVA_NO_OVERLAP", "1")
+    assert not producer(cfg("host"))
+
+
+def test_profile_dir_writes_a_trace(tmp_path, capsys):
+    """`run --profile-dir d` writes a torch.profiler trace into d; the VCF
+    on stdout is still the golden one."""
+    import json
+    import shutil
+
+    from malva_tpu_torch import cli
+
+    for name in ("ref.fa", "vars.vcf", "reads.fa"):
+        shutil.copy(os.path.join(D, name), tmp_path / name)
+    prof = tmp_path / "prof"
+    args = ["run", "--backend", "host", "-b", "1", "--profile-dir", str(prof),
+            *(str(tmp_path / n) for n in ("ref.fa", "vars.vcf", "reads.fa"))]
+    assert cli.main(args) == 0
+    assert capsys.readouterr().out == open(os.path.join(D, "golden.vcf")).read()
+    traces = sorted(prof.glob("*.json"))
+    assert len(traces) == 1
+    assert "traceEvents" in json.loads(traces[0].read_text())

@@ -12,25 +12,38 @@
    counters are exact): K1 hash-only on 2^21 packed contexts and K1 fused
    on a synthetic -b 1 index (2^33 bits at a bit density of 2^-6, a 1M-key
    exact map); K2 hash-only and scan on a 2^20-position chunk with N,
-   lowercase and IUPAC bytes; K3 on a 2^25-window read chunk (reads joined
-   by 0xFF, with N, lowercase and reads shorter than ref_k), and the whole
-   device sort-count step against the host counter's sort-count of the
-   same windows.  Times each with CUDA events.  Then the f32 genotype
-   model on 2^20 seeded variants, on the card and on the CPU.
+   lowercase and IUPAC bytes; K4 on shard 0 of that index split 4 ways,
+   with 2^21 lanes routed to it, a quarter centred on its map keys; K3 on
+   a 2^25-window read chunk (reads joined by 0xFF, with N, lowercase and
+   reads shorter than ref_k), and the whole device sort-count step against
+   the host counter's sort-count of the same windows.  Times each with
+   CUDA events.  Then K1 steps of 2^20 lanes timed by the events K1's C
+   launcher records, quiet and with two Python threads spinning: the busy
+   mean must stay within 2x the quiet mean.  Then the f32 genotype model
+   on 2^20 seeded variants, on the card and on the CPU.
 4. Runs ``malva-tpu-torch run -k 35 -r 43 -b 1 -f AF`` on the chr-scale
    synthetic input (tools/make_synth_scale.py: 10 Mbp, 100k records x 50
    samples, 5x reads) with ``--backend cuda`` and, on a separate copy of
-   the inputs, ``--backend host``; the VCFs must be byte-identical, all
-   three kernels must have launched in the cuda run (the reads are
-   counted on the card, with no host counting producer).  Then the cuda
-   run once more on a third copy with ``--spill-dir``: the device spill
-   counter, the same three kernels, and the host run's VCF.
+   the inputs, ``--backend host``; the VCFs must be byte-identical, K1-K3
+   must have launched in the cuda run (the reads are counted on the card,
+   with no host counting producer), and its logged call-step time must be
+   under 10 ms.  Then the cuda run once more on a third copy with
+   ``--spill-dir``: the device spill counter, the same kernels, and the
+   host run's VCF.
 5. Runs ``batch`` over the 5x reads and a 3x read set of the same genome
    and VCF, with ``--backend cuda`` and ``--backend host``: per-sample
-   VCFs byte-identical, the 5x one equal to the ``run`` VCF, all three
-   kernels launched and the device index uploaded once in the cuda leg.
-   The cuda leg runs with ``--profile-dir``; its trace gives the device
-   time of each kernel and the device's busy share of the leg.
+   VCFs byte-identical, the 5x one equal to the ``run`` VCF, K1-K3
+   launched and the device index uploaded once in the cuda leg.  The cuda
+   leg runs with ``--profile-dir``; its trace gives the device time of
+   each kernel and the device's busy share of the leg.
+6. The sharded path on 4 virtual shards of the card
+   (``make_mesh(devices=[cuda:0] * 4)``): ``build_index`` and ``call`` on
+   the chr-scale input, then ``call_batch`` over the 5x and 3x reads on
+   that index; each VCF equal to its host leg's, K1-K4 launched, the
+   sharded context scan and call-step lines logged.  Then
+   ``python -m malva_tpu_torch.run_distributed`` in two processes (gloo)
+   with the 5x reads split in two: rank 0's VCF equal to the host run's.
+   Then ``graft_entry.dryrun_multichip(4, [cuda:0] * 4)``.
 
 Any failure raises and the exit code is not 0.  The last lines are the
 phase walls, the card's name and power limit, one JSON object of kernel
@@ -63,6 +76,8 @@ LANES = 1 << 21
 CHUNK = 1 << 20
 WINDOWS = 1 << 25            # K3: the counter's chunk_kmers
 VARIANTS = 1 << 20           # genotype model
+SHARDS = 4                   # virtual shards of the one card
+ROUTED = 1 << 21             # K4: lanes routed to one shard
 MIN_RECORDS = 50000          # VCF records the chr-scale run must give
 SYNTH = ["--mbp", "10", "--variants", "100000", "--samples", "50", "--seed", "7"]
 
@@ -248,9 +263,126 @@ def kernel_phase(device) -> list[dict]:
                     "replaces": "malva_tpu/ops/pallas_kernels.py:222",
                     "max_abs_err": err2, "ms": ms, "plain_ms": plain_ms,
                     "positions": CHUNK})
-    del ix, bf_words, ctx_k, ctx_p, seq
-    results.append(seq_count_check(device))
+    del bf_words, ctx_k, ctx_p, seq
+    k4 = shard_update_check(ix, device)
+    results[0]["event_probe"] = event_timing_probe(ix, device)
+    del ix
+    results += [seq_count_check(device), k4]
     return results
+
+
+def shard_update_check(ix: dict, device) -> dict:
+    """K4 against its plain version on shard 0 of the synthetic -b 1 index
+    split SHARDS ways: the shard's [word, local rank] rows (no
+    mini-filter), the exact map of the keys whose Bloom word it owns, and
+    ROUTED lanes whose Bloom word it owns (the routing's guarantee), a
+    quarter of them centred on its map keys, with random "context known"
+    flags."""
+    import torch
+
+    from malva_tpu.index.device import pack2bit_u32_np
+    from malva_tpu.index.kmap_table import BucketTable
+    from malva_tpu.ops.xxh3 import xxh3_64
+    from malva_tpu_torch.index.device import pack_bloom_rows
+    from malva_tpu_torch.ops import kernels
+    from malva_tpu_torch.ops.bloom import from_u32
+    from malva_tpu_torch.ops.xxh3 import xxh3_mod_size
+
+    wps = SIZE_BITS // 32 // SHARDS
+    none = torch.zeros(0, dtype=torch.int64, device=device)
+    rows = pack_bloom_rows(ix["bf_packed"][:wps, 0].contiguous(), none, none)
+    n_counts = int(rows[-1, 1]) + bin(int(rows[-1, 0]) & 0xFFFFFFFF).count("1")
+    keys = ix["keys"]
+    h = xxh3_64(keys)
+    mine = ((h % np.uint64(SIZE_BITS)) >> np.uint64(5)).astype(np.int64) < wps
+    table = BucketTable.from_packed(pack2bit_u32_np(keys[mine], K), h[mine], K)
+    kmap_keys = from_u32(table.bucket_keys, device)
+
+    ctx, counters = planted_contexts(keys[mine], 4 * ROUTED, ROUTED // 4, device)
+    c_hi, c_lo = kernels.callstep_hash_plain(ctx, K, REF_K, with_ctx=False)[:2]
+    owned = torch.nonzero(xxh3_mod_size(c_hi, c_lo, SIZE_BITS)[0] < wps).squeeze(1)[:ROUTED]
+    ctx, counters = ctx[owned].contiguous(), counters[owned].contiguous()
+    if ctx.shape[0] != ROUTED:
+        raise AssertionError(f"K4 check: {ctx.shape[0]} routed lanes, not {ROUTED}")
+    gen = torch.Generator(device=device).manual_seed(5)
+    known = torch.rand(ROUTED, device=device, generator=gen) < 0.5
+    args = dict(k=K, ref_k=REF_K, size_bits=SIZE_BITS, n_buckets=table.n_buckets, word_base=0,
+                counts_len=n_counts)
+    n_state = n_counts + table.n_buckets * 4
+    st_k = torch.zeros(n_state, dtype=torch.int32, device=device)
+    st_p = torch.zeros_like(st_k)
+    kernels.shard_update(rows, kmap_keys, st_k, ctx, counters, known, **args)
+    kernels.shard_update_plain(rows, kmap_keys, st_p, ctx, counters, known, **args)
+    torch.cuda.synchronize()
+    err = max_abs_err([st_k], [st_p])
+    n_bf, n_map = int((st_k[:n_counts] != 0).sum()), int((st_k[n_counts:] != 0).sum())
+    if not n_bf or not n_map:
+        raise AssertionError("K4 check touched no counter or no map value")
+    scratch = torch.zeros_like(st_k)
+    ms = cuda_ms(lambda: kernels.shard_update(rows, kmap_keys, scratch, ctx, counters, known,
+                                              **args), iters=20)
+    plain_ms = cuda_ms(lambda: kernels.shard_update_plain(rows, kmap_keys, scratch, ctx, counters,
+                                                          known, **args), iters=3, warmup=1)
+    log(f"K4 == plain on shard 0 of {SHARDS} ({n_bf} counters, {n_map} map values updated, "
+        f"{int(mine.sum())} map keys); K4 {ms:.4f} ms, plain {plain_ms:.4f} ms per {ROUTED} "
+        f"routed lanes")
+    return {"name": "shard_update", "route": "cuda", "source": "malva_tpu_torch/csrc/shard_step.cu",
+            "replaces": "malva_tpu/parallel/sharded_index.py:398 (XLA, no Pallas counterpart)",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "lanes": ROUTED}
+
+
+def event_timing_probe(ix: dict, device) -> dict:
+    """K1 steps of 2^20 lanes timed by the CUDA events that K1's launcher
+    records, with no other Python thread and with two threads spinning on
+    the GIL: the busy mean must stay within 2x the quiet mean, since the
+    events sit around the launch inside one C call."""
+    import threading
+
+    import torch
+
+    from malva_tpu_torch.index.device import events_ms, timing_events
+    from malva_tpu_torch.ops import kernels
+
+    ctx, counters = planted_contexts(ix["keys"], 1 << 20, 1 << 15, device)
+    state = torch.zeros(ix["n_counts"] + ix["n_buckets"] * 4, dtype=torch.int32, device=device)
+    args = dict(k=K, ref_k=REF_K, size_bits=SIZE_BITS, n_buckets=ix["n_buckets"],
+                minifilter=True)
+
+    def steps(n: int) -> list[float]:
+        out = []
+        for _ in range(n):
+            ev = timing_events(device)
+            kernels.callstep(ix["bf_packed"], ix["ctx_words"], ix["kmap_keys"], state, ctx,
+                             counters, events=ev, **args)
+            out.append(events_ms([ev]))
+        return out
+
+    steps(3)
+    quiet = steps(20)
+    stop = threading.Event()
+
+    def spin():
+        x = 0
+        while not stop.is_set():
+            x += 1
+
+    spinners = [threading.Thread(target=spin) for _ in range(2)]
+    for t in spinners:
+        t.start()
+    try:
+        busy = steps(20)
+    finally:
+        stop.set()
+        for t in spinners:
+            t.join()
+    q, b = sum(quiet) / len(quiet), sum(busy) / len(busy)
+    log(f"K1 launcher events, 2^20 lanes: quiet mean {q:.6g} ms ({min(quiet):.6g}-"
+        f"{max(quiet):.6g}), two spinning threads mean {b:.6g} ms ({min(busy):.6g}-"
+        f"{max(busy):.6g})")
+    if b > 2 * q:
+        raise AssertionError(f"event-timed K1 under two busy threads {b} ms > 2x quiet {q} ms")
+    return {"quiet_mean_ms": q, "busy_mean_ms": b, "quiet_max_ms": max(quiet),
+            "busy_max_ms": max(busy)}
 
 
 def read_chunk():
@@ -463,13 +595,145 @@ def trace_summary(trace_dir: str) -> dict:
     return out
 
 
-def check_launches(name: str, launches: dict) -> None:
-    for kernel, n in launches.items():
-        if n <= 0:
+SINGLE = ("callstep", "ref_scan", "seq_pack")  # kernels of the one-device legs
+
+
+def check_launches(name: str, launches: dict, kernels=SINGLE) -> None:
+    for kernel in kernels:
+        if launches[kernel] <= 0:
             raise AssertionError(f"kernel {kernel} did not launch in the {name}")
 
 
+def lib_leg(name: str, fn) -> tuple[str, float]:
+    """fn(timer) in this process with stderr kept -> (stderr, wall s)."""
+    from malva_tpu.utils.timing import PhaseTimer
+
+    tee = _Tee(sys.stderr)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(tee):
+        fn(PhaseTimer("malva-tpu-torch", out=sys.stderr))
+    wall = time.perf_counter() - t0
+    log(f"{name}: {wall:.6g} s wall")
+    return tee.buf.getvalue(), wall
+
+
+def sharded_legs(src: str, reads3: str, work: str, run_vcf: bytes, batch_vcfs: dict) -> dict:
+    """``build_index`` + ``call`` through the port's library with a mesh of
+    SHARDS virtual shards of the one card, then ``call_batch`` with the
+    same mesh over the 5x and 3x reads on that index: the VCFs must equal
+    the host legs', and K1 (hash-only), K2 (hash-only), K3 and K4 must
+    have launched."""
+    import torch
+
+    from malva_tpu.cli import _config
+    from malva_tpu_torch import cli, pipeline
+    from malva_tpu_torch.ops import kernels
+    from malva_tpu_torch.parallel.mesh import make_mesh
+
+    fa, vcf, fq = stage(src, work, {n: n for n in ("synth.fa", "synth.vcf", "synth.fq")})
+    fq3 = os.path.join(work, "synth3x.fq")
+    shutil.copy(reads3, fq3)
+    cfg = _config(cli._parser().parse_args(["run", "--backend", "cuda", "-k", str(K), "-r",
+                                            str(REF_K), "-b", "1", "-f", "AF", fa, vcf, fq]))
+    mesh = make_mesh(devices=[torch.device("cuda", 0)] * SHARDS)
+    out = os.path.join(work, "out.vcf")
+    got: dict = {}
+
+    def run(timer):
+        got["index"] = pipeline.build_index(cfg, timer, mesh=mesh)
+        with open(out, "w") as f:
+            got["stats"] = pipeline.call(cfg, got["index"], f, timer, mesh=mesh)
+
+    kernels.reset_launches()
+    err, wall = lib_leg(f"sharded run over {SHARDS} virtual shards", run)
+    launches = dict(kernels.LAUNCHES)
+    if open(out, "rb").read() != run_vcf:
+        raise AssertionError("the sharded run's VCF differs from the host run's")
+    check_launches("sharded run", launches, SINGLE + ("shard_update",))
+    for line in ("sharded context scan", "sharded call step"):
+        if line not in err:
+            raise AssertionError(f"the sharded run logged no '{line}' line")
+    stats = got["stats"]
+    log(f"sharded run VCF == host run's; launches {launches}; call step {json.dumps(stats)}")
+
+    outs = [os.path.join(work, n) for n in ("synth.malva.vcf", "synth3x.malva.vcf")]
+
+    def batch(timer):
+        with contextlib.ExitStack() as stack:
+            files = [stack.enter_context(open(o, "w")) for o in outs]
+            pipeline.call_batch(cfg, got["index"], [fq, fq3], files, timer, mesh=mesh)
+
+    kernels.reset_launches()
+    berr, bwall = lib_leg("sharded call_batch", batch)
+    batch_launches = dict(kernels.LAUNCHES)
+    for o in outs:
+        if open(o, "rb").read() != batch_vcfs[os.path.basename(o)]:
+            raise AssertionError(f"sharded call_batch: {os.path.basename(o)} differs from the "
+                                 f"host batch leg's")
+    check_launches("sharded call_batch", batch_launches, ("callstep", "seq_pack", "shard_update"))
+    if berr.count("sharded index uploaded") != 1:
+        raise AssertionError("sharded call_batch did not place the sharded index once")
+    log(f"sharded call_batch VCFs == host batch leg's; launches {batch_launches}")
+    return {"launches": launches, "batch_launches": batch_launches, "call_step": stats,
+            "walls": {"sharded run": phase_walls(err), "sharded batch": phase_walls(berr)},
+            "legs_s": {"sharded run": wall, "sharded batch": bwall}}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def distributed_leg(src: str, work: str, run_vcf: bytes) -> dict:
+    """``python -m malva_tpu_torch.run_distributed`` in two processes on the
+    chr-scale genome and VCF, the 5x reads split into two FASTQ files:
+    rank 0's VCF must equal the host run's."""
+    fa, vcf, fq = stage(src, work, {n: n for n in ("synth.fa", "synth.vcf", "synth.fq")})
+    with open(fq, "rb") as f:
+        lines = f.read().splitlines(keepends=True)
+    parts = [os.path.join(work, f"reads{i}.fq") for i in range(2)]
+    for i, path in enumerate(parts):
+        with open(path, "wb") as f:
+            for r in range(4 * i, len(lines), 8):  # every other 4-line record
+                f.writelines(lines[r : r + 4])
+    del lines
+    out = os.path.join(work, "out.vcf")
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs, errs = [], [os.path.join(work, f"err{i}.txt") for i in range(2)]
+    t0 = time.perf_counter()
+    try:
+        for i in range(2):
+            with open(errs[i], "w") as err:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "malva_tpu_torch.run_distributed", "--coordinator",
+                     f"127.0.0.1:{port}", "--num-processes", "2", "--process-id", str(i),
+                     "--out", out, "--timeout", "600", "-k", str(K), "-r", str(REF_K), "-b", "1",
+                     "-f", "AF", fa, vcf, *parts], cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+                    stderr=err))
+        rcs = [p.wait(timeout=700) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    texts = [open(e).read() for e in errs]
+    if rcs != [0, 0]:
+        raise RuntimeError(f"run_distributed exited {rcs}: {texts[0][-2000:]}{texts[1][-2000:]}")
+    if open(out, "rb").read() != run_vcf:
+        raise AssertionError("the two-process run's VCF differs from the host run's")
+    exchange = [ln for t in texts for ln in t.splitlines() if "exchange" in ln]
+    log(f"two-process run_distributed VCF == host run's, {wall:.6g} s wall; {exchange}")
+    return {"wall_s": wall, "exchange": exchange,
+            "walls": [phase_walls(t) for t in texts]}
+
+
 def main_path_phase() -> dict:
+    from malva_tpu_torch.graft_entry import dryrun_multichip
     from malva_tpu_torch.ops import kernels
 
     tmp = tempfile.mkdtemp(prefix="malva_smoke_")
@@ -524,8 +788,11 @@ def main_path_phase() -> dict:
             raise AssertionError("the cuda run logged no call-step line")
         rows, ms = int(m.group(1)), float(m.group(3))
         log(f"run VCFs byte-identical ({n_rec} records); launches {launches}")
-        log(f"call step: {rows} distinct k-mers, {ms} ms step time (CUDA events), "
+        log(f"call step: {rows} distinct k-mers, {ms} ms step time (K1 launcher events), "
             f"{rows / (ms / 1e3):.6g} k-mers/s")
+        if ms >= 10:
+            raise AssertionError(f"the cuda run's logged call-step time {ms} ms is not under "
+                                 f"10 ms: the launcher events measure more than the kernel")
 
         reads3 = os.path.join(src3, "synth.fq")
         kernels.reset_launches()
@@ -550,14 +817,24 @@ def main_path_phase() -> dict:
         log(f"batch --backend cuda under torch.profiler: {json.dumps(trace)}")
         log(f"batch VCFs byte-identical per sample, 5x == run; launches {batch_launches}; "
             f"one device index upload")
+        legs = {"run cuda": wall_cuda, "run host": wall_host, "run cuda spill": wall_spill,
+                "batch cuda": bwall_cuda, "batch host": bwall_host}
+
+        sharded = sharded_legs(src, reads3, os.path.join(tmp, "sharded"), b, out_host)
+        walls.update(sharded["walls"])
+        legs.update(sharded["legs_s"])
+        dist = distributed_leg(src, os.path.join(tmp, "dist"), b)
+        legs["run_distributed 2 processes"] = dist["wall_s"]
+        t0 = time.perf_counter()
+        dryrun_multichip(SHARDS, ["cuda:0"] * SHARDS)
+        legs["dryrun_multichip"] = time.perf_counter() - t0
         log(f"phase walls in s: {json.dumps(walls)}")
         return {"launches": launches, "spill_launches": spill_launches,
-                "batch_launches": batch_launches, "records": n_rec,
+                "batch_launches": batch_launches, "sharded_launches": sharded["launches"],
+                "sharded_batch_launches": sharded["batch_launches"], "records": n_rec,
                 "distinct_kmers": rows, "call_step_event_ms": ms, "walls": walls,
-                "batch_trace": trace,
-                "legs_s": {"run cuda": wall_cuda, "run host": wall_host,
-                           "run cuda spill": wall_spill,
-                           "batch cuda": bwall_cuda, "batch host": bwall_host}}
+                "batch_trace": trace, "sharded_call_step": sharded["call_step"],
+                "distributed": dist, "legs_s": legs}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -626,13 +903,18 @@ def main() -> int:
     if not args.kernels_only:
         t0 = time.perf_counter()
         main = main_path_phase()
-        walls["run and batch"] = time.perf_counter() - t0
+        walls["main paths"] = time.perf_counter() - t0
         walls.update(main["legs_s"])
+    legs = ("launches", "spill_launches", "batch_launches", "sharded_launches",
+            "sharded_batch_launches")
     for r in results:
-        r["launches"] = main["launches"][r["name"]] if main else None
-        r["spill_launches"] = main["spill_launches"][r["name"]] if main else None
-        r["batch_launches"] = main["batch_launches"][r["name"]] if main else None
-    print(json.dumps({"phase_walls_s": walls, "genotype": genotype}), flush=True)
+        # "launches": the first leg whose path runs the kernel (K4: the sharded run)
+        first = "sharded_launches" if r["name"] == "shard_update" else "launches"
+        r["launches"] = main[first][r["name"]] if main else None
+        r["launches_by_leg"] = {leg: main[leg][r["name"]] for leg in legs} if main else None
+    print(json.dumps({"phase_walls_s": walls, "genotype": genotype,
+                      "sharded_call_step": main and main["sharded_call_step"],
+                      "distributed": main and main["distributed"]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": results}), flush=True)
     if args.kernels_only:

@@ -3,7 +3,10 @@
 Counterpart of ``malva_tpu/pipeline.py:39-76``.  ``auto`` picks ``cuda``
 when a CUDA device is present, the Bloom size meets the device contract
 and the work clears the same floors as the JAX package; an explicit
-``cuda`` without a device raises and never carries on on the host.
+``cuda`` without a device raises and never carries on on the host.  Where
+``cuda`` resolves on a host with several cards whose count divides the
+Bloom words, the work runs sharded over all of them (:func:`mesh_for`,
+the counterpart of ``malva_tpu/pipeline.py:937 _call_mesh``).
 """
 
 from __future__ import annotations
@@ -52,3 +55,24 @@ def device_for(cfg: Config, work: int | None = None, floor: int = 0,
         check_bloom_size(cfg.bf_size)
         return torch.device(device)
     return torch.device("cuda") if resolve(cfg, work, floor) == "cuda" else None
+
+
+def mesh_for(cfg: Config, work: int | None = None, floor: int = 0, mesh=None):
+    """The mesh of the sharded device path, or None.  Without ``mesh``: all
+    CUDA devices where the backend resolves to ``cuda``, more than one card
+    is present and their count divides the Bloom words.  An explicit
+    ``mesh`` (a list of devices, which may repeat one) is taken as given,
+    as ``device`` is by :func:`device_for`."""
+    from .parallel.mesh import make_mesh
+
+    if mesh is not None:
+        check_bloom_size(cfg.bf_size)
+        mesh = make_mesh(devices=mesh)
+        if (cfg.bf_size // 32) % len(mesh):
+            raise ValueError(f"{cfg.bf_size // 32} Bloom words do not split into "
+                             f"{len(mesh)} shards")
+        return mesh
+    if resolve(cfg, work, floor) != "cuda":
+        return None
+    n = torch.cuda.device_count()
+    return make_mesh(n) if n > 1 and (cfg.bf_size // 32) % n == 0 else None

@@ -2,8 +2,10 @@
 
 The port's counterpart of loading weights: the arrays of a
 ``malva_tpu.index.device.DeviceIndex`` (as numpy) become the port's
-``DeviceIndex`` on a given torch device, so both call steps can be run
-on the identical index state.
+``DeviceIndex`` on a given torch device, and those of a
+``malva_tpu.parallel.sharded_index.RoutedIndexState`` the port's
+``ShardedIndex`` on a mesh, so both call steps can be run on the
+identical index state.
 """
 
 from __future__ import annotations
@@ -32,3 +34,21 @@ def device_index_from_arrays(arrays: dict[str, np.ndarray], device,
         n_buckets=int(arrays["n_buckets"]), table=table,
         minifilter=bool(arrays["minifilter"]),
     )
+
+
+SHARDED_ARRAYS = ("bf_packed", "bf_counts", "ctx_words", "kmap_keys", "kmap_vals")
+SHARDED_SCALARS = ("counts_len", "nbs", "size_bits", "k", "ref_k")
+
+
+def sharded_index_from_arrays(arrays: dict, mesh, tables=None):
+    """``arrays`` holds the five (S, ...) uint32 arrays of a
+    ``RoutedIndexState`` named in ``SHARDED_ARRAYS`` and the values named
+    in ``SHARDED_SCALARS`` (``k`` and ``ref_k`` from the config); shard s
+    goes to ``mesh[s]``.  ``tables`` are the per-shard host BucketTables
+    that ``write_back`` needs (optional)."""
+    from .parallel.sharded_index import ShardedIndex
+
+    missing = [n for n in SHARDED_ARRAYS + SHARDED_SCALARS if n not in arrays]
+    if missing:
+        raise KeyError(f"sharded index arrays missing: {missing}")
+    return ShardedIndex.place(arrays, mesh, tables)

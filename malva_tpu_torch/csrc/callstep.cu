@@ -16,9 +16,15 @@
 //
 // The TPU's lane compaction (segmented sort, tiered tails, lax.cond tree)
 // is not carried over: a thread that has nothing to do just returns.
+//
+// Both launchers take an optional pair of CUDA events and record them just
+// before and after the launch, inside the same C call (launch.cuh), so the
+// time between them is the kernel's device time even while other Python
+// threads hold the GIL.
 #include <cuda_runtime.h>
 
 #include "lanes.cuh"
+#include "launch.cuh"
 
 using namespace malva;
 
@@ -97,23 +103,25 @@ int grid_for(int64_t n) { return (int)((n + kThreads - 1) / kThreads); }
 extern "C" {
 
 int malva_callstep_hash(const void* ctx, int64_t B, int wc, int k, int ref_k, int with_ctx,
-                        void* out, void* stream) {
-  if (B > 0)
-    callstep_hash_kernel<<<grid_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)ctx, B, wc, k, ref_k, with_ctx, (uint32_t*)out);
-  return (int)cudaGetLastError();
+                        void* out, void* ev_start, void* ev_stop, void* stream) {
+  return launch_timed(ev_start, ev_stop, (cudaStream_t)stream, [&](cudaStream_t s) {
+    if (B > 0)
+      callstep_hash_kernel<<<grid_for(B), kThreads, 0, s>>>(
+          (const uint32_t*)ctx, B, wc, k, ref_k, with_ctx, (uint32_t*)out);
+  });
 }
 
 int malva_callstep(const void* ctx, const void* counters, int64_t B, int wc, int k, int ref_k,
                    const void* bf_packed, const void* ctx_words, const void* kmap_keys,
                    void* state, int64_t counts_len, int64_t n_buckets, int64_t size_bits,
-                   int minifilter, void* stream) {
-  if (B > 0)
-    callstep_kernel<<<grid_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)ctx, (const uint32_t*)counters, B, wc, k, ref_k,
-        (const uint2*)bf_packed, (const uint32_t*)ctx_words, (const uint32_t*)kmap_keys,
-        (uint32_t*)state, counts_len, (uint64_t)n_buckets, (uint64_t)size_bits, minifilter);
-  return (int)cudaGetLastError();
+                   int minifilter, void* ev_start, void* ev_stop, void* stream) {
+  return launch_timed(ev_start, ev_stop, (cudaStream_t)stream, [&](cudaStream_t s) {
+    if (B > 0)
+      callstep_kernel<<<grid_for(B), kThreads, 0, s>>>(
+          (const uint32_t*)ctx, (const uint32_t*)counters, B, wc, k, ref_k,
+          (const uint2*)bf_packed, (const uint32_t*)ctx_words, (const uint32_t*)kmap_keys,
+          (uint32_t*)state, counts_len, (uint64_t)n_buckets, (uint64_t)size_bits, minifilter);
+  });
 }
 
 }  // extern "C"

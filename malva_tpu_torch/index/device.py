@@ -115,11 +115,13 @@ class DeviceIndex:
         n = self.bf_counts.shape[0]
         self.bf_counts, self.kmap_vals = state[:n], state[n:]
 
-    def step(self, state: torch.Tensor, ctx_packed: torch.Tensor, counters: torch.Tensor) -> None:
-        """One call step (K1) over packed contexts, updating ``state``."""
+    def step(self, state: torch.Tensor, ctx_packed: torch.Tensor, counters: torch.Tensor,
+             events=None) -> None:
+        """One call step (K1) over packed contexts, updating ``state``;
+        ``events`` as in ``ops.kernels``."""
         kernels.callstep(self.bf_packed, self.ctx_words, self.kmap_keys, state, ctx_packed,
                          counters, k=self.k, ref_k=self.ref_k, size_bits=self.size_bits,
-                         n_buckets=self.n_buckets, minifilter=self.minifilter)
+                         n_buckets=self.n_buckets, minifilter=self.minifilter, events=events)
 
     def write_back(self, index) -> None:
         """Fold the device counter state back into the host index."""
@@ -136,42 +138,19 @@ def apply_sample_counts_device(index, contexts: np.ndarray, counters: np.ndarray
                                       batch=batch, dev=dev)
 
 
-def apply_sample_counts_stream(index, batches, cfg: Config, device, batch: int = 1 << 20,
-                               dev: DeviceIndex | None = None) -> dict:
-    """Stream (contexts, counters) batches through the call step with the
-    counter state resident on ``device``, then fold it back into the host
-    index (malva_tpu/index/device.py:834).
+def packed_steps(batches, cfg: Config, batch: int, host_rows: list):
+    """The call step's input: (contexts, counters) batches re-cut into
+    blocks of ``batch`` rows (the last may be shorter), as (packed uint32
+    (n, ceil(ref_k/16)), counters uint32) numpy pairs.
 
     ``contexts`` are uint64 2-bit packed rows (the counter's layout) or
-    ASCII rows.  ASCII rows with non-ACGT bytes are replayed on the host
-    after the write-back (counter updates commute), and ASCII rows are
-    canonicalized before packing (external dumps may not be canonical).
-    A reused ``dev`` restarts from the host counters.  Batches are
-    buffered up to ``batch`` rows a step.
-
-    Returns ``{"rows", "steps", "kernel_ms", "upload_s", "writeback_s"}``:
-    rows through the step; on a CUDA device the summed time between CUDA
-    events recorded just before and after each step (else None), which is
-    the device time plus any delay in launching the step while another
-    Python thread holds the GIL; and the host wall of the index upload and
-    of the write-back."""
-    t0 = time.perf_counter()
-    if dev is None:
-        dev = DeviceIndex.from_host(index, cfg, device)
-        state = dev.state()
-    else:
-        dev.table.set_vals_from(index.ref_bf.kmers)
-        state = torch.cat([from_u32(index.bf.counts, device), from_u32(dev.table.vals, device)])
-
-    wc = (cfg.ref_k + 15) // 16
-    host_rows: list[tuple[np.ndarray, np.ndarray]] = []
-    timed = torch.device(device).type == "cuda"
-    events: list = []
+    ASCII rows.  ASCII rows with non-ACGT bytes are appended to
+    ``host_rows`` for a host replay after the write-back (counter updates
+    commute), and ASCII rows are canonicalized before packing (external
+    dumps may not be canonical) (malva_tpu/index/device.py:886-892)."""
     buf_k: list[np.ndarray] = []
     buf_c: list[np.ndarray] = []
     buf_n = 0
-    stats = {"rows": 0, "steps": 0, "kernel_ms": None, "writeback_s": None,
-             "upload_s": time.perf_counter() - t0}
 
     def to_packed(contexts, counters):
         counters = np.asarray(counters).astype(np.uint32)
@@ -183,20 +162,7 @@ def apply_sample_counts_stream(index, batches, cfg: Config, device, batch: int =
             contexts, counters = contexts[ok], counters[ok]
         return pack2bit_u32_np(seq.canonical(contexts), cfg.ref_k), counters
 
-    def run(packed: np.ndarray, cnts: np.ndarray) -> None:
-        ctx_t = from_u32(packed, device)
-        cnt_t = from_u32(cnts, device)
-        if timed:
-            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-        dev.step(state, ctx_t, cnt_t)
-        if timed:
-            ev[1].record()
-            events.append(ev)
-        stats["rows"] += packed.shape[0]
-        stats["steps"] += 1
-
-    def drain(final: bool) -> None:
+    def drain(final: bool):
         nonlocal buf_k, buf_c, buf_n
         if not buf_n:
             return
@@ -204,7 +170,7 @@ def apply_sample_counts_stream(index, batches, cfg: Config, device, batch: int =
         cnts = np.concatenate(buf_c) if len(buf_c) > 1 else buf_c[0]
         pos = 0
         while packed.shape[0] - pos >= batch or (final and pos < packed.shape[0]):
-            run(packed[pos : pos + batch], cnts[pos : pos + batch])
+            yield packed[pos : pos + batch], cnts[pos : pos + batch]
             pos += batch
         buf_k, buf_c, buf_n = [packed[pos:]], [cnts[pos:]], packed.shape[0] - pos
 
@@ -215,22 +181,87 @@ def apply_sample_counts_stream(index, batches, cfg: Config, device, batch: int =
             buf_c.append(pc)
             buf_n += pk.shape[0]
         if buf_n >= batch:
-            drain(final=False)
-    drain(final=True)
-    if timed:
-        torch.cuda.synchronize(device)
-        stats["kernel_ms"] = sum(a.elapsed_time(b) for a, b in events)
+            yield from drain(final=False)
+    yield from drain(final=True)
 
-    t0 = time.perf_counter()
-    dev.set_state(state)
-    dev.write_back(index)
-    stats["writeback_s"] = time.perf_counter() - t0
+
+def replay_on_host(index, host_rows: list, cfg: Config) -> None:
+    """Apply the rows :func:`packed_steps` set aside, on the host."""
     if host_rows:
         from malva_tpu.pipeline import apply_sample_counts
 
         for ctx, cnt in host_rows:
             apply_sample_counts(index, ctx, cnt, cfg)
+
+
+def timing_events(device) -> tuple | None:
+    """A (start, stop) pair of timing CUDA events for a launcher, or None
+    off a CUDA device."""
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+
+def events_ms(events: list) -> float | None:
+    """Summed elapsed ms of recorded (start, stop) pairs, after a sync;
+    None when there are none."""
+    if not events:
+        return None
+    for _, stop in events:
+        stop.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events)
+
+
+def apply_sample_counts_stream(index, batches, cfg: Config, device, batch: int = 1 << 20,
+                               dev: DeviceIndex | None = None) -> dict:
+    """Stream (contexts, counters) batches through the call step with the
+    counter state resident on ``device``, then fold it back into the host
+    index (malva_tpu/index/device.py:834).  Batches are re-cut by
+    :func:`packed_steps` into steps of ``batch`` rows; a reused ``dev``
+    restarts from the host counters.
+
+    Returns ``{"rows", "steps", "kernel_ms", "upload_s", "writeback_s"}``:
+    rows through the step; on a CUDA device the summed device time of the
+    K1 launches, from the CUDA events that K1's C launcher records around
+    each launch (else None); and the host wall of the index upload and of
+    the write-back."""
+    t0 = time.perf_counter()
+    if dev is None:
+        dev = DeviceIndex.from_host(index, cfg, device)
+        state = dev.state()
+    else:
+        dev.table.set_vals_from(index.ref_bf.kmers)
+        state = torch.cat([from_u32(index.bf.counts, device), from_u32(dev.table.vals, device)])
+    stats = {"rows": 0, "steps": 0, "kernel_ms": None, "writeback_s": None,
+             "upload_s": time.perf_counter() - t0}
+
+    host_rows: list[tuple[np.ndarray, np.ndarray]] = []
+    events: list = []
+    for packed, cnts in packed_steps(batches, cfg, batch, host_rows):
+        ev = timing_events(device)
+        dev.step(state, from_u32(packed, device), from_u32(cnts, device), events=ev)
+        if ev is not None:
+            events.append(ev)
+        stats["rows"] += packed.shape[0]
+        stats["steps"] += 1
+    stats["kernel_ms"] = events_ms(events)
+
+    t0 = time.perf_counter()
+    dev.set_state(state)
+    dev.write_back(index)
+    stats["writeback_s"] = time.perf_counter() - t0
+    replay_on_host(index, host_rows, cfg)
     return stats
+
+
+def short_contigs_on_host(index, refs_used: list[np.ndarray], cfg: Config) -> None:
+    """The context scan of contigs shorter than ref_k, on the host, before
+    the context words are uploaded (malva_tpu/index/device.py:748-756):
+    upstream clamps their initial substrings."""
+    off = cfg.center_off
+    for ref in refs_used:
+        if off < len(ref) < cfg.ref_k and index.bf.test_keys(ref[off : off + cfg.k][None, :])[0]:
+            index.context_bf.add_keys(ref[: cfg.ref_k][None, :])
 
 
 def build_context_device(index, refs_used: list[np.ndarray], cfg: Config, device,
@@ -240,16 +271,7 @@ def build_context_device(index, refs_used: list[np.ndarray], cfg: Config, device
     ``malva_tpu.pipeline.build_index`` (malva_tpu/index/device.py:733).
     Each contig crosses to the device once as uint8; each chunk of
     ``chunk`` positions is one K2 launch on a view of it."""
-    # short contigs first, on the host (their bits must be in the context
-    # words before those are uploaded)
-    for ref in refs_used:
-        if len(ref) < cfg.ref_k:
-            off = cfg.center_off
-            if len(ref) > off:
-                sub = ref[off : off + cfg.k][None, :]
-                if index.bf.test_keys(sub)[0]:
-                    index.context_bf.add_keys(ref[: cfg.ref_k][None, :])
-
+    short_contigs_on_host(index, refs_used, cfg)
     # the words cross dense (a 1 GiB copy is cheaper than a host nonzero
     # search) and come back sparse (the device finds the nonzero words)
     bf_words = from_u32(index.bf.words, device)
@@ -269,9 +291,10 @@ def build_context_device(index, refs_used: list[np.ndarray], cfg: Config, device
 
 
 def log_step_rate(stats: dict) -> None:
-    """One stderr line with the call step's rows and event-timed rate."""
+    """One stderr line with the call step's rows and its rate from K1's
+    device time (launcher events)."""
     ms = stats["kernel_ms"]
     rate = f"{stats['rows'] / (ms / 1e3):.6g} k-mers/s" if ms else "not measured"
     print(f"[malva-tpu-torch/metrics] call step: {stats['rows']} distinct k-mers in "
-          f"{stats['steps']} steps, step time {ms} ms (CUDA events), rate {rate}; index upload "
+          f"{stats['steps']} steps, step time {ms} ms (K1 launcher events), rate {rate}; index upload "
           f"{stats['upload_s']:.6g} s, write-back {stats['writeback_s']:.6g} s", file=sys.stderr)

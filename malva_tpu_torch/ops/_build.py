@@ -20,8 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "kernels"
-SOURCES = ("callstep.cu", "ref_scan.cu", "seq_count.cu")
-HEADERS = ("xxh3.cuh", "lanes.cuh")
+SOURCES = ("callstep.cu", "ref_scan.cu", "seq_count.cu", "shard_step.cu")
+HEADERS = ("xxh3.cuh", "lanes.cuh", "launch.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -85,8 +85,10 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     sigs = {
-        "malva_callstep_hash": [p, i64, i, i, i, i, p, p],
-        "malva_callstep": [p, p, i64, i, i, i, p, p, p, p, i64, i64, i64, i, p],
+        # the call-step launchers take (start, stop) event handles before the stream
+        "malva_callstep_hash": [p, i64, i, i, i, i, p, p, p, p],
+        "malva_callstep": [p, p, i64, i, i, i, p, p, p, p, i64, i64, i64, i, p, p, p],
+        "malva_shard_update": [p, p, p, i64, i, i, i, p, i64, i64, p, p, i64, i64, i64, p, p, p],
         "malva_window_hash": [p, i64, i, i, p, p],
         "malva_ref_scan": [p, i64, i, i, p, p, i64, p],
         "malva_seq_pack": [p, i64, i, p, p, p],

@@ -1,4 +1,4 @@
-"""The three hand-written kernels of the device main path, their wrappers and
+"""The four hand-written kernels of the device paths, their wrappers and
 their plain PyTorch versions.
 
 Counterpart of ``malva_tpu/ops/pallas_kernels.py``.  Each wrapper takes
@@ -24,12 +24,24 @@ falls back.  ``LAUNCHES`` counts kernel launches per wrapper.
   2-bit pack) with one pass over the raw read chunk; the sort and run
   count after it are torch's (``count/device_count.py``).
 
+* K4 ``shard_update`` (``csrc/shard_step.cu``) has no Pallas counterpart:
+  it replaces the XLA owner-side tail of the routed sharded step
+  (``malva_tpu/parallel/sharded_index.py:398-424``), run on the shard that
+  owns a lane's Bloom word.  It is bound like K1: one row gather and the
+  bucket probe per lane.
+
 ``callstep_hash`` / ``window_hash`` are the kernels' hash-only modes,
 which write exactly the TPU kernels' outputs so the card can check them
 against the TPU kernels' contract.
 
 Device arrays are int32 tensors holding uint32 bit patterns (ops.bloom).
 Hash-only outputs are returned as int64 lanes in [0, 2^32).
+
+The call-step wrappers (``callstep``, ``callstep_hash``, ``shard_update``)
+take ``events=(start, stop)``, two ``torch.cuda.Event(enable_timing=True)``;
+the C launcher records them on the launch stream just before and after
+the kernel, inside the one ctypes call that holds no GIL, so their
+elapsed time is the kernel's device time (``csrc/launch.cuh``).
 """
 
 from __future__ import annotations
@@ -45,7 +57,7 @@ from .packed import canonical_center, decode_byte_cols, popcount32
 from .seq import canonical_decision, complement
 from .xxh3 import check_bloom_size, xxh3_64_cols, xxh3_mod_size
 
-LAUNCHES = {"callstep": 0, "ref_scan": 0, "seq_pack": 0}
+LAUNCHES = {"callstep": 0, "ref_scan": 0, "seq_pack": 0, "shard_update": 0}
 MAX_LEN = 240  # csrc/lanes.cuh kMaxLen
 
 
@@ -55,14 +67,15 @@ def reset_launches() -> None:
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU tensors; raises on a mix or
-    any other device."""
-    kinds = {t.device.type for t in tensors}
+    """True for tensors on one CUDA device, False for CPU tensors; raises
+    on a mix (two cards of a mesh included) or any other device."""
+    devices = {t.device for t in tensors}
+    kinds = {d.type for d in devices}
     if kinds == {"cpu"}:
         return False
-    if kinds == {"cuda"}:
+    if kinds == {"cuda"} and len(devices) == 1:
         return True
-    raise ValueError(f"kernel inputs must all lie on one CPU or CUDA device, got {kinds}")
+    raise ValueError(f"kernel inputs must all lie on one CPU or CUDA device, got {devices}")
 
 
 def _check(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
@@ -76,11 +89,23 @@ def _check_lengths(k: int, ref_k: int) -> None:
         raise ValueError(f"kernels need 1 <= k <= ref_k <= {MAX_LEN}, got k={k} ref_k={ref_k}")
 
 
-def _launch(fn_name: str, device: torch.device, *args) -> None:
+_TIMED = ("malva_callstep", "malva_callstep_hash", "malva_shard_update")
+
+
+def _launch(fn_name: str, device: torch.device, *args, events=None) -> None:
+    """Launch ``fn_name`` on the current stream of ``device``; a timed
+    launcher also gets the handles of ``events`` (or nulls)."""
     lib = _build.library()
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn_name)(*args, stream)
+        stream = torch.cuda.current_stream(device)
+        if fn_name in _TIMED:
+            handles = (None, None)
+            if events is not None:
+                for ev in events:  # a torch event makes its CUDA event at its first record
+                    ev.record(stream)
+                handles = tuple(ev.cuda_event for ev in events)
+            args += handles
+        err = getattr(lib, fn_name)(*args, stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA launch failed with error {err}")
 
@@ -100,7 +125,7 @@ def callstep_hash_plain(ctx_packed: torch.Tensor, k: int, ref_k: int, with_ctx: 
     return out + can
 
 
-def callstep_hash(ctx_packed: torch.Tensor, k: int, ref_k: int, with_ctx: bool):
+def callstep_hash(ctx_packed: torch.Tensor, k: int, ref_k: int, with_ctx: bool, events=None):
     """K1 in hash-only mode; same outputs as :func:`callstep_hash_plain`."""
     if not _on_cuda(ctx_packed):
         return callstep_hash_plain(ctx_packed, k, ref_k, with_ctx)
@@ -113,7 +138,7 @@ def callstep_hash(ctx_packed: torch.Tensor, k: int, ref_k: int, with_ctx: bool):
     n_out = (4 if with_ctx else 2) + (k + 15) // 16
     out = torch.empty((n_out, B), dtype=torch.int32, device=ctx_packed.device)
     _launch("malva_callstep_hash", ctx_packed.device, ctx_packed.data_ptr(), B, wc, k, ref_k,
-            int(with_ctx), out.data_ptr())
+            int(with_ctx), out.data_ptr(), events=events)
     LAUNCHES["callstep"] += 1
     return [lanes(o) for o in out]
 
@@ -154,7 +179,8 @@ def callstep_plain(bf_packed, ctx_words, kmap_keys, state, ctx_packed, counters,
 
 
 def callstep(bf_packed, ctx_words, kmap_keys, state, ctx_packed, counters, *,
-             k: int, ref_k: int, size_bits: int, n_buckets: int, minifilter: bool) -> None:
+             k: int, ref_k: int, size_bits: int, n_buckets: int, minifilter: bool,
+             events=None) -> None:
     """K1: one call step over (B, wc) packed canonical contexts and their
     (B,) counters, updating ``state`` in place.  All arrays are int32
     storage; ``bf_packed`` is (W, 2) [word, rank | mini-filter << 28]."""
@@ -177,8 +203,71 @@ def callstep(bf_packed, ctx_words, kmap_keys, state, ctx_packed, counters, *,
     counts_len = state.shape[0] - n_buckets * SLOTS
     _launch("malva_callstep", state.device, ctx_packed.data_ptr(), counters.data_ptr(), B, wc,
             k, ref_k, bf_packed.data_ptr(), ctx_words.data_ptr(), kmap_keys.data_ptr(),
-            state.data_ptr(), counts_len, n_buckets, size_bits, int(minifilter))
+            state.data_ptr(), counts_len, n_buckets, size_bits, int(minifilter), events=events)
     LAUNCHES["callstep"] += 1
+
+
+# -- K4: owner side of the routed sharded call step ----------------------------
+
+
+def shard_update_plain(bf_packed, kmap_keys, state, ctx_packed, counters, known, *, k: int,
+                       ref_k: int, size_bits: int, n_buckets: int, word_base: int,
+                       counts_len: int) -> None:
+    """Plain K4 over one shard, updating ``state`` in place.
+
+    ``bf_packed`` is the shard's (W/S, 2) [word, local rank] rows for
+    global words ``word_base ..``, ``kmap_keys`` its (n_buckets, SLOTS *
+    w_k) bucket table and ``state`` its ``[bf_counts (counts_len) |
+    kmap_vals]``.  Each lane (packed context, counter, ``known``: its
+    context is in the context filter) adds its counter to the rank counter
+    of its centre's Bloom bit when that bit is set and the context is not
+    known, and to the exact-map slot of its centre when there is one
+    (malva_tpu/parallel/sharded_index.py:398-424).  Lanes whose Bloom word
+    lies outside the shard are no-ops."""
+    words = [lanes(ctx_packed[:, j]) for j in range(ctx_packed.shape[1])]
+    can = canonical_center(words, k, ref_k)
+    c_hi, c_lo = xxh3_64_cols(decode_byte_cols(can, k))
+    bw, bb = xxh3_mod_size(c_hi, c_lo, size_bits)
+    lw = bw - word_base
+    mine = (lw >= 0) & (lw < bf_packed.shape[0])
+    row = lanes(bf_packed[torch.where(mine, lw, 0)])
+    word, rank = row[:, 0], row[:, 1]
+    is_set = ((word >> bb) & 1).bool()
+    cnt_idx = rank + popcount32(word & ((1 << bb) - 1))
+    scatter_add_u32(state, cnt_idx, counters, mine & is_set & ~known)
+    from ..index.kmap_table import probe_bucket_table
+
+    slot, found = probe_bucket_table(kmap_keys, n_buckets, (k + 15) // 16, can, c_hi, c_lo)
+    scatter_add_u32(state, counts_len + slot, counters, mine & found)
+
+
+def shard_update(bf_packed, kmap_keys, state, ctx_packed, counters, known, *, k: int,
+                 ref_k: int, size_bits: int, n_buckets: int, word_base: int, counts_len: int,
+                 events=None) -> None:
+    """K4: the owner-side update of routed lanes on one shard; same
+    effect as :func:`shard_update_plain`.  ``known`` is a bool tensor."""
+    args = (bf_packed, kmap_keys, state, ctx_packed, counters, known)
+    kw = dict(k=k, ref_k=ref_k, size_bits=size_bits, n_buckets=n_buckets, word_base=word_base,
+              counts_len=counts_len)
+    if not _on_cuda(*args):
+        return shard_update_plain(*args, **kw)
+    for t, name in zip(args[:5], ("bf_packed", "kmap_keys", "state", "ctx_packed", "counters")):
+        _check(t, torch.int32, name)
+    _check(known, torch.bool, "known")
+    _check_lengths(k, ref_k)
+    check_bloom_size(size_bits)
+    B, wc = ctx_packed.shape
+    if (wc != (ref_k + 15) // 16 or counters.shape != (B,) or known.shape != (B,)
+            or bf_packed.dim() != 2 or bf_packed.shape[1] != 2
+            or kmap_keys.shape != (n_buckets, SLOTS * ((k + 15) // 16))
+            or state.shape != (counts_len + n_buckets * SLOTS,)):
+        raise ValueError("shard_update: array shapes do not match k, ref_k, n_buckets and "
+                         "counts_len")
+    _launch("malva_shard_update", state.device, ctx_packed.data_ptr(), counters.data_ptr(),
+            known.data_ptr(), B, wc, k, ref_k, bf_packed.data_ptr(), word_base,
+            bf_packed.shape[0], kmap_keys.data_ptr(), state.data_ptr(), counts_len, n_buckets,
+            size_bits, events=events)
+    LAUNCHES["shard_update"] += 1
 
 
 # -- K2: reference context scan ----------------------------------------------

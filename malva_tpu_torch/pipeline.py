@@ -6,7 +6,12 @@ signature extraction, the host Bloom/exact-map build, the host counter,
 the host apply, coverage, genotyping and VCF output.  What differs is
 the device branches: the context scan (K2) in :func:`build_index`, the
 sample sort-count (K3, ``count/``) and the call step (K1) in
-:func:`call` and :func:`call_batch`.
+:func:`call` and :func:`call_batch`.  Where the work routes to a mesh
+(``backend.mesh_for``: several cards, or an explicit ``mesh=``), the
+context scan and the call step run sharded over it
+(``parallel/sharded_index.py``: K2 hash-only, K1 hash-only and K4), as
+``malva_tpu`` routes through ``_call_mesh``; the sample counting then
+runs on the mesh's first device.
 
 ``malva_tpu``'s own ``build_index``, ``call``, ``call_batch`` and
 ``_sample_kmers`` load jax for any backend but ``host``, so they are
@@ -49,7 +54,7 @@ from malva_tpu.pipeline import (
 from malva_tpu.utils.config import Config
 from malva_tpu.utils.timing import PhaseTimer
 
-from .backend import device_for
+from .backend import device_for, mesh_for
 from .count.counter import count_reads_kmers
 from .index.device import (
     DeviceIndex,
@@ -58,13 +63,40 @@ from .index.device import (
     build_context_device,
     log_step_rate,
 )
+from .parallel.sharded_index import (
+    apply_sample_counts_sharded_stream,
+    build_context_sharded,
+    log_sharded_step,
+    shard_index_routed,
+)
 
 TAG = "malva-tpu-torch"
 
 
-def build_index(cfg: Config, timer: PhaseTimer | None = None, device=None) -> Index:
+def _route(cfg: Config, work: int | None, floor: int, device=None, mesh=None):
+    """``(mesh, None)`` for the sharded device path, ``(None, device)``
+    for one torch device, ``(None, None)`` for the host.  An explicit
+    ``mesh`` or ``device`` is taken as given; with neither, the backend
+    and the work size decide (backend.py)."""
+    m = None if mesh is None and device is not None else mesh_for(cfg, work, floor, mesh)
+    return (m, None) if m is not None else (None, device_for(cfg, work, floor, device))
+
+
+def _count_device(device=None, mesh=None):
+    """The explicit device of the sample counting: the mesh's first one."""
+    return mesh[0] if mesh is not None else device
+
+
+def _log_stats(stats: dict | None) -> None:
+    if stats is not None:
+        (log_sharded_step if "shards" in stats else log_step_rate)(stats)
+
+
+def build_index(cfg: Config, timer: PhaseTimer | None = None, device=None,
+                mesh=None) -> Index:
     """malva_tpu.pipeline.build_index with the context scan on a torch
-    device when the backend resolves to one (or ``device`` is given)."""
+    device or sharded over a mesh when the backend resolves to one (or
+    ``device`` or ``mesh`` is given)."""
     timer = timer or PhaseTimer(TAG)
     refs = load_reference(cfg.fasta_path, cfg.strip_chr)
     timer.pelapsed("Reference processed")
@@ -89,9 +121,12 @@ def build_index(cfg: Config, timer: PhaseTimer | None = None, device=None) -> In
 
     index = Index(bf=bf, ref_bf=ref_bf, context_bf=context_bf)
     total_ref = sum(len(refs[n]) for n in set(used_names) if n in refs)
-    dev = device_for(cfg, total_ref, DEVICE_MIN_REF_POSITIONS, device)
-    if dev is not None:
-        refs_used = [refs[n] for n in used_names if n in refs and len(refs[n]) > 0]
+    m, dev = _route(cfg, total_ref, DEVICE_MIN_REF_POSITIONS, device, mesh)
+    refs_used = [refs[n] for n in used_names if n in refs and len(refs[n]) > 0]
+    if m is not None:
+        build_context_sharded(index, refs_used, cfg, m)
+        timer.pelapsed(f"Reference BF creation complete (sharded over {len(m)} shards)")
+    elif dev is not None:
         build_context_device(index, refs_used, cfg, dev)
         timer.pelapsed(f"Reference BF creation complete (device {dev})")
     else:
@@ -126,12 +161,13 @@ def _host_context_scan(index: Index, refs, used_names: list[str], cfg: Config) -
 
 
 def call(cfg: Config, index: Index, out=None, timer: PhaseTimer | None = None,
-         device=None) -> dict | None:
+         device=None, mesh=None) -> dict | None:
     """malva_tpu.pipeline.call with the sample counting and the call step
-    on a torch device where each routes to one (or ``device`` is given).
-    Covers the spill stream, the KMC stream and the in-RAM path.  Returns
-    the call step's stats (index/device.py) when the device path ran,
-    else None."""
+    on a torch device, or the call step sharded over a mesh, where each
+    routes there (or ``device`` or ``mesh`` is given).  Covers the spill
+    stream, the KMC stream and the in-RAM path.  Returns the call step's
+    stats (index/device.py, parallel/sharded_index.py) when a device path
+    ran, else None."""
     out = out if out is not None else sys.stdout
     timer = timer or PhaseTimer(TAG)
     refs = load_reference(cfg.fasta_path, cfg.strip_chr)
@@ -144,9 +180,12 @@ def call(cfg: Config, index: Index, out=None, timer: PhaseTimer | None = None,
     if cfg.spill_dir and not (cfg.from_kmc_dump or cfg.from_kmc_db):
         from .count.spill import count_reads_kmers_spill
 
-        dev = device_for(cfg, _file_size(cfg.sample_path), DEVICE_MIN_READ_BYTES, device)
-        batches = count_reads_kmers_spill(cfg.sample_path, cfg.ref_k, cfg.spill_dir, device=dev)
-        if dev is not None:
+        m, dev = _route(cfg, _file_size(cfg.sample_path), DEVICE_MIN_READ_BYTES, device, mesh)
+        batches = count_reads_kmers_spill(cfg.sample_path, cfg.ref_k, cfg.spill_dir,
+                                          device=m[0] if m is not None else dev)
+        if m is not None:
+            stats = apply_sample_counts_sharded_stream(index, _prefetch(batches), cfg, m)
+        elif dev is not None:
             stats = apply_sample_counts_stream(index, _prefetch(batches), cfg, dev)
         else:
             for keys, cnts in _prefetch(batches):
@@ -154,19 +193,20 @@ def call(cfg: Config, index: Index, out=None, timer: PhaseTimer | None = None,
         timer.pelapsed("Sample k-mer counting + BF weights (spill)")
     elif cfg.from_kmc_dump or cfg.from_kmc_db:
         stats = _apply_kmc_stream(cfg, index, cfg.sample_path,
-                                  _kmc_target(cfg, cfg.sample_path, device))
+                                  *_kmc_route(cfg, cfg.sample_path, device, mesh))
         timer.pelapsed("Sample k-mer stream + BF weights")
     else:
-        contexts, counts = _sample_kmers(cfg, cfg.sample_path, device)
+        contexts, counts = _sample_kmers(cfg, cfg.sample_path, _count_device(device, mesh))
         timer.pelapsed("Sample k-mer counting")
-        dev = device_for(cfg, contexts.shape[0], DEVICE_MIN_KMERS, device)
-        if dev is not None:
+        m, dev = _route(cfg, contexts.shape[0], DEVICE_MIN_KMERS, device, mesh)
+        if m is not None:
+            stats = apply_sample_counts_sharded_stream(index, [(contexts, counts)], cfg, m)
+        elif dev is not None:
             stats = apply_sample_counts_device(index, contexts, counts, cfg, dev)
         else:
             apply_sample_counts(index, contexts, counts, cfg)
         timer.pelapsed("BF weights created")
-    if stats is not None:
-        log_step_rate(stats)
+    _log_stats(stats)
 
     _genotype_and_emit(cfg, index, refs, out, timer, batches=pass2)
     return stats
@@ -194,18 +234,21 @@ def _sample_kmers(cfg: Config, path: str, device=None):
     return count_reads_kmers(path, cfg.ref_k, device=dev, return_packed=True)
 
 
-def _kmc_target(cfg: Config, path: str, device=None):
-    """The torch device an external KMC artifact's call step runs on, or
-    None for the host apply (routed by its estimated k-mer count)."""
-    return device_for(cfg, _kmc_est_kmers(cfg, path), DEVICE_MIN_KMERS, device)
+def _kmc_route(cfg: Config, path: str, device=None, mesh=None):
+    """(mesh, device) of an external KMC artifact's call step, routed by
+    its estimated k-mer count (see :func:`_route`)."""
+    return _route(cfg, _kmc_est_kmers(cfg, path), DEVICE_MIN_KMERS, device, mesh)
 
 
-def _apply_kmc_stream(cfg: Config, index: Index, path: str, target,
-                      dev: DeviceIndex | None = None) -> dict | None:
-    """Stream an external KMC artifact through the call step on
-    ``target`` (reusing ``dev`` when given), or through the host apply
-    when ``target`` is None; the step's stats, or None on the host."""
+def _apply_kmc_stream(cfg: Config, index: Index, path: str, mesh, target,
+                      dev: DeviceIndex | None = None, sharded=None) -> dict | None:
+    """Stream an external KMC artifact through the call step sharded over
+    ``mesh`` (reusing ``sharded`` when given), on ``target`` (reusing
+    ``dev``), or through the host apply when both are None; the step's
+    stats, or None on the host."""
     batches = _kmc_batches(cfg, path)
+    if mesh is not None:
+        return apply_sample_counts_sharded_stream(index, batches, cfg, mesh, sharded=sharded)
     if target is not None:
         return apply_sample_counts_stream(index, batches, cfg, target, dev=dev)
     for contexts, counts in batches:
@@ -214,44 +257,51 @@ def _apply_kmc_stream(cfg: Config, index: Index, path: str, target,
 
 
 def call_batch(cfg: Config, index: Index, sample_paths: list[str], outs: list,
-               timer: PhaseTimer | None = None, device=None) -> None:
-    """malva_tpu.pipeline.call_batch on one torch device: N read sets
-    against one index, one VCF to each of ``outs``.
+               timer: PhaseTimer | None = None, device=None, mesh=None) -> None:
+    """malva_tpu.pipeline.call_batch on one torch device or a mesh: N read
+    sets against one index, one VCF to each of ``outs``.
 
     Phase A counts each sample (on the device where it routes there) and
     runs its call step into a per-sample counter plane; the device index
-    is uploaded once, at the first sample that routes to the device, and
-    each later sample restarts it from the zeroed host counters.  Phase B
-    makes one pass over the VCF and answers every sample from its plane
-    (malva_tpu's host helpers, unchanged).  The index's counter state is
-    unspecified after this returns."""
+    (or the sharded index, on a mesh) is uploaded once, at the first
+    sample that routes there, and each later sample restarts it from the
+    zeroed host counters.  Phase B makes one pass over the VCF and answers
+    every sample from its plane (malva_tpu's host helpers, unchanged).
+    The index's counter state is unspecified after this returns."""
     timer = timer or PhaseTimer(TAG)
     refs = load_reference(cfg.fasta_path, cfg.strip_chr)
     timer.pelapsed("Reference processed")
 
-    dev = None
+    dev = sharded = None
     planes: list[tuple[np.ndarray, np.ndarray]] = []
     for sample_path in sample_paths:
         _reset_counters(index)
         kmc = cfg.from_kmc_dump or cfg.from_kmc_db
         if kmc:
-            target = _kmc_target(cfg, sample_path, device)
+            m, target = _kmc_route(cfg, sample_path, device, mesh)
         else:
-            contexts, counts = _sample_kmers(cfg, sample_path, device)
-            target = device_for(cfg, contexts.shape[0], DEVICE_MIN_KMERS, device)
+            contexts, counts = _sample_kmers(cfg, sample_path, _count_device(device, mesh))
+            m, target = _route(cfg, contexts.shape[0], DEVICE_MIN_KMERS, device, mesh)
+        if m is not None and sharded is None:
+            sharded = shard_index_routed(index, cfg, m)
+            print(f"[{TAG}] sharded index uploaded to {len(m)} shards once for "
+                  f"{len(sample_paths)} samples", file=sys.stderr)
         if target is not None and dev is None:
             dev = DeviceIndex.from_host(index, cfg, target)
             print(f"[{TAG}] device index uploaded to {target} once for "
                   f"{len(sample_paths)} samples", file=sys.stderr)
         if kmc:
-            stats = _apply_kmc_stream(cfg, index, sample_path, target, dev=dev)
+            stats = _apply_kmc_stream(cfg, index, sample_path, m, target, dev=dev,
+                                      sharded=sharded)
+        elif m is not None:
+            stats = apply_sample_counts_sharded_stream(index, [(contexts, counts)], cfg, m,
+                                                       sharded=sharded)
         elif target is not None:
             stats = apply_sample_counts_device(index, contexts, counts, cfg, target, dev=dev)
         else:
             stats = None
             apply_sample_counts(index, contexts, counts, cfg)
-        if stats is not None:
-            log_step_rate(stats)
+        _log_stats(stats)
         planes.append((index.bf.counts.astype(np.uint16),  # truncation == mod 2^16
                        index.ref_bf.snapshot_values()))
         timer.pelapsed(f"Counters ready: {sample_path}")

@@ -50,6 +50,18 @@ g1, g2, gq = make_genotype_fn(3, False, 0.001, 200, "cpu")(
     torch.tensor([2], dtype=torch.int32))
 assert (int(g1), int(g2)) == (0, 1)
 
+# the mesh path on four virtual CPU shards, and graft_entry's entry points
+from malva_tpu_torch.graft_entry import dryrun_multichip, entry
+
+mesh = [torch.device("cpu")] * 4
+index = pipeline.build_index(cfg, mesh=mesh)
+out = io.StringIO()
+stats = pipeline.call(cfg, index, out, mesh=mesh)
+assert stats["shards"] == 4 and out.getvalue() == open(sys.argv[2]).read()
+dryrun_multichip(4, mesh)
+step, args = entry()
+step(*args)
+
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not loaded, loaded
 print("NO-JAX-OK")

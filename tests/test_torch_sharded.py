@@ -1,0 +1,375 @@
+"""The port's sharded index over virtual CPU shards, against the JAX package.
+
+The JAX side runs on the 8-device virtual CPU mesh of tests/conftest.py;
+the port's mesh repeats the CPU device (``[cpu] * S``), so its kernels run
+their plain versions.  Integer hashes, keys and counters are exact, so
+the tolerance is zero throughout.
+"""
+
+import io
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from malva_tpu.ops.seq import canonical
+from malva_tpu.pipeline import apply_sample_counts
+from malva_tpu.utils.config import Config
+from malva_tpu_torch import pipeline as tp
+from malva_tpu_torch.parallel.mesh import make_mesh
+from malva_tpu_torch.parallel.sharded_index import (
+    apply_sample_counts_sharded,
+    build_context_sharded,
+    shard_index_routed,
+)
+from test_sharded import _index
+
+CPU = torch.device("cpu")
+D = os.path.join(os.path.dirname(__file__), "data", "diploid")
+ALPHA = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+def _cfg():
+    return Config(k=35, ref_k=43, bf_size=1 << 20)
+
+
+def _contexts(keys, seed=42, n=3000):
+    alt, ref, ctxk = keys
+    rng = np.random.default_rng(seed)
+    contexts = ALPHA[rng.integers(0, 4, size=(n, 43))]
+    contexts[:300, 4:39] = alt[:300]
+    contexts[300:600, 4:39] = ref[:300]
+    contexts[600:900] = ctxk[:300]
+    return canonical(contexts), rng.integers(1, 255, size=n).astype(np.uint32)
+
+
+@pytest.mark.parametrize("n_shards", [2, 8])
+def test_routed_step_matches_jax_and_host(n_shards):
+    """bf.counts and the exact map after the port's routed step equal
+    JAX's routed step on its 8-device CPU mesh and the host apply."""
+    from malva_tpu.parallel.mesh import make_mesh as jax_mesh
+    from malva_tpu.parallel.sharded_index import apply_sample_counts_sharded as jax_apply
+
+    cfg = _cfg()
+    host_idx, keys = _index(cfg)
+    jax_idx, _ = _index(cfg)
+    port_idx, _ = _index(cfg)
+    contexts, counters = _contexts(keys)
+
+    apply_sample_counts(host_idx, contexts, counters, cfg)
+    jax_apply(jax_idx, contexts, counters, cfg, jax_mesh(n_shards), batch=1024, routed=True)
+    stats = apply_sample_counts_sharded(port_idx, contexts, counters, cfg, [CPU] * n_shards,
+                                        batch=1024)
+    assert stats["steps"] == 3 and sum(stats["hop2_rows"]) == contexts.shape[0]
+    assert host_idx.bf.counts.any()
+    for other in (jax_idx, host_idx):
+        np.testing.assert_array_equal(port_idx.bf.counts, np.asarray(other.bf.counts))
+        assert port_idx.ref_bf.kmers == other.ref_bf.kmers
+
+
+def test_skewed_input_all_to_one_shard():
+    """Every lane routed to one shard (identical contexts; JAX's capacity
+    overflow case, test_sharded.py:63): no capacity, same state as the
+    host apply."""
+    cfg = _cfg()
+    host_idx, (alt, _, _) = _index(cfg)
+    port_idx, _ = _index(cfg)
+    one = ALPHA[np.random.default_rng(7).integers(0, 4, size=(1, 43))]
+    one[:, 4:39] = alt[:1]
+    contexts = np.repeat(canonical(one), 2048, axis=0)
+    counters = np.ones(2048, np.uint32)
+    apply_sample_counts(host_idx, contexts, counters, cfg)
+    stats = apply_sample_counts_sharded(port_idx, contexts, counters, cfg, [CPU] * 8,
+                                        batch=2048)
+    assert sorted(stats["hop2_rows"])[-2:] == [0, 2048]
+    np.testing.assert_array_equal(host_idx.bf.counts, port_idx.bf.counts)
+    assert host_idx.ref_bf.kmers == port_idx.ref_bf.kmers
+    assert port_idx.bf.counts.max() == 2048
+
+
+@pytest.mark.parametrize("n_shards", [2, 8])
+def test_routed_arrays_match_jax(n_shards):
+    """The routed layout the port builds on its shards equals JAX's
+    shard_index_routed array for array and bucket for bucket; the same state
+    carried across through convert.py places shard s on mesh[s] as the
+    port's own build does."""
+    from malva_tpu.parallel.sharded_index import shard_index_routed as jax_shard
+
+    from malva_tpu_torch.convert import sharded_index_from_arrays
+    from malva_tpu_torch.ops.bloom import to_u32
+
+    cfg = _cfg()
+    index, _ = _index(cfg, seed=3)
+    own = shard_index_routed(index, cfg, [CPU] * n_shards)
+    st = jax_shard(index, cfg, n_shards)
+    jax_arrays = {n: np.asarray(getattr(st, n)) for n in
+                  ("bf_packed", "bf_counts", "ctx_words", "kmap_keys", "kmap_vals")}
+    assert own.counts_len == st.counts_len and own.nbs == st.nbs
+    assert own.cmax == jax_arrays["bf_counts"].shape[1]
+    assert len(own.tables) == len(st.tables) == n_shards
+    for s, sh in enumerate(own.shards):
+        for name in ("bf_packed", "ctx_words", "kmap_keys"):
+            np.testing.assert_array_equal(to_u32(getattr(sh, name)), jax_arrays[name][s],
+                                          err_msg=name)
+        np.testing.assert_array_equal(
+            to_u32(sh.state), np.concatenate([jax_arrays["bf_counts"][s],
+                                              jax_arrays["kmap_vals"][s]]))
+    assert jax_arrays["bf_packed"][:, :, 1].any() and jax_arrays["kmap_keys"].any()
+
+    jax_arrays.update(counts_len=st.counts_len, nbs=st.nbs, size_bits=st.size_bits,
+                      k=cfg.k, ref_k=cfg.ref_k)
+    carried = sharded_index_from_arrays(jax_arrays, [CPU] * n_shards, st.tables)
+    for a, b in zip(carried.shards, own.shards):
+        for name in ("bf_packed", "ctx_words", "kmap_keys", "state"):
+            np.testing.assert_array_equal(to_u32(getattr(a, name)), to_u32(getattr(b, name)))
+    with pytest.raises(KeyError):
+        sharded_index_from_arrays({"bf_packed": jax_arrays["bf_packed"]}, [CPU] * n_shards)
+
+
+def test_carried_jax_state_steps_like_host():
+    """A routed step over JAX's state (carried through convert.py) and
+    written back with JAX's tables gives the host apply's counters."""
+    from malva_tpu.parallel.sharded_index import shard_index_routed as jax_shard
+
+    from malva_tpu_torch.convert import sharded_index_from_arrays
+    from malva_tpu_torch.parallel.sharded_index import ShardedCallSession
+    from malva_tpu.index.device import pack2bit_u32_np
+
+    cfg = _cfg()
+    host_idx, keys = _index(cfg)
+    port_idx, _ = _index(cfg)
+    contexts, counters = _contexts(keys, seed=9, n=1500)
+    st = jax_shard(port_idx, cfg, 4)
+    arrays = {n: np.asarray(getattr(st, n)) for n in
+              ("bf_packed", "bf_counts", "ctx_words", "kmap_keys", "kmap_vals")}
+    arrays.update(counts_len=st.counts_len, nbs=st.nbs, size_bits=st.size_bits, k=35, ref_k=43)
+    sharded = sharded_index_from_arrays(arrays, [CPU] * 4, st.tables)
+    sess = ShardedCallSession(port_idx, cfg, [CPU] * 4, sharded=sharded)
+    sess.step(pack2bit_u32_np(contexts, 43), counters)
+    sess.finish()
+    apply_sample_counts(host_idx, contexts, counters, cfg)
+    np.testing.assert_array_equal(host_idx.bf.counts, port_idx.bf.counts)
+    assert host_idx.ref_bf.kmers == port_idx.ref_bf.kmers
+
+
+def test_shard_update_plain_one_shard_is_callstep():
+    """At S = 1 one shard owns every word and its local rank is the global
+    rank: K4's plain version equals K1's with the mini-filter off."""
+    from malva_tpu.index.device import pack2bit_u32_np
+
+    from malva_tpu_torch.index.device import DeviceIndex
+    from malva_tpu_torch.ops import kernels
+    from malva_tpu_torch.ops.bloom import from_u32, lanes, to_u32
+    from malva_tpu_torch.ops.xxh3 import xxh3_mod_size
+
+    cfg = _cfg()
+    index, keys = _index(cfg, seed=2)
+    contexts, counters = _contexts(keys, seed=5, n=1200)
+    ctx = from_u32(pack2bit_u32_np(contexts, 43), CPU)
+    cnt = from_u32(counters, CPU)
+
+    dev = DeviceIndex.from_host(index, cfg, CPU)
+    dev.bf_packed[:, 1] = dev.bf_packed[:, 1] & ((1 << 28) - 1)  # the rank without the filter
+    st_k1 = dev.state()
+    kernels.callstep_plain(dev.bf_packed, dev.ctx_words, dev.kmap_keys, st_k1, ctx, cnt, k=35,
+                           ref_k=43, size_bits=cfg.bf_size, n_buckets=dev.n_buckets,
+                           minifilter=False)
+
+    sh = shard_index_routed(index, cfg, [CPU]).shards[0]
+    x_hi, x_lo = kernels.callstep_hash_plain(ctx, 35, 43, with_ctx=True)[:2]
+    cw, cb = xxh3_mod_size(x_hi, x_lo, cfg.bf_size)
+    known = ((lanes(sh.ctx_words[cw]) >> cb) & 1).bool()
+    st_k4 = sh.state.clone()
+    kernels.shard_update_plain(sh.bf_packed, sh.kmap_keys, st_k4, ctx, cnt, known, k=35,
+                               ref_k=43, size_bits=cfg.bf_size, n_buckets=sh.kmap_keys.shape[0],
+                               word_base=0, counts_len=st_k4.shape[0] - sh.kmap_keys.shape[0] * 4)
+    n = index.bf.counts.shape[0]
+    np.testing.assert_array_equal(to_u32(st_k4[:n]), to_u32(st_k1[:n]))
+    assert to_u32(st_k1[:n]).any()
+    # the exact maps hold the same keys in other slots: compare per key
+    one = shard_index_routed(index, cfg, [CPU])
+    one.shards[0].state = st_k4
+    a, b = dict(index.ref_bf.kmers), dict(index.ref_bf.kmers)
+    one.tables[0].write_back(to_u32(st_k4[one.cmax :]), a)
+    dev.table.write_back(to_u32(st_k1[n:]), b)
+    assert a == b and any(a.values())
+
+
+def test_shard_update_ignores_lanes_of_other_shards():
+    """A lane whose Bloom word another shard owns changes nothing."""
+    from malva_tpu.index.device import pack2bit_u32_np
+
+    from malva_tpu_torch.ops import kernels
+    from malva_tpu_torch.ops.bloom import from_u32
+
+    cfg = _cfg()
+    index, keys = _index(cfg, seed=2)
+    contexts, counters = _contexts(keys, seed=6, n=1000)
+    sharded = shard_index_routed(index, cfg, [CPU] * 4)
+    sh = sharded.shards[3]
+    before = sh.state.clone()
+    kernels.shard_update(sh.bf_packed, sh.kmap_keys, sh.state,
+                         from_u32(pack2bit_u32_np(contexts, 43), CPU), from_u32(counters, CPU),
+                         torch.zeros(1000, dtype=torch.bool), k=35, ref_k=43,
+                         size_bits=cfg.bf_size, n_buckets=sharded.nbs, word_base=1 << 20,
+                         counts_len=sharded.cmax)
+    assert torch.equal(before, sh.state)
+
+
+@pytest.mark.parametrize("n_shards", [2, 8])
+def test_sharded_ref_scan_matches_jax_and_host(n_shards):
+    """The sharded context scan (N bytes, a 37-base contig, slices smaller
+    than a contig) equals JAX's build_context_sharded and the host scan."""
+    import jax
+
+    from malva_tpu.parallel.mesh import make_mesh as jax_mesh
+    from malva_tpu.parallel.sharded_index import build_context_sharded as jax_scan
+
+    cfg = _cfg()
+    rng = np.random.default_rng(21)
+    alpha = np.frombuffer(b"ACGTN", dtype=np.uint8)
+    refs = [alpha[rng.integers(0, 5, size=n)] for n in (4000, 37, 700)]
+    idx = [_index(cfg, seed=5)[0] for _ in range(3)]
+    for ref in refs:
+        for start in (10, 150, 800):
+            if start + 39 <= len(ref):
+                for ix in idx:
+                    ix.bf.add_keys(ref[start + 4 : start + 39][None, :])
+    host_idx, jax_idx, port_idx = idx
+
+    off = cfg.center_off
+    for ref in refs:
+        if len(ref) < cfg.ref_k:
+            if len(ref) > off and host_idx.bf.test_keys(ref[off : off + cfg.k][None, :])[0]:
+                host_idx.context_bf.add_keys(ref[: cfg.ref_k][None, :])
+            continue
+        windows = np.lib.stride_tricks.sliding_window_view(ref, cfg.ref_k)
+        hits = host_idx.bf.test_keys(np.ascontiguousarray(windows[:, off : off + cfg.k]))
+        host_idx.context_bf.add_keys(np.ascontiguousarray(windows[hits]))
+
+    jax_scan(jax_idx, refs, cfg, jax_mesh(min(n_shards, len(jax.devices()))), slice_chunk=256)
+    build_context_sharded(port_idx, refs, cfg, [CPU] * n_shards, slice_chunk=256)
+    assert host_idx.context_bf.words.any()
+    np.testing.assert_array_equal(port_idx.context_bf.words, host_idx.context_bf.words)
+    np.testing.assert_array_equal(port_idx.context_bf.words, jax_idx.context_bf.words)
+
+
+def _diploid(**kw):
+    return Config(fasta_path=os.path.join(D, "ref.fa"), vcf_path=os.path.join(D, "vars.vcf"),
+                  sample_path=os.path.join(D, "reads.fa"), bf_size=1 << 20, backend="cuda", **kw)
+
+
+def _golden():
+    return open(os.path.join(D, "golden.vcf")).read()
+
+
+@pytest.mark.parametrize("branch", ["in_ram", "spill", "kmc_dump"])
+def test_pipeline_on_cpu_mesh_matches_golden(branch, tmp_path, capfd):
+    """build_index + call with a 4-shard CPU mesh reproduce golden.vcf in
+    each branch of call: in RAM, the spill stream and a KMC dump of the
+    same reads (test_e2e_multichip.py's analogue)."""
+    from malva_tpu_torch.count.counter import count_reads_kmers
+
+    kw = {}
+    if branch == "spill":
+        kw["spill_dir"] = str(tmp_path / "spill")
+    cfg = _diploid(**kw)
+    if branch == "kmc_dump":
+        keys, counts = count_reads_kmers(cfg.sample_path, 43)
+        dump = tmp_path / "reads.kmc.txt"
+        dump.write_text("".join(f"{k.tobytes().decode()}\t{c}\n" for k, c in zip(keys, counts)))
+        cfg.sample_path, cfg.from_kmc_dump = str(dump), True
+    mesh = make_mesh(devices=[CPU] * 4)
+    index = tp.build_index(cfg, mesh=mesh)
+    out = io.StringIO()
+    stats = tp.call(cfg, index, out, mesh=mesh)
+    assert out.getvalue() == _golden()
+    assert stats["shards"] == 4 and stats["rows"] > 5000
+    err = capfd.readouterr().err
+    assert "sharded context scan" in err and "sharded call step" in err
+
+
+def test_call_batch_on_cpu_mesh_matches_golden(capfd):
+    """call_batch with a 4-shard CPU mesh: each sample equals golden.vcf,
+    and the sharded index is placed once."""
+    cfg = _diploid()
+    mesh = [CPU] * 4
+    index = tp.build_index(cfg, mesh=mesh)
+    outs = [io.StringIO(), io.StringIO()]
+    tp.call_batch(cfg, index, [cfg.sample_path] * 2, outs, mesh=mesh)
+    assert [o.getvalue() for o in outs] == [_golden()] * 2
+    assert capfd.readouterr().err.count("sharded index uploaded") == 1
+
+
+def test_dryrun_multichip_on_cpu_mesh(capfd):
+    from malva_tpu_torch.graft_entry import dryrun_multichip
+
+    dryrun_multichip(4, [CPU] * 4)
+    err = capfd.readouterr().err
+    assert "[dryrun_multichip] ok: 4-shard mesh" in err
+    routed = re.search(r"hits routed to their context-word owners \[([0-9, ]+)\]", err)
+    assert sum(int(n) for n in routed.group(1).split(",")) > 0
+
+
+def test_entry_matches_jax_entry():
+    """entry()'s step and arguments give the state JAX's entry() gives."""
+    import importlib
+
+    from malva_tpu_torch.graft_entry import entry
+    from malva_tpu_torch.ops.bloom import to_u32
+
+    jax_step, jax_args = importlib.import_module("__graft_entry__").entry()
+    want = np.asarray(jax_step(*jax_args))
+    step, args = entry()
+    np.testing.assert_array_equal(to_u32(args[0]), np.asarray(jax_args[1]))
+    step(*args)
+    np.testing.assert_array_equal(to_u32(args[0]), want)
+
+
+def test_mesh_routing(monkeypatch):
+    """mesh_for: all cards where cuda resolves, more than one is present
+    and their count divides the Bloom words; an explicit mesh as given."""
+    from malva_tpu_torch import backend
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    mesh = backend.mesh_for(Config(backend="cuda", bf_size=1 << 33))
+    assert mesh == tuple(torch.device("cuda", i) for i in range(4))
+    assert backend.mesh_for(Config(backend="auto", bf_size=1 << 33), 10, 100) is None
+    assert backend.mesh_for(Config(backend="host", bf_size=1 << 33)) is None
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    assert backend.mesh_for(Config(backend="cuda", bf_size=1 << 33)) is None
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert backend.mesh_for(Config(backend="cuda", bf_size=1 << 33)) is None
+    assert backend.mesh_for(Config(backend="host", bf_size=1 << 20),
+                            mesh=["cpu"] * 4) == (CPU,) * 4
+    with pytest.raises(ValueError):
+        backend.mesh_for(Config(bf_size=1 << 20), mesh=[CPU] * 3)
+    # an explicit device alone keeps the single-device path
+    assert tp._route(Config(backend="cuda", bf_size=1 << 33), 10, 0, device="cpu") == (None, CPU)
+
+
+def test_shard_update_refuses_inputs_on_two_devices():
+    """A shard's kernel takes its inputs from one device of the mesh."""
+    from malva_tpu_torch.ops import kernels
+
+    cpu = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="one CPU or CUDA device"):
+        kernels.shard_update(cpu, cpu, cpu, cpu, cpu, torch.zeros(4, dtype=torch.bool,
+                                                                 device="meta"),
+                             k=35, ref_k=43, size_bits=1 << 20, n_buckets=1, word_base=0,
+                             counts_len=0)
+
+
+def test_make_mesh_and_all_gather_design():
+    assert make_mesh(2, [CPU] * 4) == (CPU, CPU)
+    with pytest.raises(ValueError):
+        make_mesh(4, [CPU] * 2)
+    with pytest.raises(ValueError):
+        make_mesh(devices=[CPU, torch.device("meta")])
+    cfg = _cfg()
+    index, keys = _index(cfg)
+    with pytest.raises(NotImplementedError, match="all-gather"):
+        apply_sample_counts_sharded(index, *_contexts(keys), cfg, [CPU] * 2, routed=False)

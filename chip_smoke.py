@@ -15,9 +15,16 @@
    lowercase and IUPAC bytes; K4 on shard 0 of that index split 4 ways,
    with 2^21 lanes routed to it, a quarter centred on its map keys; K3 on
    a 2^25-window read chunk (reads joined by 0xFF, with N, lowercase and
-   reads shorter than ref_k), and the whole device sort-count step against
-   the host counter's sort-count of the same windows.  Times each with
-   CUDA events.  Then K1 steps of 2^20 lanes timed by the events K1's C
+   reads shorter than ref_k) and on a short ragged chunk at each ref_k of
+   K3_REF_KS (IUPAC codes, palindromes, a length that is not a whole
+   number of tiles, an unaligned start), and the whole device sort-count
+   step against the host counter's sort-count of the same windows.  Times
+   each with CUDA events, beside its bound: the larger of the bytes it
+   must move over the device memory rate and the least integer
+   instructions its function needs (rolling canonical codes, codes to
+   ASCII four bytes at a time, XXH3; the hashes only where this run's
+   Bloom bits are set) over the card's instruction issue rate at its
+   maximum SM clock.  Then K1 steps of 2^20 lanes timed by the events K1's C
    launcher records, quiet and with two Python threads spinning: the busy
    mean must stay within 2x the quiet mean.  Then the f32 genotype model
    on 2^20 seeded variants, on the card and on the CPU.
@@ -80,6 +87,10 @@ SHARDS = 4                   # virtual shards of the one card
 ROUTED = 1 << 21             # K4: lanes routed to one shard
 MIN_RECORDS = 50000          # VCF records the chr-scale run must give
 SYNTH = ["--mbp", "10", "--variants", "100000", "--samples", "50", "--seed", "7"]
+K3_REF_KS = (15, 31, 32, 33, 43, 63, 64, 65, 96)  # K3's short ragged chunks
+K3_TILE = 8192               # csrc/seq_count.cu kTile
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
+ISSUE_LANES_PER_SM = 128     # Hopper: 4 warp instructions issued per SM and clock
 
 
 def log(msg: str) -> None:
@@ -111,18 +122,82 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+def issue_peak() -> float:
+    """Integer instructions per second of the card: SMs x 128 lanes x its
+    maximum SM clock (nvidia-smi).  Each of an SM's four schedulers issues
+    one warp instruction a clock; LOP3, IADD3, SHF and ISETP go to the ALU
+    pipe (64 lanes an SM), IMAD to the FMA pipe (64 more), so no mix of
+    them issues faster.  Counted as 2 flops an FMA, the same rate is the
+    data sheet's 67 TFLOP/s of float32."""
+    import torch
+
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * ISSUE_LANES_PER_SM * mhz * 1e6
+
+
+def xxh3_ops(length: int) -> int:
+    """32-bit integer instructions XXH3_64 needs at the least for 17 <=
+    length <= 128 (csrc/xxh3.cuh), on input already in 32-bit words: 2 *
+    ceil(length / 32) mix16 rounds of 19 (two 64-bit XORs with the secret,
+    the 64 x 64 -> 128-bit product folded to 64 bits, the 64-bit add into
+    the accumulator), 14 for the length seed and the avalanche."""
+    return 19 * 2 * -(-length // 32) + 14
+
+
+def ascii_ops(n: int) -> int:
+    """ASCII words of n bases from their 2-bit codes: two instructions per
+    four bases (a byte of codes picks one word of a 256-word table)."""
+    return 2 * -(-n // 4)
+
+
+def canonical_packed_ops(n: int) -> int:
+    """Canonical form of n packed bases held in registers, 12 per 16-base
+    word: 2 to extract it from the context, 6 for the reverse complement
+    (bit reversal, pair swap, realignment), 3 for the compare and 1 for
+    the select."""
+    return 12 * -(-n // 16)
+
+
+def rolling_ops(n: int) -> int:
+    """One base pushed into the rolling canonical key of an n-base window,
+    and the key read (csrc/lanes.cuh RollingKey): a quarter of
+    base_codes4's 15 for the byte, 4 per 32-bit word and 6 for the push,
+    3 per 32-bit word, 2 per 64-bit word and 2 for the key."""
+    n16, w = -(-n // 16), -(-n // 32)
+    return 4 + 4 * n16 + 6 + 3 * n16 + 2 * w + 2
+
+
+def bloom_hits(hi, lo, words) -> int:
+    """Lanes whose hash (hi, lo, int64 halves) has its bit set in the
+    Bloom words (int32)."""
+    from malva_tpu_torch.ops.xxh3 import xxh3_mod_size
+
+    word, bit = xxh3_mod_size(hi, lo, SIZE_BITS)
+    return int(((words[word].long() >> bit) & 1).sum())
+
+
+def bound(n_bytes: float, n_ops: float, peak_ops: float) -> tuple[float, str]:
+    """(least time in ms, what sets it): the bytes the function must move
+    over the device memory rate, or its integer instructions over the
+    issue rate, whichever is longer."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def synthetic_index(device):
     """A -b 1 index the way bench.py:148-178 builds one: Bloom and context
     words each the AND of N_AND random words, a MAP_KEYS-key exact map of
     canonical 35-mers, and its mini-filter in the rank's top bits."""
     import torch
 
-    from malva_tpu.index.device import pack2bit_u32_np
-    from malva_tpu.index.kmap_table import BucketTable
-    from malva_tpu.ops.seq import canonical
-    from malva_tpu.ops.xxh3 import xxh3_64
-    from malva_tpu_torch.index.device import pack_bloom_rows
+    from malva_tpu_torch.index.device import pack2bit_u32_np, pack_bloom_rows
+    from malva_tpu_torch.index.kmap_table import BucketTable
     from malva_tpu_torch.ops.bloom import from_u32
+    from malva_tpu_torch.ops.seq import canonical
+    from malva_tpu_torch.ops.xxh3 import xxh3_64
 
     gen = torch.Generator(device=device).manual_seed(0)
     W = SIZE_BITS // 32
@@ -161,9 +236,9 @@ def planted_contexts(keys, n_lanes: int, n_plant: int, device):
     from the exact map (canonical contexts, like the counter's)."""
     import torch
 
-    from malva_tpu.index.device import pack2bit_u32_np
-    from malva_tpu.ops.seq import canonical
+    from malva_tpu_torch.index.device import pack2bit_u32_np
     from malva_tpu_torch.ops.bloom import from_u32
+    from malva_tpu_torch.ops.seq import canonical
 
     rng = np.random.default_rng(1)
     gen = torch.Generator(device=device).manual_seed(1)
@@ -195,16 +270,19 @@ def kernel_phase(device) -> list[dict]:
     from malva_tpu_torch.ops.packed import popcount32
 
     results = []
+    peak = issue_peak()
+    log(f"issue rate: {peak:.6g} instructions/s (SMs x {ISSUE_LANES_PER_SM} x max SM clock)")
     ix = synthetic_index(device)
     log(f"synthetic -b 1 index: popcount ~{ix['n_counts']}, {ix['n_buckets']} buckets")
 
     # K1 hash-only at 2^21 lanes, both modes of the TPU kernel
     ctx, counters = planted_contexts(ix["keys"], LANES, 1 << 16, device)
-    for with_ctx in (False, True):
+    for with_ctx in (True, False):
         got = kernels.callstep_hash(ctx, K, REF_K, with_ctx)
         want = kernels.callstep_hash_plain(ctx, K, REF_K, with_ctx)
         max_abs_err(got, want)
-    log("K1 hash-only == plain (with_ctx False and True)")
+    n_set = bloom_hits(got[0], got[1], ix["bf_packed"][:, 0])
+    log(f"K1 hash-only == plain (with_ctx False and True); {n_set} lanes hit the Bloom filter")
 
     # K1 fused step on the -b 1 index
     n_state = ix["n_counts"] + ix["n_buckets"] * 4
@@ -218,8 +296,8 @@ def kernel_phase(device) -> list[dict]:
     torch.cuda.synchronize()
     err1 = max_abs_err([st_k], [st_p])
     kv = st_k[ix["n_counts"]:]
-    log(f"K1 fused == plain: {int((st_k[:ix['n_counts']] != 0).sum())} counters and "
-        f"{int((kv != 0).sum())} map values updated")
+    n_bf, n_map = int((st_k[:ix["n_counts"]] != 0).sum()), int((kv != 0).sum())
+    log(f"K1 fused == plain: {n_bf} counters and {n_map} map values updated")
     if not (st_k[: ix["n_counts"]] != 0).any() or not (kv != 0).any():
         raise AssertionError("K1 check touched no counter or no map value")
     scratch = torch.zeros_like(st_k)
@@ -229,20 +307,32 @@ def kernel_phase(device) -> list[dict]:
                                                       ix["kmap_keys"], scratch, ctx, counters,
                                                       **args), iters=3, warmup=1)
     hash_ms = cuda_ms(lambda: kernels.callstep_hash(ctx, K, REF_K, False), iters=20)
-    log(f"K1 fused {ms:.4f} ms, plain {plain_ms:.4f} ms, hash-only {hash_ms:.4f} ms "
-        f"per {LANES} lanes")
+    # per lane: its packed context (12 B) and counter (4 B), its Bloom row
+    # (word and rank, 8 B) and context word (4 B); 8 B read and written per
+    # counter and map value updated.  Per lane the centre's canonical form,
+    # ASCII and hash, and 23 for the Bloom index, bit test, mini-filter,
+    # bucket pair and rank; per lane whose Bloom bit is set the context's
+    # ASCII, hash and filter test.
+    b_ms, b_by = bound(LANES * 28 + (n_bf + n_map) * 8,
+                       LANES * (canonical_packed_ops(K) + ascii_ops(K) + xxh3_ops(K) + 23)
+                       + n_set * (ascii_ops(REF_K) + xxh3_ops(REF_K) + 5), peak)
+    log(f"K1 fused {ms:.4f} ms (bound {b_ms:.4f} ms, {b_by}), plain {plain_ms:.4f} ms, "
+        f"hash-only {hash_ms:.4f} ms per {LANES} lanes")
     results.append({"name": "callstep", "route": "cuda",
                     "source": "malva_tpu_torch/csrc/callstep.cu",
                     "replaces": "malva_tpu/ops/pallas_kernels.py:125",
-                    "max_abs_err": err1, "ms": ms, "plain_ms": plain_ms,
-                    "lanes": LANES, "hash_only_ms": hash_ms})
+                    "max_abs_err": err1, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None, "lanes": LANES,
+                    "bloom_hits": n_set, "hash_only_ms": hash_ms})
     del st_k, st_p, scratch, ctx, counters
 
     # K2 on a 2^20-position chunk with N, lowercase and IUPAC bytes
     seq = reference_chunk(device)
-    max_abs_err(kernels.window_hash(seq, CHUNK, K, REF_K),
-                kernels.window_hash_plain(seq, CHUNK, K, REF_K))
+    c_hi, c_lo, *rest = kernels.window_hash(seq, CHUNK, K, REF_K)
+    max_abs_err([c_hi, c_lo, *rest], kernels.window_hash_plain(seq, CHUNK, K, REF_K))
     bf_words = ix["bf_packed"][:, 0].contiguous()
+    n_hit = bloom_hits(c_hi, c_lo, bf_words)
+    del c_hi, c_lo, rest
     ctx_k = torch.zeros_like(bf_words)
     ctx_p = torch.zeros_like(bf_words)
     kw = dict(k=K, ref_k=REF_K, size_bits=SIZE_BITS)
@@ -256,22 +346,32 @@ def kernel_phase(device) -> list[dict]:
     ms = cuda_ms(lambda: kernels.ref_scan(bf_words, ctx_k, seq, CHUNK, **kw), iters=20)
     plain_ms = cuda_ms(lambda: kernels.ref_scan_plain(bf_words, ctx_p, seq, CHUNK, **kw),
                        iters=3, warmup=1)
-    log(f"K2 scan == plain ({n_bits} context bits); scan {ms:.4f} ms, plain {plain_ms:.4f} ms "
-        f"per {CHUNK} positions")
+    # per position: its byte, its Bloom word (4 B); 8 B read and written per
+    # context bit set.  Per position the centre's canonical form rolled one
+    # base on (every window counted as a pure-ACGT one), its ASCII, hash
+    # and Bloom test; per hit the window's canonical form from its codes,
+    # ASCII, hash and bit set.
+    b_ms, b_by = bound(CHUNK + REF_K - 1 + CHUNK * 4 + n_bits * 8,
+                       CHUNK * (rolling_ops(K) + ascii_ops(K) + xxh3_ops(K) + 8)
+                       + n_hit * (canonical_packed_ops(REF_K) + ascii_ops(REF_K)
+                                  + xxh3_ops(REF_K) + 8), peak)
+    log(f"K2 scan == plain ({n_hit} hits, {n_bits} context bits); scan {ms:.4f} ms "
+        f"(bound {b_ms:.4f} ms, "
+        f"{b_by}), plain {plain_ms:.4f} ms per {CHUNK} positions")
     results.append({"name": "ref_scan", "route": "cuda",
                     "source": "malva_tpu_torch/csrc/ref_scan.cu",
                     "replaces": "malva_tpu/ops/pallas_kernels.py:222",
-                    "max_abs_err": err2, "ms": ms, "plain_ms": plain_ms,
-                    "positions": CHUNK})
+                    "max_abs_err": err2, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None, "positions": CHUNK, "hits": n_hit})
     del bf_words, ctx_k, ctx_p, seq
-    k4 = shard_update_check(ix, device)
+    k4 = shard_update_check(ix, device, peak)
     results[0]["event_probe"] = event_timing_probe(ix, device)
     del ix
-    results += [seq_count_check(device), k4]
+    results += [seq_count_check(device, peak), k4]
     return results
 
 
-def shard_update_check(ix: dict, device) -> dict:
+def shard_update_check(ix: dict, device, peak: float) -> dict:
     """K4 against its plain version on shard 0 of the synthetic -b 1 index
     split SHARDS ways: the shard's [word, local rank] rows (no
     mini-filter), the exact map of the keys whose Bloom word it owns, and
@@ -280,13 +380,11 @@ def shard_update_check(ix: dict, device) -> dict:
     flags."""
     import torch
 
-    from malva_tpu.index.device import pack2bit_u32_np
-    from malva_tpu.index.kmap_table import BucketTable
-    from malva_tpu.ops.xxh3 import xxh3_64
-    from malva_tpu_torch.index.device import pack_bloom_rows
+    from malva_tpu_torch.index.device import pack2bit_u32_np, pack_bloom_rows
+    from malva_tpu_torch.index.kmap_table import BucketTable
     from malva_tpu_torch.ops import kernels
     from malva_tpu_torch.ops.bloom import from_u32
-    from malva_tpu_torch.ops.xxh3 import xxh3_mod_size
+    from malva_tpu_torch.ops.xxh3 import xxh3_64, xxh3_mod_size
 
     wps = SIZE_BITS // 32 // SHARDS
     none = torch.zeros(0, dtype=torch.int64, device=device)
@@ -323,12 +421,18 @@ def shard_update_check(ix: dict, device) -> dict:
                                               **args), iters=20)
     plain_ms = cuda_ms(lambda: kernels.shard_update_plain(rows, kmap_keys, scratch, ctx, counters,
                                                           known, **args), iters=3, warmup=1)
+    # per lane: context (12 B), counter (4 B), "known" flag (1 B), Bloom row
+    # (8 B); 8 B read and written per counter and map value updated.  The
+    # centre's canonical form, ASCII and hash, and 23 as in K1.
+    b_ms, b_by = bound(ROUTED * 25 + (n_bf + n_map) * 8,
+                       ROUTED * (canonical_packed_ops(K) + ascii_ops(K) + xxh3_ops(K) + 23), peak)
     log(f"K4 == plain on shard 0 of {SHARDS} ({n_bf} counters, {n_map} map values updated, "
-        f"{int(mine.sum())} map keys); K4 {ms:.4f} ms, plain {plain_ms:.4f} ms per {ROUTED} "
-        f"routed lanes")
+        f"{int(mine.sum())} map keys); K4 {ms:.4f} ms (bound {b_ms:.4f} ms, {b_by}), plain "
+        f"{plain_ms:.4f} ms per {ROUTED} routed lanes")
     return {"name": "shard_update", "route": "cuda", "source": "malva_tpu_torch/csrc/shard_step.cu",
             "replaces": "malva_tpu/parallel/sharded_index.py:398 (XLA, no Pallas counterpart)",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "lanes": ROUTED}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "lanes": ROUTED}
 
 
 def event_timing_probe(ix: dict, device) -> dict:
@@ -400,13 +504,29 @@ def read_chunk():
     return chunk, reads
 
 
+def ragged_chunk(rng, n_bytes: int, ref_k: int) -> np.ndarray:
+    """n_bytes of reads of ref_k / 2 to 3 ref_k bases joined by 0xFF, with
+    N, IUPAC codes and lowercase bases, and palindromic windows (their two
+    forms equal) planted where ref_k is even."""
+    alpha = np.frombuffer(b"ACGT" * 40 + b"acgtNRY", dtype=np.uint8)
+    chunk = alpha[rng.integers(0, alpha.shape[0], n_bytes)]
+    seps = np.cumsum(rng.integers(ref_k // 2, 3 * ref_k, n_bytes // (ref_k // 2)))
+    chunk[seps[seps < n_bytes]] = 0xFF
+    if ref_k % 2 == 0:
+        half = rng.integers(0, 4, ref_k // 2)
+        pal = np.frombuffer(b"ACGT", dtype=np.uint8)[np.concatenate([half, 3 - half[::-1]])]
+        for at in range(5, n_bytes - 2 * ref_k, 997):
+            chunk[at : at + ref_k] = pal
+    return chunk
+
+
 def host_sorted_counts(reads: list[bytes]):
     """The host counter's sort-count of every pure-ACGT window of the
     reads: native read_kmers + _sorted_counts, or numpy where the native
     library is missing."""
-    from malva_tpu.count.counter import _sorted_counts, _windows_of_read
-    from malva_tpu.ops.seq import canonical, pack_2bit
-    from malva_tpu.utils import native
+    from malva_tpu_torch.count.counter import _sorted_counts, _windows_of_read
+    from malva_tpu_torch.ops.seq import canonical, pack_2bit
+    from malva_tpu_torch.utils import native
 
     packed = native.read_kmers(reads, REF_K)
     if packed is None:
@@ -415,9 +535,36 @@ def host_sorted_counts(reads: list[bytes]):
     return _sorted_counts(packed)
 
 
-def seq_count_check(device) -> dict:
-    """K3 against its plain version, and the device sort-count step
-    against the host counter, on one counter chunk."""
+def seq_pack_ragged(device) -> int:
+    """K3 against its plain version with zero tolerance on a short ragged
+    chunk at each ref_k of K3_REF_KS: n_pos not a multiple of the kernel's
+    tile, the chunk read from an aligned and from an unaligned address.
+    Returns the number of windows checked."""
+    import torch
+
+    from malva_tpu_torch.ops import kernels
+
+    n = 0
+    for ref_k in K3_REF_KS:
+        n_pos = 2 * K3_TILE + 777 + ref_k
+        chunk = torch.from_numpy(ragged_chunk(np.random.default_rng(ref_k), n_pos + ref_k,
+                                              ref_k)).to(device)
+        for seq in (chunk[:-1], chunk[1:]):
+            keys, valid = kernels.seq_pack(seq, n_pos, ref_k)
+            pk, pv = kernels.seq_pack_plain(seq, n_pos, ref_k)
+            torch.cuda.synchronize()
+            max_abs_err([keys >> 32, keys & 0xFFFFFFFF, valid], [pk >> 32, pk & 0xFFFFFFFF, pv])
+            if not 0 < int(valid.sum()) < n_pos:
+                raise AssertionError(f"K3 ragged check at ref_k {ref_k}: {int(valid.sum())} "
+                                     f"valid windows of {n_pos}")
+            n += n_pos
+    return n
+
+
+def seq_count_check(device, peak: float) -> dict:
+    """K3 against its plain version on one counter chunk and on the short
+    ragged chunks, and the device sort-count step against the host
+    counter on the first."""
     import torch
 
     from malva_tpu_torch.count.device_count import (
@@ -436,6 +583,7 @@ def seq_count_check(device) -> dict:
     del keys, valid, pk, pv
     if not 0 < n_valid < WINDOWS:
         raise AssertionError(f"K3 check: {n_valid} valid windows of {WINDOWS}")
+    n_ragged = seq_pack_ragged(device)
 
     step = make_seq_sort_count_step(REF_K, WINDOWS, device)
     got_k, got_c = device_seq_sorted_counts(step, chunk)
@@ -446,13 +594,21 @@ def seq_count_check(device) -> dict:
     ms = cuda_ms(lambda: kernels.seq_pack(seq, WINDOWS, REF_K), iters=20)
     step_ms = cuda_ms(lambda: step(seq, WINDOWS), iters=10)
     plain_ms = cuda_ms(lambda: kernels.seq_pack_plain(seq, WINDOWS, REF_K), iters=3, warmup=1)
-    log(f"K3 == plain ({n_valid} valid windows); step == host sort-count "
-        f"({got_k.shape[0]} distinct keys, {int(got_c.sum())} windows); K3 {ms:.4f} ms, "
-        f"step {step_ms:.4f} ms, plain K3 {plain_ms:.4f} ms per {WINDOWS} windows")
+    # the chunk read once; per window a key of W words and a flag written,
+    # and one rolling step.
+    w = (REF_K + 31) // 32
+    b_ms, b_by = bound(WINDOWS + REF_K - 1 + WINDOWS * (8 * w + 1), WINDOWS * rolling_ops(REF_K),
+                       peak)
+    log(f"K3 == plain ({n_valid} valid windows; and on {n_ragged} windows of short ragged "
+        f"chunks at ref_k {list(K3_REF_KS)}); step == host sort-count ({got_k.shape[0]} "
+        f"distinct keys, {int(got_c.sum())} windows); K3 {ms:.4f} ms against its bound "
+        f"{b_ms:.4f} ms ({b_by}; {b_ms / ms:.1%} of the bound), step {step_ms:.4f} ms, plain K3 "
+        f"{plain_ms:.4f} ms per {WINDOWS} windows")
     return {"name": "seq_pack", "route": "cuda", "source": "malva_tpu_torch/csrc/seq_count.cu",
             "replaces": "malva_tpu/count/device_count.py:64 (XLA, no Pallas counterpart)",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "step_ms": step_ms,
-            "windows": WINDOWS, "distinct": int(got_k.shape[0])}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "step_ms": step_ms, "windows": WINDOWS,
+            "ragged_windows": n_ragged, "distinct": int(got_k.shape[0])}
 
 
 def genotype_phase() -> dict:
@@ -606,7 +762,7 @@ def check_launches(name: str, launches: dict, kernels=SINGLE) -> None:
 
 def lib_leg(name: str, fn) -> tuple[str, float]:
     """fn(timer) in this process with stderr kept -> (stderr, wall s)."""
-    from malva_tpu.utils.timing import PhaseTimer
+    from malva_tpu_torch.utils.timing import PhaseTimer
 
     tee = _Tee(sys.stderr)
     t0 = time.perf_counter()
@@ -625,7 +781,6 @@ def sharded_legs(src: str, reads3: str, work: str, run_vcf: bytes, batch_vcfs: d
     have launched."""
     import torch
 
-    from malva_tpu.cli import _config
     from malva_tpu_torch import cli, pipeline
     from malva_tpu_torch.ops import kernels
     from malva_tpu_torch.parallel.mesh import make_mesh
@@ -633,7 +788,7 @@ def sharded_legs(src: str, reads3: str, work: str, run_vcf: bytes, batch_vcfs: d
     fa, vcf, fq = stage(src, work, {n: n for n in ("synth.fa", "synth.vcf", "synth.fq")})
     fq3 = os.path.join(work, "synth3x.fq")
     shutil.copy(reads3, fq3)
-    cfg = _config(cli._parser().parse_args(["run", "--backend", "cuda", "-k", str(K), "-r",
+    cfg = cli._config(cli._parser().parse_args(["run", "--backend", "cuda", "-k", str(K), "-r",
                                             str(REF_K), "-b", "1", "-f", "AF", fa, vcf, fq]))
     mesh = make_mesh(devices=[torch.device("cuda", 0)] * SHARDS)
     out = os.path.join(work, "out.vcf")
@@ -840,26 +995,15 @@ def main_path_phase() -> dict:
 
 
 def ensure_native() -> str:
-    """Build the native host library for this machine and load it: the
-    Makefile's build, or, where the compiler has no OpenMP runtime, the
-    same flags without -fopenmp (its loops then run on one thread; the
-    results are identical).  Without the library the host layers fall back
-    to Python and the chr-scale run is several times slower."""
-    from malva_tpu.utils import native
+    """Build the port's native host library for this machine and load it
+    (``malva_tpu_torch.utils.native``: into ``build/native/``, without
+    -fopenmp where the compiler has no OpenMP runtime).  Without the
+    library the host layers fall back to Python and the chr-scale run is
+    several times slower."""
+    from malva_tpu_torch.utils import native
 
-    nd = os.path.join(REPO, "native")
-    try:
-        if subprocess.run(["make", "-C", nd], capture_output=True).returncode == 0:
-            note = "Makefile build"
-        else:
-            flags = "-O3 -march=native -ffp-contract=off -std=c++17 -fPIC -Wall"
-            r = subprocess.run(["make", "-C", nd, f"CXXFLAGS={flags}"], capture_output=True,
-                               text=True)
-            note = ("built without OpenMP" if r.returncode == 0
-                    else f"build failed: {r.stderr.strip()[-300:]}")
-    except OSError as e:
-        note = f"make not runnable: {e}"
-    return f"{'loaded' if native.load() is not None else 'NOT loaded'} ({note})"
+    lib = native.load()
+    return f"loaded from {lib._name}" if lib is not None else "NOT loaded"
 
 
 def main() -> int:

@@ -13,9 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from malva_tpu.utils.config import Config
-
 from .ops.xxh3 import check_bloom_size
+from .utils.config import Config
 
 BACKENDS = ("auto", "host", "cuda")
 

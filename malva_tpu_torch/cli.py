@@ -1,55 +1,196 @@
 """Command line: ``malva-tpu-torch index | call | run | batch``.
 
-Counterpart of ``malva_tpu/cli.py``, whose parser, config, index
-persistence and overlapped counting producer it reuses.  ``--backend``
-takes ``auto | host | cuda``.  ``run`` starts the producer (``python -m
-malva_tpu.count.spill``, jax-free) only where ``malva_tpu`` would: reads
-that route to the card are counted there, inline, after the index phase.
-The producer gets a host-backend copy of the config, since
-``malva_tpu``'s backend check imports jax for any other backend.
-``--profile-dir`` writes a ``torch.profiler`` trace of the command
-(CPU, and CUDA on a card) into that directory when it ends.
+The port's copy of ``malva_tpu/cli.py``: the same flags, config, index
+persistence and overlapped counting producer.  ``--backend`` takes
+``auto | host | cuda``.  ``run`` starts the producer (``python -m
+malva_tpu_torch.count.spill``, host only) only where ``malva_tpu`` would,
+and not for reads that route to the card, which counts them inline after
+the index phase.  ``--profile-dir`` writes a ``torch.profiler`` trace of
+the command (CPU, and CUDA on a card) into that directory when it ends.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import argparse
 import os
 import sys
 
-from malva_tpu.cli import _config, _finish_count_producer, _parser as _base_parser
-from malva_tpu.cli import _start_count_producer, _try_save_index
-from malva_tpu.pipeline import (
+import numpy as np
+
+from .backend import BACKENDS, resolve
+from .pipeline import (
     DEVICE_MIN_READ_BYTES,
+    TAG,
+    _file_size,
+    build_index,
+    call,
+    call_batch,
     index_matches_config,
     load_index,
     save_index,
     save_index_async,
 )
-from malva_tpu.utils.config import Config
-from malva_tpu.utils.timing import PhaseTimer
-
-from .backend import BACKENDS, resolve
-from .pipeline import TAG, _file_size, build_index, call, call_batch
+from .utils.config import Config
+from .utils.timing import PhaseTimer
 
 
-def _parser():
-    p = _base_parser(TAG)
-    for sub in p._subparsers._group_actions[0].choices.values():
-        for action in sub._actions:
-            if action.dest == "backend":
-                action.choices = BACKENDS
-                action.help = "where the device work runs (auto routes by size)"
-            if action.dest == "profile_dir":
-                action.help = "write a torch.profiler trace into this directory"
+def _parser(prog: str = TAG) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog=prog, add_help=True)
+    sub = p.add_subparsers(dest="cmd", required=True)
+    for name in ("index", "call", "run", "batch"):
+        sp = sub.add_parser(name)
+        sp.add_argument("-k", "--kmer-size", type=int, default=35)
+        sp.add_argument("-r", "--ref-kmer-size", type=int, default=43)
+        sp.add_argument("-e", "--error-rate", type=float, default=0.001)
+        sp.add_argument("-s", "--samples", default="-")
+        sp.add_argument("-f", "--freq-key", default="AF")
+        sp.add_argument("-c", "--max-coverage", type=int, default=200)
+        sp.add_argument("-b", "--bf-size", type=int, default=4, help="bloom filter size in GB")
+        sp.add_argument("-p", "--strip-chr", action="store_true")
+        sp.add_argument("-u", "--uniform", action="store_true")
+        sp.add_argument("-v", "--verbose", action="store_true")
+        sp.add_argument("-1", "--haploid", action="store_true", dest="haploid")
+        sp.add_argument("--from-kmc-dump", action="store_true",
+                        help="treat <sample> as kmc_dump text (KMER<TAB>COUNT)")
+        sp.add_argument("--from-kmc", action="store_true", dest="from_kmc_db",
+                        help="treat <sample> as a KMC database prefix (.kmc_pre/.kmc_suf)")
+        sp.add_argument("--spill-dir", default="",
+                        help="bounded-memory counting: spill distinct k-mers "
+                             "to this directory (kmc -m4 parity; resumable)")
+        sp.add_argument("--backend", default="auto", choices=BACKENDS,
+                        help="where the device work runs (auto routes by size)")
+        sp.add_argument("--malvax", action="store_true",
+                        help="read/write the reference .malvax.zst index format")
+        sp.add_argument("--profile-dir", default=None,
+                        help="write a torch.profiler trace into this directory")
+        sp.add_argument("reference")
+        sp.add_argument("variants")
+        if name == "batch":
+            sp.add_argument("sample", nargs="+", help="reads files, FASTA/FASTQ (.gz ok)")
+            sp.add_argument("-o", "--out-dir", default=".", help="output directory for per-sample VCFs")
+        else:
+            sp.add_argument("sample", help="reads file, FASTA/FASTQ (.gz ok)")
     return p
 
 
+def _config(args: argparse.Namespace) -> Config:
+    sample = args.sample[0] if isinstance(args.sample, list) else args.sample
+    return Config(
+        fasta_path=args.reference,
+        vcf_path=args.variants,
+        sample_path=sample,
+        k=args.kmer_size,
+        ref_k=args.ref_kmer_size,
+        error_rate=np.float32(args.error_rate),
+        samples=args.samples,
+        freq_key=args.freq_key,
+        max_coverage=args.max_coverage,
+        bf_size=Config.bf_gb_to_bits(args.bf_size),
+        strip_chr=args.strip_chr,
+        from_kmc_dump=args.from_kmc_dump,
+        from_kmc_db=args.from_kmc_db,
+        spill_dir=args.spill_dir,
+        backend=args.backend,
+        uniform=args.uniform,
+        verbose=args.verbose,
+        haploid=args.haploid,
+    )
+
+
 def _overlaps_counting(cfg: Config) -> bool:
-    """Whether ``run`` may start the overlapped counting producer: not when
-    the reads route to the card, which counts them (malva_tpu/cli.py:277).
-    malva_tpu's ``_start_count_producer`` makes its other checks."""
+    """Whether ``run`` may count on a host producer: not when the reads
+    route to the card, which counts them (malva_tpu/cli.py:277)."""
     return resolve(cfg, _file_size(cfg.sample_path), DEVICE_MIN_READ_BYTES) != "cuda"
+
+
+def _start_count_producer(cfg: Config):
+    """Launch the spill-counting producer for the overlapped ``run``, or
+    None when overlap does not apply (KMC input, small reads, counting on
+    the card, or MALVA_NO_OVERLAP=1).  Returns (Popen, spill_dir,
+    spill_dir_is_temporary)."""
+    import subprocess
+
+    if os.environ.get("MALVA_NO_OVERLAP"):
+        return None
+    if cfg.from_kmc_dump or cfg.from_kmc_db:
+        return None
+    try:
+        nbytes = os.path.getsize(cfg.sample_path)
+    except OSError:
+        return None  # missing reads surface as the call phase's error
+    # reads below this size count inline: the helper-process + disk-spill
+    # overhead outweighs the overlap win
+    if nbytes < int(os.environ.get("MALVA_OVERLAP_MIN_BYTES", 32 << 20)):
+        return None
+    if not _overlaps_counting(cfg):
+        return None
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    is_tmp = not cfg.spill_dir
+    spill_dir = cfg.spill_dir or _auto_spill_dir(nbytes)
+    p = subprocess.Popen(
+        [sys.executable, "-m", "malva_tpu_torch.count.spill",
+         cfg.sample_path, str(cfg.ref_k), spill_dir],
+        env=env, stdout=subprocess.DEVNULL,  # parent stdout is pure VCF
+    )
+    print(f"[{TAG}] counting overlapped with index build (spill {spill_dir})", file=sys.stderr)
+    return (p, spill_dir, is_tmp)
+
+
+def _auto_spill_dir(reads_bytes: int) -> str:
+    """Temp spill directory for the overlapped ``run``'s counting helper.
+
+    Prefers /dev/shm when the spill's upper bound fits comfortably: tmpfs
+    writes several times faster than a throttled block device.  Spill
+    volume is bounded by ~20 bytes per k-mer occurrence =~ 10x the FASTQ
+    byte size; require 2x that bound free so the gate stays conservative.
+    The bound is taken from the file's size on disk, also for gzip reads,
+    whose spill it underestimates (malva_tpu sizes it the same way; an
+    ENOSPC there fails the producer and ``run`` recounts inline).
+    Explicit --spill-dir is never overridden (bounded-memory runs belong
+    on disk), and MALVA_SPILL_SHM=0 opts out."""
+    import tempfile
+
+    shm = "/dev/shm"
+    if os.environ.get("MALVA_SPILL_SHM", "1") != "0":
+        try:
+            st = os.statvfs(shm)
+            avail = st.f_bavail * st.f_frsize
+            if reads_bytes * 20 < avail and os.access(shm, os.W_OK):
+                return tempfile.mkdtemp(prefix="malva_spill_", dir=shm)
+        except OSError:
+            pass
+    return tempfile.mkdtemp(prefix="malva_spill_")
+
+
+def _finish_count_producer(producer, cfg: Config, timer: PhaseTimer) -> None:
+    """Join the producer; on success the call phase consumes its spill
+    store (resume skips straight to the merge), on failure fall back to
+    inline counting (correctness never depends on the overlap)."""
+    p, spill_dir, is_tmp = producer
+    rc = p.wait()
+    if rc != 0:
+        print(f"[{TAG}] overlapped counting failed (rc={rc}); recounting inline",
+              file=sys.stderr)
+        if is_tmp:
+            import shutil
+
+            shutil.rmtree(spill_dir, ignore_errors=True)
+        return
+    cfg.spill_dir = spill_dir
+    timer.pelapsed("Sample k-mer counting (overlapped with index phase)")
+
+
+def _try_save_index(index, path: str, cfg: Config, timer: PhaseTimer) -> None:
+    """Persist the index ``run``/``batch`` just built so consecutive runs
+    can reuse it.  Save failure is not fatal: the in-memory index is
+    still good."""
+    try:
+        save_index(index, path, cfg)
+        timer.pelapsed("Index saved")
+    except OSError as e:
+        print(f"[{TAG}] index not saved ({e}); continuing", file=sys.stderr)
 
 
 class _Profile:
@@ -82,7 +223,7 @@ def main(argv: list[str] | None = None, out=None) -> int:
     import struct
     import zipfile
 
-    from malva_tpu.utils.errors import InputError
+    from .utils.errors import InputError
 
     try:
         return _main(argv, out if out is not None else sys.stdout)
@@ -93,7 +234,7 @@ def main(argv: list[str] | None = None, out=None) -> int:
 
 
 def _main(argv: list[str] | None, out) -> int:
-    from malva_tpu.utils.native import tune_malloc
+    from .utils.native import tune_malloc
 
     tune_malloc()
     args = _parser().parse_args(argv)
@@ -111,7 +252,7 @@ def _dispatch(args, cfg: Config, timer: PhaseTimer, out) -> int:
     if args.cmd == "index":
         index = build_index(cfg, timer)
         if args.malvax:
-            from malva_tpu.io.malvax import write_malvax
+            from .io.malvax import write_malvax
 
             write_malvax(index, cfg.index_path().replace(".malvax.npz", ".malvax.zst"))
         else:
@@ -121,8 +262,8 @@ def _dispatch(args, cfg: Config, timer: PhaseTimer, out) -> int:
 
     if args.cmd == "call":
         if args.malvax:
-            from malva_tpu.io.malvax import read_malvax
-            from malva_tpu.pipeline import Index
+            from .io.malvax import read_malvax
+            from .pipeline import Index
 
             bf, km, ctx = read_malvax(cfg.index_path().replace(".malvax.npz", ".malvax.zst"))
             index = Index(bf=bf, ref_bf=km, context_bf=ctx)
@@ -147,8 +288,7 @@ def _dispatch(args, cfg: Config, timer: PhaseTimer, out) -> int:
     index = _reusable_index(cfg)
     if index is None:
         try:
-            if _overlaps_counting(cfg):
-                producer = _start_count_producer(dataclasses.replace(cfg, backend="host"))
+            producer = _start_count_producer(cfg)
             index = build_index(cfg, timer)
         except BaseException:
             if producer is not None:

@@ -68,48 +68,96 @@ MALVA_HD void canonical_bytes(const uint8_t* s, int n, uint8_t* out) {
   }
 }
 
-constexpr int kMaxWords64 = (kMaxLen + 31) / 32;
+// -- K3: canonical keys of read windows, rolled one base at a time ----------
 
-// 2-bit code of a base (A=0 C=1 G=2 T=3, either case), or 4 for any
-// other byte.  Lowercase counts as its uppercase, as after seq.upper.
-MALVA_HD uint32_t base_code(uint8_t b) {
-  switch (b | 0x20) {
-    case 'a': return 0;
-    case 'c': return 1;
-    case 'g': return 2;
-    case 't': return 3;
-    default: return 4;
-  }
+// 2-bit codes of four raw bytes at once (byte i of `w` gives byte i of the
+// result): A/C/G/T in either case give 0/1/2/3, any other byte 4 or more
+// (bit 2 set).  The code of each of the eight letters is
+// ((b >> 1) ^ (b >> 2)) & 3; a byte is a base iff (b | 0x20) is the
+// lowercase letter of its code.  Every per-byte sum stays below 0x100, so
+// no carry crosses a byte.
+MALVA_HD uint32_t base_codes4(uint32_t w) {
+  const uint32_t x = w | 0x20202020u;
+  const uint32_t c = ((x >> 1) ^ (x >> 2)) & 0x03030303u;
+  const uint32_t h = (c >> 1) & 0x01010101u;  // code 2 or 3
+  const uint32_t t = c & h;                   // code 3
+  // the lowercase letter of each code: a = 0x61, c = 0x63, g = 0x67, t = 0x74
+  const uint32_t e = 0x61616161u + (c << 1) + (h << 1) + t * 11u;
+  const uint32_t d = x ^ e;  // 0 in each byte that is its letter
+  const uint32_t zero = ~(((d & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | d | 0x7F7F7F7Fu);
+  return c | ((~zero & 0x80808080u) >> 5);
 }
 
-// Canonical 2-bit form of one ref_k window of raw bytes, for the sample
-// counter: false when a byte is not A/C/G/T (KMC skips such k-mers), else
-// `words` holds the lexicographic min of the forward codes and the
-// reverse complement (3 - code, read backwards), base j in word j / 32
-// at bit 2 * (31 - j % 32) (malva_tpu/ops/seq.py pack_2bit).  Equal to
-// the strcmp/RCN canonical form on pure-ACGT windows, since code order
-// is ASCII order and 3 - code is the RCN complement.
-MALVA_HD bool canonical_window(const uint8_t* s, int ref_k, uint64_t* words) {
-  const int w = (ref_k + 31) / 32;
-  uint64_t fwd[kMaxWords64], rc[kMaxWords64];
-  for (int i = 0; i < w; ++i) fwd[i] = rc[i] = 0;
-  for (int j = 0; j < ref_k; ++j) {
-    const uint64_t c = base_code(s[j]);
-    if (c > 3) return false;
-    const int r = ref_k - 1 - j;
-    fwd[j >> 5] |= c << (2 * (31 - (j & 31)));
-    rc[r >> 5] |= (3 - c) << (2 * (31 - (r & 31)));
+// What the rolling step needs of ref_k.
+struct RollShape {
+  int ref_k;
+  uint32_t ins_shift;  // bit offset of base ref_k - 1 in the last word
+  uint32_t last_mask;  // the bits of the last word that lie in the window
+};
+
+MALVA_HD RollShape roll_shape(int ref_k) {
+  const int tail = ref_k - 16 * ((ref_k - 1) / 16);  // bases in the last word, 1..16
+  return {ref_k, 2u * (16 - tail), tail == 16 ? 0xFFFFFFFFu : ~(0xFFFFFFFFu >> (2 * tail))};
+}
+
+// The canonical 2-bit key of a window that moves one base at a time, in
+// N = ceil(ref_k / 16) 32-bit words.  N is a template parameter, so every
+// array index below is a constant once the loops unroll and the state
+// lives in registers.  Base j of the window sits in word j / 16 at bits
+// 2 * (15 - j % 16) (the pack_2bit layout, malva_tpu_torch/ops/seq.py);
+// the reverse complement (3 - code, read backwards) in the same layout.
+// A push shifts the forward form left by one base and writes the new base
+// last, shifts the reverse complement right by one base and writes its
+// complement first, and counts the bases since the last byte that is not
+// A/C/G/T.  O(N) work per window, where building a window afresh reads
+// ref_k bytes.
+template <int N>
+struct RollingKey {
+  static constexpr int W = (N + 1) / 2;  // 64-bit words of a key
+  uint32_t fwd[2 * W], rc[2 * W];        // word N, where N is odd, stays 0
+  int run;  // bases since the last byte that is not A/C/G/T
+
+  MALVA_HD void reset() {
+    for (int i = 0; i < 2 * W; ++i) fwd[i] = rc[i] = 0;
+    run = 0;
   }
-  bool take_fwd = true;  // a palindrome's two forms are equal
-  for (int i = 0; i < w; ++i) {
-    if (fwd[i] != rc[i]) {
-      take_fwd = fwd[i] < rc[i];
-      break;
+
+  // `code` is a byte of base_codes4: 0..3 for a base, 4 or more for any other byte.
+  MALVA_HD void push(uint32_t code, const RollShape& s) {
+    const uint32_t c = code & 3u;
+#pragma unroll
+    for (int i = 0; i + 1 < N; ++i) fwd[i] = (fwd[i] << 2) | (fwd[i + 1] >> 30);
+    fwd[N - 1] = (fwd[N - 1] << 2) | (c << s.ins_shift);
+#pragma unroll
+    for (int i = N - 1; i > 0; --i) rc[i] = (rc[i] >> 2) | (rc[i - 1] << 30);
+    rc[0] = (rc[0] >> 2) | ((3u - c) << 30);
+    rc[N - 1] &= s.last_mask;
+    run = code > 3 ? 0 : run + 1;
+  }
+
+  // Whether the window is pure A/C/G/T (either case; KMC skips the rest),
+  // and its key in `out` as W 64-bit words: the lexicographic min of the
+  // two forms (a palindrome's are equal), or zeros for an invalid window.
+  // Code order is ASCII order and 3 - code is the RCN complement, so this
+  // is the strcmp/RCN canonical form (malva_tpu_torch/ops/seq.py canonical).
+  MALVA_HD bool key(const RollShape& s, uint64_t* out) const {
+    const bool ok = run >= s.ref_k;
+    bool less = false, decided = false;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      less = decided ? less : fwd[i] < rc[i];
+      decided = decided || fwd[i] != rc[i];
     }
+    const bool take_fwd = less || !decided;
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const uint32_t hi = take_fwd ? fwd[2 * j] : rc[2 * j];
+      const uint32_t lo = take_fwd ? fwd[2 * j + 1] : rc[2 * j + 1];
+      out[j] = ok ? ((uint64_t)hi << 32) | lo : 0;
+    }
+    return ok;
   }
-  for (int i = 0; i < w; ++i) words[i] = take_fwd ? fwd[i] : rc[i];
-  return true;
-}
+};
 
 MALVA_HD bool bit_is_set(const uint32_t* words, uint64_t idx) {
   return (words[idx >> 5] >> (idx & 31)) & 1u;

@@ -15,7 +15,7 @@ import sys
 import numpy as np
 import torch
 
-from malva_tpu.utils.config import Config
+from .utils.config import Config
 
 CFG = Config(k=35, ref_k=43, bf_size=1 << 20)
 
@@ -23,10 +23,10 @@ CFG = Config(k=35, ref_k=43, bf_size=1 << 20)
 def toy_problem(cfg: Config, n_ctx: int = 256, seed: int = 0):
     """(index, canonical contexts, counters) from a seed, as
     ``__graft_entry__._toy_problem``."""
-    from malva_tpu.index.bloom_filter import BF
-    from malva_tpu.index.kmap import KMAP
-    from malva_tpu.ops.seq import canonical
-    from malva_tpu.pipeline import Index
+    from .index.bloom_filter import BF
+    from .index.kmap import KMAP
+    from .ops.seq import canonical
+    from .pipeline import Index
 
     rng = np.random.default_rng(seed)
     alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -44,9 +44,7 @@ def toy_problem(cfg: Config, n_ctx: int = 256, seed: int = 0):
 def entry():
     """(step, args): ``step(*args)`` runs one call step, updating
     ``args[0]``, the counter state ``[bf_counts | kmap_vals]``, in place."""
-    from malva_tpu.index.device import pack2bit_u32_np
-
-    from .index.device import DeviceIndex
+    from .index.device import DeviceIndex, pack2bit_u32_np
     from .ops.bloom import from_u32
 
     device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
@@ -62,11 +60,10 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     (``parallel.mesh.make_mesh(n_devices, devices)``; ``devices`` may
     repeat one device), each asserted against the single-device host
     path."""
-    from malva_tpu.pipeline import apply_sample_counts
-
     from .models.genotype import make_genotype_fn
     from .parallel.mesh import make_mesh
     from .parallel.sharded_index import apply_sample_counts_sharded, build_context_sharded
+    from .pipeline import apply_sample_counts
 
     mesh = make_mesh(n_devices, devices)
     index, contexts, counters = toy_problem(CFG, n_ctx=32 * n_devices)

@@ -9,6 +9,10 @@ Counterpart of ``malva_tpu/index/device.py``.  The layout is the same:
 * the counter state ``[bf_counts | kmap_vals]`` as uint32 bit patterns,
   read mod 2^16 on the host.
 
+Its numpy helpers (``pack2bit_u32_np``, ``device_map_keys``,
+``packed64_to_u32``, the mini-filter slot) are the port's copies of
+``malva_tpu``'s.
+
 All arrays live on an explicit torch ``device``; the per-lane work is the
 K1 and K2 kernels of ``ops.kernels`` (their plain versions on the CPU).
 The TPU workarounds of the reference (segmented-sort compaction, tiered
@@ -26,21 +30,67 @@ from typing import Any
 import numpy as np
 import torch
 
-from malva_tpu.index.device import (
-    RANK_BITS,
-    _minifilter_slot_np,
-    device_map_keys,
-    pack2bit_u32_np,
-    packed64_to_u32,
-)
-from malva_tpu.index.kmap_table import BucketTable
-from malva_tpu.ops import seq
-from malva_tpu.ops.xxh3 import xxh3_64
-from malva_tpu.utils.config import Config
-
-from ..ops import kernels
+from ..ops import kernels, seq
 from ..ops.bloom import from_u32, lanes, storage, to_u32
 from ..ops.packed import popcount32
+from ..ops.xxh3 import xxh3_64
+from ..utils.config import Config
+from .kmap_table import BucketTable
+
+
+def pack2bit_u32_np(kmers: np.ndarray, k: int) -> np.ndarray:
+    """Host mirror of the device layout (``ops.seq.pack2bit``): (N,
+    ceil(k/16)) uint32, 16 bases per word, big-endian within the word."""
+    table = np.full(256, 3, dtype=np.uint32)
+    for i, ch in enumerate(b"ACGT"):
+        table[ch] = i
+    codes = table[kmers]
+    nwords = (k + 15) // 16
+    out = np.zeros((kmers.shape[0], nwords), dtype=np.uint32)
+    for j in range(k):
+        w = j // 16
+        out[:, w] |= codes[:, j] << np.uint32(2 * (15 - (j % 16)))
+    return out
+
+
+def device_map_keys(index, cfg: Config) -> list:
+    """Exact-map keys that can match device-side sample queries: pure-ACGT,
+    full k length (sample contexts are pure ACGT; truncated/IUPAC keys can
+    never equal a sample center and keep their counts on host)."""
+    keys = [kb for kb in index.ref_bf.kmers if len(kb) == cfg.k]
+    if keys:
+        arr = np.frombuffer(b"".join(keys), dtype=np.uint8).reshape(-1, cfg.k)
+        ok = seq.is_acgt(arr)
+        keys = [kb for kb, good in zip(keys, ok.tolist()) if good]
+    return keys
+
+
+# The rank column's top 4 bits double as a per-row mini-Bloom filter over
+# the exact-map keys ("does any kmap key hash to this Bloom word?"), so the
+# call step can skip the bucket gather for the vast majority of lanes.
+# Usable whenever the filter's total popcount fits 28 bits (always, in
+# practice — popcount == number of distinct alt-allele k-mers).
+RANK_BITS = 28
+RANK_MASK = (1 << RANK_BITS) - 1
+
+
+def _minifilter_slot_np(h: np.ndarray) -> np.ndarray:
+    """Which of the 4 mini-filter bits a key occupies: hash bits 60-61
+    (statistically independent of the low bits that pick word/bit)."""
+    return ((h >> np.uint64(60)) & np.uint64(3)).astype(np.uint32)
+
+
+def packed64_to_u32(keys_u64: np.ndarray, ref_k: int) -> np.ndarray:
+    """Counter-layout packed keys ((M, ceil(ref_k/32)) uint64, 32 bases per
+    word big-endian) -> the device layout ((M, ceil(ref_k/16)) uint32, 16
+    bases per word).  A pure bit-level split: u64 word j = u32 cols 2j,2j+1."""
+    keys_u64 = np.ascontiguousarray(keys_u64)
+    wc = (ref_k + 15) // 16
+    m, w64 = keys_u64.shape
+    out = np.empty((m, 2 * w64), dtype=np.uint32)
+    out[:, 0::2] = (keys_u64 >> np.uint64(32)).astype(np.uint32)
+    out[:, 1::2] = (keys_u64 & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    return np.ascontiguousarray(out[:, :wc])
 
 
 def pack_bloom_rows(words: torch.Tensor, mf_idx: torch.Tensor,
@@ -188,7 +238,7 @@ def packed_steps(batches, cfg: Config, batch: int, host_rows: list):
 def replay_on_host(index, host_rows: list, cfg: Config) -> None:
     """Apply the rows :func:`packed_steps` set aside, on the host."""
     if host_rows:
-        from malva_tpu.pipeline import apply_sample_counts
+        from ..pipeline import apply_sample_counts
 
         for ctx, cnt in host_rows:
             apply_sample_counts(index, ctx, cnt, cfg)

@@ -48,9 +48,7 @@ from __future__ import annotations
 
 import torch
 
-from malva_tpu.index.device import RANK_BITS, RANK_MASK
-from malva_tpu.index.kmap_table import SLOTS
-
+from ..index.kmap_table import SLOTS, probe_bucket_table
 from . import _build
 from .bloom import bloom_set, lanes, scatter_add_u32
 from .packed import canonical_center, decode_byte_cols, popcount32
@@ -151,6 +149,8 @@ def callstep_plain(bf_packed, ctx_words, kmap_keys, state, ctx_packed, counters,
     The full-batch spec of ``malva_tpu/index/device.py:195 make_call_step``
     over packed input.  ``state`` is ``[bf_counts | kmap_vals]``;
     ``counters`` of 0 are exact no-ops (padding)."""
+    from ..index.device import RANK_BITS, RANK_MASK  # index.device imports this module
+
     counts_len = state.shape[0] - n_buckets * SLOTS
     w_k = (k + 15) // 16
     words = [lanes(ctx_packed[:, j]) for j in range(ctx_packed.shape[1])]
@@ -172,8 +172,6 @@ def callstep_plain(bf_packed, ctx_words, kmap_keys, state, ctx_packed, counters,
         cand = (((aux >> RANK_BITS) >> ((c_hi >> 28) & 3)) & 1).bool()
     else:
         cand = torch.ones_like(is_set)
-    from ..index.kmap_table import probe_bucket_table
-
     slot, found = probe_bucket_table(kmap_keys, n_buckets, w_k, can, c_hi, c_lo)
     scatter_add_u32(state, counts_len + slot, counters, found & cand)
 
@@ -235,8 +233,6 @@ def shard_update_plain(bf_packed, kmap_keys, state, ctx_packed, counters, known,
     is_set = ((word >> bb) & 1).bool()
     cnt_idx = rank + popcount32(word & ((1 << bb) - 1))
     scatter_add_u32(state, cnt_idx, counters, mine & is_set & ~known)
-    from ..index.kmap_table import probe_bucket_table
-
     slot, found = probe_bucket_table(kmap_keys, n_buckets, (k + 15) // 16, can, c_hi, c_lo)
     scatter_add_u32(state, counts_len + slot, counters, mine & found)
 

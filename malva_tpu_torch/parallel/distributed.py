@@ -36,11 +36,16 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from malva_tpu.count.spill import _bucket_of
-from malva_tpu.parallel.distributed import _OWNER_RANGES, _batch_ref_keys, _tree_merge
-from malva_tpu.utils.config import Config
+from ..count.counter import _merge_runs
+from ..count.spill import _bucket_of
+from ..utils.config import Config
 
 TAG = "malva-tpu-torch"
+
+# Ownership hash width: ranges are assigned from the spill bucket hash so
+# keys within one range share no lexicographic structure (canonical
+# k-mers are non-uniform in their prefix — see count.spill._bucket_of).
+_OWNER_RANGES = 1024
 
 
 def initialize(coordinator: str | None = None, num_processes: int | None = None,
@@ -181,11 +186,63 @@ def _or_merge_words(words: np.ndarray) -> None:
             words[p[:, 0]] |= p[:, 1].astype(words.dtype)
 
 
+def _tree_merge(runs: list) -> tuple[np.ndarray, np.ndarray]:
+    """Pairwise tree merge of sorted distinct (keys, counts) runs."""
+    if not runs:
+        raise ValueError("no runs")
+    while len(runs) > 1:
+        nxt = []
+        for i in range(0, len(runs) - 1, 2):
+            ka, ca = runs[i]
+            kb, cb = runs[i + 1]
+            nxt.append(_merge_runs(ka, ca, kb, cb))
+        if len(runs) % 2:
+            nxt.append(runs[-1])
+        runs = nxt
+    return runs[0]
+
+
+def _batch_ref_keys(flat) -> tuple[np.ndarray, bytes]:
+    """One batch's reference-allele KMAP keys, first-occurrence-deduped in
+    the exact single-process insertion order (length_groups order: length
+    ascending, row order within).  Returns (lengths int32, concat bytes)."""
+    from ..ops.seq import canonical, truncate_at_nul
+
+    groups = []
+    any_nul = False
+    for is_ref, _L, _idxs, mat in flat.length_groups():
+        if not is_ref:
+            continue
+        ck = truncate_at_nul(canonical(mat))
+        groups.append(ck)
+        if ck.size and ck.min() == 0:
+            any_nul = True
+    if not groups:
+        return np.zeros(0, np.int32), b""
+    if len(groups) == 1 and not any_nul:
+        g = np.ascontiguousarray(groups[0])
+        v = g.view(f"V{g.shape[1]}").ravel()
+        _, first = np.unique(v, return_index=True)
+        data = g[np.sort(first)]
+        return (np.full(data.shape[0], g.shape[1], np.int32),
+                data.tobytes())
+    # general path (NUL-truncated or multiple length classes): ordered set
+    seen = set()
+    keys = []
+    for ck in groups:
+        for row in ck:
+            kb = row.tobytes().rstrip(b"\x00")
+            if kb not in seen:
+                seen.add(kb)
+                keys.append(kb)
+    return (np.asarray([len(k) for k in keys], np.int32), b"".join(keys))
+
+
 def _merged_kmap(my_keys: list):
     """Union of the per-process per-batch key streams into one KMAP in the
     exact order one process would insert them: batches ascending, first
     occurrence wins (JAX ``:464``)."""
-    from malva_tpu.index.kmap import KMAP
+    from ..index.kmap import KMAP
 
     metas, datas = [], []
     for bi, lens, data in my_keys:
@@ -232,10 +289,10 @@ def build_index_distributed(cfg: Config, timer=None):
     extraction only for its round-robin batches; the Bloom planes merge by
     OR and the exact-map keys by the ordered union.  The reference context
     scan is split by 1M-position chunk, its bits merged by OR."""
-    from malva_tpu.index.bloom_filter import BF
-    from malva_tpu.io.fasta import load_reference
-    from malva_tpu.pipeline import Index, _iter_extract_batches
-    from malva_tpu.utils.timing import PhaseTimer
+    from ..index.bloom_filter import BF
+    from ..io.fasta import load_reference
+    from ..pipeline import Index, _iter_extract_batches
+    from ..utils.timing import PhaseTimer
 
     pid, H = world()
     timer = timer or PhaseTimer(TAG)
@@ -303,14 +360,14 @@ def count_distributed(reads_paths: list[str], cfg: Config, ci: int = 2, cs: int 
     def local_batches():
         # raw local counts: ci=1 and no cap, since the thresholds are global
         if spill_dir is not None:
-            from malva_tpu.count.spill import count_reads_kmers_spill
+            from ..count.spill import count_reads_kmers_spill
 
             for path_i, path in enumerate(host_shard(reads_paths)):
                 yield from count_reads_kmers_spill(path, cfg.ref_k,
                                                    f"{spill_dir}/h{pid}_{path_i}",
                                                    ci=1, cs=1 << 62)
         else:
-            from malva_tpu.count.counter import count_reads_kmers
+            from ..count.counter import count_reads_kmers
 
             for path in host_shard(reads_paths):
                 yield count_reads_kmers(path, cfg.ref_k, ci=1, cs=1 << 62, return_packed=True)
@@ -363,9 +420,9 @@ def call_distributed(cfg: Config, index, reads_paths: list[str], out,
     and ranged exchange, each process's owned k-mers applied to zeroed
     counter planes, one global plane sum, pass 2 split by batch, the VCF
     written by rank 0 (``out`` is only written there)."""
-    from malva_tpu.io.fasta import load_reference
-    from malva_tpu.pipeline import _reset_counters, apply_sample_counts
-    from malva_tpu.utils.timing import PhaseTimer
+    from ..io.fasta import load_reference
+    from ..pipeline import _reset_counters, apply_sample_counts
+    from ..utils.timing import PhaseTimer
 
     keys, counts = count_distributed(reads_paths, cfg, spill_dir=spill_dir)
     _reset_counters(index)
@@ -407,10 +464,10 @@ def _genotype_and_emit_distributed(cfg: Config, index, refs, out, timer) -> None
     """Pass 2 split by extraction batch (JAX ``:682``): coverage,
     genotyping and line formatting on the batch's owner; rank 0 writes
     the header and the batches in order."""
-    from malva_tpu.io.vcf import cleaned_header, open_variant_reader
-    from malva_tpu.models.genotype import format_variants, genotype_block
-    from malva_tpu.pipeline import (_EMPTY_BOOL, _EMPTY_I32, _iter_extract_batches,
-                                    _set_coverages_flat)
+    from ..io.vcf import cleaned_header, open_variant_reader
+    from ..models.genotype_host import format_variants, genotype_block
+    from ..pipeline import (_EMPTY_BOOL, _EMPTY_I32, _iter_extract_batches,
+                            _set_coverages_flat)
 
     pid, H = world()
     blobs: list[tuple[int, bytes]] = []

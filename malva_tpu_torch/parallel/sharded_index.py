@@ -38,12 +38,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from malva_tpu.index.device import device_map_keys
-from malva_tpu.index.kmap_table import BucketTable
-from malva_tpu.ops.xxh3 import xxh3_64
-from malva_tpu.utils.config import Config
-
 from ..index.device import (
+    device_map_keys,
     events_ms,
     pack_bloom_rows,
     packed_steps,
@@ -51,10 +47,12 @@ from ..index.device import (
     short_contigs_on_host,
     timing_events,
 )
+from ..index.kmap_table import BucketTable
 from ..ops import kernels
 from ..ops.bloom import bloom_set, from_u32, lanes, to_u32
 from ..ops.packed import popcount32
-from ..ops.xxh3 import check_bloom_size, xxh3_mod_size
+from ..ops.xxh3 import check_bloom_size, xxh3_64, xxh3_mod_size
+from ..utils.config import Config
 
 TAG = "malva-tpu-torch"
 

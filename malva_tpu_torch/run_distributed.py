@@ -8,7 +8,7 @@ process id.  Rank 0 writes the VCF.  It loads no jax.
       --out out.vcf -1 -b 1 -f AF ref.fa vars.vcf reads0.fq reads1.fq
 
 With ``--spill-dir`` each process counts its reads through the disk
-spill, in ``python -m malva_tpu.count.spill`` producers that overlap the
+spill, in ``python -m malva_tpu_torch.count.spill`` producers that overlap the
 index phase.  ``--timeout`` arms a watchdog over the whole run, and the
 process-group set-up has its own (``--timeout``, or 120 s): gloo waits
 forever on a lost peer or a mismatched topology, and either watchdog ends
@@ -72,11 +72,10 @@ def main(argv: list[str] | None = None) -> int:
 
     import torch.distributed as dist
 
-    from malva_tpu.utils.config import Config
-
     from .parallel.distributed import (build_index_distributed, call_distributed, host_shard,
                                        initialize, world)
     from .pipeline import build_index
+    from .utils.config import Config
 
     # the topology check is one collective, which can itself hang on a
     # mismatch, so set-up has its own watchdog even without --timeout
@@ -102,7 +101,7 @@ def main(argv: list[str] | None = None) -> int:
     if a.spill_dir and not os.environ.get("MALVA_NO_OVERLAP"):
         for i, path in enumerate(host_shard(a.reads)):
             producers.append(subprocess.Popen(
-                [sys.executable, "-m", "malva_tpu.count.spill", path, str(a.r),
+                [sys.executable, "-m", "malva_tpu_torch.count.spill", path, str(a.r),
                  f"{a.spill_dir}/h{a.process_id}_{i}"], stdout=subprocess.DEVNULL))
     try:
         index = build_index_distributed(cfg) if a.num_processes > 1 else build_index(cfg)

@@ -1,0 +1,159 @@
+"""In-memory variant model (mirrors reference variant.hpp:43-253).
+
+One VCF record becomes a Variant: uppercased REF/ALTs with symbolic
+('<'-prefixed) alternates dropped, float32 allele-frequency priors with the
+reference-allele frequency computed as ``1 - sum(alt freqs)`` clamped at 0,
+per-selected-sample genotype pairs + phasing extracted htslib-style, and
+the ``has_alts`` / ``is_present`` gating flags.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..io.vcf import VECTOR_END, VcfRecord
+
+
+def _bcf_gt_allele(enc: int) -> int:
+    return (enc >> 1) - 1
+
+
+def _bcf_gt_is_phased(enc: int) -> bool:
+    return bool(enc & 1)
+
+
+class Variant:
+    __slots__ = (
+        "seq_name", "ref_pos", "idx", "ref_sub", "alts", "quality", "filt",
+        "info", "gt_a1", "gt_a2", "phase", "ref_size", "min_size", "max_size",
+        "has_alts", "is_present", "frequencies", "coverages", "computed_gts",
+        "_gt_src",
+    )
+
+    def __init__(self, rec: VcfRecord, selected: list[int], freq_key: str,
+                 uniform: bool, skip_gt: bool = False):
+        self.seq_name: str = rec.chrom
+        self.ref_pos: int = rec.pos0
+        self.idx: str = rec.idx
+        self.ref_sub: bytes = rec.ref.upper().encode()
+        self.ref_size: int = len(self.ref_sub)
+        # symbolic alternates (<CN0>, <DEL>, ...) are dropped (variant.hpp:81-88)
+        self.alts: list[bytes] = [
+            a.upper().encode() for a in rec.alts_raw if not a.startswith("<")
+        ]
+        self.coverages: list[int] = [0] * (len(self.alts) + 1)
+        self.quality: np.float32 = rec.qual()
+        self.filt: str = "PASS"  # reference hardcodes PASS (variant.hpp:91)
+        self.info: str = "."
+        self.gt_a1 = np.zeros(0, dtype=np.int32)
+        self.gt_a2 = np.zeros(0, dtype=np.int32)
+        self.phase = np.zeros(0, dtype=bool)
+        self.frequencies: list[np.float32] = []
+        self.computed_gts: list[tuple[str, float]] = []
+        self.min_size = self.max_size = 0
+        self._gt_src = None  # deferred GT parse source (pipeline._resolve_gts)
+
+        # set_sizes (variant.hpp:108-124)
+        self.has_alts = bool(self.alts)
+        self.is_present = True
+        if self.has_alts:
+            mn = mx = self.ref_size
+            for a in self.alts:
+                la = len(a)
+                if la < mn:
+                    mn = la
+                elif la > mx:
+                    mx = la
+            self.min_size = mn
+            self.max_size = mx
+            self._extract_frequencies(rec, freq_key, uniform)
+            if self.is_present and not skip_gt:
+                self._extract_genotypes(rec, selected)
+            # skip_gt: the caller batch-parses GT (pipeline._make_variants
+            # via native.parse_gt_batch) and assigns gt_a1/gt_a2/phase —
+            # or calls _extract_genotypes itself on the fallback path
+
+    # -- frequencies (variant.hpp:126-156) --------------------------------
+    def _extract_frequencies(self, rec: VcfRecord, freq_key: str, uniform: bool):
+        if not uniform:
+            vals = rec.info_floats(freq_key)
+            freqs: list[np.float32] = [np.float32(0.0)]
+            for i in range(len(self.alts)):
+                # The reference indexes the INFO array by the *filtered* alt
+                # index (variant.hpp:137-141); with symbolic alts dropped the
+                # remaining freqs shift down — replicated.  Reading past the
+                # provided values is UB upstream; we pad with 0.
+                if vals is not None and i < len(vals):
+                    freqs.append(np.float32(vals[i]))
+                else:
+                    freqs.append(np.float32(0.0))
+            # accumulate(..., 0.0) runs in double, result stored as float
+            s = 0.0
+            for f in freqs:
+                s += float(f)
+            ref_freq = np.float32(1.0 - s)
+            if ref_freq < 0:
+                ref_freq = np.float32(0.0)
+            freqs[0] = ref_freq
+            self.frequencies = freqs
+        else:
+            u = np.float32(1.0) / np.float32(len(self.alts) + 1)
+            self.frequencies = [u] * (len(self.alts) + 1)
+        if self.frequencies[0] == np.float32(1.0):
+            self.is_present = False
+
+    # -- genotypes (variant.hpp:158-211) ----------------------------------
+    def _extract_genotypes(self, rec: VcfRecord, selected: list[int]):
+        out = rec.genotypes_arrays(selected)
+        if out is None:
+            self.has_alts = False
+            return
+        enc, ploidy = out  # (n, ploidy) integer, htslib encoding
+        first = enc[:, 0]
+        if ploidy >= 2:
+            second = enc[:, 1]
+        else:
+            # the reference reads slot base+1 anyway, which for ploidy 1 is
+            # the NEXT sample's first entry; the final sample's read is out
+            # of bounds upstream — defined here as VECTOR_END (copy).
+            second = np.empty_like(first)
+            second[:-1] = first[1:]
+            second[-1] = VECTOR_END
+        is_end = second == VECTOR_END
+        a1 = np.maximum((first >> 1) - 1, 0)
+        a2 = np.where(is_end, a1, np.maximum((second >> 1) - 1, 0))
+        phased = np.where(is_end, True, (second & 1).astype(bool))
+        self.gt_a1 = a1.astype(np.int32, copy=False)
+        self.gt_a2 = a2.astype(np.int32, copy=False)
+        self.phase = phased
+
+    @property
+    def genotypes(self) -> list[tuple[int, int]]:
+        """Per-individual (allele1, allele2) pairs (compat view)."""
+        return list(zip(self.gt_a1.tolist(), self.gt_a2.tolist()))
+
+    @property
+    def phasing(self) -> list[bool]:
+        return self.phase.tolist()
+
+    @property
+    def n_individuals(self) -> int:
+        return int(self.gt_a1.shape[0])
+
+    # -- accessors (variant.hpp:216-252) ----------------------------------
+    def get_allele(self, i: int) -> bytes:
+        return self.ref_sub if i == 0 else self.alts[i - 1]
+
+    def get_allele_index(self, allele: bytes) -> int:
+        if self.ref_sub == allele:
+            return 0
+        for i, a in enumerate(self.alts, start=1):
+            if a == allele:
+                return i
+        return -1
+
+    def set_coverage(self, i: int, cov: int) -> None:
+        self.coverages[i] = cov
+
+    def add_genotype(self, geno: str, prob: float) -> None:
+        self.computed_gts.append((geno, prob))

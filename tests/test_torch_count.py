@@ -14,7 +14,7 @@ from malva_tpu.count import counter as mc
 from malva_tpu.count import spill as ms
 from malva_tpu.count.device_count import device_seq_sorted_counts as jax_sorted_counts
 from malva_tpu.count.device_count import make_seq_sort_count_step as jax_step
-from malva_tpu.ops.seq import canonical, pack_2bit, upper
+from malva_tpu.ops.seq import canonical, pack_2bit, revcomp, upper
 from malva_tpu_torch.count import counter as tc
 from malva_tpu_torch.count import device_count as tdc
 from malva_tpu_torch.count import spill as ts
@@ -91,40 +91,125 @@ def test_sort_count_rows_is_unsigned_order():
     np.testing.assert_array_equal(counts.numpy(), want_c)
 
 
-def test_canonical_window_cxx_matches_plain(tmp_path):
-    """K3's per-lane arithmetic (csrc/lanes.cuh canonical_window, built for
-    the host with g++) == the plain version, bit for bit."""
+# K3's per-window arithmetic (csrc/lanes.cuh base_codes4 and RollingKey)
+# built for the host with g++: the chunk is translated four bytes at a
+# time, then cut into runs of `seg` windows, each rolled as one thread of
+# the kernel rolls its run (ref_k - 1 bases of warm-up, then one base per
+# window).
+ROLLING_CXX = r"""
+#include <string.h>
+#include <vector>
+#include "lanes.cuh"
+using namespace malva;
+
+template <int N>
+static void roll(const uint8_t* s, int64_t n_pos, int k, int64_t seg, uint64_t* keys,
+                 uint8_t* valid) {
+  const int64_t n_words = (n_pos + k - 1 + 3) / 4;  // the caller pads s to whole words
+  std::vector<uint8_t> codes(4 * n_words);
+  for (int64_t q = 0; q < n_words; ++q) {
+    uint32_t w;
+    memcpy(&w, s + 4 * q, 4);
+    w = base_codes4(w);
+    memcpy(&codes[4 * q], &w, 4);
+  }
+  const RollShape shape = roll_shape(k);
+  for (int64_t s0 = 0; s0 < n_pos; s0 += seg) {
+    RollingKey<N> st;
+    st.reset();
+    for (int m = 0; m < k - 1; ++m) st.push(codes[s0 + m], shape);
+    for (int64_t p = s0; p < s0 + seg && p < n_pos; ++p) {
+      st.push(codes[p + k - 1], shape);
+      valid[p] = st.key(shape, keys + p * RollingKey<N>::W);
+    }
+  }
+}
+
+extern "C" void pack(const uint8_t* s, int64_t n_pos, int k, int64_t seg, uint64_t* keys,
+                     uint8_t* valid) {
+  switch ((k + 15) / 16) {
+#define CASE(n) case n: roll<n>(s, n_pos, k, seg, keys, valid); break;
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8) CASE(9) CASE(10)
+    CASE(11) CASE(12) CASE(13) CASE(14) CASE(15)
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def rolling_cxx(tmp_path_factory):
     import ctypes
 
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
-    src = tmp_path / "k3.cpp"
-    src.write_text('#include "lanes.cuh"\nusing namespace malva;\n'
-                   'extern "C" void pack(const uint8_t* s, int64_t n, int k, uint64_t* keys,'
-                   ' uint8_t* valid) {\n  const int w = (k + 31) / 32;\n'
-                   '  for (int64_t p = 0; p < n; ++p) {\n    uint64_t words[kMaxWords64];\n'
-                   '    const bool ok = canonical_window(s + p, k, words);\n'
-                   '    for (int i = 0; i < w; ++i) keys[p * w + i] = ok ? words[i] : 0;\n'
-                   '    valid[p] = ok;\n  }\n}\n')
-    so = tmp_path / "k3.so"
-    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", f"-I{CSRC}", "-o", str(so),
-                    str(src)], check=True)
-    lib = ctypes.CDLL(str(so))
+    d = tmp_path_factory.mktemp("k3")
+    (d / "k3.cpp").write_text(ROLLING_CXX)
+    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-Wno-unknown-pragmas",
+                    f"-I{CSRC}", "-o", str(d / "k3.so"), str(d / "k3.cpp")], check=True)
+    lib = ctypes.CDLL(str(d / "k3.so"))
+    lib.pack.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+                         ctypes.c_void_p, ctypes.c_void_p]
+
+    def pack(seq: np.ndarray, n_pos: int, ref_k: int, seg: int):
+        padded = np.zeros((seq.shape[0] + 3) // 4 * 4, dtype=np.uint8)
+        padded[: seq.shape[0]] = seq
+        keys = np.full((n_pos, (ref_k + 31) // 32), 0xA5A5A5A5, dtype=np.uint64)
+        valid = np.full(n_pos, 9, dtype=np.uint8)
+        lib.pack(padded.ctypes.data, n_pos, ref_k, seg, keys.ctypes.data, valid.ctypes.data)
+        return keys, valid
+
+    return pack
+
+
+def _check_rolling(pack, seq: np.ndarray, n_pos: int, ref_k: int, segs):
+    pk, pv = kernels.seq_pack_plain(torch.from_numpy(seq), n_pos, ref_k)
+    assert pv.any()
+    for seg in segs:
+        keys, valid = pack(seq, n_pos, ref_k, seg)
+        np.testing.assert_array_equal(valid, pv.numpy().astype(np.uint8))
+        np.testing.assert_array_equal(keys, pk.numpy().view(np.uint64))
+
+
+def test_canonical_window_cxx_matches_plain(rolling_cxx):
+    """K3's per-window arithmetic (csrc/lanes.cuh, the rolling step, built
+    for the host with g++) == the plain version, bit for bit."""
     rng = np.random.default_rng(3)
     alpha = np.frombuffer(b"ACGTACGTACGTACGTACGTacgtN\xff\xc1", dtype=np.uint8)
     for ref_k in (1, 15, 16, 17, 31, 32, 33, 43, 64, 65, 100, 240):
         seq = alpha[rng.integers(0, alpha.shape[0] if ref_k < 60 else 8, 5000)].copy()
         seq[2000] = ord("n")  # long windows need mostly ACGT to be valid at all
-        n_pos = seq.shape[0] - ref_k + 1
-        keys = np.zeros((n_pos, (ref_k + 31) // 32), dtype=np.uint64)
-        valid = np.zeros(n_pos, dtype=np.uint8)
-        lib.pack(seq.ctypes.data_as(ctypes.c_void_p), ctypes.c_int64(n_pos), ctypes.c_int(ref_k),
-                 keys.ctypes.data_as(ctypes.c_void_p), valid.ctypes.data_as(ctypes.c_void_p))
-        pk, pv = kernels.seq_pack_plain(torch.from_numpy(seq), n_pos, ref_k)
-        assert valid.any()
-        np.testing.assert_array_equal(pv.numpy(), valid.astype(bool))
-        np.testing.assert_array_equal(pk.numpy().view(np.uint64), keys)
+        _check_rolling(rolling_cxx, seq, seq.shape[0] - ref_k + 1, ref_k, (32, 5000))
+
+
+def _ragged_chunk(rng, n_pos: int, ref_k: int) -> np.ndarray:
+    """Reads joined by 0xFF, with N, IUPAC codes, lowercase bases and
+    reads shorter than ref_k, and (for even ref_k) palindromic windows,
+    whose two forms are equal."""
+    seq = _read_chunk(rng, n_pos + ref_k - 1, ref_k)
+    iupac = rng.random(seq.shape[0]) < 0.002
+    seq[iupac] = np.frombuffer(b"RYSWKMBDHV", dtype=np.uint8)[rng.integers(0, 10, iupac.sum())]
+    if ref_k % 2 == 0:
+        half = rng.integers(0, 4, ref_k // 2)
+        pal = np.frombuffer(b"ACGT", dtype=np.uint8)[np.concatenate([half, 3 - half[::-1]])]
+        for at in range(7, n_pos - ref_k, 613):
+            seq[at : at + ref_k] = pal
+    return seq
+
+
+@pytest.mark.parametrize("ref_k", [15, 31, 32, 33, 43, 63, 64, 65, 96])
+def test_rolling_step_cxx_matches_plain_on_ragged_chunks(rolling_cxx, ref_k):
+    """The g++-built rolling step == plain K3 over seeded ragged read
+    chunks, with n_pos not a multiple of the kernel's 8192-window tile, in
+    runs of 32 windows (one thread of the kernel), of 7 and of the whole
+    chunk."""
+    rng = np.random.default_rng(100 + ref_k)
+    n_pos = 2 * 8192 + 1000 + ref_k
+    seq = _ragged_chunk(rng, n_pos, ref_k)
+    if ref_k % 2 == 0:  # a palindromic window is its own reverse complement
+        win = seq[7 : 7 + ref_k]
+        assert revcomp(win[None, :])[0].tobytes() == win.tobytes()
+    _check_rolling(rolling_cxx, seq, n_pos, ref_k, (32, 7, n_pos))
 
 
 # -- whole counter: the three read fixtures of tests/test_counter.py:125-182,

@@ -1,7 +1,7 @@
-"""The port never imports jax.
+"""The port never imports jax, nor any module of the JAX package.
 
-Checked in a subprocess, since this test process has jax loaded already
-(tests/conftest.py).
+Checked in a subprocess, since this test process has jax and malva_tpu
+loaded already (tests/conftest.py).
 """
 
 import os
@@ -16,8 +16,8 @@ D = REPO / "tests" / "data" / "diploid"
 
 SCRIPT = r"""
 import io, sys
-from malva_tpu.utils.config import Config
 from malva_tpu_torch import cli, pipeline
+from malva_tpu_torch.utils.config import Config
 
 work = sys.argv[1]
 inputs = [f"{work}/{n}" for n in ("ref.fa", "vars.vcf", "reads.fa")]
@@ -62,7 +62,8 @@ dryrun_multichip(4, mesh)
 step, args = entry()
 step(*args)
 
-loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "malva_tpu"))
 assert not loaded, loaded
 print("NO-JAX-OK")
 """
@@ -78,9 +79,33 @@ def test_port_runs_without_importing_jax(tmp_path):
     assert "NO-JAX-OK" in res.stdout
 
 
-def test_no_port_file_imports_jax():
+def _port_files() -> list[Path]:
     files = sorted((REPO / "malva_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 8
-    pattern = re.compile(r"^\s*(import jax|from jax)\b", re.M)
-    offenders = [str(f.relative_to(REPO)) for f in files if pattern.search(f.read_text())]
+    return files
+
+
+JAX_IMPORT = re.compile(r"^\s*(import jax|from jax)\b", re.M)
+MALVA_TPU_IMPORT = re.compile(r"^\s*(from|import)\s+malva_tpu(\.|\s|$)", re.M)
+
+
+def test_no_port_file_imports_jax():
+    offenders = [str(f.relative_to(REPO)) for f in _port_files()
+                 if JAX_IMPORT.search(f.read_text())]
     assert not offenders
+
+
+def test_no_port_file_imports_malva_tpu():
+    """The port keeps its own copy of every host layer it runs."""
+    offenders = [str(f.relative_to(REPO)) for f in _port_files()
+                 if MALVA_TPU_IMPORT.search(f.read_text())]
+    assert not offenders
+
+
+def test_malva_tpu_import_pattern():
+    for line in ("from malva_tpu.ops.seq import canonical", "import malva_tpu",
+                 "  from malva_tpu import cli", "import malva_tpu.pipeline as mp"):
+        assert MALVA_TPU_IMPORT.search(line), line
+    for line in ("from malva_tpu_torch.ops import kernels", "import malva_tpu_torch",
+                 "from .pipeline import Index", "# from malva_tpu import cli is gone"):
+        assert not MALVA_TPU_IMPORT.search(line), line

@@ -68,7 +68,7 @@ def test_canonical_and_pack_match_host():
     rng = np.random.default_rng(7)
     alpha = np.frombuffer(b"ACGTNacgtnRYSWKM", dtype=np.uint8)
     rows = alpha[rng.integers(0, alpha.shape[0], size=(500, 43))]
-    np.testing.assert_array_equal(seq.canonical(torch.from_numpy(rows)).numpy(), canonical(rows))
+    np.testing.assert_array_equal(seq.canonical_tensor(torch.from_numpy(rows)).numpy(), canonical(rows))
     acgt = np.frombuffer(b"ACGT", dtype=np.uint8)[rng.integers(0, 4, size=(500, 43))]
     got = seq.pack2bit(torch.from_numpy(acgt), 43).numpy().astype(np.uint32)
     np.testing.assert_array_equal(got, pack2bit_u32_np(acgt, 43))

@@ -6,16 +6,20 @@
 
 1. Prints torch's and CUDA's versions and the card's name and power limit.
 2. Builds the CUDA kernels from ``malva_tpu_torch/csrc`` with nvcc, one
-   process per source.
+   process per source, always anew, and fails unless ptxas reports a
+   0-byte stack frame and no spill store or load for every instantiation
+   of K1-K4.
 3. Holds each kernel against its plain PyTorch version on the card, at
    the main path's shapes, with zero tolerance (integer hashing, keys and
    counters are exact): K1 hash-only on 2^21 packed contexts and K1 fused
    on a synthetic -b 1 index (2^33 bits at a bit density of 2^-6, a 1M-key
    exact map); K2 hash-only and scan on a 2^20-position chunk with N,
-   lowercase and IUPAC bytes; K4 on shard 0 of that index split 4 ways,
-   with 2^21 lanes routed to it, a quarter centred on its map keys; K3 on
-   a 2^25-window read chunk (reads joined by 0xFF, with N, lowercase and
-   reads shorter than ref_k) and on a short ragged chunk at each ref_k of
+   lowercase and IUPAC bytes, and again on one shaped like the run's
+   reference (uppercase ACGT, N runs, IUPAC codes at 1e-4); K4 on shard 0
+   of that index split 4 ways, with 2^21 lanes routed to it, a quarter
+   centred on its map keys; K3 on a 2^25-window read chunk (reads joined
+   by 0xFF, with N, lowercase and reads shorter than ref_k) and on a
+   short ragged chunk at each ref_k of
    K3_REF_KS (IUPAC codes, palindromes, a length that is not a whole
    number of tiles, an unaligned start), and the whole device sort-count
    step against the host counter's sort-count of the same windows.  Times
@@ -262,12 +266,28 @@ def reference_chunk(device):
     return torch.from_numpy(seq).to(device)
 
 
+def main_path_chunk(device):
+    """CHUNK + REF_K - 1 bytes shaped like the run's reference chunks
+    (the FASTA loader uppercases): ACGT with runs of N and IUPAC codes at
+    a rate of 1e-4, from a seed."""
+    import torch
+
+    rng = np.random.default_rng(6)
+    n = CHUNK + REF_K - 1
+    seq = np.frombuffer(b"ACGT", dtype=np.uint8)[rng.integers(0, 4, n)]
+    for start in rng.integers(0, n, 4):
+        seq[start : start + int(rng.integers(n // 1000, n // 50))] = ord("N")
+    iupac = rng.random(n) < 1e-4
+    seq[iupac] = np.frombuffer(b"RYSWKMBDHV", dtype=np.uint8)[rng.integers(0, 10, int(iupac.sum()))]
+    return torch.from_numpy(seq).to(device)
+
+
 def kernel_phase(device) -> list[dict]:
     """Every kernel of the main path against its plain version."""
     import torch
 
     from malva_tpu_torch.ops import kernels
-    from malva_tpu_torch.ops.packed import popcount32
+    from malva_tpu_torch.ops.xxh3 import xxh3_mod_size
 
     results = []
     peak = issue_peak()
@@ -283,6 +303,10 @@ def kernel_phase(device) -> list[dict]:
         max_abs_err(got, want)
     n_set = bloom_hits(got[0], got[1], ix["bf_packed"][:, 0])
     log(f"K1 hash-only == plain (with_ctx False and True); {n_set} lanes hit the Bloom filter")
+    # the random reads alone: torch's gather of the rows the lanes read
+    rows = xxh3_mod_size(got[0], got[1], SIZE_BITS)[0]
+    gather_ms = cuda_ms(lambda: ix["bf_packed"].index_select(0, rows), iters=20)
+    del got, want, rows
 
     # K1 fused step on the -b 1 index
     n_state = ix["n_counts"] + ix["n_buckets"] * 4
@@ -316,34 +340,62 @@ def kernel_phase(device) -> list[dict]:
     b_ms, b_by = bound(LANES * 28 + (n_bf + n_map) * 8,
                        LANES * (canonical_packed_ops(K) + ascii_ops(K) + xxh3_ops(K) + 23)
                        + n_set * (ascii_ops(REF_K) + xxh3_ops(REF_K) + 5), peak)
-    log(f"K1 fused {ms:.4f} ms (bound {b_ms:.4f} ms, {b_by}), plain {plain_ms:.4f} ms, "
-        f"hash-only {hash_ms:.4f} ms per {LANES} lanes")
+    log(f"K1 fused {ms:.4f} ms (bound {b_ms:.4f} ms, {b_by}; {b_ms / ms:.1%} of the bound), "
+        f"plain {plain_ms:.4f} ms, hash-only {hash_ms:.4f} ms (with the wrapper's int64 "
+        f"planes), torch's gather of the same rows {gather_ms:.4f} ms per {LANES} lanes")
     results.append({"name": "callstep", "route": "cuda",
                     "source": "malva_tpu_torch/csrc/callstep.cu",
                     "replaces": "malva_tpu/ops/pallas_kernels.py:125",
                     "max_abs_err": err1, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": None, "lanes": LANES,
-                    "bloom_hits": n_set, "hash_only_ms": hash_ms})
+                    "bloom_hits": n_set, "hash_only_ms": hash_ms, "gather_ms": gather_ms})
     del st_k, st_p, scratch, ctx, counters
 
-    # K2 on a 2^20-position chunk with N, lowercase and IUPAC bytes
-    seq = reference_chunk(device)
+    # K2 on a 2^20-position chunk with N, lowercase and IUPAC bytes, then
+    # on one shaped like the run's reference chunks
+    bf_words = ix["bf_packed"][:, 0].contiguous()
+    k2 = ref_scan_check(reference_chunk(device), bf_words, peak)
+    k2["main_path_chunk"] = ref_scan_check(main_path_chunk(device), bf_words, peak)
+    results.append({"name": "ref_scan", "route": "cuda",
+                    "source": "malva_tpu_torch/csrc/ref_scan.cu",
+                    "replaces": "malva_tpu/ops/pallas_kernels.py:222", "library_ms": None, **k2})
+    del bf_words
+    k4 = shard_update_check(ix, device, peak)
+    results[0]["event_probe"] = event_timing_probe(ix, device)
+    del ix
+    results += [seq_count_check(device, peak), k4]
+    return results
+
+
+def ref_scan_check(seq, bf_words, peak: float) -> dict:
+    """K2 on one CHUNK-position chunk against its plain version, both
+    modes (the scan into a zeroed context filter, and hash-only), timed
+    beside its bound."""
+    import torch
+
+    from malva_tpu_torch.ops import kernels
+    from malva_tpu_torch.ops.packed import popcount32
+    from malva_tpu_torch.ops.xxh3 import xxh3_mod_size
+
     c_hi, c_lo, *rest = kernels.window_hash(seq, CHUNK, K, REF_K)
     max_abs_err([c_hi, c_lo, *rest], kernels.window_hash_plain(seq, CHUNK, K, REF_K))
-    bf_words = ix["bf_packed"][:, 0].contiguous()
     n_hit = bloom_hits(c_hi, c_lo, bf_words)
-    del c_hi, c_lo, rest
+    # the random reads alone: torch's gather of the words the positions read
+    words = xxh3_mod_size(c_hi, c_lo, SIZE_BITS)[0]
+    gather_ms = cuda_ms(lambda: bf_words.index_select(0, words), iters=20)
+    del c_hi, c_lo, rest, words
     ctx_k = torch.zeros_like(bf_words)
     ctx_p = torch.zeros_like(bf_words)
     kw = dict(k=K, ref_k=REF_K, size_bits=SIZE_BITS)
     kernels.ref_scan(bf_words, ctx_k, seq, CHUNK, **kw)
     kernels.ref_scan_plain(bf_words, ctx_p, seq, CHUNK, **kw)
     torch.cuda.synchronize()
-    err2 = max_abs_err([ctx_k], [ctx_p])
+    err = max_abs_err([ctx_k], [ctx_p])
     n_bits = int(popcount32(ctx_k.long() & 0xFFFFFFFF).sum())
     if n_bits == 0:
         raise AssertionError("K2 check set no context bit")
     ms = cuda_ms(lambda: kernels.ref_scan(bf_words, ctx_k, seq, CHUNK, **kw), iters=20)
+    hash_ms = cuda_ms(lambda: kernels.window_hash(seq, CHUNK, K, REF_K), iters=20)
     plain_ms = cuda_ms(lambda: kernels.ref_scan_plain(bf_words, ctx_p, seq, CHUNK, **kw),
                        iters=3, warmup=1)
     # per position: its byte, its Bloom word (4 B); 8 B read and written per
@@ -355,20 +407,13 @@ def kernel_phase(device) -> list[dict]:
                        CHUNK * (rolling_ops(K) + ascii_ops(K) + xxh3_ops(K) + 8)
                        + n_hit * (canonical_packed_ops(REF_K) + ascii_ops(REF_K)
                                   + xxh3_ops(REF_K) + 8), peak)
-    log(f"K2 scan == plain ({n_hit} hits, {n_bits} context bits); scan {ms:.4f} ms "
-        f"(bound {b_ms:.4f} ms, "
-        f"{b_by}), plain {plain_ms:.4f} ms per {CHUNK} positions")
-    results.append({"name": "ref_scan", "route": "cuda",
-                    "source": "malva_tpu_torch/csrc/ref_scan.cu",
-                    "replaces": "malva_tpu/ops/pallas_kernels.py:222",
-                    "max_abs_err": err2, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": None, "positions": CHUNK, "hits": n_hit})
-    del bf_words, ctx_k, ctx_p, seq
-    k4 = shard_update_check(ix, device, peak)
-    results[0]["event_probe"] = event_timing_probe(ix, device)
-    del ix
-    results += [seq_count_check(device, peak), k4]
-    return results
+    log(f"K2 scan and hash-only == plain ({n_hit} hits, {n_bits} context bits); scan {ms:.4f} "
+        f"ms (bound {b_ms:.4f} ms, {b_by}; {b_ms / ms:.1%} of the bound), hash-only "
+        f"{hash_ms:.4f} ms (with the wrapper's int64 planes), torch's gather of the same "
+        f"words {gather_ms:.4f} ms, plain {plain_ms:.4f} ms per {CHUNK} positions")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "share_of_bound": b_ms / ms, "hash_only_ms": hash_ms,
+            "gather_ms": gather_ms, "positions": CHUNK, "hits": n_hit}
 
 
 def shard_update_check(ix: dict, device, peak: float) -> dict:
@@ -994,6 +1039,38 @@ def main_path_phase() -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def ptxas_check(log_text: str) -> dict:
+    """Per kernel of K1-K4 (csrc/), from this build's ptxas report: its
+    instantiations and their registers.  Raises unless every
+    instantiation was compiled with a 0-byte stack frame and no spill
+    store or load: the per-lane state must live in registers."""
+    from malva_tpu_torch.ops import _build
+
+    report = _build.ptxas_report(log_text)
+    out: dict = {}
+    for r in report:
+        n = re.search(r"ILi(\d+)E", r["function"])
+        log(f"ptxas: {r['kernel'] or r['function']}{f'<{n.group(1)}>' if n else ''}: "
+            f"{r['registers']} registers, {r['stack']} bytes stack frame, {r['spill_stores']} "
+            f"bytes spill stores, {r['spill_loads']} bytes spill loads")
+        if r["kernel"] is not None:
+            e = out.setdefault(r["kernel"], {"instantiations": 0, "registers": []})
+            e["instantiations"] += 1
+            e["registers"].append(r["registers"])
+    bad = [r for r in report if r["kernel"] and (r["stack"] or r["spill_stores"]
+                                                 or r["spill_loads"])]
+    missing = [k for k in _build.KERNELS if k not in out]
+    if bad or missing:
+        worst = [(r["function"], r["stack"], r["spill_stores"], r["spill_loads"]) for r in bad]
+        raise AssertionError(f"ptxas: kernels missing from the report {missing}; stack frames "
+                             f"or spills (function, stack, spill stores, spill loads) {worst}")
+    summary = {k: {"instantiations": e["instantiations"], "registers_min": min(e["registers"]),
+                   "registers_max": max(e["registers"]), "stack_bytes": 0, "spill_bytes": 0}
+               for k, e in out.items()}
+    log(f"ptxas: 0-byte stack frames and no spills in all {len(report)} entries; {summary}")
+    return summary
+
+
 def ensure_native() -> str:
     """Build the port's native host library for this machine and load it
     (``malva_tpu_torch.utils.native``: into ``build/native/``, without
@@ -1030,13 +1107,15 @@ def main() -> int:
     log(f"native host library: {ensure_native()}")
 
     t0 = time.perf_counter()
-    _build.library()
-    log(f"kernels built in {time.perf_counter() - t0:.6g} s")
+    _build.library(fresh=True)
+    build_s = time.perf_counter() - t0
+    log(f"kernels built in {build_s:.6g} s")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            log(f"nvcc: {line.strip()}")
+        if line.startswith("nvcc ") or "error" in line.lower():
+            log(line.strip())
+    ptxas = ptxas_check(_build.build_log)
 
-    walls = {}
+    walls = {"kernel build": build_s}
     t0 = time.perf_counter()
     results = kernel_phase(torch.device("cuda"))
     walls["kernels"] = time.perf_counter() - t0
@@ -1056,7 +1135,8 @@ def main() -> int:
         first = "sharded_launches" if r["name"] == "shard_update" else "launches"
         r["launches"] = main[first][r["name"]] if main else None
         r["launches_by_leg"] = {leg: main[leg][r["name"]] for leg in legs} if main else None
-    print(json.dumps({"phase_walls_s": walls, "genotype": genotype,
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    print(json.dumps({"phase_walls_s": walls, "ptxas": ptxas, "genotype": genotype,
                       "sharded_call_step": main and main["sharded_call_step"],
                       "distributed": main and main["distributed"]}), flush=True)
     print(smi, flush=True)

@@ -40,6 +40,7 @@
 #include <cuda_runtime.h>
 
 #include "lanes.cuh"
+#include "launch.cuh"
 
 using namespace malva;
 
@@ -62,21 +63,12 @@ struct Layout {
   static constexpr int kMinBlocks = N <= 8 ? 4 : 2;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-// Starts the copy of a tile's bytes into `raw`: 16-byte cp.async copies
-// where the chunk is 16-byte aligned, single bytes for the rest.
+// Starts the copy of a tile's bytes into `raw` (launch.cuh copy_async).
 __device__ void load_tile(uint8_t* raw, const uint8_t* __restrict__ seq, int64_t n_bytes,
                           int64_t tile, int want, bool aligned) {
   const int64_t start = tile * kTile;
   const int n = n_bytes - start < want ? (int)(n_bytes - start) : want;
-  const int done = aligned ? n / 16 * 16 : 0;
-  for (int q = 16 * threadIdx.x; q < done; q += 16 * kThreads) cp_async16(raw + q, seq + start + q);
-  for (int q = done + threadIdx.x; q < n; q += kThreads) raw[q] = seq[start + q];
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  copy_async(raw, seq + start, n, aligned);
 }
 
 __device__ __forceinline__ uint32_t spread_flags(uint32_t nibble) {  // 4 bits -> 4 bytes of 0/1
@@ -105,7 +97,7 @@ __global__ void __launch_bounds__(kThreads, Layout<N>::kMinBlocks)
   int64_t tile = blockIdx.x;
   if (tile < n_tiles) load_tile(raw, seq, n_bytes, tile, want, aligned);
   for (; tile < n_tiles; tile += gridDim.x) {
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    cp_async_wait_all();
     __syncthreads();
     for (int q = tid; q < (want + 3) / 4; q += kThreads)
       reinterpret_cast<uint32_t*>(codes)[q + q / 8] =
@@ -165,18 +157,13 @@ template <int N>
 int launch(const uint8_t* seq, int64_t n_pos, int ref_k, uint64_t* keys, uint8_t* valid,
            cudaStream_t stream) {
   using L = Layout<N>;
-  cudaError_t e = cudaFuncSetAttribute(seq_pack_kernel<N>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, seq_pack_kernel<N>, kThreads,
-                                                      L::kSmem);
+  const cudaError_t e = cudaFuncSetAttribute(
+      seq_pack_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
   if (e != cudaSuccess) return (int)e;
-  const int64_t n_tiles = (n_pos + kTile - 1) / kTile;
-  const int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
-  const int grid = (int)(n_tiles < resident ? n_tiles : resident);
+  int grid = 0;
+  const int err = persistent_grid(seq_pack_kernel<N>, kThreads, L::kSmem,
+                                  (n_pos + kTile - 1) / kTile, &grid);
+  if (err != 0) return err;
   seq_pack_kernel<N><<<grid, kThreads, L::kSmem, stream>>>(seq, n_pos, ref_k, keys, valid);
   return (int)cudaGetLastError();
 }

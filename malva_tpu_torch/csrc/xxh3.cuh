@@ -4,82 +4,63 @@
 // path).  Host spec: native/host_kernels.cpp:469 xxh3_one; the 128-bit
 // product of mix16 uses __umul64hi on the device.
 //
+// One body serves every kernel: xxh3_64 is a template over a *reader*, an
+// object whose r64(o), r32(o) and r8(o) return the little-endian 64-bit,
+// 32-bit and 8-bit value at byte offset o of the input, and whose kMaxLen
+// bounds the lengths it is asked for (the paths past it compile away).
+// The readers:
+//   * BytePtr: a byte pointer (the host spec, and the g++ tests);
+//   * WordBytes (lanes.cuh): bytes held in aligned 32-bit words, a tile in
+//     shared memory on the card, read with word loads and funnel shifts;
+//   * PackedBases<N> (lanes.cuh): 2-bit codes in N registers, each byte
+//     the ASCII of one base.
+// The secret is 24 constexpr 64-bit words; every secret offset below is a
+// template argument, so each secret word folds into an immediate.
+//
 // Also holds the other per-lane helpers the kernels share: the RCN
-// complement, the Bloom index (hash % size_bits) and the uint32 popcount.
+// complement, the Bloom index (hash % size_bits), the uint32 popcount and
+// the funnel shifts.
 #pragma once
 
 #include <stdint.h>
 
+#include <utility>
+
 #ifdef __CUDACC__
 #define MALVA_HD __host__ __device__ __forceinline__
+#define MALVA_HDC __host__ __device__ constexpr
 #else
 #define MALVA_HD inline
+#define MALVA_HDC constexpr
 #endif
 
 namespace malva {
 
-constexpr uint64_t PRIME32_1 = 0x9E3779B1ULL;
 constexpr uint64_t PRIME64_1 = 0x9E3779B185EBCA87ULL;
 constexpr uint64_t PRIME64_2 = 0xC2B2AE3D27D4EB4FULL;
 constexpr uint64_t PRIME64_3 = 0x165667B19E3779F9ULL;
 constexpr uint64_t PRIME_MX1 = 0x165667919E3779F9ULL;
 constexpr uint64_t PRIME_MX2 = 0x9FB21C651E98DF25ULL;
 
-#define MALVA_SECRET_BYTES                                                     \
-  {0xb8, 0xfe, 0x6c, 0x39, 0x23, 0xa4, 0x4b, 0xbe, 0x7c, 0x01, 0x81, 0x2c,     \
-   0xf7, 0x21, 0xad, 0x1c, 0xde, 0xd4, 0x6d, 0xe9, 0x83, 0x90, 0x97, 0xdb,     \
-   0x72, 0x40, 0xa4, 0xa4, 0xb7, 0xb3, 0x67, 0x1f, 0xcb, 0x79, 0xe6, 0x4e,     \
-   0xcc, 0xc0, 0xe5, 0x78, 0x82, 0x5a, 0xd0, 0x7d, 0xcc, 0xff, 0x72, 0x21,     \
-   0xb8, 0x08, 0x46, 0x74, 0xf7, 0x43, 0x24, 0x8e, 0xe0, 0x35, 0x90, 0xe6,     \
-   0x81, 0x3a, 0x26, 0x4c, 0x3c, 0x28, 0x52, 0xbb, 0x91, 0xc3, 0x00, 0xcb,     \
-   0x88, 0xd0, 0x65, 0x8b, 0x1b, 0x53, 0x2e, 0xa3, 0x71, 0x64, 0x48, 0x97,     \
-   0xa2, 0x0d, 0xf9, 0x4e, 0x38, 0x19, 0xef, 0x46, 0xa9, 0xde, 0xac, 0xd8,     \
-   0xa8, 0xfa, 0x76, 0x3f, 0xe3, 0x9c, 0x34, 0x3f, 0xf9, 0xdc, 0xbb, 0xc7,     \
-   0xc7, 0x0b, 0x4f, 0x1d, 0x8a, 0x51, 0xe0, 0x4b, 0xcd, 0xb4, 0x59, 0x31,     \
-   0xc8, 0x9f, 0x7e, 0xc9, 0xd9, 0x78, 0x73, 0x64, 0xea, 0xc5, 0xac, 0x83,     \
-   0x34, 0xd3, 0xeb, 0xc3, 0xc5, 0x81, 0xa0, 0xff, 0xfa, 0x13, 0x63, 0xeb,     \
-   0x17, 0x0d, 0xdd, 0x51, 0xb7, 0xf0, 0xda, 0x49, 0xd3, 0x16, 0x55, 0x26,     \
-   0x29, 0xd4, 0x68, 0x9e, 0x2b, 0x16, 0xbe, 0x58, 0x7d, 0x47, 0xa1, 0xfc,     \
-   0x8f, 0xf8, 0xb8, 0xd1, 0x7a, 0xd0, 0x31, 0xce, 0x45, 0xcb, 0x3a, 0x8f,     \
-   0x95, 0x16, 0x04, 0x28, 0xaf, 0xd7, 0xfb, 0xca, 0xbb, 0x4b, 0x40, 0x7e}
+// The 192-byte default secret as little-endian 64-bit words.
+constexpr uint64_t kSecret[24] = {
+    0xbe4ba423396cfeb8ULL, 0x1cad21f72c81017cULL, 0xdb979083e96dd4deULL,
+    0x1f67b3b7a4a44072ULL, 0x78e5c0cc4ee679cbULL, 0x2172ffcc7dd05a82ULL,
+    0x8e2443f7744608b8ULL, 0x4c263a81e69035e0ULL, 0xcb00c391bb52283cULL,
+    0xa32e531b8b65d088ULL, 0x4ef90da297486471ULL, 0xd8acdea946ef1938ULL,
+    0x3f349ce33f76faa8ULL, 0x1d4f0bc7c7bbdcf9ULL, 0x3159b4cd4be0518aULL,
+    0x647378d9c97e9fc8ULL, 0xc3ebd33483acc5eaULL, 0xeb6313faffa081c5ULL,
+    0x49daf0b751dd0d17ULL, 0x9e68d429265516d3ULL, 0xfca1477d58be162bULL,
+    0xce31d07ad1b8f88fULL, 0x280416958f3acb45ULL, 0x7e404bbbcafbd7afULL,
+};
 
-// One copy per translation unit: the constant cache broadcasts the
-// secret, whose offsets are the same for every thread of a warp.
-#ifdef __CUDACC__
-static __constant__ uint8_t kSecretDev[192] = MALVA_SECRET_BYTES;
-#endif
-static const uint8_t kSecretHost[192] = MALVA_SECRET_BYTES;
-
-MALVA_HD uint8_t secret_byte(int i) {
-#ifdef __CUDA_ARCH__
-  return kSecretDev[i];
-#else
-  return kSecretHost[i];
-#endif
-}
-
-MALVA_HD uint64_t sec64(int off) {
-  uint64_t v = 0;
-  for (int j = 7; j >= 0; --j) v = (v << 8) | secret_byte(off + j);
-  return v;
-}
-
-MALVA_HD uint64_t sec32(int off) {
-  uint64_t v = 0;
-  for (int j = 3; j >= 0; --j) v = (v << 8) | secret_byte(off + j);
-  return v;
-}
-
-// little-endian reads from a byte buffer (no alignment assumed)
-MALVA_HD uint64_t rd64(const uint8_t* p) {
-  uint64_t v = 0;
-  for (int j = 7; j >= 0; --j) v = (v << 8) | p[j];
-  return v;
-}
-
-MALVA_HD uint64_t rd32(const uint8_t* p) {
-  return (uint64_t)p[0] | ((uint64_t)p[1] << 8) | ((uint64_t)p[2] << 16) |
-         ((uint64_t)p[3] << 24);
+// The secret's 64-bit word at byte offset off (0 <= off <= 184).  Called
+// only where its value initialises a constexpr variable, as CUDA requires
+// for reading a constexpr array in device code.
+MALVA_HDC uint64_t secret64(int off) {
+  return (off & 7) == 0 ? kSecret[off >> 3]
+                        : (kSecret[off >> 3] >> (8 * (off & 7))) |
+                              (kSecret[(off >> 3) + 1] << (64 - 8 * (off & 7)));
 }
 
 MALVA_HD uint64_t mul128_fold64(uint64_t a, uint64_t b) {
@@ -123,39 +104,89 @@ MALVA_HD uint64_t rrmxmx(uint64_t h, uint64_t len) {
   return h ^ (h >> 28);
 }
 
-MALVA_HD uint64_t mix16(const uint8_t* in, int sec_off) {
-  return mul128_fold64(rd64(in) ^ sec64(sec_off), rd64(in + 8) ^ sec64(sec_off + 8));
+// The low 32 bits of (hi:lo) >> s, and the high 32 bits of (hi:lo) << s,
+// for 0 <= s < 32.
+MALVA_HD uint32_t funnel_r(uint32_t lo, uint32_t hi, uint32_t s) {
+#ifdef __CUDA_ARCH__
+  return __funnelshift_r(lo, hi, s);
+#else
+  return s == 0 ? lo : (lo >> s) | (hi << (32 - s));
+#endif
 }
 
-// XXH3_64bits(a, len) for 0 <= len <= 240.
-MALVA_HD uint64_t xxh3_64(const uint8_t* a, int len) {
-  if (len == 0) return xxh64_avalanche(sec64(56) ^ sec64(64));
+MALVA_HD uint32_t funnel_l(uint32_t lo, uint32_t hi, uint32_t s) {
+#ifdef __CUDA_ARCH__
+  return __funnelshift_l(lo, hi, s);
+#else
+  return s == 0 ? hi : (hi << s) | (lo >> (32 - s));
+#endif
+}
+
+// A byte string in memory, read a byte at a time.
+struct BytePtr {
+  static constexpr int kMaxLen = 240;
+  const uint8_t* p;
+  MALVA_HD uint32_t r8(int o) const { return p[o]; }
+  MALVA_HD uint32_t r32(int o) const {
+    return p[o] | (uint32_t)p[o + 1] << 8 | (uint32_t)p[o + 2] << 16 | (uint32_t)p[o + 3] << 24;
+  }
+  MALVA_HD uint64_t r64(int o) const { return r32(o) | (uint64_t)r32(o + 4) << 32; }
+};
+
+// mix16 of the 16 input bytes at offset o with the secret at byte S.
+template <int S, class R>
+MALVA_HD uint64_t mix16(const R& in, int o) {
+  constexpr uint64_t s0 = secret64(S), s1 = secret64(S + 8);
+  return mul128_fold64(in.r64(o) ^ s0, in.r64(o + 8) ^ s1);
+}
+
+// 129..240 bytes: the first eight stripes, then stripes 8.. below len / 16.
+template <class R, int... I>
+MALVA_HD uint64_t mix_head(const R& in, std::integer_sequence<int, I...>) {
+  return (uint64_t{0} + ... + mix16<16 * I>(in, 16 * I));
+}
+
+template <class R, int... I>
+MALVA_HD uint64_t mix_tail(const R& in, int len, std::integer_sequence<int, I...>) {
+  return (uint64_t{0} + ... + (I + 8 < len / 16 ? mix16<16 * I + 3>(in, 16 * (I + 8)) : 0));
+}
+
+// XXH3_64bits of the first len (0..240) bytes of a reader's input.
+template <class R>
+MALVA_HD uint64_t xxh3_64(const R& in, int len) {
+  if (len == 0) {
+    constexpr uint64_t s = secret64(56) ^ secret64(64);
+    return xxh64_avalanche(s);
+  }
   if (len <= 3) {
-    uint64_t c1 = a[0], c2 = a[len >> 1], c3 = a[len - 1];
-    uint64_t combined = (c1 << 16) | (c2 << 24) | c3 | ((uint64_t)len << 8);
-    return xxh64_avalanche(combined ^ (sec32(0) ^ sec32(4)));
+    constexpr uint64_t s = (secret64(0) ^ secret64(4)) & 0xFFFFFFFFULL;
+    const uint64_t c1 = in.r8(0), c2 = in.r8(len >> 1), c3 = in.r8(len - 1);
+    const uint64_t combined = (c1 << 16) | (c2 << 24) | c3 | ((uint64_t)len << 8);
+    return xxh64_avalanche(combined ^ s);
   }
   if (len <= 8) {
-    uint64_t in64 = rd32(a + len - 4) + (rd32(a) << 32);
-    return rrmxmx(in64 ^ (sec64(8) ^ sec64(16)), (uint64_t)len);
+    constexpr uint64_t s = secret64(8) ^ secret64(16);
+    const uint64_t in64 = in.r32(len - 4) + ((uint64_t)in.r32(0) << 32);
+    return rrmxmx(in64 ^ s, (uint64_t)len);
   }
   if (len <= 16) {
-    uint64_t lo = rd64(a) ^ (sec64(24) ^ sec64(32));
-    uint64_t hi = rd64(a + len - 8) ^ (sec64(40) ^ sec64(48));
+    constexpr uint64_t s_lo = secret64(24) ^ secret64(32), s_hi = secret64(40) ^ secret64(48);
+    const uint64_t lo = in.r64(0) ^ s_lo;
+    const uint64_t hi = in.r64(len - 8) ^ s_hi;
     return xxh3_avalanche((uint64_t)len + swap64(lo) + hi + mul128_fold64(lo, hi));
   }
+  constexpr int kMax = R::kMaxLen;
   uint64_t acc = (uint64_t)len * PRIME64_1;
-  if (len <= 128) {
-    if (len > 96) acc += mix16(a + 48, 96) + mix16(a + len - 64, 112);
-    if (len > 64) acc += mix16(a + 32, 64) + mix16(a + len - 48, 80);
-    if (len > 32) acc += mix16(a + 16, 32) + mix16(a + len - 32, 48);
-    acc += mix16(a, 0) + mix16(a + len - 16, 16);
+  if (kMax <= 128 || len <= 128) {
+    if (kMax > 96 && len > 96) acc += mix16<96>(in, 48) + mix16<112>(in, len - 64);
+    if (kMax > 64 && len > 64) acc += mix16<64>(in, 32) + mix16<80>(in, len - 48);
+    if (kMax > 32 && len > 32) acc += mix16<32>(in, 16) + mix16<48>(in, len - 32);
+    acc += mix16<0>(in, 0) + mix16<16>(in, len - 16);
     return xxh3_avalanche(acc);
   }
-  for (int i = 0; i < 8; ++i) acc += mix16(a + 16 * i, 16 * i);
-  acc = xxh3_avalanche(acc);
-  for (int i = 8; i < len / 16; ++i) acc += mix16(a + 16 * i, 16 * (i - 8) + 3);
-  acc += mix16(a + len - 16, 136 - 17);
+  acc = xxh3_avalanche(acc + mix_head(in, std::make_integer_sequence<int, 8>{}));
+  acc += mix_tail(in, len, std::make_integer_sequence<int, 7>{});
+  acc += mix16<136 - 17>(in, len - 16);
   return xxh3_avalanche(acc);
 }
 

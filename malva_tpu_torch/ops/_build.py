@@ -6,7 +6,8 @@ library with a plain C interface, which ``ctypes`` loads.  The build runs
 at first use, only from the sources in this package, into
 ``build/kernels/`` at the repository root; the file name carries a digest of the sources and
 flags, so an edited source builds anew.  A failed build raises: nothing
-falls back.
+falls back.  ``ptxas_report`` reads each kernel's registers, stack frame
+and spills from the build's ``-Xptxas -v`` output.
 """
 
 from __future__ import annotations
@@ -14,8 +15,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -23,7 +27,15 @@ BUILD_DIR = CSRC.parent.parent / "build" / "kernels"
 SOURCES = ("callstep.cu", "ref_scan.cu", "seq_count.cu", "shard_step.cu")
 HEADERS = ("xxh3.cuh", "lanes.cuh", "launch.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# --split-compile=0: nvcc optimizes and assembles the kernels of one source
+# side by side on every core, so that callstep.cu's 30 instantiations do
+# not keep the whole build waiting (chip_smoke.py logs each source's time)
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--split-compile=0", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
+
+# the __global__ functions of SOURCES, as their mangled names contain them
+KERNELS = ("callstep_kernel", "callstep_hash_kernel", "ref_scan_kernel", "window_hash_kernel",
+           "seq_pack_kernel", "shard_update_kernel")
 
 _lib: ctypes.CDLL | None = None
 build_log = ""  # nvcc's output of the last build in this process (ptxas -v)
@@ -46,15 +58,21 @@ def _digest() -> str:
 
 
 def _run_all(cmds: list[list[str]]) -> None:
-    """Run the commands side by side; raise with nvcc's output if any fails."""
+    """Run the commands side by side, each one's output and time into
+    ``build_log``; raise with nvcc's output if any fails."""
     global build_log
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
-    outs = [p.communicate()[0] for p in procs]
-    build_log += "".join(outs)
-    for p, out in zip(procs, outs):
+
+    def run(cmd):
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return p, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        done = list(pool.map(run, cmds))
+    for cmd, (p, secs) in zip(cmds, done):
+        build_log += f"{p.stdout}nvcc {Path(cmd[-1]).name}: {secs:.2f} s\n"
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed (rc={p.returncode}):\n{out}")
+            raise RuntimeError(f"nvcc failed (rc={p.returncode}):\n{p.stdout}")
 
 
 def _compile(so: Path) -> None:
@@ -74,13 +92,41 @@ def _compile(so: Path) -> None:
     os.replace(tmp, so)
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+def ptxas_report(log: str) -> list[dict]:
+    """One entry per kernel instantiation that ptxas compiled in ``log``:
+    its mangled name, which of KERNELS it is (None for any other), its
+    registers, and its stack frame and spill bytes (any non-entry function
+    ptxas lists after an entry counts towards that entry)."""
+    out: list[dict] = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out.append({"function": name,
+                        "kernel": next((k for k in KERNELS if k in name), None),
+                        "registers": None, "stack": 0, "spill_stores": 0, "spill_loads": 0})
+            continue
+        if not out:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            for key, v in zip(("stack", "spill_stores", "spill_loads"), m.groups()):
+                out[-1][key] += int(v)
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
+def library(fresh: bool = False) -> ctypes.CDLL:
+    """The loaded kernel library, built on first use (or built anew when
+    ``fresh``, so that ``build_log`` holds this build's ptxas report)."""
     global _lib
-    if _lib is not None:
+    if _lib is not None and not fresh:
         return _lib
     so = BUILD_DIR / f"libmalva_kernels_{_digest()}.so"
-    if not so.exists():
+    if fresh or not so.exists():
         _compile(so)
     lib = ctypes.CDLL(str(so))
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64

@@ -10,13 +10,15 @@ falls back.  ``LAUNCHES`` counts kernel launches per wrapper.
   ``pallas_kernels.py:125 make_callstep_hash_fn`` and the rest of
   ``index/device.py:400 make_call_step_packed``.  On the card it is bound
   by one random 8-byte row gather per lane from the GiB-sized word+rank
-  array; the kernel does everything else in registers and touches the
-  context filter and the exact map only for the few interesting lanes.
+  array; the kernel hashes in registers, keeps a tile's gathers in flight
+  while it hashes the next, and queues the few lanes that go on to the
+  context filter and the exact map for the whole warp.
 * K2 ``ref_scan`` (``csrc/ref_scan.cu``) replaces
   ``pallas_kernels.py:222 make_window_hash_fn`` and the rest of
-  ``index/device.py:697 make_ref_scan_step_pallas``.  It is bound by the
-  hashing of two canonical strings per reference position plus one
-  random 4-byte alt-filter read; hits end in one ``atomicOr``.
+  ``index/device.py:697 make_ref_scan_step_pallas``.  It is bound by one
+  random 4-byte alt-filter read per reference position; the chunk and its
+  reverse complement sit in shared memory, where the canonical forms are
+  compared and hashed in place, and hits end in one ``atomicOr``.
 
 * K3 ``seq_pack`` (``csrc/seq_count.cu``) has no Pallas counterpart: it
   replaces the XLA front end of ``malva_tpu/count/device_count.py:64

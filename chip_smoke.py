@@ -5,6 +5,10 @@
     python3 chip_smoke.py --kernels-only
 
 1. Prints torch's and CUDA's versions and the card's name and power limit.
+   Builds the port's native host library from its own source
+   (``malva_tpu_torch/csrc/host_kernels.cpp``) and fails unless it loads
+   and, on a host with more than one core, runs its loops on more than
+   one thread; logs its build form and thread count.
 2. Builds the CUDA kernels from ``malva_tpu_torch/csrc`` with nvcc, one
    process per source, always anew, and fails unless ptxas reports a
    0-byte stack frame and no spill store or load for every instantiation
@@ -16,8 +20,9 @@
    exact map); K2 hash-only and scan on a 2^20-position chunk with N,
    lowercase and IUPAC bytes, and again on one shaped like the run's
    reference (uppercase ACGT, N runs, IUPAC codes at 1e-4); K4 on shard 0
-   of that index split 4 ways, with 2^21 lanes routed to it, a quarter
-   centred on its map keys; K3 on a 2^25-window read chunk (reads joined
+   of that index split 4 ways (its rows with the mini-filter of its own
+   map keys, and again without it), with 2^21 lanes routed to it, a
+   quarter centred on its map keys, beside torch's gather of its rows; K3 on a 2^25-window read chunk (reads joined
    by 0xFF, with N, lowercase and reads shorter than ref_k) and on a
    short ragged chunk at each ref_k of
    K3_REF_KS (IUPAC codes, palindromes, a length that is not a whole
@@ -38,7 +43,10 @@
    the inputs, ``--backend host``; the VCFs must be byte-identical, K1-K3
    must have launched in the cuda run (the reads are counted on the card,
    with no host counting producer), and its logged call-step time must be
-   under 10 ms.  Then the cuda run once more on a third copy with
+   under 10 ms; its index upload is logged in four parts (bucket table,
+   mini-filter, copies, packing on the card), with the variant pass and
+   pass 2 beside the native library's thread count.  Then the cuda run
+   once more on a third copy with
    ``--spill-dir``: the device spill counter, the same kernels, and the
    host run's VCF.
 5. Runs ``batch`` over the 5x reads and a 3x read set of the same genome
@@ -51,7 +59,8 @@
    (``make_mesh(devices=[cuda:0] * 4)``): ``build_index`` and ``call`` on
    the chr-scale input, then ``call_batch`` over the 5x and 3x reads on
    that index; each VCF equal to its host leg's, K1-K4 launched, the
-   sharded context scan and call-step lines logged.  Then
+   sharded context scan and call-step lines logged; then the one-card
+   index upload of that chr-scale index alone, in its four parts.  Then
    ``python -m malva_tpu_torch.run_distributed`` in two processes (gloo)
    with the 5x reads split in two: rank 0's VCF equal to the host run's.
    Then ``graft_entry.dryrun_multichip(4, [cuda:0] * 4)``.
@@ -418,66 +427,88 @@ def ref_scan_check(seq, bf_words, peak: float) -> dict:
 
 def shard_update_check(ix: dict, device, peak: float) -> dict:
     """K4 against its plain version on shard 0 of the synthetic -b 1 index
-    split SHARDS ways: the shard's [word, local rank] rows (no
-    mini-filter), the exact map of the keys whose Bloom word it owns, and
-    ROUTED lanes whose Bloom word it owns (the routing's guarantee), a
-    quarter of them centred on its map keys, with random "context known"
-    flags."""
+    split SHARDS ways: the shard's [word, local rank] rows with the
+    mini-filter of its own map keys in the rank's top bits (as
+    parallel/sharded_index.py builds them), the exact map of the keys whose
+    Bloom word it owns, and ROUTED lanes whose Bloom word it owns (the
+    routing's guarantee), a quarter of them centred on its map keys, with
+    random "context known" flags; then again with rows without the
+    mini-filter (every lane probes the map)."""
     import torch
 
-    from malva_tpu_torch.index.device import pack2bit_u32_np, pack_bloom_rows
+    from malva_tpu_torch.index.device import (
+        RANK_MASK,
+        minifilter_rows,
+        pack2bit_u32_np,
+        pack_bloom_rows,
+    )
     from malva_tpu_torch.index.kmap_table import BucketTable
     from malva_tpu_torch.ops import kernels
     from malva_tpu_torch.ops.bloom import from_u32
     from malva_tpu_torch.ops.xxh3 import xxh3_64, xxh3_mod_size
 
     wps = SIZE_BITS // 32 // SHARDS
-    none = torch.zeros(0, dtype=torch.int64, device=device)
-    rows = pack_bloom_rows(ix["bf_packed"][:wps, 0].contiguous(), none, none)
-    n_counts = int(rows[-1, 1]) + bin(int(rows[-1, 0]) & 0xFFFFFFFF).count("1")
     keys = ix["keys"]
     h = xxh3_64(keys)
     mine = ((h % np.uint64(SIZE_BITS)) >> np.uint64(5)).astype(np.int64) < wps
     table = BucketTable.from_packed(pack2bit_u32_np(keys[mine], K), h[mine], K)
     kmap_keys = from_u32(table.bucket_keys, device)
+    mf_rows, mf_bits = (torch.from_numpy(a).to(device) for a in minifilter_rows(h[mine], SIZE_BITS))
+    rows = pack_bloom_rows(ix["bf_packed"][:wps, 0].contiguous(), mf_rows, mf_bits)
+    rows_off = rows.clone()
+    rows_off[:, 1] &= RANK_MASK
+    n_counts = int(rows_off[-1, 1]) + bin(int(rows[-1, 0]) & 0xFFFFFFFF).count("1")
 
     ctx, counters = planted_contexts(keys[mine], 4 * ROUTED, ROUTED // 4, device)
     c_hi, c_lo = kernels.callstep_hash_plain(ctx, K, REF_K, with_ctx=False)[:2]
-    owned = torch.nonzero(xxh3_mod_size(c_hi, c_lo, SIZE_BITS)[0] < wps).squeeze(1)[:ROUTED]
-    ctx, counters = ctx[owned].contiguous(), counters[owned].contiguous()
+    words = xxh3_mod_size(c_hi, c_lo, SIZE_BITS)[0]
+    owned = torch.nonzero(words < wps).squeeze(1)[:ROUTED]
+    ctx, counters, words = ctx[owned].contiguous(), counters[owned].contiguous(), words[owned]
     if ctx.shape[0] != ROUTED:
         raise AssertionError(f"K4 check: {ctx.shape[0]} routed lanes, not {ROUTED}")
+    # the random reads alone: torch's gather of the rows the lanes read
+    gather_ms = cuda_ms(lambda: rows.index_select(0, words), iters=20)
     gen = torch.Generator(device=device).manual_seed(5)
     known = torch.rand(ROUTED, device=device, generator=gen) < 0.5
-    args = dict(k=K, ref_k=REF_K, size_bits=SIZE_BITS, n_buckets=table.n_buckets, word_base=0,
-                counts_len=n_counts)
     n_state = n_counts + table.n_buckets * 4
-    st_k = torch.zeros(n_state, dtype=torch.int32, device=device)
-    st_p = torch.zeros_like(st_k)
-    kernels.shard_update(rows, kmap_keys, st_k, ctx, counters, known, **args)
-    kernels.shard_update_plain(rows, kmap_keys, st_p, ctx, counters, known, **args)
-    torch.cuda.synchronize()
-    err = max_abs_err([st_k], [st_p])
-    n_bf, n_map = int((st_k[:n_counts] != 0).sum()), int((st_k[n_counts:] != 0).sum())
-    if not n_bf or not n_map:
-        raise AssertionError("K4 check touched no counter or no map value")
-    scratch = torch.zeros_like(st_k)
-    ms = cuda_ms(lambda: kernels.shard_update(rows, kmap_keys, scratch, ctx, counters, known,
-                                              **args), iters=20)
-    plain_ms = cuda_ms(lambda: kernels.shard_update_plain(rows, kmap_keys, scratch, ctx, counters,
-                                                          known, **args), iters=3, warmup=1)
+    out = {}
+    for minifilter, r in ((True, rows), (False, rows_off)):
+        args = dict(k=K, ref_k=REF_K, size_bits=SIZE_BITS, n_buckets=table.n_buckets,
+                    word_base=0, counts_len=n_counts, minifilter=minifilter)
+        st_k = torch.zeros(n_state, dtype=torch.int32, device=device)
+        st_p = torch.zeros_like(st_k)
+        kernels.shard_update(r, kmap_keys, st_k, ctx, counters, known, **args)
+        kernels.shard_update_plain(r, kmap_keys, st_p, ctx, counters, known, **args)
+        torch.cuda.synchronize()
+        out[minifilter] = {"err": max_abs_err([st_k], [st_p]),
+                           "n_bf": int((st_k[:n_counts] != 0).sum()),
+                           "n_map": int((st_k[n_counts:] != 0).sum())}
+        if not out[minifilter]["n_bf"] or not out[minifilter]["n_map"]:
+            raise AssertionError("K4 check touched no counter or no map value")
+        scratch = torch.zeros_like(st_k)
+        out[minifilter]["ms"] = cuda_ms(lambda: kernels.shard_update(
+            r, kmap_keys, scratch, ctx, counters, known, **args), iters=20)
+        if minifilter:
+            plain_ms = cuda_ms(lambda: kernels.shard_update_plain(
+                r, kmap_keys, scratch, ctx, counters, known, **args), iters=3, warmup=1)
+    if out[True]["n_bf"] != out[False]["n_bf"] or out[True]["n_map"] != out[False]["n_map"]:
+        raise AssertionError(f"K4 with and without the mini-filter updated other counters {out}")
+    on, ms = out[True], out[True]["ms"]
     # per lane: context (12 B), counter (4 B), "known" flag (1 B), Bloom row
     # (8 B); 8 B read and written per counter and map value updated.  The
     # centre's canonical form, ASCII and hash, and 23 as in K1.
-    b_ms, b_by = bound(ROUTED * 25 + (n_bf + n_map) * 8,
+    b_ms, b_by = bound(ROUTED * 25 + (on["n_bf"] + on["n_map"]) * 8,
                        ROUTED * (canonical_packed_ops(K) + ascii_ops(K) + xxh3_ops(K) + 23), peak)
-    log(f"K4 == plain on shard 0 of {SHARDS} ({n_bf} counters, {n_map} map values updated, "
-        f"{int(mine.sum())} map keys); K4 {ms:.4f} ms (bound {b_ms:.4f} ms, {b_by}), plain "
-        f"{plain_ms:.4f} ms per {ROUTED} routed lanes")
+    log(f"K4 == plain on shard 0 of {SHARDS} ({on['n_bf']} counters, {on['n_map']} map values "
+        f"updated, {int(mine.sum())} map keys), with the shard's mini-filter and without it; "
+        f"K4 {ms:.4f} ms (bound {b_ms:.4f} ms, {b_by}; {b_ms / ms:.1%} of the bound), without "
+        f"the mini-filter {out[False]['ms']:.4f} ms, torch's gather of the same rows "
+        f"{gather_ms:.4f} ms, plain {plain_ms:.4f} ms per {ROUTED} routed lanes")
     return {"name": "shard_update", "route": "cuda", "source": "malva_tpu_torch/csrc/shard_step.cu",
             "replaces": "malva_tpu/parallel/sharded_index.py:398 (XLA, no Pallas counterpart)",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None, "lanes": ROUTED}
+            "max_abs_err": max(on["err"], out[False]["err"]), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "lanes": ROUTED,
+            "gather_ms": gather_ms, "no_minifilter_ms": out[False]["ms"]}
 
 
 def event_timing_probe(ix: dict, device) -> dict:
@@ -772,6 +803,29 @@ def phase_walls(stderr: str) -> dict:
     return walls
 
 
+UPLOAD = re.compile(r"index upload ([0-9.e+-]+) s \(table ([0-9.e+-]+) s, minifilter ([0-9.e+-]+) s, "
+                    r"copy ([0-9.e+-]+) s, pack ([0-9.e+-]+) s\)")
+UPLOAD_PARTS = ("table_s", "minifilter_s", "copy_s", "pack_s")
+
+
+def upload_parts(stderr: str) -> dict:
+    """The one-card index upload's wall and its four parts (s) from a leg's
+    ``call step:`` metrics line (index/device.py DeviceIndex.from_host)."""
+    m = UPLOAD.search(stderr)
+    if m is None:
+        raise AssertionError("the leg logged no index upload split into its four parts")
+    return {"upload_s": float(m.group(1)), **dict(zip(UPLOAD_PARTS, map(float, m.groups()[1:])))}
+
+
+def host_phases(walls: dict) -> dict:
+    """The two host phases the native library's threads serve, from a
+    leg's phase walls: the variant pass of the index (its heartbeats and
+    final line) and pass 2 (coverage, genotyping, VCF)."""
+    return {"variant_pass_s": round(sum(v for n, v in walls.items()
+                                        if n.startswith("Processed variants")), 6),
+            "pass2_s": sum(v for n, v in walls.items() if n.startswith("VCF parsing and genotyping"))}
+
+
 def trace_summary(trace_dir: str) -> dict:
     """Device time by kernel from the torch.profiler trace of a leg: the
     summed durations of each kernel of the port (ms), of all kernels and
@@ -874,9 +928,28 @@ def sharded_legs(src: str, reads3: str, work: str, run_vcf: bytes, batch_vcfs: d
     if berr.count("sharded index uploaded") != 1:
         raise AssertionError("sharded call_batch did not place the sharded index once")
     log(f"sharded call_batch VCFs == host batch leg's; launches {batch_launches}")
-    return {"launches": launches, "batch_launches": batch_launches, "call_step": stats,
+    alone = upload_alone(got["index"], cfg)
+    return {"upload_alone": alone, "launches": launches, "batch_launches": batch_launches, "call_step": stats,
             "walls": {"sharded run": phase_walls(err), "sharded batch": phase_walls(berr)},
             "legs_s": {"sharded run": wall, "sharded batch": bwall}}
+
+
+def upload_alone(index, cfg) -> dict:
+    """The one-card index upload (DeviceIndex.from_host) of a chr-scale
+    host index with nothing else running in the process: its wall and its
+    four parts (s)."""
+    import torch
+
+    from malva_tpu_torch.index.device import DeviceIndex
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev = DeviceIndex.from_host(index, cfg, torch.device("cuda", 0))
+    out = {"upload_s": time.perf_counter() - t0, **dev.upload_parts}
+    del dev
+    torch.cuda.empty_cache()
+    log(f"one-card index upload alone: {json.dumps(out)}")
+    return out
 
 
 def free_port() -> int:
@@ -935,6 +1008,7 @@ def distributed_leg(src: str, work: str, run_vcf: bytes) -> dict:
 def main_path_phase() -> dict:
     from malva_tpu_torch.graft_entry import dryrun_multichip
     from malva_tpu_torch.ops import kernels
+    from malva_tpu_torch.utils import native
 
     tmp = tempfile.mkdtemp(prefix="malva_smoke_")
     try:
@@ -982,6 +1056,10 @@ def main_path_phase() -> dict:
         log(f"run --spill-dir VCF == host run's; launches {spill_launches}")
         walls = {"run cuda": phase_walls(err_cuda), "run host": phase_walls(err_host),
                  "run cuda spill": phase_walls(err_spill)}
+        upload = upload_parts(err_cuda)
+        threads = {leg: host_phases(w) for leg, w in walls.items()}
+        log(f"cuda run's index upload {json.dumps(upload)}; host phases with the native "
+            f"library's {native.threads()} threads: {json.dumps(threads)}")
         m = re.search(r"call step: (\d+) distinct k-mers in (\d+) steps, "
                       r"step time ([0-9.e+-]+) ms", err_cuda)
         if m is None:
@@ -1021,6 +1099,7 @@ def main_path_phase() -> dict:
                 "batch cuda": bwall_cuda, "batch host": bwall_host}
 
         sharded = sharded_legs(src, reads3, os.path.join(tmp, "sharded"), b, out_host)
+        upload_alone = sharded.pop("upload_alone")
         walls.update(sharded["walls"])
         legs.update(sharded["legs_s"])
         dist = distributed_leg(src, os.path.join(tmp, "dist"), b)
@@ -1033,6 +1112,8 @@ def main_path_phase() -> dict:
                 "batch_launches": batch_launches, "sharded_launches": sharded["launches"],
                 "sharded_batch_launches": sharded["batch_launches"], "records": n_rec,
                 "distinct_kmers": rows, "call_step_event_ms": ms, "walls": walls,
+                "upload": {"run cuda": upload, "alone": upload_alone},
+                "host_phases": {"threads": native.threads(), **threads},
                 "batch_trace": trace, "sharded_call_step": sharded["call_step"],
                 "distributed": dist, "legs_s": legs}
     finally:
@@ -1072,15 +1153,23 @@ def ptxas_check(log_text: str) -> dict:
 
 
 def ensure_native() -> str:
-    """Build the port's native host library for this machine and load it
-    (``malva_tpu_torch.utils.native``: into ``build/native/``, without
-    -fopenmp where the compiler has no OpenMP runtime).  Without the
-    library the host layers fall back to Python and the chr-scale run is
-    several times slower."""
+    """Build the port's native host library for this machine from its own
+    source (``malva_tpu_torch/csrc/host_kernels.cpp``) and load it
+    (``malva_tpu_torch.utils.native``: -fopenmp, else -fopenmp against
+    torch's libgomp, else one thread).  Fails unless it loads and, on a
+    host with more than one core, runs its loops on more than one thread:
+    without it the host layers fall back to Python, and on one thread the
+    host phases run slower."""
     from malva_tpu_torch.utils import native
 
     lib = native.load()
-    return f"loaded from {lib._name}" if lib is not None else "NOT loaded"
+    if lib is None:
+        raise AssertionError("the native host library did not load")
+    threads, form = native.threads(), native.build_form()
+    if threads <= 1 < (os.cpu_count() or 1):
+        raise AssertionError(f"the native host library (form {form}) runs on {threads} thread "
+                             f"on a host with {os.cpu_count()} cores")
+    return f"form {form}, {threads} threads, {os.cpu_count()} cores, loaded from {lib._name}"
 
 
 def main() -> int:
@@ -1104,7 +1193,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda} | {smi}", flush=True)
-    log(f"native host library: {ensure_native()}")
+    native_facts = ensure_native()
+    log(f"native host library: {native_facts}")
 
     t0 = time.perf_counter()
     _build.library(fresh=True)
@@ -1137,6 +1227,9 @@ def main() -> int:
         r["launches_by_leg"] = {leg: main[leg][r["name"]] for leg in legs} if main else None
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
     print(json.dumps({"phase_walls_s": walls, "ptxas": ptxas, "genotype": genotype,
+                      "native": native_facts,
+                      "upload": main and main["upload"],
+                      "host_phases": main and main["host_phases"],
                       "sharded_call_step": main and main["sharded_call_step"],
                       "distributed": main and main["distributed"]}), flush=True)
     print(smi, flush=True)

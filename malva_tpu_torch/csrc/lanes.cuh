@@ -321,7 +321,26 @@ struct RollingKey {
   }
 };
 
-// -- the exact map (K1, K4) --------------------------------------------------
+// -- the gathered Bloom row and the exact map (K1, K4) ------------------------
+
+// What a lane's gathered [word, rank | mini-filter << kRankBits] row says
+// about its centre hash c: `what` bit 0, its Bloom bit is set; bit 1, it
+// may be in the exact map (always, unless `use_mf`: then its mini-filter
+// bit, hash bits 60-61, must be set); and the index of its rank-compressed
+// counter (the rank is the row's low kRankBits bits where the row carries
+// a mini-filter).
+struct RowTest {
+  uint32_t what, cidx;
+};
+
+MALVA_HD RowTest row_test(uint32_t word, uint32_t aux, uint64_t c, uint64_t size_bits,
+                          bool minifilter, bool use_mf) {
+  const uint32_t bit = (uint32_t)(bloom_index(c, size_bits) & 31);
+  const uint32_t set = (word >> bit) & 1u;
+  const uint32_t cand = use_mf ? ((aux >> kRankBits) >> (uint32_t)((c >> 60) & 3)) & 1u : 1u;
+  const uint32_t rank = minifilter ? (aux & kRankMask) : aux;
+  return {set | cand << 1, rank + popc32(word & ((1u << bit) - 1u))};
+}
 
 // Flat exact-map slot of a canonical key held in N registers (w_k <= N
 // words used), or -1: bucket b1 then b2, low slot first (kmap_table.py

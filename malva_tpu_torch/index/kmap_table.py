@@ -41,11 +41,14 @@ def bucket_pair_np(lo: np.ndarray, hi: np.ndarray, n_buckets: int):
 
 
 class BucketTable:
-    def __init__(self, keys: list[bytes], k: int, min_buckets: int = 1):
+    def __init__(self, keys: list[bytes], k: int, min_buckets: int = 1,
+                 rows: np.ndarray | None = None):
+        """``rows``, where given, are the keys as (N, k) uint8 rows."""
         self.k = k
         self.w = (k + 15) // 16
         if keys:
-            arr = np.frombuffer(b"".join(keys), dtype=np.uint8).reshape(-1, self.k)
+            arr = (np.frombuffer(b"".join(keys), dtype=np.uint8).reshape(-1, self.k)
+                   if rows is None else rows)
             from .device import pack2bit_u32_np
 
             packed = pack2bit_u32_np(arr, self.k)
@@ -67,6 +70,7 @@ class BucketTable:
         return self
 
     def _build(self, packed, h, keys, min_buckets: int) -> None:
+        self.key_hashes = h  # XXH3 of each key, in input order (the mini-filter's input)
         m = packed.shape[0]
         n_buckets = max(1, min_buckets)
         while n_buckets * SLOTS < 2 * m:  # load factor <= 0.5
@@ -132,22 +136,26 @@ class BucketTable:
         if keys is None:
             self.slot_keys = None
         else:
-            slot_keys: list = [None] * (n_buckets * SLOTS)
+            # the occupied slots and their keys, in slot order
             flat = occ_b * SLOTS + occ_s
-            for i, pos in zip(ki.tolist(), flat.tolist()):
-                slot_keys[pos] = keys[i]
-            self.slot_keys = slot_keys
+            slot_keys = np.full(n_buckets * SLOTS, None, dtype=object)
+            slot_keys[flat] = np.array(keys, dtype=object)[ki]
+            self.slot_keys = slot_keys.tolist()
+            self._occupied = flat
+            self._occupied_index = ki
+            self._occupied_keys = slot_keys[flat].tolist()
         return True
 
+    def set_vals(self, vals: np.ndarray) -> None:
+        """The values of the keys, ``vals[i]`` that of the table's key i."""
+        self.vals[self._occupied] = vals[self._occupied_index]
+
     def set_vals_from(self, kmers: dict) -> None:
-        for i, kb in enumerate(self.slot_keys):
-            if kb is not None:
-                self.vals[i] = np.uint32(kmers[kb])
+        self.vals[self._occupied] = np.fromiter(
+            map(kmers.__getitem__, self._occupied_keys), np.uint32, len(self._occupied_keys))
 
     def write_back(self, vals: np.ndarray, kmers: dict) -> None:
-        for i, kb in enumerate(self.slot_keys):
-            if kb is not None:
-                kmers[kb] = int(vals[i])
+        kmers.update(zip(self._occupied_keys, vals[self._occupied].tolist()))
 
 
 M32 = 0xFFFFFFFF

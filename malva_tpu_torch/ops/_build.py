@@ -4,8 +4,9 @@
 process per source, all at once, and links the objects into one shared
 library with a plain C interface, which ``ctypes`` loads.  The build runs
 at first use, only from the sources in this package, into
-``build/kernels/`` at the repository root; the file name carries a digest of the sources and
-flags, so an edited source builds anew.  A failed build raises: nothing
+``utils/build_dir.py``'s ``kernels`` directory (``build/kernels/`` in a
+checkout, else the user's cache directory); the file name carries a
+digest of the sources and flags, so an edited source builds anew.  A failed build raises: nothing
 falls back.  ``ptxas_report`` reads each kernel's registers, stack frame
 and spills from the build's ``-Xptxas -v`` output.
 """
@@ -22,10 +23,12 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from ..utils.build_dir import build_dir
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = CSRC.parent.parent / "build" / "kernels"
+BUILD_DIR = build_dir("kernels")
 SOURCES = ("callstep.cu", "ref_scan.cu", "seq_count.cu", "shard_step.cu")
-HEADERS = ("xxh3.cuh", "lanes.cuh", "launch.cuh")
+HEADERS = ("xxh3.cuh", "lanes.cuh", "launch.cuh", "step.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # --split-compile=0: nvcc optimizes and assembles the kernels of one source
 # side by side on every core, so that callstep.cu's 30 instantiations do
@@ -134,7 +137,8 @@ def library(fresh: bool = False) -> ctypes.CDLL:
         # the call-step launchers take (start, stop) event handles before the stream
         "malva_callstep_hash": [p, i64, i, i, i, i, p, p, p, p],
         "malva_callstep": [p, p, i64, i, i, i, p, p, p, p, i64, i64, i64, i, p, p, p],
-        "malva_shard_update": [p, p, p, i64, i, i, i, p, i64, i64, p, p, i64, i64, i64, p, p, p],
+        "malva_shard_update": [p, p, p, i64, i, i, i, p, i64, i64, p, p, i64, i64, i64, i, p, p,
+                               p],
         "malva_window_hash": [p, i64, i, i, p, p],
         "malva_ref_scan": [p, i64, i, i, p, p, i64, p],
         "malva_seq_pack": [p, i64, i, p, p, p],

@@ -29,8 +29,9 @@ falls back.  ``LAUNCHES`` counts kernel launches per wrapper.
 * K4 ``shard_update`` (``csrc/shard_step.cu``) has no Pallas counterpart:
   it replaces the XLA owner-side tail of the routed sharded step
   (``malva_tpu/parallel/sharded_index.py:398-424``), run on the shard that
-  owns a lane's Bloom word.  It is bound like K1: one row gather and the
-  bucket probe per lane.
+  owns a lane's Bloom word.  It is K1's kernel template (``csrc/step.cuh``)
+  with its own policy, and bound like K1: one row gather per lane, with
+  the probe only for the few lanes the shard's mini-filter lets through.
 
 ``callstep_hash`` / ``window_hash`` are the kernels' hash-only modes,
 which write exactly the TPU kernels' outputs so the card can check them
@@ -212,18 +213,22 @@ def callstep(bf_packed, ctx_words, kmap_keys, state, ctx_packed, counters, *,
 
 def shard_update_plain(bf_packed, kmap_keys, state, ctx_packed, counters, known, *, k: int,
                        ref_k: int, size_bits: int, n_buckets: int, word_base: int,
-                       counts_len: int) -> None:
+                       counts_len: int, minifilter: bool) -> None:
     """Plain K4 over one shard, updating ``state`` in place.
 
     ``bf_packed`` is the shard's (W/S, 2) [word, local rank] rows for
-    global words ``word_base ..``, ``kmap_keys`` its (n_buckets, SLOTS *
-    w_k) bucket table and ``state`` its ``[bf_counts (counts_len) |
-    kmap_vals]``.  Each lane (packed context, counter, ``known``: its
-    context is in the context filter) adds its counter to the rank counter
-    of its centre's Bloom bit when that bit is set and the context is not
-    known, and to the exact-map slot of its centre when there is one
-    (malva_tpu/parallel/sharded_index.py:398-424).  Lanes whose Bloom word
-    lies outside the shard are no-ops."""
+    global words ``word_base ..`` (with the shard's exact-map mini-filter
+    in the rank's top 4 bits where ``minifilter``), ``kmap_keys`` its
+    (n_buckets, SLOTS * w_k) bucket table and ``state`` its ``[bf_counts
+    (counts_len) | kmap_vals]``.  Each lane (packed context, counter,
+    ``known``: its context is in the context filter) adds its counter to
+    the rank counter of its centre's Bloom bit when that bit is set and the
+    context is not known, and to the exact-map slot of its centre when
+    there is one and the mini-filter (where on) lets it probe, as
+    :func:`callstep_plain` does (malva_tpu/parallel/sharded_index.py:398-424).
+    Lanes whose Bloom word lies outside the shard are no-ops."""
+    from ..index.device import RANK_BITS, RANK_MASK  # index.device imports this module
+
     words = [lanes(ctx_packed[:, j]) for j in range(ctx_packed.shape[1])]
     can = canonical_center(words, k, ref_k)
     c_hi, c_lo = xxh3_64_cols(decode_byte_cols(can, k))
@@ -231,22 +236,27 @@ def shard_update_plain(bf_packed, kmap_keys, state, ctx_packed, counters, known,
     lw = bw - word_base
     mine = (lw >= 0) & (lw < bf_packed.shape[0])
     row = lanes(bf_packed[torch.where(mine, lw, 0)])
-    word, rank = row[:, 0], row[:, 1]
+    word, aux = row[:, 0], row[:, 1]
     is_set = ((word >> bb) & 1).bool()
+    rank = aux & RANK_MASK if minifilter else aux
     cnt_idx = rank + popcount32(word & ((1 << bb) - 1))
     scatter_add_u32(state, cnt_idx, counters, mine & is_set & ~known)
+    if minifilter and n_buckets > 1:
+        cand = (((aux >> RANK_BITS) >> ((c_hi >> 28) & 3)) & 1).bool()
+    else:
+        cand = torch.ones_like(is_set)
     slot, found = probe_bucket_table(kmap_keys, n_buckets, (k + 15) // 16, can, c_hi, c_lo)
-    scatter_add_u32(state, counts_len + slot, counters, mine & found)
+    scatter_add_u32(state, counts_len + slot, counters, mine & found & cand)
 
 
 def shard_update(bf_packed, kmap_keys, state, ctx_packed, counters, known, *, k: int,
                  ref_k: int, size_bits: int, n_buckets: int, word_base: int, counts_len: int,
-                 events=None) -> None:
+                 minifilter: bool, events=None) -> None:
     """K4: the owner-side update of routed lanes on one shard; same
     effect as :func:`shard_update_plain`.  ``known`` is a bool tensor."""
     args = (bf_packed, kmap_keys, state, ctx_packed, counters, known)
     kw = dict(k=k, ref_k=ref_k, size_bits=size_bits, n_buckets=n_buckets, word_base=word_base,
-              counts_len=counts_len)
+              counts_len=counts_len, minifilter=minifilter)
     if not _on_cuda(*args):
         return shard_update_plain(*args, **kw)
     for t, name in zip(args[:5], ("bf_packed", "kmap_keys", "state", "ctx_packed", "counters")):
@@ -258,13 +268,13 @@ def shard_update(bf_packed, kmap_keys, state, ctx_packed, counters, known, *, k:
     if (wc != (ref_k + 15) // 16 or counters.shape != (B,) or known.shape != (B,)
             or bf_packed.dim() != 2 or bf_packed.shape[1] != 2
             or kmap_keys.shape != (n_buckets, SLOTS * ((k + 15) // 16))
-            or state.shape != (counts_len + n_buckets * SLOTS,)):
+            or state.shape != (counts_len + n_buckets * SLOTS,) or B >= 1 << 32):
         raise ValueError("shard_update: array shapes do not match k, ref_k, n_buckets and "
-                         "counts_len")
+                         "counts_len (or 2^32 lanes or more)")
     _launch("malva_shard_update", state.device, ctx_packed.data_ptr(), counters.data_ptr(),
             known.data_ptr(), B, wc, k, ref_k, bf_packed.data_ptr(), word_base,
             bf_packed.shape[0], kmap_keys.data_ptr(), state.data_ptr(), counts_len, n_buckets,
-            size_bits, events=events)
+            size_bits, int(minifilter), events=events)
     LAUNCHES["shard_update"] += 1
 
 

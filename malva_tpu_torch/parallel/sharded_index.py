@@ -4,12 +4,16 @@ Counterpart of ``malva_tpu/parallel/sharded_index.py``, routed design
 (``:197-516``, ``:519-737``), which is what ``malva_tpu``'s product path
 runs whenever more than one device is attached.  The layout is JAX's:
 shard s of a mesh of S owns Bloom words ``[s * W/S, (s + 1) * W/S)``, as a
-(W/S, 2) [word, local rank] array (no mini-filter), its counters (padded
-to the longest shard), the same range of context words, and an exact map
-of the keys whose Bloom word it owns, as a bucket table of ``nbs``
-buckets (the same on every shard).  The bucket tables are built with
-numpy on the host, as JAX does; the rank rows are built on each shard's
-device from its uploaded words.
+(W/S, 2) [word, local rank] array, its counters (padded to the longest
+shard), the same range of context words, and an exact map of the keys
+whose Bloom word it owns, as a bucket table of ``nbs`` buckets (the same
+on every shard).  The bucket tables are built with numpy on the host, as
+JAX does; the rank rows are built on each shard's device from its
+uploaded words.  Unlike JAX's rows, the port's carry the shard's own
+exact-map mini-filter in the local rank's top 4 bits, as the one-device
+rows do (``index/device.py``), so that K4 probes the map only for the few
+lanes it lets through; a shard whose counters reach 2^28, or an index
+placed from JAX's arrays, has none (``ShardedIndex.minifilter``).
 
 The routed step (JAX ``make_routed_call_step``): each source shard hashes
 its slice of the batch with K1's hash-only mode; hop 1 sends each lane to
@@ -34,13 +38,16 @@ import os
 import sys
 import time
 from dataclasses import dataclass
+from itertools import compress
 
 import numpy as np
 import torch
 
 from ..index.device import (
-    device_map_keys,
+    RANK_BITS,
+    device_map_entries,
     events_ms,
+    minifilter_rows,
     pack_bloom_rows,
     packed_steps,
     replay_on_host,
@@ -62,7 +69,7 @@ class Shard:
     """One shard's arrays on its mesh device (int32 storage)."""
 
     device: torch.device
-    bf_packed: torch.Tensor   # (W/S, 2): [word, local rank]
+    bf_packed: torch.Tensor   # (W/S, 2): [word, local rank (+ mini-filter in top 4 bits)]
     ctx_words: torch.Tensor   # (W/S,)
     kmap_keys: torch.Tensor   # (nbs, SLOTS * w_k)
     state: torch.Tensor | None  # [bf_counts (cmax) | kmap_vals (nbs * SLOTS)]
@@ -80,6 +87,7 @@ class ShardedIndex:
     size_bits: int
     k: int
     ref_k: int
+    minifilter: bool = False  # the rows carry the exact-map mini-filter
 
     @property
     def words_per_shard(self) -> int:
@@ -89,7 +97,8 @@ class ShardedIndex:
     def place(cls, arrays: dict, mesh, tables=None) -> "ShardedIndex":
         """Put the numpy arrays of JAX's ``RoutedIndexState`` on the mesh,
         shard s on ``mesh[s]``.  Every tensor is a fresh copy: virtual
-        shards of one device alias nothing."""
+        shards of one device alias nothing.  JAX's rows carry no
+        mini-filter, so the index has none."""
         S = len(mesh)
         bf_packed = np.asarray(arrays["bf_packed"], dtype=np.uint32)
         counts = np.asarray(arrays["bf_counts"], dtype=np.uint32)
@@ -132,16 +141,12 @@ def routed_tables(index, cfg: Config, n_shards: int) -> list:
     ``shard_index_routed`` (``:259-280``), the "rebuild until every shard
     has the same bucket count" loop included."""
     wps = index.bf.words.shape[0] // n_shards
-    keys = device_map_keys(index, cfg)
-    by_shard: list[list[bytes]] = [[] for _ in range(n_shards)]
-    if keys:
-        arr = np.frombuffer(b"".join(keys), dtype=np.uint8).reshape(-1, cfg.k)
-        word = ((xxh3_64(arr) % np.uint64(cfg.bf_size)) >> np.uint64(5)).astype(np.int64)
-        for kb, s in zip(keys, (word // wps).tolist()):
-            by_shard[s].append(kb)
-    nbs = max([1] + [BucketTable(b, cfg.k).n_buckets for b in by_shard])
+    keys, rows, _ = device_map_entries(index, cfg)
+    owner = ((xxh3_64(rows) % np.uint64(cfg.bf_size)) >> np.uint64(5)).astype(np.int64) // wps
+    parts = [(list(compress(keys, owner == s)), rows[owner == s]) for s in range(n_shards)]
+    nbs = max([1] + [BucketTable(b, cfg.k, rows=r).n_buckets for b, r in parts])
     while True:  # rebuild until uniform (an overflow can double one shard)
-        tables = [BucketTable(b, cfg.k, min_buckets=nbs) for b in by_shard]
+        tables = [BucketTable(b, cfg.k, min_buckets=nbs, rows=r) for b, r in parts]
         grown = max(t.n_buckets for t in tables)
         if grown == nbs:
             return tables
@@ -152,7 +157,9 @@ def shard_index_routed(index, cfg: Config, mesh) -> ShardedIndex:
     """Split a host index into ``len(mesh)`` hash ranges on the mesh: JAX's
     routed layout.  The bucket tables are built on the host; each shard's
     Bloom and context words are uploaded dense and its [word, local rank]
-    rows built on its device, as ``DeviceIndex.from_host`` does."""
+    rows built on its device, as ``DeviceIndex.from_host`` does, with the
+    mini-filter of its own map keys where every shard's counters fit below
+    it (2^28)."""
     check_bloom_size(cfg.bf_size)
     S = len(mesh)
     W = index.bf.words.shape[0]
@@ -160,18 +167,22 @@ def shard_index_routed(index, cfg: Config, mesh) -> ShardedIndex:
         raise ValueError(f"{W} Bloom words do not split into {S} shards")
     wps = W // S
     tables = routed_tables(index, cfg, S)
-    shards, counts_len = [], []
-    for s, d in enumerate(mesh):
-        words = from_u32(index.bf.words[s * wps : (s + 1) * wps], d)
-        none = torch.zeros(0, dtype=torch.int64, device=d)
-        counts_len.append(int(popcount32(lanes(words)).sum()))
-        shards.append(Shard(device=d, bf_packed=pack_bloom_rows(words, none, none),
+    words = [from_u32(index.bf.words[s * wps : (s + 1) * wps], d) for s, d in enumerate(mesh)]
+    counts_len = [int(popcount32(lanes(w)).sum()) for w in words]
+    minifilter = max(counts_len) < (1 << RANK_BITS)
+    shards = []
+    for s, (d, w, table) in enumerate(zip(mesh, words, tables)):
+        h = table.key_hashes if minifilter else np.zeros(0, np.uint64)
+        mf_rows, mf_bits = (torch.from_numpy(a).to(d) for a in
+                            minifilter_rows(h, cfg.bf_size, word_base=s * wps))
+        shards.append(Shard(device=d, bf_packed=pack_bloom_rows(w, mf_rows, mf_bits),
                             ctx_words=from_u32(index.context_bf.words[s * wps : (s + 1) * wps], d),
-                            kmap_keys=from_u32(tables[s].bucket_keys, d),
+                            kmap_keys=from_u32(table.bucket_keys, d),
                             state=None))
+    del words
     sharded = ShardedIndex(shards=shards, counts_len=counts_len, cmax=max([1] + counts_len),
                            tables=tables, nbs=tables[0].n_buckets, size_bits=cfg.bf_size,
-                           k=cfg.k, ref_k=cfg.ref_k)
+                           k=cfg.k, ref_k=cfg.ref_k, minifilter=minifilter)
     sharded.restart(index)
     return sharded
 
@@ -235,7 +246,8 @@ def routed_step(sharded: ShardedIndex, mesh, ctx: list, counters: list, stats: d
         kernels.shard_update(sh.bf_packed, sh.kmap_keys, sh.state, got[:, :wc].contiguous(),
                              got[:, wc].contiguous(), got[:, wc + 1].bool(), k=k, ref_k=ref_k,
                              size_bits=size_bits, n_buckets=sharded.nbs, word_base=d * wps,
-                             counts_len=sharded.cmax, events=timed("shard_update", mesh[d]))
+                             counts_len=sharded.cmax, minifilter=sharded.minifilter,
+                             events=timed("shard_update", mesh[d]))
 
 
 class ShardedCallSession:

@@ -18,8 +18,10 @@ runs on the mesh's first device.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -628,7 +630,7 @@ def _scan_and_assign(w_flat: np.ndarray, flat: FlatExtract) -> None:
     sl = flat.sig_lens()
     an = np.asarray(flat.tgt_nsig, dtype=np.int64)
     cov = native.coverage(w_flat, sl, an)
-    if cov is None:  # pure-Python mirror of native/host_kernels.cpp
+    if cov is None:  # pure-Python mirror of csrc/host_kernels.cpp
         cov = np.zeros(an.shape[0], dtype=np.int64)
         sig_off = np.concatenate([[0], np.cumsum(sl)])
         s = 0
@@ -688,7 +690,7 @@ def _weights_from_planes(qinfo: list, bf_plane: np.ndarray,
     return w_flat
 
 
-def _prefetch(it, depth: int = 2):
+def _prefetch(it, depth: int = 2, gate=None):
     """Run an iterator in a background thread with a bounded queue: the
     spill merge (disk reads + native sort/merge, GIL-released) overlaps
     the counter application (native scatter/search) instead of
@@ -698,9 +700,9 @@ def _prefetch(it, depth: int = 2):
     create the pass-2 extraction pipeline before the counting phase so
     its producer packs otherwise-idle cycles (extraction never reads the
     counter planes, only `_set_coverages_flat` on the consumer side
-    does)."""
+    does).  With a ``gate`` (a ``threading.Event``) the worker makes its
+    next item only while the gate is set (see :func:`_held`)."""
     import queue
-    import threading
 
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     done = object()
@@ -710,6 +712,8 @@ def _prefetch(it, depth: int = 2):
         try:
             for x in it:
                 q.put(x)
+                if gate is not None:
+                    gate.wait()
         except BaseException as e:  # re-raised on the consumer side
             err.append(e)
         finally:
@@ -729,6 +733,18 @@ def _prefetch(it, depth: int = 2):
             raise err[0]
 
     return gen()
+
+
+@contextlib.contextmanager
+def _held(gate):
+    """Hold the producer of a gated :func:`_prefetch` at its next item for
+    the block: the one-device upload's host work (the bucket table) ran
+    2-3x slower beside pass 2's extraction on every core (PERF.md)."""
+    gate.clear()
+    try:
+        yield
+    finally:
+        gate.set()
 
 
 def _kmc_batches(cfg: Config, path: str):
@@ -917,9 +933,12 @@ def call(cfg: Config, index: Index, out=None, timer: PhaseTimer | None = None,
     timer = timer or PhaseTimer(TAG)
     refs = load_reference(cfg.fasta_path, cfg.strip_chr)
     timer.pelapsed("Reference processed")
-    # pass-2 extraction overlaps the counting phase (pipeline.py:842-852)
+    # pass-2 extraction overlaps the counting phase (pipeline.py:842-852),
+    # and waits while the in-RAM branch's device call step runs
     pass2_depth = int(os.environ.get("MALVA_PASS2_PREFETCH", 8 if cfg.spill_dir else 32))
-    pass2 = _prefetch(_iter_pass2_batches(cfg, refs), depth=pass2_depth)
+    gate = threading.Event()
+    gate.set()
+    pass2 = _prefetch(_iter_pass2_batches(cfg, refs), depth=pass2_depth, gate=gate)
     stats = None
 
     if cfg.spill_dir and not (cfg.from_kmc_dump or cfg.from_kmc_db):
@@ -945,9 +964,11 @@ def call(cfg: Config, index: Index, out=None, timer: PhaseTimer | None = None,
         timer.pelapsed("Sample k-mer counting")
         m, dev = _route(cfg, contexts.shape[0], DEVICE_MIN_KMERS, device, mesh)
         if m is not None:
-            stats = apply_sample_counts_sharded_stream(index, [(contexts, counts)], cfg, m)
+            with _held(gate):
+                stats = apply_sample_counts_sharded_stream(index, [(contexts, counts)], cfg, m)
         elif dev is not None:
-            stats = apply_sample_counts_device(index, contexts, counts, cfg, dev)
+            with _held(gate):
+                stats = apply_sample_counts_device(index, contexts, counts, cfg, dev)
         else:
             apply_sample_counts(index, contexts, counts, cfg)
         timer.pelapsed("BF weights created")

@@ -1,16 +1,30 @@
-"""ctypes bindings for the native host kernels (native/host_kernels.cpp).
+"""ctypes bindings for the native host kernels (csrc/host_kernels.cpp).
 
-The port's copy of ``malva_tpu/utils/native.py``, with its own build: at
-first use g++ compiles the repository's ``native/host_kernels.cpp`` into
-``build/native/`` with the Makefile's flags (the file name carries a
+The port's copy of ``malva_tpu/utils/native.py``, with its own source
+and its own build: at first use g++ compiles the package's
+``csrc/host_kernels.cpp`` with the Makefile's flags into
+``utils/build_dir.py``'s ``native`` directory (``build/native/`` in a
+checkout, else the user's cache directory).  The file name carries a
 digest of the source, the flags and the CPU model, so an edited source,
-or another CPU for ``-march=native``, builds anew).
-Where g++ has no OpenMP runtime it builds again without ``-fopenmp``: the
-loops then run on one thread, with the same results.  One stderr line
-says which build was made.  If no library builds or loads, every caller
-falls back to the pure Python implementation (results are identical
-either way, parity-tested) and one stderr line says so: it is several
-times slower at chromosome scale.
+or another CPU for ``-march=native``, builds anew.
+
+The OpenMP loops need an OpenMP runtime.  The build takes the first of
+these forms that builds and runs on more than one thread:
+
+* ``a``: ``-fopenmp``, g++'s own runtime;
+* ``b``: ``-fopenmp`` to compile, linked against the ``libgomp.so.1``
+  that the installed torch package carries (``torch/lib`` or
+  ``torch.libs``), by its full path with an rpath, for a g++ that has
+  ``omp.h`` but no runtime to link: the process then holds one OpenMP
+  runtime, torch's;
+* ``none``: without ``-fopenmp``; the loops run on one thread.
+
+The results do not depend on the thread count.  One stderr line says
+which form was built and on how many threads its loops run
+(``malva_threads()``).  If no library builds or loads, every caller falls
+back to the pure Python implementation (results are identical either way,
+parity-tested) and one stderr line says so: it is several times slower
+at chromosome scale.
 """
 
 from __future__ import annotations
@@ -18,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import hashlib
+import importlib.util
 import os
 import subprocess
 import sys
@@ -25,13 +40,15 @@ from pathlib import Path
 
 import numpy as np
 
+from .build_dir import build_dir
+
 _LIB = None
 _TRIED = False
 
-_REPO = Path(__file__).resolve().parents[2]
-SOURCE = _REPO / "native" / "host_kernels.cpp"
-BUILD_DIR = _REPO / "build" / "native"
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "host_kernels.cpp"
+BUILD_DIR = build_dir("native")
 CXXFLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-std=c++17", "-fPIC", "-Wall")
+_THREADS = "import ctypes, sys; print(ctypes.CDLL(sys.argv[1]).malva_threads())"
 
 
 def _cpu_model() -> bytes:
@@ -43,10 +60,57 @@ def _cpu_model() -> bytes:
         return b""
 
 
+def torch_gomp() -> "Path | None":
+    """The OpenMP runtime the installed torch package carries, found
+    without importing torch, or None."""
+    spec = importlib.util.find_spec("torch")
+    if spec is None or not spec.submodule_search_locations:
+        return None
+    pkg = Path(next(iter(spec.submodule_search_locations)))
+    found = sorted((pkg / "lib").glob("libgomp*.so*")) + sorted(
+        (pkg.parent / "torch.libs").glob("libgomp*.so*"))
+    return found[0] if found else None
+
+
+def _threads_of(so: Path, omp_threads: "str | None") -> int:
+    """malva_threads() of the library at ``so``, loaded in a fresh Python
+    process with OMP_NUM_THREADS set to ``omp_threads`` (None: as here);
+    0 when it does not load."""
+    env = dict(os.environ)
+    if omp_threads is not None:
+        env["OMP_NUM_THREADS"] = omp_threads
+    r = subprocess.run([sys.executable, "-c", _THREADS, str(so)], env=env, capture_output=True,
+                       text=True, timeout=60)
+    return int(r.stdout) if r.returncode == 0 and r.stdout.strip().isdigit() else 0
+
+
+def _forms(cxx: str, out: Path) -> list:
+    """(form, note, commands) of each build form, in the order tried."""
+    def define(form: str) -> str:
+        return f'-DMALVA_BUILD_FORM="{form}"'
+
+    forms = [("a", "with OpenMP (-fopenmp)",
+              [[cxx, *CXXFLAGS, "-fopenmp", define("a"), "-shared", "-o", str(out),
+                str(SOURCE)]])]
+    gomp = torch_gomp()
+    if gomp is not None:
+        obj = out.with_suffix(".o")
+        forms.append(("b", f"with OpenMP (-fopenmp, linked against torch's {gomp})",
+                      [[cxx, *CXXFLAGS, "-fopenmp", define("b"), "-c", "-o", str(obj),
+                        str(SOURCE)],
+                       [cxx, "-shared", "-o", str(out), str(obj), str(gomp),
+                        f"-Wl,-rpath,{gomp.parent}"]]))
+    forms.append(("none", "without OpenMP (no OpenMP runtime for g++ here; its loops run on "
+                          "one thread)",
+                  [[cxx, *CXXFLAGS, define("none"), "-shared", "-o", str(out), str(SOURCE)]]))
+    return forms
+
+
 def _build() -> Path:
     """The library for this source, these flags and this CPU, compiled if
-    missing: with OpenMP, else without it.  Raises when neither build
-    succeeds."""
+    missing in the first form (a, b, none) that builds and, but for none,
+    runs its loops on two threads when asked to.  Raises when no form
+    builds."""
     digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXXFLAGS).encode()
                             + _cpu_model()).hexdigest()[:16]
     so = BUILD_DIR / f"libmalva_host_{digest}.so"
@@ -58,17 +122,41 @@ def _build() -> Path:
         if so.exists():
             return so
         tmp = so.with_suffix(f".tmp{os.getpid()}")
-        for flags, note in ((CXXFLAGS + ("-fopenmp",), "with OpenMP"),
-                            (CXXFLAGS, "without OpenMP (g++ has no OpenMP runtime here; "
-                                       "its loops run on one thread)")):
-            r = subprocess.run([os.environ.get("CXX", "g++"), *flags, "-shared", "-o", str(tmp),
-                                str(SOURCE)], capture_output=True, text=True, timeout=300)
-            if r.returncode == 0:
-                os.replace(tmp, so)
-                print(f"[malva-tpu-torch] native host library built {note}: {so}",
-                      file=sys.stderr)
-                return so
-        raise RuntimeError(f"g++ failed: {r.stderr.strip()[-300:]}")
+        err = ""
+        try:
+            for form, note, cmds in _forms(os.environ.get("CXX", "g++"), tmp):
+                for cmd in cmds:
+                    r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+                    if r.returncode != 0:
+                        err = r.stderr.strip()[-300:]
+                        break
+                else:
+                    if form == "none" or _threads_of(tmp, "2") == 2:
+                        threads = _threads_of(tmp, None)
+                        os.replace(tmp, so)
+                        print(f"[malva-tpu-torch] native host library built {note}, form "
+                              f"{form}, {threads} thread{'s' * (threads != 1)}: {so}",
+                              file=sys.stderr)
+                        return so
+                    err = f"form {form} built but does not run on two threads"
+        finally:
+            tmp.unlink(missing_ok=True)
+            tmp.with_suffix(".o").unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed: {err}")
+
+
+def threads() -> "int | None":
+    """The thread count of the library's loops (its malva_threads()), or
+    None without the library."""
+    lib = load()
+    return None if lib is None else int(lib.malva_threads())
+
+
+def build_form() -> "str | None":
+    """Which build form the loaded library is (a, b or none), or None
+    without the library."""
+    lib = load()
+    return None if lib is None else lib.malva_build_form().decode()
 
 
 def load() -> "ctypes.CDLL | None":
@@ -83,6 +171,10 @@ def load() -> "ctypes.CDLL | None":
             raise FileNotFoundError(SOURCE)
         so = str(_build())
         lib = ctypes.CDLL(so)
+        lib.malva_threads.restype = ctypes.c_int
+        lib.malva_threads.argtypes = []
+        lib.malva_build_form.restype = ctypes.c_char_p
+        lib.malva_build_form.argtypes = []
         lib.malva_combs.restype = ctypes.c_int64
         lib.malva_combs.argtypes = [
             ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),

@@ -196,16 +196,144 @@ def test_host_sort_count_parity(tmp_path, ref_k):
 
 
 def test_native_loader_builds_into_build_native():
-    """The port's loader compiles native/host_kernels.cpp into build/native/
-    and loads it; ``native/libmalva_host.so`` stays malva_tpu's."""
+    """The port's loader compiles its own csrc/host_kernels.cpp, inside
+    the package (not the repository's native/ source), into build/native/
+    of the checkout and loads it; ``native/libmalva_host.so`` stays
+    malva_tpu's."""
+    if shutil.which(os.environ.get("CXX", "g++")) is None:
+        pytest.skip("no g++ to build the native host library")
+    from pathlib import Path
+
+    import malva_tpu_torch
+    from malva_tpu_torch.utils import native
+
+    pkg = Path(malva_tpu_torch.__file__).resolve().parent
+    assert native.SOURCE == pkg / "csrc" / "host_kernels.cpp" and native.SOURCE.is_file()
+    assert "native" not in native.SOURCE.relative_to(pkg.parent).parts[:1]
+    lib = native.load()
+    assert lib is not None
+    assert os.path.dirname(lib._name) == str(native.BUILD_DIR)
+    assert native.BUILD_DIR == pkg.parent / "build" / "native"
+
+
+OUTSIDE = r"""
+import os, sys
+from malva_tpu_torch.ops import _build
+from malva_tpu_torch.utils import native
+lib = native.load()
+assert lib is not None, "no library"
+print(lib._name)
+print(_build.BUILD_DIR)
+print(native.build_form(), native.threads())
+"""
+
+
+def test_native_loader_builds_outside_the_checkout(tmp_path):
+    """A copy of the package in a read-only directory outside any checkout
+    (an installed package) builds its host library from its own source into
+    the user's cache directory and loads it; the CUDA kernels would build
+    there too."""
+    if shutil.which(os.environ.get("CXX", "g++")) is None:
+        pytest.skip("no g++ to build the native host library")
+    import malva_tpu_torch
+
+    site = tmp_path / "site"
+    shutil.copytree(os.path.dirname(malva_tpu_torch.__file__), site / "malva_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    dirs = [site, *(p for p in site.rglob("*") if p.is_dir())]
+    for d in dirs:
+        d.chmod(0o555)
+    env = {k: v for k, v in os.environ.items() if k not in ("MALVA_NO_NATIVE", "PYTHONPATH")}
+    env.update(HOME=str(tmp_path / "home"), XDG_CACHE_HOME=str(tmp_path / "cache"),
+               PYTHONPATH=str(site), PYTHONDONTWRITEBYTECODE="1")
+    try:
+        res = subprocess.run([sys.executable, "-c", OUTSIDE], cwd=tmp_path, env=env,
+                             capture_output=True, text=True, timeout=600)
+    finally:
+        for d in dirs:
+            d.chmod(0o755)
+    assert res.returncode == 0, res.stderr[-2000:]
+    so, kernels_dir, facts = res.stdout.splitlines()
+    cache = tmp_path / "cache" / "malva_tpu_torch"
+    assert os.path.dirname(so) == str(cache / "native") and os.path.exists(so)
+    assert kernels_dir == str(cache / "kernels")
+    assert facts.split()[0] in ("a", "b", "none")
+    assert res.stderr.count("native host library built") == 1
+
+
+def _port_run(tmp_path, name: str, inputs: list[str], threads: int) -> bytes:
+    """``run --backend host`` of the port in a fresh process with
+    OMP_NUM_THREADS set -> the VCF bytes."""
+    env = dict(os.environ, OMP_NUM_THREADS=str(threads),
+               PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env.pop("MALVA_NO_NATIVE", None)
+    work = tmp_path / f"{name}-{threads}"
+    work.mkdir()
+    args = [shutil.copy(p, work / os.path.basename(p)) for p in inputs]
+    res = subprocess.run([sys.executable, "-m", "malva_tpu_torch.cli", "run", "--backend", "host",
+                          "-b", "1", *map(str, args)], env=env, capture_output=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-2000:]
+    return res.stdout
+
+
+@pytest.mark.parametrize("case", ["diploid", "fuzz"])
+def test_host_run_does_not_depend_on_threads(tmp_path, case):
+    """``run --backend host`` gives the same VCF bytes with the native
+    library's loops on one thread and on four: the diploid fixture's
+    golden VCF, and a seeded fuzz input's."""
+    if case == "diploid":
+        d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "diploid")
+        inputs = [os.path.join(d, n) for n in ("ref.fa", "vars.vcf", "reads.fa")]
+    else:
+        (tmp_path / "src").mkdir()
+        inputs = list(gen_case(str(tmp_path / "src"), 213))
+    one, four = (_port_run(tmp_path, case, inputs, n) for n in (1, 4))
+    assert one.count(b"\n") > 20
+    assert one == four
+    if case == "diploid":
+        assert one == open(os.path.join(d, "golden.vcf"), "rb").read()
+
+
+def test_malva_threads_reports_the_count_given():
+    """malva_threads() is the loops' team size: OMP_NUM_THREADS where set."""
     if shutil.which(os.environ.get("CXX", "g++")) is None:
         pytest.skip("no g++ to build the native host library")
     from malva_tpu_torch.utils import native
 
-    lib = native.load()
-    assert lib is not None
-    assert os.path.dirname(lib._name) == str(native.BUILD_DIR)
-    assert native.BUILD_DIR.parts[-2:] == ("build", "native")
+    assert native.load() is not None
+    if native.build_form() == "none":
+        pytest.skip("this g++ builds the library without OpenMP")
+    env = dict(os.environ, OMP_NUM_THREADS="3",
+               PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    res = subprocess.run([sys.executable, "-c", "from malva_tpu_torch.utils import native; "
+                          "print(native.threads())"], env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip() == "3"
+
+
+def test_native_loader_links_torch_libgomp(tmp_path, monkeypatch):
+    """Where g++ compiles -fopenmp but cannot link its runtime, the loader
+    links the libgomp.so.1 that torch carries (form b), and the library's
+    loops run on the threads asked for."""
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        pytest.skip("no g++ to build the native host library")
+    from malva_tpu_torch.utils import native
+
+    if native.torch_gomp() is None:
+        pytest.skip("this torch package carries no libgomp")
+    fake = tmp_path / "cxx-without-openmp-runtime"
+    fake.write_text('#!/bin/sh\ncase " $* " in *" -c "*) ;; *" -fopenmp "*) exit 1 ;; esac\n'
+                    f'exec {cxx} "$@"\n')
+    fake.chmod(0o755)
+    monkeypatch.setenv("CXX", str(fake))
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build" / "native")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        so = native._build()
+    assert err.getvalue().count("\n") == 1 and "form b" in err.getvalue()
+    assert native._threads_of(so, "2") == 2
 
 
 def test_native_loader_builds_without_openmp(tmp_path, monkeypatch):

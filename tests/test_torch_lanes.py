@@ -131,6 +131,46 @@ static void probe_n(const uint32_t* keys, uint64_t n_buckets, int w_k, const uin
   }
 }
 
+// K4 lane by lane: step.cuh's step_body without its warp machinery (the
+// centre hash, the shard's row and row_test, hop 1's "known" flag, the
+// probe), adding into `state` in lane order.
+template <int N>
+static void shard_lanes_n(const uint32_t* ctx, const uint32_t* cnt, const uint8_t* known,
+                          int64_t B, int k, int ref_k, const uint32_t* rows, int64_t word_base,
+                          int64_t n_words, const uint32_t* keys, uint64_t n_buckets,
+                          uint32_t* state, int64_t counts_len, uint64_t size_bits,
+                          int minifilter) {
+  const bool use_mf = minifilter && n_buckets > 1;
+  for (int64_t i = 0; i < B; ++i) {
+    if (!cnt[i]) continue;
+    uint32_t w[N], can[N];
+    memcpy(w, ctx + i * N, sizeof w);
+    const uint64_t c = centre_hash(w, k, ref_k, can);
+    const int64_t lw = (int64_t)(bloom_index(c, size_bits) >> 5) - word_base;
+    if (lw < 0 || lw >= n_words) continue;
+    const RowTest t = row_test(rows[2 * lw], rows[2 * lw + 1], c, size_bits, minifilter, use_mf);
+    if ((t.what & 1u) && !known[i]) state[t.cidx] += cnt[i];
+    if (t.what & 2u) {
+      const int64_t slot = probe_buckets(keys, n_buckets, (k + 15) / 16, can, c);
+      if (slot >= 0) state[counts_len + slot] += cnt[i];
+    }
+  }
+}
+
+extern "C" void shard_lanes(const uint32_t* ctx, const uint32_t* cnt, const uint8_t* known,
+                            int64_t B, int wc, int k, int ref_k, const uint32_t* rows,
+                            int64_t word_base, int64_t n_words, const uint32_t* keys,
+                            uint64_t n_buckets, uint32_t* state, int64_t counts_len,
+                            uint64_t size_bits, int minifilter) {
+  switch (wc) {
+#define F(m) case m: shard_lanes_n<m>(ctx, cnt, known, B, k, ref_k, rows, word_base, n_words, \
+                                      keys, n_buckets, state, counts_len, size_bits, minifilter); \
+                     break;
+    CASES(F)
+#undef F
+  }
+}
+
 extern "C" void probe(const uint32_t* keys, uint64_t n_buckets, int w_k, int nw,
                       const uint32_t* can, const uint64_t* h, int64_t B, int64_t* out) {
   switch (nw) {
@@ -159,6 +199,8 @@ def lanes_cxx(tmp_path_factory):
     lib.callstep_front.argtypes = [p, i64, i, i, i, i, p]
     lib.window_scan.argtypes = [p, i64, i, i, i, p]
     lib.probe.argtypes = [p, ctypes.c_uint64, i, i, p, p, i64, p]
+    lib.shard_lanes.argtypes = [p, p, p, i64, i, i, i, p, i64, i64, p, ctypes.c_uint64, p, i64,
+                                ctypes.c_uint64, i]
     return lib
 
 
@@ -319,3 +361,44 @@ def test_ptxas_report_reads_each_kernel():
             for r in rep] == [("callstep_kernel", 72, 0, 0, 0),
                               ("callstep_hash_kernel", 40, 240, 8, 4), (None, 2, 0, 0, 0)]
     assert _build.ptxas_report("") == []
+
+
+@pytest.mark.parametrize("minifilter", [True, False])
+@pytest.mark.parametrize("shard", [0, 3])
+def test_shard_lanes_match_plain(lanes_cxx, shard, minifilter):
+    """K4's per-lane path (lanes.cuh centre_hash, row_test and the register
+    probe, with hop 1's "known" flags) on one shard of a 4-shard index, its
+    rows with the shard's mini-filter and without it, == shard_update_plain
+    over lanes of every shard (the others are no-ops)."""
+    from malva_tpu_torch.index.device import RANK_MASK
+    from malva_tpu_torch.ops.bloom import to_u32
+    from malva_tpu_torch.parallel.sharded_index import shard_index_routed
+    from malva_tpu_torch.utils.config import Config
+    from test_sharded import _index
+    from test_torch_sharded import _contexts
+
+    cfg = Config(k=35, ref_k=43, bf_size=1 << 20)
+    index, keys = _index(cfg, seed=14)
+    sharded = shard_index_routed(index, cfg, ["cpu"] * 4)
+    sh = sharded.shards[shard]
+    rows = sh.bf_packed.clone()
+    if not minifilter:
+        rows[:, 1] &= RANK_MASK
+    contexts, counters = _contexts(keys, seed=15 + shard, n=4000)
+    ctx = pack2bit_u32_np(contexts, 43)
+    known = np.random.default_rng(shard).random(ctx.shape[0]) < 0.5
+    wps = sharded.words_per_shard
+    kw = dict(k=35, ref_k=43, size_bits=cfg.bf_size, n_buckets=sharded.nbs,
+              word_base=shard * wps, counts_len=sharded.cmax, minifilter=minifilter)
+    want = sh.state.clone()
+    kernels.shard_update_plain(rows, sh.kmap_keys, want, from_u32(ctx, "cpu"),
+                               from_u32(counters, "cpu"), torch.from_numpy(known), **kw)
+    got = to_u32(sh.state)
+    rows_u32, keys_u32 = to_u32(rows), to_u32(sh.kmap_keys)
+    known_u8 = known.astype(np.uint8)
+    lanes_cxx.shard_lanes(ctx.ctypes.data, counters.ctypes.data, known_u8.ctypes.data,
+                          ctx.shape[0], ctx.shape[1], 35, 43, rows_u32.ctypes.data, shard * wps,
+                          wps, keys_u32.ctypes.data, sharded.nbs, got.ctypes.data,
+                          sharded.cmax, cfg.bf_size, int(minifilter))
+    np.testing.assert_array_equal(got, to_u32(want))
+    assert got[: sharded.cmax].any() and got[sharded.cmax :].any()

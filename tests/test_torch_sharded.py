@@ -18,6 +18,7 @@ from malva_tpu.ops.seq import canonical
 from malva_tpu.pipeline import apply_sample_counts
 from malva_tpu.utils.config import Config
 from malva_tpu_torch import pipeline as tp
+from malva_tpu_torch.index.device import RANK_BITS, RANK_MASK
 from malva_tpu_torch.parallel.mesh import make_mesh
 from malva_tpu_torch.parallel.sharded_index import (
     apply_sample_counts_sharded,
@@ -92,9 +93,10 @@ def test_skewed_input_all_to_one_shard():
 @pytest.mark.parametrize("n_shards", [2, 8])
 def test_routed_arrays_match_jax(n_shards):
     """The routed layout the port builds on its shards equals JAX's
-    shard_index_routed array for array and bucket for bucket; the same state
+    shard_index_routed array for array and bucket for bucket, but for the
+    port's exact-map mini-filter in the rank's top 4 bits; the same state
     carried across through convert.py places shard s on mesh[s] as the
-    port's own build does."""
+    port's own build does, without the mini-filter."""
     from malva_tpu.parallel.sharded_index import shard_index_routed as jax_shard
 
     from malva_tpu_torch.convert import sharded_index_from_arrays
@@ -109,8 +111,13 @@ def test_routed_arrays_match_jax(n_shards):
     assert own.counts_len == st.counts_len and own.nbs == st.nbs
     assert own.cmax == jax_arrays["bf_counts"].shape[1]
     assert len(own.tables) == len(st.tables) == n_shards
+    assert own.minifilter
     for s, sh in enumerate(own.shards):
-        for name in ("bf_packed", "ctx_words", "kmap_keys"):
+        rows = to_u32(sh.bf_packed)
+        assert (rows[:, 1] >> RANK_BITS).any()
+        rows[:, 1] &= RANK_MASK
+        np.testing.assert_array_equal(rows, jax_arrays["bf_packed"][s], err_msg="bf_packed")
+        for name in ("ctx_words", "kmap_keys"):
             np.testing.assert_array_equal(to_u32(getattr(sh, name)), jax_arrays[name][s],
                                           err_msg=name)
         np.testing.assert_array_equal(
@@ -121,9 +128,11 @@ def test_routed_arrays_match_jax(n_shards):
     jax_arrays.update(counts_len=st.counts_len, nbs=st.nbs, size_bits=st.size_bits,
                       k=cfg.k, ref_k=cfg.ref_k)
     carried = sharded_index_from_arrays(jax_arrays, [CPU] * n_shards, st.tables)
+    assert not carried.minifilter
     for a, b in zip(carried.shards, own.shards):
-        for name in ("bf_packed", "ctx_words", "kmap_keys", "state"):
+        for name in ("ctx_words", "kmap_keys", "state"):
             np.testing.assert_array_equal(to_u32(getattr(a, name)), to_u32(getattr(b, name)))
+        np.testing.assert_array_equal(to_u32(a.bf_packed), to_u32(b.bf_packed) & [~0, RANK_MASK])
     with pytest.raises(KeyError):
         sharded_index_from_arrays({"bf_packed": jax_arrays["bf_packed"]}, [CPU] * n_shards)
 
@@ -154,9 +163,11 @@ def test_carried_jax_state_steps_like_host():
     assert host_idx.ref_bf.kmers == port_idx.ref_bf.kmers
 
 
-def test_shard_update_plain_one_shard_is_callstep():
-    """At S = 1 one shard owns every word and its local rank is the global
-    rank: K4's plain version equals K1's with the mini-filter off."""
+@pytest.mark.parametrize("minifilter", [True, False])
+def test_shard_update_plain_one_shard_is_callstep(minifilter):
+    """At S = 1 one shard owns every word, its local rank is the global
+    rank and its mini-filter is the one-device rows': K4's plain version
+    equals K1's, with the mini-filter on and off."""
     from malva_tpu.index.device import pack2bit_u32_np
 
     from malva_tpu_torch.index.device import DeviceIndex
@@ -171,25 +182,30 @@ def test_shard_update_plain_one_shard_is_callstep():
     cnt = from_u32(counters, CPU)
 
     dev = DeviceIndex.from_host(index, cfg, CPU)
-    dev.bf_packed[:, 1] = dev.bf_packed[:, 1] & ((1 << 28) - 1)  # the rank without the filter
+    one = shard_index_routed(index, cfg, [CPU])
+    sh = one.shards[0]
+    assert dev.minifilter and one.minifilter
+    assert torch.equal(sh.bf_packed, dev.bf_packed)
+    if not minifilter:  # the rank without the filter
+        dev.bf_packed[:, 1] &= RANK_MASK
+        sh.bf_packed[:, 1] &= RANK_MASK
     st_k1 = dev.state()
     kernels.callstep_plain(dev.bf_packed, dev.ctx_words, dev.kmap_keys, st_k1, ctx, cnt, k=35,
                            ref_k=43, size_bits=cfg.bf_size, n_buckets=dev.n_buckets,
-                           minifilter=False)
+                           minifilter=minifilter)
 
-    sh = shard_index_routed(index, cfg, [CPU]).shards[0]
     x_hi, x_lo = kernels.callstep_hash_plain(ctx, 35, 43, with_ctx=True)[:2]
     cw, cb = xxh3_mod_size(x_hi, x_lo, cfg.bf_size)
     known = ((lanes(sh.ctx_words[cw]) >> cb) & 1).bool()
     st_k4 = sh.state.clone()
     kernels.shard_update_plain(sh.bf_packed, sh.kmap_keys, st_k4, ctx, cnt, known, k=35,
                                ref_k=43, size_bits=cfg.bf_size, n_buckets=sh.kmap_keys.shape[0],
-                               word_base=0, counts_len=st_k4.shape[0] - sh.kmap_keys.shape[0] * 4)
+                               word_base=0, counts_len=st_k4.shape[0] - sh.kmap_keys.shape[0] * 4,
+                               minifilter=minifilter)
     n = index.bf.counts.shape[0]
     np.testing.assert_array_equal(to_u32(st_k4[:n]), to_u32(st_k1[:n]))
     assert to_u32(st_k1[:n]).any()
     # the exact maps hold the same keys in other slots: compare per key
-    one = shard_index_routed(index, cfg, [CPU])
     one.shards[0].state = st_k4
     a, b = dict(index.ref_bf.kmers), dict(index.ref_bf.kmers)
     one.tables[0].write_back(to_u32(st_k4[one.cmax :]), a)
@@ -214,7 +230,7 @@ def test_shard_update_ignores_lanes_of_other_shards():
                          from_u32(pack2bit_u32_np(contexts, 43), CPU), from_u32(counters, CPU),
                          torch.zeros(1000, dtype=torch.bool), k=35, ref_k=43,
                          size_bits=cfg.bf_size, n_buckets=sharded.nbs, word_base=1 << 20,
-                         counts_len=sharded.cmax)
+                         counts_len=sharded.cmax, minifilter=sharded.minifilter)
     assert torch.equal(before, sh.state)
 
 
@@ -360,7 +376,7 @@ def test_shard_update_refuses_inputs_on_two_devices():
         kernels.shard_update(cpu, cpu, cpu, cpu, cpu, torch.zeros(4, dtype=torch.bool,
                                                                  device="meta"),
                              k=35, ref_k=43, size_bits=1 << 20, n_buckets=1, word_base=0,
-                             counts_len=0)
+                             counts_len=0, minifilter=False)
 
 
 def test_make_mesh_and_all_gather_design():
@@ -373,3 +389,94 @@ def test_make_mesh_and_all_gather_design():
     index, keys = _index(cfg)
     with pytest.raises(NotImplementedError, match="all-gather"):
         apply_sample_counts_sharded(index, *_contexts(keys), cfg, [CPU] * 2, routed=False)
+
+
+def test_shard_minifilter_covers_every_map_key():
+    """Every key of every shard's exact map has its mini-filter bit (hash
+    bits 60-61) set in the row of its Bloom word on that shard."""
+    from malva_tpu_torch.ops.bloom import to_u32
+
+    cfg = _cfg()
+    index, _ = _index(cfg, seed=4)
+    sharded = shard_index_routed(index, cfg, [CPU] * 4)
+    wps = sharded.words_per_shard
+    n_keys = 0
+    for s, (sh, table) in enumerate(zip(sharded.shards, sharded.tables)):
+        h = table.key_hashes
+        rows = to_u32(sh.bf_packed)[((h % np.uint64(cfg.bf_size)) >> np.uint64(5)).astype(np.int64)
+                                    - s * wps]
+        bit = ((h >> np.uint64(60)) & np.uint64(3)).astype(np.uint32)
+        assert ((rows[:, 1] >> np.uint32(RANK_BITS + bit)) & 1).all()
+        n_keys += h.shape[0]
+    assert n_keys == len(index.ref_bf.kmers)
+
+
+def _routed_states(sharded, mesh, contexts, counters):
+    """Every shard's state after one routed step over the contexts."""
+    from malva_tpu.index.device import pack2bit_u32_np
+
+    from malva_tpu_torch.ops.bloom import from_u32, to_u32
+    from malva_tpu_torch.parallel.sharded_index import routed_step
+
+    S = len(mesh)
+    packed = pack2bit_u32_np(contexts, 43)
+    bounds = [packed.shape[0] * s // S for s in range(S + 1)]
+    ctx = [from_u32(packed[a:b], d) for a, b, d in zip(bounds, bounds[1:], mesh)]
+    cnt = [from_u32(counters[a:b], d) for a, b, d in zip(bounds, bounds[1:], mesh)]
+    routed_step(sharded, mesh, ctx, cnt, {"hop1_rows": [0] * S, "hop2_rows": [0] * S})
+    return [to_u32(sh.state) for sh in sharded.shards]
+
+
+@pytest.mark.parametrize("minifilter", [True, False])
+def test_sharded_call_minifilter_on_and_off_matches_host(minifilter):
+    """The sharded call phase on 4 virtual CPU shards, with the shards'
+    mini-filter on and with it off (rows without it, as where counters
+    reach 2^28), gives the host apply's counters and map values."""
+    from malva_tpu.index.device import pack2bit_u32_np
+
+    from malva_tpu_torch.parallel.sharded_index import ShardedCallSession
+
+    cfg = _cfg()
+    host_idx, keys = _index(cfg, seed=8)
+    port_idx, _ = _index(cfg, seed=8)
+    contexts, counters = _contexts(keys, seed=11, n=2000)
+    mesh = [CPU] * 4
+    sharded = shard_index_routed(port_idx, cfg, mesh)
+    assert sharded.minifilter
+    if not minifilter:
+        for sh in sharded.shards:
+            sh.bf_packed[:, 1] &= RANK_MASK
+        sharded.minifilter = False
+    sess = ShardedCallSession(port_idx, cfg, mesh, sharded=sharded)
+    sess.step(pack2bit_u32_np(contexts, 43), counters)
+    sess.finish()
+    apply_sample_counts(host_idx, contexts, counters, cfg)
+    assert host_idx.bf.counts.any() and any(host_idx.ref_bf.kmers.values())
+    np.testing.assert_array_equal(port_idx.bf.counts, host_idx.bf.counts)
+    assert port_idx.ref_bf.kmers == host_idx.ref_bf.kmers
+
+
+def test_place_from_jax_arrays_runs_without_minifilter():
+    """An index placed from JAX's routed arrays alone (no tables) has no
+    mini-filter, and a routed step over it leaves every shard's state equal
+    to the port's own index (mini-filter on) after the same step."""
+    from malva_tpu.parallel.sharded_index import shard_index_routed as jax_shard
+
+    from malva_tpu_torch.convert import sharded_index_from_arrays
+
+    cfg = _cfg()
+    index, keys = _index(cfg, seed=12)
+    contexts, counters = _contexts(keys, seed=13, n=2000)
+    mesh = [CPU] * 4
+    st = jax_shard(index, cfg, 4)
+    arrays = {n: np.asarray(getattr(st, n)) for n in
+              ("bf_packed", "bf_counts", "ctx_words", "kmap_keys", "kmap_vals")}
+    arrays.update(counts_len=st.counts_len, nbs=st.nbs, size_bits=st.size_bits, k=35, ref_k=43)
+    carried = sharded_index_from_arrays(arrays, mesh)
+    own = shard_index_routed(index, cfg, mesh)
+    assert carried.tables is None and not carried.minifilter and own.minifilter
+    got = _routed_states(carried, mesh, contexts, counters)
+    want = _routed_states(own, mesh, contexts, counters)
+    assert any(g.any() for g in got)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

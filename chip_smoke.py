@@ -12,7 +12,7 @@
 2. Builds the CUDA kernels from ``malva_tpu_torch/csrc`` with nvcc, one
    process per source, always anew, and fails unless ptxas reports a
    0-byte stack frame and no spill store or load for every instantiation
-   of K1-K4.
+   of K1-K5.
 3. Holds each kernel against its plain PyTorch version on the card, at
    the main path's shapes, with zero tolerance (integer hashing, keys and
    counters are exact): K1 hash-only on 2^21 packed contexts and K1 fused
@@ -22,7 +22,12 @@
    reference (uppercase ACGT, N runs, IUPAC codes at 1e-4); K4 on shard 0
    of that index split 4 ways (its rows with the mini-filter of its own
    map keys, and again without it), with 2^21 lanes routed to it, a
-   quarter centred on its map keys, beside torch's gather of its rows; K3 on a 2^25-window read chunk (reads joined
+   quarter centred on its map keys, beside torch's gather of its rows; K5
+   on shard 0 of that index cut 4 ways by bucket range (rows without a
+   mini-filter, the shard's range of the one global bucket table) over
+   2^21 gathered lanes, a quarter centred on map keys, with random merged
+   "known" flags, beside torch's gather of the owned lanes' rows; K3 on a
+   2^25-window read chunk (reads joined
    by 0xFF, with N, lowercase and reads shorter than ref_k) and on a
    short ragged chunk at each ref_k of
    K3_REF_KS (IUPAC codes, palindromes, a length that is not a whole
@@ -59,15 +64,23 @@
    (``make_mesh(devices=[cuda:0] * 4)``): ``build_index`` and ``call`` on
    the chr-scale input, then ``call_batch`` over the 5x and 3x reads on
    that index; each VCF equal to its host leg's, K1-K4 launched, the
-   sharded context scan and call-step lines logged; then the one-card
+   sharded context scan and call-step lines logged; between them the
+   all-gather design on the run's index (``apply_sample_counts_sharded(...,
+   routed=False)`` over the reads counted again on the card): its
+   counters equal to the routed session's, K1 and K5 launched, and the VCF
+   genotyped from them equal to the host run's; then the one-card
    index upload of that chr-scale index alone, in its four parts.  Then
    ``python -m malva_tpu_torch.run_distributed`` in two processes (gloo)
    with the 5x reads split in two: rank 0's VCF equal to the host run's.
    Then ``graft_entry.dryrun_multichip(4, [cuda:0] * 4)``.
+7. ``python -m malva_tpu_torch.tools.scaling_mesh`` at 2^33 bits and a
+   2^21 batch, both designs at D = 1, 2, 4 virtual shards (each run must
+   leave the same state), and ``python -m malva_tpu_torch.bench`` (wgs,
+   the single-thread C++ baseline), each in its own process.
 
 Any failure raises and the exit code is not 0.  The last lines are the
-phase walls, the card's name and power limit, one JSON object of kernel
-results and the ``{"ok": true, ...}`` line.
+phase walls, the bench's JSON line, the card's name and power limit, one
+JSON object of kernel results and the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -201,47 +214,13 @@ def bound(n_bytes: float, n_ops: float, peak_ops: float) -> tuple[float, str]:
 
 
 def synthetic_index(device):
-    """A -b 1 index the way bench.py:148-178 builds one: Bloom and context
-    words each the AND of N_AND random words, a MAP_KEYS-key exact map of
-    canonical 35-mers, and its mini-filter in the rank's top bits."""
-    import torch
+    """A -b 1 index the way bench.py:148-178 builds one (the port's bench
+    builds it): Bloom and context words each the AND of N_AND random
+    words, a MAP_KEYS-key exact map of canonical 35-mers, and its
+    mini-filter in the rank's top bits."""
+    from malva_tpu_torch.bench import synthetic_index as bench_index
 
-    from malva_tpu_torch.index.device import pack2bit_u32_np, pack_bloom_rows
-    from malva_tpu_torch.index.kmap_table import BucketTable
-    from malva_tpu_torch.ops.bloom import from_u32
-    from malva_tpu_torch.ops.seq import canonical
-    from malva_tpu_torch.ops.xxh3 import xxh3_64
-
-    gen = torch.Generator(device=device).manual_seed(0)
-    W = SIZE_BITS // 32
-
-    def and_words():
-        w = torch.randint(-2**31, 2**31, (W,), dtype=torch.int32, device=device, generator=gen)
-        for _ in range(N_AND - 1):
-            w &= torch.randint(-2**31, 2**31, (W,), dtype=torch.int32, device=device,
-                               generator=gen)
-        return w
-
-    words, ctx_words = and_words(), and_words()
-    rng = np.random.default_rng(0)
-    alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
-    keys = canonical(alpha[rng.integers(0, 4, size=(MAP_KEYS, K))])
-    h = xxh3_64(keys)
-    table = BucketTable.from_packed(pack2bit_u32_np(keys, K), h, K)
-    kw = ((h % np.uint64(SIZE_BITS)) >> np.uint64(5)).astype(np.int64)
-    mf_idx, inv = np.unique(kw, return_inverse=True)
-    mf = np.zeros(mf_idx.shape[0], dtype=np.int64)
-    np.bitwise_or.at(mf, inv, np.int64(1) << ((h >> np.uint64(60)) & np.uint64(3)).astype(np.int64))
-    bf_packed = pack_bloom_rows(words, torch.from_numpy(mf_idx).to(device),
-                                torch.from_numpy(mf).to(device))
-    # counters = popcount = last rank (below the mini-filter bits) + last word's bits
-    n_counts = ((int(bf_packed[-1, 1]) & ((1 << 28) - 1))
-                + bin(int(bf_packed[-1, 0]) & 0xFFFFFFFF).count("1"))
-    return {
-        "bf_packed": bf_packed, "ctx_words": ctx_words, "n_counts": n_counts,
-        "kmap_keys": from_u32(table.bucket_keys, device), "n_buckets": table.n_buckets,
-        "keys": keys,
-    }
+    return bench_index(device, SIZE_BITS.bit_length() - 1, N_AND, MAP_KEYS)
 
 
 def planted_contexts(keys, n_lanes: int, n_plant: int, device):
@@ -370,9 +349,10 @@ def kernel_phase(device) -> list[dict]:
                     "replaces": "malva_tpu/ops/pallas_kernels.py:222", "library_ms": None, **k2})
     del bf_words
     k4 = shard_update_check(ix, device, peak)
+    k5 = gather_update_check(ix, device, peak)
     results[0]["event_probe"] = event_timing_probe(ix, device)
     del ix
-    results += [seq_count_check(device, peak), k4]
+    results += [seq_count_check(device, peak), k4, k5]
     return results
 
 
@@ -509,6 +489,68 @@ def shard_update_check(ix: dict, device, peak: float) -> dict:
             "max_abs_err": max(on["err"], out[False]["err"]), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "lanes": ROUTED,
             "gather_ms": gather_ms, "no_minifilter_ms": out[False]["ms"]}
+
+
+def gather_update_check(ix: dict, device, peak: float) -> dict:
+    """K5 against its plain version on shard 0 of the synthetic -b 1 index
+    cut SHARDS ways as the all-gather design cuts it: the shard's [word,
+    local rank] rows without a mini-filter and its contiguous range of the
+    one global bucket table, over LANES lanes of a whole gathered batch (a
+    quarter centred on map keys, so that a quarter of those have a bucket
+    in the range) with random merged "context known" flags."""
+    import torch
+
+    from malva_tpu_torch.index.device import pack_bloom_rows
+    from malva_tpu_torch.ops import kernels
+    from malva_tpu_torch.ops.xxh3 import xxh3_mod_size
+
+    wps, nbps = SIZE_BITS // 32 // SHARDS, ix["n_buckets"] // SHARDS
+    none = torch.zeros(0, dtype=torch.int64, device=device)
+    rows = pack_bloom_rows(ix["bf_packed"][:wps, 0].contiguous(), none, none)
+    kmap_keys = ix["kmap_keys"][:nbps].contiguous()
+    n_counts = int(rows[-1, 1]) + bin(int(rows[-1, 0]) & 0xFFFFFFFF).count("1")
+    ctx, counters = planted_contexts(ix["keys"], LANES, LANES // 4, device)
+    c_hi, c_lo = kernels.callstep_hash_plain(ctx, K, REF_K, with_ctx=False)[:2]
+    words = xxh3_mod_size(c_hi, c_lo, SIZE_BITS)[0]
+    owned = words[words < wps]
+    del c_hi, c_lo, words
+    # the random reads alone: torch's gather of the rows the owned lanes read
+    gather_ms = cuda_ms(lambda: rows.index_select(0, owned), iters=20)
+    gen = torch.Generator(device=device).manual_seed(6)
+    known = torch.rand(LANES, device=device, generator=gen) < 0.5
+    args = dict(k=K, ref_k=REF_K, size_bits=SIZE_BITS, n_buckets=ix["n_buckets"], word_base=0,
+                bucket_base=0, counts_len=n_counts)
+    st_k = torch.zeros(n_counts + nbps * 4, dtype=torch.int32, device=device)
+    st_p = torch.zeros_like(st_k)
+    kernels.gather_update(rows, kmap_keys, st_k, ctx, counters, known, **args)
+    kernels.gather_update_plain(rows, kmap_keys, st_p, ctx, counters, known, **args)
+    torch.cuda.synchronize()
+    err = max_abs_err([st_k], [st_p])
+    n_bf, n_map = int((st_k[:n_counts] != 0).sum()), int((st_k[n_counts:] != 0).sum())
+    if not n_bf or not n_map:
+        raise AssertionError("K5 check touched no counter or no map value")
+    scratch = torch.zeros_like(st_k)
+    ms = cuda_ms(lambda: kernels.gather_update(rows, kmap_keys, scratch, ctx, counters, known,
+                                               **args), iters=20)
+    plain_ms = cuda_ms(lambda: kernels.gather_update_plain(rows, kmap_keys, scratch, ctx, counters,
+                                                           known, **args), iters=3, warmup=1)
+    # per lane: context (12 B), counter (4 B), "known" flag (1 B); per owned
+    # lane its Bloom row (8 B); 8 B read and written per counter and map
+    # value updated.  Every lane's centre: canonical form, ASCII and hash,
+    # and 23 as in K1.
+    n_own = int(owned.shape[0])
+    b_ms, b_by = bound(LANES * 17 + n_own * 8 + (n_bf + n_map) * 8,
+                       LANES * (canonical_packed_ops(K) + ascii_ops(K) + xxh3_ops(K) + 23), peak)
+    log(f"K5 == plain on shard 0 of {SHARDS} ({n_bf} counters, {n_map} map values updated; "
+        f"{n_own} of {LANES} lanes own their Bloom word); K5 {ms:.4f} ms (bound {b_ms:.4f} ms, "
+        f"{b_by}; {b_ms / ms:.1%} of the bound), torch's gather of the owned lanes' rows "
+        f"{gather_ms:.4f} ms, plain {plain_ms:.4f} ms per {LANES} gathered lanes")
+    return {"name": "gather_update", "route": "cuda",
+            "source": "malva_tpu_torch/csrc/shard_step.cu",
+            "replaces": "malva_tpu/parallel/sharded_index.py:141 (XLA, no Pallas counterpart)",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "lanes": LANES, "owned_lanes": n_own,
+            "gather_ms": gather_ms}
 
 
 def event_timing_probe(ix: dict, device) -> dict:
@@ -909,6 +951,7 @@ def sharded_legs(src: str, reads3: str, work: str, run_vcf: bytes, batch_vcfs: d
             raise AssertionError(f"the sharded run logged no '{line}' line")
     stats = got["stats"]
     log(f"sharded run VCF == host run's; launches {launches}; call step {json.dumps(stats)}")
+    gather = gather_leg(cfg, got["index"], mesh, fq, os.path.join(work, "gather.vcf"), run_vcf)
 
     outs = [os.path.join(work, n) for n in ("synth.malva.vcf", "synth3x.malva.vcf")]
 
@@ -929,9 +972,50 @@ def sharded_legs(src: str, reads3: str, work: str, run_vcf: bytes, batch_vcfs: d
         raise AssertionError("sharded call_batch did not place the sharded index once")
     log(f"sharded call_batch VCFs == host batch leg's; launches {batch_launches}")
     alone = upload_alone(got["index"], cfg)
-    return {"upload_alone": alone, "launches": launches, "batch_launches": batch_launches, "call_step": stats,
+    return {"upload_alone": alone, "launches": launches, "batch_launches": batch_launches,
+            "gather_launches": gather.pop("launches"), "call_step": stats, "gather": gather,
             "walls": {"sharded run": phase_walls(err), "sharded batch": phase_walls(berr)},
-            "legs_s": {"sharded run": wall, "sharded batch": bwall}}
+            "legs_s": {"sharded run": wall, "sharded batch": bwall,
+                       "sharded gather call": gather["wall_s"]}}
+
+
+def gather_leg(cfg, index, mesh, fq: str, out: str, run_vcf: bytes) -> dict:
+    """The all-gather design on the chr-scale index the sharded run built
+    and called: the run's counters are kept, zeroed, the reads counted
+    again on the card, and the counter's batches stepped through
+    ``ShardedCallSession(routed=False)`` (``apply_sample_counts_sharded``)
+    on the same SHARDS virtual shards.  Its bf.counts and exact map must
+    equal the routed session's, K1 and K5 must have launched, and the VCF
+    genotyped from it must equal the host run's."""
+    from malva_tpu_torch import pipeline
+    from malva_tpu_torch.io.fasta import load_reference
+    from malva_tpu_torch.ops import kernels
+    from malva_tpu_torch.parallel.sharded_index import apply_sample_counts_sharded
+    from malva_tpu_torch.utils.timing import PhaseTimer
+
+    routed_counts, routed_kmers = index.bf.counts.copy(), dict(index.ref_bf.kmers)
+    pipeline._reset_counters(index)
+    contexts, counts = pipeline._sample_kmers(cfg, fq, mesh[0])
+    tee = _Tee(sys.stderr)
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    with contextlib.redirect_stderr(tee):
+        stats = apply_sample_counts_sharded(index, contexts, counts, cfg, mesh, routed=False)
+        apply_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        with open(out, "w") as f:
+            pipeline._genotype_and_emit(cfg, index, load_reference(cfg.fasta_path, cfg.strip_chr),
+                                        f, PhaseTimer("malva-tpu-torch", out=sys.stderr))
+    wall = time.perf_counter() - t0
+    if not (np.array_equal(index.bf.counts, routed_counts) and index.ref_bf.kmers == routed_kmers):
+        raise AssertionError("the all-gather session's counters differ from the routed session's")
+    check_launches("sharded gather call", launches, ("callstep", "gather_update"))
+    if open(out, "rb").read() != run_vcf:
+        raise AssertionError("the all-gather session's VCF differs from the host run's")
+    log(f"sharded gather call ({SHARDS} virtual shards): counters == routed session's, VCF == "
+        f"host run's, {wall:.6g} s wall, the apply {apply_s:.6g} s of it; launches {launches}; "
+        f"call step {json.dumps(stats)}")
+    return {"launches": launches, "call_step": stats, "wall_s": wall, "apply_s": apply_s}
 
 
 def upload_alone(index, cfg) -> dict:
@@ -1110,18 +1194,57 @@ def main_path_phase() -> dict:
         log(f"phase walls in s: {json.dumps(walls)}")
         return {"launches": launches, "spill_launches": spill_launches,
                 "batch_launches": batch_launches, "sharded_launches": sharded["launches"],
-                "sharded_batch_launches": sharded["batch_launches"], "records": n_rec,
+                "sharded_batch_launches": sharded["batch_launches"],
+                "gather_launches": sharded["gather_launches"], "records": n_rec,
                 "distinct_kmers": rows, "call_step_event_ms": ms, "walls": walls,
                 "upload": {"run cuda": upload, "alone": upload_alone},
                 "host_phases": {"threads": native.threads(), **threads},
                 "batch_trace": trace, "sharded_call_step": sharded["call_step"],
+                "sharded_gather": sharded["gather"],
                 "distributed": dist, "legs_s": legs}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def module_json(argv: list[str], env: dict, timeout: int) -> dict:
+    """Run ``python -m <module> ...`` from the checkout, its stderr passed
+    on; the JSON object of its last stdout line."""
+    p = subprocess.run([sys.executable, "-m", *argv], cwd=REPO, env=dict(os.environ, **env),
+                       stdout=subprocess.PIPE, text=True, timeout=timeout)
+    if p.returncode != 0:
+        raise RuntimeError(f"python -m {argv[0]} exited {p.returncode}")
+    return json.loads(p.stdout.strip().splitlines()[-1])
+
+
+def tools_phase() -> dict:
+    """The port's two measurement tools on the card: the shard-scaling
+    tool (both designs at D = 1, 2, 4 virtual shards, 2^33 bits, a 2^21
+    batch; it exits non-zero unless every run leaves the same state) and
+    the headline bench
+    (wgs mode: 2^33 bits, a 10M-key map, with the single-thread C++
+    baseline).  Each runs in its own process."""
+    t0 = time.perf_counter()
+    scaling = module_json(["malva_tpu_torch.tools.scaling_mesh", "--log2-bits", "33", "--batch",
+                           str(LANES), "--shards", f"1,2,{SHARDS}"], {}, timeout=400)
+    scaling_s = time.perf_counter() - t0
+    if len(scaling["runs"]) != 6:
+        raise AssertionError(f"scaling tool: {len(scaling['runs'])} runs, not 6")
+    log(f"scaling tool: {json.dumps(scaling)} ({scaling_s:.6g} s)")
+    t0 = time.perf_counter()
+    bench = module_json(["malva_tpu_torch.bench"], {"MALVA_BENCH_MODE": "wgs",
+                                                    "MALVA_BENCH_MACHINE": "0"}, timeout=500)
+    bench_s = time.perf_counter() - t0
+    missing = [k for k in ("metric", "value", "unit", "vs_baseline", "baseline_single_thread",
+                           "baseline_machine", "vs_machine", "baseline_hash") if k not in bench]
+    if missing or not bench["value"] > 0 or not bench["baseline_single_thread"] > 0:
+        raise AssertionError(f"bench: keys missing {missing} or no rate: {bench}")
+    log(f"bench ({bench_s:.6g} s): {json.dumps(bench)}")
+    return {"scaling": scaling, "bench": bench, "legs_s": {"scaling tool": scaling_s,
+                                                           "bench": bench_s}}
+
+
 def ptxas_check(log_text: str) -> dict:
-    """Per kernel of K1-K4 (csrc/), from this build's ptxas report: its
+    """Per kernel of K1-K5 (csrc/), from this build's ptxas report: its
     instantiations and their registers.  Raises unless every
     instantiation was compiled with a 0-byte stack frame and no spill
     store or load: the per-lane state must live in registers."""
@@ -1212,17 +1335,21 @@ def main() -> int:
     t0 = time.perf_counter()
     genotype = genotype_phase()
     walls["genotype model"] = time.perf_counter() - t0
-    main = None
+    main = tools = None
     if not args.kernels_only:
         t0 = time.perf_counter()
         main = main_path_phase()
         walls["main paths"] = time.perf_counter() - t0
         walls.update(main["legs_s"])
+        tools = tools_phase()
+        walls.update(tools["legs_s"])
     legs = ("launches", "spill_launches", "batch_launches", "sharded_launches",
-            "sharded_batch_launches")
+            "sharded_batch_launches", "gather_launches")
     for r in results:
-        # "launches": the first leg whose path runs the kernel (K4: the sharded run)
-        first = "sharded_launches" if r["name"] == "shard_update" else "launches"
+        # "launches": the first leg whose path runs the kernel (K4: the
+        # sharded run; K5: the all-gather call on the sharded run's index)
+        first = {"shard_update": "sharded_launches",
+                 "gather_update": "gather_launches"}.get(r["name"], "launches")
         r["launches"] = main[first][r["name"]] if main else None
         r["launches_by_leg"] = {leg: main[leg][r["name"]] for leg in legs} if main else None
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
@@ -1231,7 +1358,11 @@ def main() -> int:
                       "upload": main and main["upload"],
                       "host_phases": main and main["host_phases"],
                       "sharded_call_step": main and main["sharded_call_step"],
+                      "sharded_gather": main and main["sharded_gather"],
+                      "scaling": tools and tools["scaling"],
                       "distributed": main and main["distributed"]}), flush=True)
+    if tools:
+        print(json.dumps(tools["bench"]), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": results}), flush=True)
     if args.kernels_only:

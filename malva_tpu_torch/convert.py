@@ -2,10 +2,11 @@
 
 The port's counterpart of loading weights: the arrays of a
 ``malva_tpu.index.device.DeviceIndex`` (as numpy) become the port's
-``DeviceIndex`` on a given torch device, and those of a
+``DeviceIndex`` on a given torch device, those of a
 ``malva_tpu.parallel.sharded_index.RoutedIndexState`` the port's
-``ShardedIndex`` on a mesh, so both call steps can be run on the
-identical index state.
+``ShardedIndex`` on a mesh, and those of a ``ShardedIndexState`` (the
+all-gather layout) the port's ``GatherIndex``, so each call step can be
+run on the identical index state.
 """
 
 from __future__ import annotations
@@ -52,3 +53,22 @@ def sharded_index_from_arrays(arrays: dict, mesh, tables=None):
     if missing:
         raise KeyError(f"sharded index arrays missing: {missing}")
     return ShardedIndex.place(arrays, mesh, tables)
+
+
+GATHER_SCALARS = ("counts_len", "n_buckets", "size_bits", "k", "ref_k")
+
+
+def gather_index_from_arrays(arrays: dict, mesh, table=None):
+    """``arrays`` holds the five (S, ...) uint32 arrays of a
+    ``ShardedIndexState`` named in ``SHARDED_ARRAYS`` and the values named
+    in ``GATHER_SCALARS`` (``k`` and ``ref_k`` from the config); shard s
+    goes to ``mesh[s]``.  ``table`` is the global host BucketTable
+    (JAX's ``ShardedIndexState.table``); without it the index steps, but
+    ``restart`` and ``write_back`` (and so ``ShardedCallSession``) raise
+    ``ValueError``."""
+    from .parallel.sharded_index import GatherIndex
+
+    missing = [n for n in SHARDED_ARRAYS + GATHER_SCALARS if n not in arrays]
+    if missing:
+        raise KeyError(f"gather index arrays missing: {missing}")
+    return GatherIndex.place(arrays, mesh, table)

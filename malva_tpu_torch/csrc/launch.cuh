@@ -1,7 +1,7 @@
 // What the kernels' launches share: on the device, the asynchronous
 // copies into shared memory (K1, K2, K3); on the host, the size of a
 // persistent grid (K1, K2, K3) and the timed launch of the call-step
-// kernels (K1, K4).
+// kernels (K1, K4, K5).
 //
 // The timed launcher records an optional pair of CUDA events on the launch
 // stream just before and just after the kernel, inside one C call.  ctypes

@@ -1,5 +1,6 @@
-// The call-step kernel family: K1 (callstep.cu, the one-device step) and
-// K4 (shard_step.cu, the owner side of the routed sharded step) are one
+// The call-step kernel family: K1 (callstep.cu, the one-device step), K4
+// (shard_step.cu, the owner side of the routed sharded step) and K5
+// (shard_step.cu, the shard side of the all-gather sharded step) are one
 // template, step_body<N, Policy>, that differ only in their policy.
 //
 // Per lane: the canonical centre of the packed context and its XXH3, in
@@ -13,15 +14,26 @@
 // depend on thread order and is bit-exact with the plain versions
 // (ops/kernels.py).
 //
-// A policy says what the two steps do differently:
-//   * owns(c): whether the lane's Bloom word lies in the rows this launch
-//     holds (K1: every word; K4: the shard's range, other lanes are no-ops);
-//   * row(idx): the row of Bloom index idx (K4: less the shard's first word);
+// A policy says what the three steps do differently:
+//   * live(idx, c): whether the lane of centre hash c (Bloom index idx) has
+//     anything to do in this launch (K1: always; K4: its Bloom word is the
+//     shard's, other lanes are no-ops; K5: its Bloom word is the shard's or
+//     one of its two global buckets is);
+//   * owns(idx): whether the lane's Bloom word lies in the rows this launch
+//     holds, so that its row is gathered (K1: every word; K4 and K5: the
+//     shard's range; a K5 lane that is live without it gathers nothing);
+//   * row(idx): the row of Bloom index idx (K4, K5: less the shard's first
+//     word);
+//   * what(rt, c): the tail's `what` from row_test's (K1, K4: as it is; K5:
+//     bit 1, "may be in the exact map", is "a global bucket is the
+//     shard's", since K5's rows carry no mini-filter);
+//   * probe(keys, ...): the slot of the centre in the launch's bucket table
+//     (K1, K4: the whole table; K5: the shard's range of the global table);
 //   * context_word(w, lane, ...): in the tail, the word whose bit `bit` says
 //     that the lane's context is known (K1: the context filter's word at
-//     the XXH3 of the whole context; K4: the flag that hop 1 of the routed
-//     step found, read from the `known` array at the lane's index, which
-//     the ring then carries: kLaneIndex).
+//     the XXH3 of the whole context; K4, K5: the flag that the step found
+//     before the launch, read from the `known` array at the lane's index,
+//     which the ring then carries: kLaneIndex).
 //
 // The design (the numbers are chip_smoke.py's, per 2^21 lanes):
 //
@@ -120,8 +132,8 @@ __device__ __forceinline__ void staged_context(const uint32_t* tile, int slot, u
 }
 
 // The front half of a pass over a staged warp tile: for each of this
-// thread's kLanes lanes with a non-zero counter whose Bloom word the
-// launch holds (bit r of the result) its centre hash into c[r].  The loop
+// thread's kLanes lanes with a non-zero counter that is live in the launch
+// (bit r of the result) its centre hash into c[r].  The loop
 // is not unrolled, so the hashing code is there once; put() keeps c in
 // registers.
 template <int N, class P>
@@ -141,7 +153,7 @@ __device__ __forceinline__ uint32_t centre_hashes(const P& p, const uint32_t* ti
     staged_context(tile, r * 32 + lane, w);
     const uint64_t h = centre_hash(w, k, ref_k, can);
     put(c, r, h);
-    if (!p.owns(bloom_index(h, size_bits))) live &= ~(1u << r);
+    if (!p.live(bloom_index(h, size_bits), h)) live &= ~(1u << r);
   }
   return live;
 }
@@ -182,12 +194,23 @@ __device__ __forceinline__ void run_tails(const P& p, const TailRing<N, P::kLane
   if (what & 2u) {
     uint32_t can[N];
     canonical_centre(w, k, ref_k, can);
-    slot = probe_buckets(kmap_keys, n_buckets, (k + 15) / 16, can,
-                         (uint64_t)q.h_hi[e] << 32 | q.h_lo[e]);
+    slot = p.probe(kmap_keys, n_buckets, (k + 15) / 16, can,
+                   (uint64_t)q.h_hi[e] << 32 | q.h_lo[e]);
   }
   if (!((word >> bit) & 1u)) atomicAdd(state + q.cidx[e], cnt);
   if (slot >= 0) atomicAdd(state + counts_len + slot, cnt);
 }
+
+// K1's and K4's exact map: the launch's whole bucket table, whose candidates
+// the row test finds (its mini-filter, where the rows carry one).
+struct WholeMap {
+  __device__ __forceinline__ uint32_t what(const RowTest& rt, uint64_t) const { return rt.what; }
+  template <int N>
+  __device__ __forceinline__ int64_t probe(const uint32_t* keys, uint64_t n_buckets, int w_k,
+                                           const uint32_t (&can)[N], uint64_t h) const {
+    return probe_buckets(keys, n_buckets, w_k, can, h);
+  }
+};
 
 // The step over B lanes of (B, N) packed contexts and (B,) counters, with
 // the (rows, 2) [word, rank | mini-filter << 28] rows `bf_packed`, the
@@ -239,9 +262,11 @@ __device__ __forceinline__ void step_body(const P& p, const uint32_t* __restrict
                     next * S::kTileLanes, B, lane);
     uint2 row[L];
 #pragma unroll
-    for (int r = 0; r < L; ++r)
-      row[r] = (live >> r) & 1u ? __ldg(bf_packed + p.row(bloom_index(c[r], size_bits)))
-                                : make_uint2(0, 0);
+    for (int r = 0; r < L; ++r) {
+      const uint64_t idx = bloom_index(c[r], size_bits);
+      row[r] = (live >> r) & 1u && p.owns(idx) ? __ldg(bf_packed + p.row(idx))
+                                               : make_uint2(0, 0);
+    }
 
     for (; n_queued >= 32; head += 32, n_queued -= 32) tails(head, 32);
 
@@ -260,7 +285,7 @@ __device__ __forceinline__ void step_body(const P& p, const uint32_t* __restrict
 #pragma unroll
     for (int r = 0; r < L; ++r) {
       const RowTest rt = row_test(row[r].x, row[r].y, c[r], size_bits, minifilter, use_mf);
-      const uint32_t what = ((live >> r) & 1u) * rt.what;
+      const uint32_t what = ((live >> r) & 1u) * p.what(rt, c[r]);
       const unsigned go = __ballot_sync(0xFFFFFFFFu, what != 0);
       if (what) {
         const uint32_t e = (head + n_queued + __popc(go & ((1u << lane) - 1u))) & (kRing - 1);

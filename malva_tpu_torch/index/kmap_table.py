@@ -171,18 +171,25 @@ def bucket_pair(hash_hi, hash_lo, n_buckets: int):
 
 
 def probe_bucket_table(bucket_keys: torch.Tensor, n_buckets: int, w: int, packed,
-                       hash_hi, hash_lo):
+                       hash_hi, hash_lo, base: int = 0):
     """-> (flat slot index, found) per lane; ``packed`` is the list of
     the lanes' w packed key words.  Both buckets x 4 slots are compared,
-    and the first match (bucket 1 before bucket 2, low slot first) wins."""
+    and the first match (bucket 1 before bucket 2, low slot first) wins.
+    ``bucket_keys`` may hold only buckets ``base ..`` of a table of
+    ``n_buckets`` (one shard's contiguous range,
+    malva_tpu/parallel/sharded_index.py:169-183): a bucket outside it never
+    matches, and the slot is relative to ``base``."""
     found = torch.zeros(packed[0].shape, dtype=torch.bool, device=packed[0].device)
     slot = torch.zeros(packed[0].shape, dtype=torch.int64, device=packed[0].device)
     for b in bucket_pair(hash_hi, hash_lo, n_buckets):
-        rows = lanes(bucket_keys[b])  # (B, SLOTS * w)
+        lb = b - base
+        mine = (lb >= 0) & (lb < bucket_keys.shape[0])
+        lb = torch.where(mine, lb, 0)
+        rows = lanes(bucket_keys[lb])  # (B, SLOTS * w)
         for s in range(SLOTS):
-            eq = torch.ones_like(found)
+            eq = mine.clone()
             for j in range(w):
                 eq &= rows[:, s * w + j] == packed[j]
-            slot = torch.where(eq & ~found, b * SLOTS + s, slot)
+            slot = torch.where(eq & ~found, lb * SLOTS + s, slot)
             found |= eq
     return slot, found

@@ -38,7 +38,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--split-compile=0", "-Xcompiler", "-f
 
 # the __global__ functions of SOURCES, as their mangled names contain them
 KERNELS = ("callstep_kernel", "callstep_hash_kernel", "ref_scan_kernel", "window_hash_kernel",
-           "seq_pack_kernel", "shard_update_kernel")
+           "seq_pack_kernel", "shard_update_kernel", "gather_update_kernel")
 
 _lib: ctypes.CDLL | None = None
 build_log = ""  # nvcc's output of the last build in this process (ptxas -v)
@@ -139,6 +139,8 @@ def library(fresh: bool = False) -> ctypes.CDLL:
         "malva_callstep": [p, p, i64, i, i, i, p, p, p, p, i64, i64, i64, i, p, p, p],
         "malva_shard_update": [p, p, p, i64, i, i, i, p, i64, i64, p, p, i64, i64, i64, i, p, p,
                                p],
+        "malva_gather_update": [p, p, p, i64, i, i, i, p, i64, i64, p, p, i64, i64, i64, i64,
+                                i64, p, p, p],
         "malva_window_hash": [p, i64, i, i, p, p],
         "malva_ref_scan": [p, i64, i, i, p, p, i64, p],
         "malva_seq_pack": [p, i64, i, p, p, p],

@@ -1,4 +1,4 @@
-"""The four hand-written kernels of the device paths, their wrappers and
+"""The five hand-written kernels of the device paths, their wrappers and
 their plain PyTorch versions.
 
 Counterpart of ``malva_tpu/ops/pallas_kernels.py``.  Each wrapper takes
@@ -33,6 +33,14 @@ falls back.  ``LAUNCHES`` counts kernel launches per wrapper.
   with its own policy, and bound like K1: one row gather per lane, with
   the probe only for the few lanes the shard's mini-filter lets through.
 
+* K5 ``gather_update`` (``csrc/shard_step.cu``) has no Pallas counterpart:
+  it replaces the XLA body of the all-gather sharded step
+  (``malva_tpu/parallel/sharded_index.py:141-183``), run on every shard
+  over the whole gathered batch.  It is K1's template with a third policy:
+  a lane is live where its Bloom word or one of its global buckets is the
+  shard's, its row is gathered only for the first, and the probe skips a
+  bucket of another shard without reading it.
+
 ``callstep_hash`` / ``window_hash`` are the kernels' hash-only modes,
 which write exactly the TPU kernels' outputs so the card can check them
 against the TPU kernels' contract.
@@ -40,11 +48,12 @@ against the TPU kernels' contract.
 Device arrays are int32 tensors holding uint32 bit patterns (ops.bloom).
 Hash-only outputs are returned as int64 lanes in [0, 2^32).
 
-The call-step wrappers (``callstep``, ``callstep_hash``, ``shard_update``)
-take ``events=(start, stop)``, two ``torch.cuda.Event(enable_timing=True)``;
-the C launcher records them on the launch stream just before and after
-the kernel, inside the one ctypes call that holds no GIL, so their
-elapsed time is the kernel's device time (``csrc/launch.cuh``).
+The call-step wrappers (``callstep``, ``callstep_hash``, ``shard_update``,
+``gather_update``) take ``events=(start, stop)``, two
+``torch.cuda.Event(enable_timing=True)``; the C launcher records them on
+the launch stream just before and after the kernel, inside the one ctypes
+call that holds no GIL, so their elapsed time is the kernel's device time
+(``csrc/launch.cuh``).
 """
 
 from __future__ import annotations
@@ -58,7 +67,7 @@ from .packed import canonical_center, decode_byte_cols, popcount32
 from .seq import canonical_decision, complement
 from .xxh3 import check_bloom_size, xxh3_64_cols, xxh3_mod_size
 
-LAUNCHES = {"callstep": 0, "ref_scan": 0, "seq_pack": 0, "shard_update": 0}
+LAUNCHES = {"callstep": 0, "ref_scan": 0, "seq_pack": 0, "shard_update": 0, "gather_update": 0}
 MAX_LEN = 240  # csrc/lanes.cuh kMaxLen
 
 
@@ -90,7 +99,7 @@ def _check_lengths(k: int, ref_k: int) -> None:
         raise ValueError(f"kernels need 1 <= k <= ref_k <= {MAX_LEN}, got k={k} ref_k={ref_k}")
 
 
-_TIMED = ("malva_callstep", "malva_callstep_hash", "malva_shard_update")
+_TIMED = ("malva_callstep", "malva_callstep_hash", "malva_shard_update", "malva_gather_update")
 
 
 def _launch(fn_name: str, device: torch.device, *args, events=None) -> None:
@@ -276,6 +285,73 @@ def shard_update(bf_packed, kmap_keys, state, ctx_packed, counters, known, *, k:
             bf_packed.shape[0], kmap_keys.data_ptr(), state.data_ptr(), counts_len, n_buckets,
             size_bits, int(minifilter), events=events)
     LAUNCHES["shard_update"] += 1
+
+
+# -- K5: shard side of the all-gather sharded call step -------------------------
+
+
+def gather_update_plain(bf_packed, kmap_keys, state, ctx_packed, counters, known, *, k: int,
+                        ref_k: int, size_bits: int, n_buckets: int, word_base: int,
+                        bucket_base: int, counts_len: int) -> None:
+    """Plain K5 over one shard, updating ``state`` in place: the body of
+    malva_tpu/parallel/sharded_index.py:128-185 (make_sharded_call_step).
+
+    ``bf_packed`` is the shard's (W/S, 2) [word, local rank] rows (no
+    mini-filter) for global words ``word_base ..``, ``kmap_keys`` its
+    (nbps, SLOTS * w_k) slice of the global bucket table of ``n_buckets``,
+    buckets ``bucket_base ..``, and ``state`` its ``[bf_counts (counts_len)
+    | kmap_vals (nbps * SLOTS)]``.  Every lane of the gathered batch
+    (packed context, counter, ``known``: the context-filter flags OR-merged
+    over the shards) adds its counter to the rank counter of its centre's
+    Bloom bit when the word is this shard's, the bit is set and the context
+    is not known (JAX ``:152-163``), and to the exact-map slot of its
+    centre where one of its global buckets is this shard's and holds it,
+    gated neither by the bit nor by ``known`` (JAX ``:169-183``)."""
+    words = [lanes(ctx_packed[:, j]) for j in range(ctx_packed.shape[1])]
+    can = canonical_center(words, k, ref_k)
+    c_hi, c_lo = xxh3_64_cols(decode_byte_cols(can, k))
+    bw, bb = xxh3_mod_size(c_hi, c_lo, size_bits)
+    lw = bw - word_base
+    mine = (lw >= 0) & (lw < bf_packed.shape[0])
+    row = lanes(bf_packed[torch.where(mine, lw, 0)])
+    word, rank = row[:, 0], row[:, 1]
+    is_set = ((word >> bb) & 1).bool()
+    cnt_idx = rank + popcount32(word & ((1 << bb) - 1))
+    scatter_add_u32(state, cnt_idx, counters, mine & is_set & ~known)
+    slot, found = probe_bucket_table(kmap_keys, n_buckets, (k + 15) // 16, can, c_hi, c_lo,
+                                     base=bucket_base)
+    scatter_add_u32(state, counts_len + slot, counters, found)
+
+
+def gather_update(bf_packed, kmap_keys, state, ctx_packed, counters, known, *, k: int,
+                  ref_k: int, size_bits: int, n_buckets: int, word_base: int, bucket_base: int,
+                  counts_len: int, events=None) -> None:
+    """K5: the shard side of the all-gather step on one shard; same effect
+    as :func:`gather_update_plain`.  ``known`` is a bool tensor."""
+    args = (bf_packed, kmap_keys, state, ctx_packed, counters, known)
+    kw = dict(k=k, ref_k=ref_k, size_bits=size_bits, n_buckets=n_buckets, word_base=word_base,
+              bucket_base=bucket_base, counts_len=counts_len)
+    if not _on_cuda(*args):
+        return gather_update_plain(*args, **kw)
+    for t, name in zip(args[:5], ("bf_packed", "kmap_keys", "state", "ctx_packed", "counters")):
+        _check(t, torch.int32, name)
+    _check(known, torch.bool, "known")
+    _check_lengths(k, ref_k)
+    check_bloom_size(size_bits)
+    B, wc = ctx_packed.shape
+    nbps = kmap_keys.shape[0]
+    if (wc != (ref_k + 15) // 16 or counters.shape != (B,) or known.shape != (B,)
+            or bf_packed.dim() != 2 or bf_packed.shape[1] != 2
+            or kmap_keys.shape != (nbps, SLOTS * ((k + 15) // 16))
+            or not 0 <= bucket_base <= n_buckets - nbps
+            or state.shape != (counts_len + nbps * SLOTS,) or B >= 1 << 32):
+        raise ValueError("gather_update: array shapes do not match k, ref_k, n_buckets, "
+                         "bucket_base and counts_len (or 2^32 lanes or more)")
+    _launch("malva_gather_update", state.device, ctx_packed.data_ptr(), counters.data_ptr(),
+            known.data_ptr(), B, wc, k, ref_k, bf_packed.data_ptr(), word_base,
+            bf_packed.shape[0], kmap_keys.data_ptr(), state.data_ptr(), counts_len, n_buckets,
+            bucket_base, nbps, size_bits, events=events)
+    LAUNCHES["gather_update"] += 1
 
 
 # -- K2: reference context scan ----------------------------------------------

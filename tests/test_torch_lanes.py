@@ -1,4 +1,4 @@
-"""The per-lane math of K1, K2 and K4 (malva_tpu_torch/csrc/lanes.cuh and
+"""The per-lane math of K1, K2, K4 and K5 (malva_tpu_torch/csrc/lanes.cuh and
 xxh3.cuh) built for the host with g++, against the port's plain versions,
 bit for bit (tolerance zero: integer hashing and keys).
 
@@ -171,6 +171,51 @@ extern "C" void shard_lanes(const uint32_t* ctx, const uint32_t* cnt, const uint
   }
 }
 
+// K5 lane by lane: the centre hash; the shard's row where the lane's Bloom
+// word is the shard's (row_test without a mini-filter); the merged "known"
+// flag; the probe of the shard's range of the global bucket table where
+// one of the lane's buckets lies in it; adding into `state` in lane order.
+template <int N>
+static void gather_lanes_n(const uint32_t* ctx, const uint32_t* cnt, const uint8_t* known,
+                           int64_t B, int k, int ref_k, const uint32_t* rows, int64_t word_base,
+                           int64_t n_words, const uint32_t* keys, uint64_t n_buckets,
+                           uint64_t bucket_base, uint64_t n_local, uint32_t* state,
+                           int64_t counts_len, uint64_t size_bits) {
+  for (int64_t i = 0; i < B; ++i) {
+    if (!cnt[i]) continue;
+    uint32_t w[N], can[N];
+    memcpy(w, ctx + i * N, sizeof w);
+    const uint64_t c = centre_hash(w, k, ref_k, can);
+    const int64_t lw = (int64_t)(bloom_index(c, size_bits) >> 5) - word_base;
+    const bool owned = lw >= 0 && lw < n_words;
+    const bool in_map = bucket_in_range(c, n_buckets, bucket_base, n_local);
+    if (!owned && !in_map) continue;
+    const RowTest t = row_test(owned ? rows[2 * lw] : 0u, owned ? rows[2 * lw + 1] : 0u, c,
+                               size_bits, false, false);
+    if ((t.what & 1u) && !known[i]) state[t.cidx] += cnt[i];
+    if (in_map) {
+      const int64_t slot = probe_buckets(keys, n_buckets, (k + 15) / 16, can, c, bucket_base,
+                                         n_local);
+      if (slot >= 0) state[counts_len + slot] += cnt[i];
+    }
+  }
+}
+
+extern "C" void gather_lanes(const uint32_t* ctx, const uint32_t* cnt, const uint8_t* known,
+                             int64_t B, int wc, int k, int ref_k, const uint32_t* rows,
+                             int64_t word_base, int64_t n_words, const uint32_t* keys,
+                             uint64_t n_buckets, uint64_t bucket_base, uint64_t n_local,
+                             uint32_t* state, int64_t counts_len, uint64_t size_bits) {
+  switch (wc) {
+#define F(m) case m: gather_lanes_n<m>(ctx, cnt, known, B, k, ref_k, rows, word_base, n_words, \
+                                       keys, n_buckets, bucket_base, n_local, state, counts_len, \
+                                       size_bits); \
+                     break;
+    CASES(F)
+#undef F
+  }
+}
+
 extern "C" void probe(const uint32_t* keys, uint64_t n_buckets, int w_k, int nw,
                       const uint32_t* can, const uint64_t* h, int64_t B, int64_t* out) {
   switch (nw) {
@@ -201,6 +246,9 @@ def lanes_cxx(tmp_path_factory):
     lib.probe.argtypes = [p, ctypes.c_uint64, i, i, p, p, i64, p]
     lib.shard_lanes.argtypes = [p, p, p, i64, i, i, i, p, i64, i64, p, ctypes.c_uint64, p, i64,
                                 ctypes.c_uint64, i]
+    u64 = ctypes.c_uint64
+    lib.gather_lanes.argtypes = [p, p, p, i64, i, i, i, p, i64, i64, p, u64, u64, u64, p, i64,
+                                 u64]
     return lib
 
 
@@ -402,3 +450,40 @@ def test_shard_lanes_match_plain(lanes_cxx, shard, minifilter):
                           sharded.cmax, cfg.bf_size, int(minifilter))
     np.testing.assert_array_equal(got, to_u32(want))
     assert got[: sharded.cmax].any() and got[sharded.cmax :].any()
+
+
+@pytest.mark.parametrize("shard", [0, 3])
+def test_gather_lanes_match_plain(lanes_cxx, shard):
+    """K5's per-lane path (lanes.cuh centre_hash, row_test without a
+    mini-filter, bucket_in_range and the register probe over the shard's
+    range of the global bucket table, with merged "known" flags) on one
+    shard of a 4-shard all-gather index, over every lane of the batch,
+    == gather_update_plain."""
+    from malva_tpu_torch.ops.bloom import to_u32
+    from malva_tpu_torch.parallel.sharded_index import shard_index
+    from malva_tpu_torch.utils.config import Config
+    from test_sharded import _index
+    from test_torch_sharded import _contexts
+
+    cfg = Config(k=35, ref_k=43, bf_size=1 << 20)
+    index, keys = _index(cfg, seed=14)
+    gathered = shard_index(index, cfg, ["cpu"] * 4)
+    sh = gathered.shards[shard]
+    contexts, counters = _contexts(keys, seed=25 + shard, n=4000)
+    ctx = pack2bit_u32_np(contexts, 43)
+    known = np.random.default_rng(shard).random(ctx.shape[0]) < 0.5
+    wps, nbps = gathered.words_per_shard, gathered.buckets_per_shard
+    kw = dict(k=35, ref_k=43, size_bits=cfg.bf_size, n_buckets=gathered.n_buckets,
+              word_base=shard * wps, bucket_base=shard * nbps, counts_len=gathered.cmax)
+    want = sh.state.clone()
+    kernels.gather_update_plain(sh.bf_packed, sh.kmap_keys, want, from_u32(ctx, "cpu"),
+                                from_u32(counters, "cpu"), torch.from_numpy(known), **kw)
+    got = to_u32(sh.state)
+    rows_u32, keys_u32 = to_u32(sh.bf_packed), to_u32(sh.kmap_keys)
+    known_u8 = known.astype(np.uint8)
+    lanes_cxx.gather_lanes(ctx.ctypes.data, counters.ctypes.data, known_u8.ctypes.data,
+                           ctx.shape[0], ctx.shape[1], 35, 43, rows_u32.ctypes.data, shard * wps,
+                           wps, keys_u32.ctypes.data, gathered.n_buckets, shard * nbps, nbps,
+                           got.ctypes.data, gathered.cmax, cfg.bf_size)
+    np.testing.assert_array_equal(got, to_u32(want))
+    assert got[: gathered.cmax].any() and got[gathered.cmax :].any()

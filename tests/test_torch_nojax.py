@@ -15,7 +15,7 @@ REPO = Path(__file__).resolve().parent.parent
 D = REPO / "tests" / "data" / "diploid"
 
 SCRIPT = r"""
-import io, sys
+import io, shutil, sys
 from malva_tpu_torch import cli, pipeline
 from malva_tpu_torch.utils.config import Config
 
@@ -61,6 +61,17 @@ assert stats["shards"] == 4 and out.getvalue() == open(sys.argv[2]).read()
 dryrun_multichip(4, mesh)
 step, args = entry()
 step(*args)
+
+# the all-gather design on the same mesh, and the two measurement tools
+from malva_tpu_torch import bench
+from malva_tpu_torch.parallel.sharded_index import apply_sample_counts_sharded
+from malva_tpu_torch.tools import scaling_mesh
+
+pipeline._reset_counters(index)
+assert apply_sample_counts_sharded(index, keys, counts, cfg, mesh, routed=False)["rows"] > 0
+scaling_mesh.main(["--device", "cpu", "--log2-bits", "18", "--batch", "1024", "--shards", "1,2"])
+if shutil.which("g++"):
+    bench.main(device="cpu", log2_bits=18, map_keys=500, batch=512, iters=1, machine=False)
 
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "malva_tpu"))

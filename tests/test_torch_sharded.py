@@ -18,7 +18,8 @@ from malva_tpu.ops.seq import canonical
 from malva_tpu.pipeline import apply_sample_counts
 from malva_tpu.utils.config import Config
 from malva_tpu_torch import pipeline as tp
-from malva_tpu_torch.index.device import RANK_BITS, RANK_MASK
+from malva_tpu_torch.index.device import RANK_BITS, RANK_MASK, pack2bit_u32_np
+from malva_tpu_torch.ops.bloom import to_u32
 from malva_tpu_torch.parallel.mesh import make_mesh
 from malva_tpu_torch.parallel.sharded_index import (
     apply_sample_counts_sharded,
@@ -387,8 +388,235 @@ def test_make_mesh_and_all_gather_design():
         make_mesh(devices=[CPU, torch.device("meta")])
     cfg = _cfg()
     index, keys = _index(cfg)
-    with pytest.raises(NotImplementedError, match="all-gather"):
-        apply_sample_counts_sharded(index, *_contexts(keys), cfg, [CPU] * 2, routed=False)
+    host_idx, _ = _index(cfg)
+    contexts, counters = _contexts(keys)
+    stats = apply_sample_counts_sharded(index, contexts, counters, cfg, [CPU] * 2, routed=False)
+    apply_sample_counts(host_idx, contexts, counters, cfg)
+    assert stats["design"] == "gather" and stats["gathered_rows"] == [contexts.shape[0]] * 2
+    np.testing.assert_array_equal(index.bf.counts, host_idx.bf.counts)
+    assert index.ref_bf.kmers == host_idx.ref_bf.kmers
+
+
+@pytest.mark.parametrize("n_shards", [2, 8])
+def test_gather_step_matches_jax_and_host(n_shards):
+    """bf.counts and the exact map after the port's all-gather step
+    (routed=False: K1 hash-only, the merged context flags, K5) equal JAX's
+    all-gather step on its 8-device CPU mesh and the host apply, over three
+    steps of a 1024-row batch."""
+    from malva_tpu.parallel.mesh import make_mesh as jax_mesh
+    from malva_tpu.parallel.sharded_index import apply_sample_counts_sharded as jax_apply
+
+    cfg = _cfg()
+    host_idx, keys = _index(cfg)
+    jax_idx, _ = _index(cfg)
+    port_idx, _ = _index(cfg)
+    contexts, counters = _contexts(keys)
+
+    apply_sample_counts(host_idx, contexts, counters, cfg)
+    jax_apply(jax_idx, contexts, counters, cfg, jax_mesh(n_shards), batch=1024, routed=False)
+    stats = apply_sample_counts_sharded(port_idx, contexts, counters, cfg, [CPU] * n_shards,
+                                        batch=1024, routed=False)
+    assert stats["steps"] == 3 and stats["gathered_rows"] == [contexts.shape[0]] * n_shards
+    assert host_idx.bf.counts.any() and any(host_idx.ref_bf.kmers.values())
+    for other in (jax_idx, host_idx):
+        np.testing.assert_array_equal(port_idx.bf.counts, np.asarray(other.bf.counts))
+        assert port_idx.ref_bf.kmers == other.ref_bf.kmers
+
+
+def _jax_gather_arrays(st, cfg) -> dict:
+    arrays = {n: np.asarray(getattr(st, n)) for n in
+              ("bf_packed", "bf_counts", "ctx_words", "kmap_keys", "kmap_vals")}
+    arrays.update(counts_len=st.counts_len, n_buckets=st.n_buckets, size_bits=st.size_bits,
+                  k=cfg.k, ref_k=cfg.ref_k)
+    return arrays
+
+
+@pytest.mark.parametrize("n_shards", [2, 8])
+def test_gather_arrays_match_jax(n_shards):
+    """The all-gather layout the port builds on its shards equals JAX's
+    shard_index array for array: [word, local rank] rows without a
+    mini-filter, context words, each shard's contiguous range of the one
+    global bucket table, and the counter state; the same state carried
+    across through convert.py places shard s on mesh[s] likewise."""
+    from malva_tpu.parallel.sharded_index import shard_index as jax_shard
+
+    from malva_tpu_torch.convert import gather_index_from_arrays
+    from malva_tpu_torch.ops.bloom import to_u32
+    from malva_tpu_torch.parallel.sharded_index import shard_index
+
+    cfg = _cfg()
+    index, _ = _index(cfg, seed=3)
+    index.bf.counts[:] = np.arange(1, index.bf.counts.shape[0] + 1, dtype=np.uint32)
+    for i, key in enumerate(index.ref_bf.kmers):  # a value per key, to see where it lands
+        index.ref_bf.kmers[key] = i + 1
+    own = shard_index(index, cfg, [CPU] * n_shards)
+    st = jax_shard(index, cfg, n_shards)
+    arrays = _jax_gather_arrays(st, cfg)
+    assert own.counts_len == st.counts_len and own.n_buckets == st.n_buckets
+    assert own.n_buckets % n_shards == 0 and own.cmax == arrays["bf_counts"].shape[1]
+    carried = gather_index_from_arrays(arrays, [CPU] * n_shards, st.table)
+    for gathered in (own, carried):
+        for s, sh in enumerate(gathered.shards):
+            for name in ("bf_packed", "ctx_words", "kmap_keys"):
+                np.testing.assert_array_equal(to_u32(getattr(sh, name)), arrays[name][s],
+                                              err_msg=name)
+            np.testing.assert_array_equal(
+                to_u32(sh.state), np.concatenate([arrays["bf_counts"][s], arrays["kmap_vals"][s]]))
+    assert arrays["bf_packed"][:, :, 1].any() and arrays["kmap_keys"].any()
+    assert arrays["kmap_vals"].any()
+    with pytest.raises(KeyError):
+        gather_index_from_arrays({"bf_packed": arrays["bf_packed"]}, [CPU] * n_shards)
+
+
+def test_carried_jax_gather_state_steps_like_own_index():
+    """One all-gather step over an index carried from JAX's arrays leaves
+    every shard's state equal to one over the port's own index, and written
+    back with JAX's table gives the host apply's counters."""
+    from malva_tpu.parallel.sharded_index import shard_index as jax_shard
+
+    from malva_tpu_torch.convert import gather_index_from_arrays
+    from malva_tpu_torch.parallel.sharded_index import ShardedCallSession, shard_index
+
+    cfg = _cfg()
+    host_idx, keys = _index(cfg, seed=12)
+    port_idx, _ = _index(cfg, seed=12)
+    contexts, counters = _contexts(keys, seed=13, n=2000)
+    packed = pack2bit_u32_np(contexts, 43)
+    mesh = [CPU] * 4
+    st = jax_shard(port_idx, cfg, 4)
+    carried = gather_index_from_arrays(_jax_gather_arrays(st, cfg), mesh, st.table)
+    own = shard_index(port_idx, cfg, mesh)
+    for sharded in (own, carried):
+        sess = ShardedCallSession(port_idx, cfg, mesh, sharded=sharded, routed=False)
+        sess.step(packed, counters)
+    got, want = ([to_u32(sh.state) for sh in g.shards] for g in (carried, own))
+    assert any(g[: carried.cmax].any() for g in got) and any(g[carried.cmax :].any() for g in got)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    carried.write_back(port_idx)
+    apply_sample_counts(host_idx, contexts, counters, cfg)
+    np.testing.assert_array_equal(port_idx.bf.counts, host_idx.bf.counts)
+    assert port_idx.ref_bf.kmers == host_idx.ref_bf.kmers
+
+
+def test_carried_jax_gather_state_without_table_says_so():
+    """An index carried from JAX's arrays without its host BucketTable
+    cannot restart (so no session takes it) or write back: both raise a
+    ValueError that names the missing table, and the host index is left
+    as it was."""
+    from malva_tpu.parallel.sharded_index import shard_index as jax_shard
+
+    from malva_tpu_torch.convert import gather_index_from_arrays
+    from malva_tpu_torch.parallel.sharded_index import ShardedCallSession
+
+    cfg = _cfg()
+    index, _ = _index(cfg, seed=12)
+    mesh = [CPU] * 4
+    carried = gather_index_from_arrays(_jax_gather_arrays(jax_shard(index, cfg, 4), cfg), mesh)
+    assert carried.table is None
+    counts, kmers = index.bf.counts.copy(), dict(index.ref_bf.kmers)
+    with pytest.raises(ValueError, match="BucketTable"):
+        ShardedCallSession(index, cfg, mesh, sharded=carried, routed=False)
+    with pytest.raises(ValueError, match="BucketTable"):
+        carried.write_back(index)
+    np.testing.assert_array_equal(index.bf.counts, counts)
+    assert index.ref_bf.kmers == kmers
+
+
+def test_gather_session_multistep_matches_routed():
+    """A ShardedCallSession(routed=False) over several steps, the last of
+    uneven size and padded with zero-counter rows (as JAX's session pads
+    its last buffer), leaves the same counters and map values as the routed
+    session on the same batches, and the host apply's; a session refuses an
+    index of the other design."""
+    from malva_tpu_torch.parallel.sharded_index import ShardedCallSession, shard_index
+
+    cfg = _cfg()
+    host_idx, keys = _index(cfg, seed=8)
+    gather_idx, _ = _index(cfg, seed=8)
+    routed_idx, _ = _index(cfg, seed=8)
+    contexts, counters = _contexts(keys, seed=17, n=2500)
+    packed = pack2bit_u32_np(contexts, 43)
+    pad = pack2bit_u32_np(np.full((300, 43), ord("A"), np.uint8), 43)
+    steps = [(packed[:1024], counters[:1024]), (packed[1024:2048], counters[1024:2048]),
+             (np.concatenate([packed[2048:], pad]),
+              np.concatenate([counters[2048:], np.zeros(300, np.uint32)]))]
+    mesh = [CPU] * 4
+    for index, routed in ((gather_idx, False), (routed_idx, True)):
+        sess = ShardedCallSession(index, cfg, mesh, routed=routed)
+        for p, c in steps:
+            sess.step(p, c)
+        stats = sess.finish()
+        assert stats["steps"] == 3 and stats["rows"] == 2800
+    assert stats["design"] == "routed"
+    apply_sample_counts(host_idx, contexts, counters, cfg)
+    assert host_idx.bf.counts.any() and any(host_idx.ref_bf.kmers.values())
+    for other in (routed_idx, host_idx):
+        np.testing.assert_array_equal(gather_idx.bf.counts, other.bf.counts)
+        assert gather_idx.ref_bf.kmers == other.ref_bf.kmers
+    with pytest.raises(ValueError, match="all-gather"):
+        ShardedCallSession(gather_idx, cfg, mesh, sharded=shard_index_routed(gather_idx, cfg, mesh),
+                           routed=False)
+    with pytest.raises(ValueError, match="routed"):
+        ShardedCallSession(gather_idx, cfg, mesh, sharded=shard_index(gather_idx, cfg, mesh))
+
+
+def test_gather_update_plain_one_shard_is_callstep():
+    """At S = 1 one shard owns every word and every bucket: K5's plain
+    version equals K1's without the mini-filter, counters and map values."""
+    from malva_tpu_torch.index.device import DeviceIndex
+    from malva_tpu_torch.ops import kernels
+    from malva_tpu_torch.ops.bloom import from_u32, lanes
+    from malva_tpu_torch.ops.xxh3 import xxh3_mod_size
+    from malva_tpu_torch.parallel.sharded_index import shard_index
+
+    cfg = _cfg()
+    index, keys = _index(cfg, seed=2)
+    contexts, counters = _contexts(keys, seed=5, n=1200)
+    ctx = from_u32(pack2bit_u32_np(contexts, 43), CPU)
+    cnt = from_u32(counters, CPU)
+    dev = DeviceIndex.from_host(index, cfg, CPU)
+    dev.bf_packed[:, 1] &= RANK_MASK
+    one = shard_index(index, cfg, [CPU])
+    sh = one.shards[0]
+    assert torch.equal(sh.bf_packed, dev.bf_packed) and torch.equal(sh.kmap_keys, dev.kmap_keys)
+    st_k1 = dev.state()
+    kernels.callstep_plain(dev.bf_packed, dev.ctx_words, dev.kmap_keys, st_k1, ctx, cnt, k=35,
+                           ref_k=43, size_bits=cfg.bf_size, n_buckets=dev.n_buckets,
+                           minifilter=False)
+    x_hi, x_lo = kernels.callstep_hash_plain(ctx, 35, 43, with_ctx=True)[:2]
+    cw, cb = xxh3_mod_size(x_hi, x_lo, cfg.bf_size)
+    known = ((lanes(sh.ctx_words[cw]) >> cb) & 1).bool()
+    st_k5 = sh.state.clone()
+    kernels.gather_update_plain(sh.bf_packed, sh.kmap_keys, st_k5, ctx, cnt, known, k=35,
+                                ref_k=43, size_bits=cfg.bf_size, n_buckets=one.n_buckets,
+                                word_base=0, bucket_base=0, counts_len=one.cmax)
+    n = index.bf.counts.shape[0]
+    assert one.cmax == n and to_u32(st_k1[:n]).any() and to_u32(st_k1[n:]).any()
+    np.testing.assert_array_equal(to_u32(st_k5), to_u32(st_k1))
+
+
+def test_gather_update_ignores_lanes_of_other_shards():
+    """A lane whose Bloom word and both buckets lie on other shards changes
+    nothing on this one."""
+    from malva_tpu_torch.ops import kernels
+    from malva_tpu_torch.ops.bloom import from_u32
+    from malva_tpu_torch.parallel.sharded_index import shard_index
+
+    cfg = _cfg()
+    index, keys = _index(cfg, seed=2)
+    contexts, counters = _contexts(keys, seed=6, n=1000)
+    gathered = shard_index(index, cfg, [CPU] * 4)
+    sh = gathered.shards[3]
+    before = sh.state.clone()
+    # every lane looks like another shard's: no word and no bucket of the range
+    kernels.gather_update(sh.bf_packed, sh.kmap_keys, sh.state,
+                          from_u32(pack2bit_u32_np(contexts, 43), CPU), from_u32(counters, CPU),
+                          torch.zeros(1000, dtype=torch.bool), k=35, ref_k=43,
+                          size_bits=cfg.bf_size, n_buckets=gathered.n_buckets,
+                          word_base=1 << 20, bucket_base=gathered.n_buckets,
+                          counts_len=gathered.cmax)
+    assert torch.equal(before, sh.state)
 
 
 def test_shard_minifilter_covers_every_map_key():

@@ -72,7 +72,16 @@
    index upload of that chr-scale index alone, in its four parts.  Then
    ``python -m malva_tpu_torch.run_distributed`` in two processes (gloo)
    with the 5x reads split in two: rank 0's VCF equal to the host run's.
-   Then ``graft_entry.dryrun_multichip(4, [cuda:0] * 4)``.
+   Then ``graft_entry.dryrun_multichip(4, [cuda:0] * 4)``.  On a host with
+   two cards or more (``nvidia-smi -L``), the real-card leg: the chr-scale
+   ``run --backend cuda`` with every card visible (the default route
+   shards over all of them) and under ``CUDA_VISIBLE_DEVICES=0``, each in
+   its own process (``malva_tpu_torch/tools/multicard_run.py run_once``):
+   both VCFs equal to the host run's, the walls, phases and the sharded
+   path's scan, step and card start-up lines printed.  On one card it
+   logs one line saying the leg needs two.  This process itself keeps to
+   the first card there (``CUDA_VISIBLE_DEVICES`` set before CUDA starts),
+   so that every other leg runs as on a one-card host.
 7. ``python -m malva_tpu_torch.tools.scaling_mesh`` at 2^33 bits and a
    2^21 batch, both designs at D = 1, 2, 4 virtual shards (each run must
    leave the same state), and ``python -m malva_tpu_torch.bench`` (wgs,
@@ -835,14 +844,10 @@ def batch_leg(backend: str, src: str, reads3: str, work: str,
 
 
 def phase_walls(stderr: str) -> dict:
-    """PhaseTimer walls by phase; the index pass's progress heartbeats
-    ("Processed N variants") are summed into one entry."""
-    walls: dict[str, float] = {}
-    for m in re.finditer(r"\[malva-tpu-torch/([^\]]+)\] Execution Time ([0-9.e+-]+)s", stderr):
-        name = re.sub(r"^Processed \d+ variants$", "Processed variants (heartbeats)", m.group(1))
-        name = re.sub(r"^Counters ready: .*/", "Counters ready: ", name)
-        walls[name] = round(walls.get(name, 0.0) + float(m.group(2)), 6)
-    return walls
+    """PhaseTimer walls by phase (``tools/multicard_run.py phase_walls``)."""
+    from malva_tpu_torch.tools.multicard_run import phase_walls as walls
+
+    return walls(stderr)
 
 
 UPLOAD = re.compile(r"index upload ([0-9.e+-]+) s \(table ([0-9.e+-]+) s, minifilter ([0-9.e+-]+) s, "
@@ -1089,7 +1094,53 @@ def distributed_leg(src: str, work: str, run_vcf: bytes) -> dict:
             "walls": [phase_walls(t) for t in texts]}
 
 
-def main_path_phase() -> dict:
+def host_cards() -> tuple[int, str | None]:
+    """The cards this process may use (``nvidia-smi -L``, or the given
+    ``CUDA_VISIBLE_DEVICES``) and that variable as given.  Where there are
+    two or more, this process keeps to the first of them, set before CUDA
+    starts: the real-card leg runs in processes of its own, and every
+    other leg runs as on a one-card host."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    smi = shutil.which("nvidia-smi")
+    listed = subprocess.run([smi, "-L"], capture_output=True, text=True).stdout if smi else ""
+    n = len(visible.split(",")) if visible else sum(ln.startswith("GPU ") for ln in
+                                                    listed.splitlines())
+    if n >= 2:
+        os.environ["CUDA_VISIBLE_DEVICES"] = (visible or "0").split(",")[0]
+    return n, visible
+
+
+def real_cards_leg(src: str, work: str, run_vcf: bytes, cards: int, visible: str | None) -> dict:
+    """The chr-scale ``run --backend cuda`` with every card visible (the
+    default route shards over all of them: ``backend.mesh_for``) and with
+    the first alone, each in its own process: both VCFs must equal the host
+    run's, and the all-card run must have logged the sharded context scan
+    with its upload and scan, the sharded call step with its host waits,
+    and the cards' start-up.  Needs two cards or more."""
+    from malva_tpu_torch.tools.multicard_run import run_once
+
+    if cards < 2:
+        log(f"real-card leg: skipped, it needs two cards or more and this host has {cards}")
+        return {"skipped": f"{cards} card"}
+    out = {}
+    first = (visible or "0").split(",")[0]
+    for label, vis in (("all", visible), ("one", first)):
+        r = run_once(REPO, src, os.path.join(work, label), vis, label)
+        if open(r.pop("vcf"), "rb").read() != run_vcf:
+            raise AssertionError(f"the real-card run on {label} card(s) differs from the host run")
+        log(f"real-card leg, {label} card(s): {r['wall_s']:.6g} s wall, VCF == host run's; "
+            f"phases {json.dumps(r['phases'])}")
+        for line in r["metrics"]:
+            log(f"real-card leg, {label} card(s): {line}")
+        out[label] = r
+    lines = "\n".join(out["all"]["metrics"])
+    for want in ("sharded context scan", "host waits", "card start-up"):
+        if want not in lines:
+            raise AssertionError(f"the real-card run on all {cards} cards logged no '{want}'")
+    return out
+
+
+def main_path_phase(cards: int, visible: str | None) -> dict:
     from malva_tpu_torch.graft_entry import dryrun_multichip
     from malva_tpu_torch.ops import kernels
     from malva_tpu_torch.utils import native
@@ -1191,6 +1242,11 @@ def main_path_phase() -> dict:
         t0 = time.perf_counter()
         dryrun_multichip(SHARDS, ["cuda:0"] * SHARDS)
         legs["dryrun_multichip"] = time.perf_counter() - t0
+        real = real_cards_leg(src, os.path.join(tmp, "real"), b, cards, visible)
+        for label in ("all", "one"):
+            if label in real:
+                legs[f"run cuda, {label} card(s), own process"] = real[label]["wall_s"]
+                walls[f"run cuda, {label} card(s)"] = real[label]["phases"]
         log(f"phase walls in s: {json.dumps(walls)}")
         return {"launches": launches, "spill_launches": spill_launches,
                 "batch_launches": batch_launches, "sharded_launches": sharded["launches"],
@@ -1201,7 +1257,7 @@ def main_path_phase() -> dict:
                 "host_phases": {"threads": native.threads(), **threads},
                 "batch_trace": trace, "sharded_call_step": sharded["call_step"],
                 "sharded_gather": sharded["gather"],
-                "distributed": dist, "legs_s": legs}
+                "distributed": dist, "real_cards": real, "legs_s": legs}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1300,6 +1356,7 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (no main-path run, no ok line)")
     args = ap.parse_args()
+    cards, visible = host_cards()
     import torch
 
     if not torch.cuda.is_available():
@@ -1338,7 +1395,7 @@ def main() -> int:
     main = tools = None
     if not args.kernels_only:
         t0 = time.perf_counter()
-        main = main_path_phase()
+        main = main_path_phase(cards, visible)
         walls["main paths"] = time.perf_counter() - t0
         walls.update(main["legs_s"])
         tools = tools_phase()
@@ -1360,6 +1417,7 @@ def main() -> int:
                       "sharded_call_step": main and main["sharded_call_step"],
                       "sharded_gather": main and main["sharded_gather"],
                       "scaling": tools and tools["scaling"],
+                      "real_cards": main and main["real_cards"],
                       "distributed": main and main["distributed"]}), flush=True)
     if tools:
         print(json.dumps(tools["bench"]), flush=True)

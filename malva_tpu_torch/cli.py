@@ -99,8 +99,14 @@ def _config(args: argparse.Namespace) -> Config:
 
 def _overlaps_counting(cfg: Config) -> bool:
     """Whether ``run`` may count on a host producer: not when the reads
-    route to the card, which counts them (malva_tpu/cli.py:277)."""
-    return resolve(cfg, _file_size(cfg.sample_path), DEVICE_MIN_READ_BYTES) != "cuda"
+    route to the card, which counts them (malva_tpu/cli.py:277).  An
+    explicit ``cuda`` routes them there without asking CUDA: asking would
+    start CUDA on every card on this thread before the index pass, where
+    the cards of a mesh start in a background thread instead
+    (``backend.start_cards``); without a card, ``cuda`` raises at the
+    index's route."""
+    return cfg.backend != "cuda" and resolve(cfg, _file_size(cfg.sample_path),
+                                              DEVICE_MIN_READ_BYTES) != "cuda"
 
 
 def _start_count_producer(cfg: Config):

@@ -6,13 +6,26 @@ them, as one JAX process drives its mesh, and the shards exchange lanes
 by tensor copies (``.to(device, non_blocking=True)``: peer to peer on a
 multi-GPU host).  A device may repeat: the shards then share it as
 virtual shards, the counterpart of XLA's virtual CPU device count.
+
+JAX starts every device when its backend starts; torch makes a card's
+CUDA context the first time something touches the card.  Where a run is
+about to shard over several cards, :class:`CardStartup` makes their
+contexts in a background thread while the host works on (the variant
+pass, the sample counting), and the mesh joins it where it first needs
+the cards (``backend.start_cards``, ``pipeline._route``).
 """
 
 from __future__ import annotations
 
+import ctypes
+import sys
+import threading
+import time
+
 import torch
 
 Mesh = tuple  # tuple[torch.device, ...]
+TAG = "malva-tpu-torch"
 
 
 def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
@@ -31,3 +44,81 @@ def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
     if len({d.type for d in mesh}) != 1:
         raise ValueError(f"mesh devices must be of one type, got {mesh}")
     return mesh
+
+
+def cards_of(mesh) -> list:
+    """The distinct devices of a mesh, in mesh order."""
+    return list(dict.fromkeys(mesh))
+
+
+def retain_primary_contexts(cards) -> None:
+    """Make each card's primary CUDA context through ``libcuda``
+    (``cuInit``, ``cuDevicePrimaryCtxRetain``), the context torch's
+    runtime then uses.  Each ctypes call releases the GIL, so the host's
+    Python work goes on while CUDA starts and each context is made."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuInit.argtypes = [ctypes.c_uint]
+    cuda.cuDeviceGet.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    cuda.cuDevicePrimaryCtxRetain.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int]
+    for fn in (cuda.cuInit, cuda.cuDeviceGet, cuda.cuDevicePrimaryCtxRetain):
+        fn.restype = ctypes.c_int
+
+    def check(rc: int, what: str) -> None:
+        if rc != 0:
+            raise RuntimeError(f"{what} failed with CUresult {rc}")
+
+    check(cuda.cuInit(0), "cuInit")
+    for d in cards:
+        dev, ctx = ctypes.c_int(), ctypes.c_void_p()
+        check(cuda.cuDeviceGet(ctypes.byref(dev), d.index), f"cuDeviceGet({d})")
+        check(cuda.cuDevicePrimaryCtxRetain(ctypes.byref(ctx), dev),
+              f"cuDevicePrimaryCtxRetain({d})")
+
+
+class CardStartup:
+    """The CUDA contexts of ``cards``, made in a background thread started
+    at construction: each card's primary context is made through libcuda
+    (:func:`retain_primary_contexts`), then each card is touched
+    with a one-element tensor and one element is copied from every card to
+    every other, which sets up torch on the card and the peer access that
+    the mesh's card-to-card copies use.  :meth:`join` waits for the
+    thread, logs its wall and the wait once, and raises in the joining
+    thread any error the thread met.  The thread is no daemon: a process
+    that ends without taking the mesh waits for it at exit rather than
+    tear CUDA down under it."""
+
+    def __init__(self, cards):
+        self.cards = tuple(cards)
+        self.error: Exception | None = None
+        self.wall_s: float | None = None
+        self.waited_s: float | None = None
+        self._t0 = time.perf_counter()
+        self._thread = threading.Thread(target=self._run, name="malva-card-startup")
+        self._thread.start()
+
+    def _run(self) -> None:
+        try:
+            retain_primary_contexts(self.cards)
+            ones = [torch.ones(1, device=d) for d in self.cards]
+            for one in ones:
+                for d in self.cards:
+                    if d != one.device:
+                        one.to(d)
+            for d in self.cards:
+                torch.cuda.synchronize(d)
+        except Exception as e:  # raised again by join(), in the thread that needs the cards
+            self.error = e
+        finally:
+            self.wall_s = time.perf_counter() - self._t0
+
+    def join(self) -> None:
+        if self.waited_s is None:
+            t0 = time.perf_counter()
+            self._thread.join()
+            self.waited_s = time.perf_counter() - t0
+            print(f"[{TAG}/metrics] card start-up: {len(self.cards)} cards "
+                  f"({', '.join(map(str, self.cards))}) started in a background thread in "
+                  f"{self.wall_s:.6g} s; the mesh waited {self.waited_s:.6g} s for it",
+                  file=sys.stderr)
+        if self.error is not None:
+            raise self.error

@@ -25,8 +25,17 @@ hop's few routing columns): K4 recomputes the centre hash, which costs
 less than carrying it.  JAX packs lanes into a fixed (D * cap, 8 + w_k)
 slot matrix, with an overflow flag, a discarded attempt and an all-gather
 rerun, because XLA needs static shapes.  Here each hop sends
-variable-size per-destination blocks (sort by owner, ``bincount``,
-``split``, copy), so there is no capacity, no overflow and no fallback.
+variable-size per-destination blocks (sort by owner, count, ``split``,
+copy), so there is no capacity, no overflow and no fallback.
+
+How the data moves between the host and the cards (:func:`upload`,
+:func:`read_host`, :func:`exchange`): each host array crosses to the cards
+once, each shard taking only its slice, and an array that every device
+needs (the alt words and the contig bytes of the context scan) crosses to
+the first card and is copied from there card to card; a hop's split sizes
+come back to the host in one read for all sources, after every source's
+sort and count is issued, so the host waits once per hop, as JAX's hops
+are one ``all_to_all`` each.
 
 The all-gather design (JAX ``shard_index :54``, ``write_back :101``,
 ``make_sharded_call_step :110``), reached only with ``routed=False``
@@ -47,6 +56,7 @@ from __future__ import annotations
 import os
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from itertools import compress
 
@@ -64,14 +74,61 @@ from ..index.device import (
     short_contigs_on_host,
     timing_events,
 )
-from ..index.kmap_table import SLOTS, BucketTable
+from ..index.kmap_table import BucketTable
 from ..ops import kernels
-from ..ops.bloom import bloom_set, from_u32, lanes, to_u32
+from ..ops.bloom import bloom_set, lanes, to_u32
 from ..ops.packed import popcount32
 from ..ops.xxh3 import check_bloom_size, xxh3_64, xxh3_mod_size
 from ..utils.config import Config
+from .mesh import cards_of
 
 TAG = "malva-tpu-torch"
+
+
+def upload(arrays: list, devices) -> list:
+    """The sharded path's one way from the host to the cards: host array
+    ``arrays[i]`` as a tensor on ``devices[i]``, always a copy (uint32 as
+    int32 storage, as ``ops.bloom.from_u32``).  To several cards the
+    copies go from one thread per array: a copy from pageable memory is
+    staged by the host, and the stagings run side by side (1 GiB in four
+    slices 2.8x faster than one after another; ``tools/multicard_run.py``,
+    PERF.md section 6)."""
+    hosts = []
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        if not a.flags.writeable:  # torch.from_numpy wants a writable array
+            a = a.copy()
+        hosts.append(torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a))
+    if torch.device(devices[0]).type == "cuda" and len(set(devices)) > 1:
+        with ThreadPoolExecutor(len(hosts)) as pool:
+            return list(pool.map(lambda h, d: h.to(d, copy=True), hosts, devices))
+    return [h.to(d, non_blocking=True, copy=True) for h, d in zip(hosts, devices)]
+
+
+def row_slices(a: np.ndarray, n_shards: int) -> list:
+    """``a`` cut by rows into ``n_shards`` equal slices (views)."""
+    n = a.shape[0] // n_shards
+    return [a[s * n : (s + 1) * n] for s in range(n_shards)]
+
+
+def replicate(t: torch.Tensor, devices) -> dict:
+    """``t`` (on ``devices[0]``) on every device of ``devices``: copied
+    card to card, without a host wait; one tensor per device."""
+    return {d: t if d == devices[0] else t.to(d, non_blocking=True) for d in devices}
+
+
+def read_host(tensors: list) -> list:
+    """Equal-shape tensors on the mesh's devices, read to the host at once
+    (a list per tensor): they are gathered on the first one's device and
+    read there, so the host waits once, for every card."""
+    first = tensors[0].device
+    return torch.stack([t.to(first, non_blocking=True) for t in tensors]).tolist()
+
+
+def synchronize(devices) -> None:
+    for d in devices:
+        if torch.device(d).type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 @dataclass
@@ -116,10 +173,12 @@ class ShardedIndex:
     def restart(self, index) -> None:
         """Set every shard's counter state from the host counters (at the
         build, and for a reused index, as ``call_batch``'s next sample)."""
-        for sh, counts, table in zip(self.shards, shard_counts(index, self.counts_len, self.cmax),
-                                     self.tables):
+        states = []
+        for counts, table in zip(shard_counts(index, self.counts_len, self.cmax), self.tables):
             table.set_vals_from(index.ref_bf.kmers)
-            sh.state = from_u32(np.concatenate([counts, table.vals]), sh.device)
+            states.append(np.concatenate([counts, table.vals]))
+        for sh, state in zip(self.shards, upload(states, [sh.device for sh in self.shards])):
+            sh.state = state
 
     def write_back(self, index) -> None:
         """Fold every shard's counter state back into the host index
@@ -139,11 +198,11 @@ def place_shards(arrays: dict, mesh) -> tuple[list, int]:
                                      ("bf_packed", "bf_counts", "kmap_keys", "kmap_vals"))
     if any(a.shape[0] != S for a in (bf_packed, counts, keys, vals)):
         raise ValueError(f"index arrays hold {bf_packed.shape[0]} shards; the mesh has {S}")
-    shards = [Shard(device=d, bf_packed=from_u32(bf_packed[s], d),
-                    ctx_words=from_u32(arrays["ctx_words"][s], d),
-                    kmap_keys=from_u32(keys[s], d),
-                    state=from_u32(np.concatenate([counts[s], vals[s]]), d))
-              for s, d in enumerate(mesh)]
+    shards = [Shard(device=d, bf_packed=bp, ctx_words=cw, kmap_keys=kk, state=st)
+              for d, bp, cw, kk, st in zip(
+                  mesh, upload(list(bf_packed), mesh), upload(list(arrays["ctx_words"]), mesh),
+                  upload(list(keys), mesh),
+                  upload([np.concatenate([c, v]) for c, v in zip(counts, vals)], mesh))]
     return shards, int(counts.shape[1])
 
 
@@ -212,11 +271,11 @@ class GatherIndex:
         """Set every shard's counter state from the host counters."""
         table = self.host_table()
         table.set_vals_from(index.ref_bf.kmers)
-        nv = self.buckets_per_shard * SLOTS
-        for s, (sh, counts) in enumerate(zip(self.shards,
-                                             shard_counts(index, self.counts_len, self.cmax))):
-            sh.state = from_u32(np.concatenate([counts, table.vals[s * nv : (s + 1) * nv]]),
-                                sh.device)
+        states = [np.concatenate([counts, vals]) for counts, vals in
+                  zip(shard_counts(index, self.counts_len, self.cmax),
+                      row_slices(table.vals, len(self.shards)))]
+        for sh, state in zip(self.shards, upload(states, [sh.device for sh in self.shards])):
+            sh.state = state
 
     def write_back(self, index) -> None:
         """Fold every shard's counter state back into the host index (JAX
@@ -225,6 +284,19 @@ class GatherIndex:
         states = [to_u32(sh.state) for sh in self.shards]
         index.bf.counts = np.concatenate([st[:n] for st, n in zip(states, self.counts_len)])
         table.write_back(np.concatenate([st[self.cmax :] for st in states]), index.ref_bf.kmers)
+
+
+def word_slices(index, mesh) -> tuple[list, list, list]:
+    """Every shard's slice of the Bloom and context words on its device
+    (each array crosses once), and the shards' counter counts, read to the
+    host once: (words, ctx_words, counts_len)."""
+    S = len(mesh)
+    if index.bf.words.shape[0] % S:
+        raise ValueError(f"{index.bf.words.shape[0]} Bloom words do not split into {S} shards")
+    words = upload(row_slices(index.bf.words, S), mesh)
+    ctx_words = upload(row_slices(index.context_bf.words, S), mesh)
+    counts_len = read_host([popcount32(lanes(w)).sum() for w in words])
+    return words, ctx_words, counts_len
 
 
 def shard_index(index, cfg: Config, mesh) -> GatherIndex:
@@ -236,23 +308,16 @@ def shard_index(index, cfg: Config, mesh) -> GatherIndex:
     mini-filter."""
     check_bloom_size(cfg.bf_size)
     S = len(mesh)
-    W = index.bf.words.shape[0]
-    if W % S:
-        raise ValueError(f"{W} Bloom words do not split into {S} shards")
-    wps = W // S
     keys, rows, _ = device_map_entries(index, cfg)
     table = BucketTable(keys, cfg.k, min_buckets=S, rows=rows)
-    nbps = table.n_buckets // S
-    shards, counts_len = [], []
-    for s, d in enumerate(mesh):
-        w = from_u32(index.bf.words[s * wps : (s + 1) * wps], d)
-        counts_len.append(int(popcount32(lanes(w)).sum()))
+    words, ctx_words, counts_len = word_slices(index, mesh)
+    kmap_keys = upload(row_slices(table.bucket_keys, S), mesh)
+    shards = []
+    for d, w, cw, kk in zip(mesh, words, ctx_words, kmap_keys):
         none = torch.zeros(0, dtype=torch.int64, device=d)
-        shards.append(Shard(device=d, bf_packed=pack_bloom_rows(w, none, none),
-                            ctx_words=from_u32(index.context_bf.words[s * wps : (s + 1) * wps], d),
-                            kmap_keys=from_u32(table.bucket_keys[s * nbps : (s + 1) * nbps], d),
-                            state=None))
-        del w
+        shards.append(Shard(device=d, bf_packed=pack_bloom_rows(w, none, none), ctx_words=cw,
+                            kmap_keys=kk, state=None))
+    del words
     gathered = GatherIndex(shards=shards, counts_len=counts_len, cmax=max([1] + counts_len),
                            table=table, n_buckets=table.n_buckets, size_bits=cfg.bf_size,
                            k=cfg.k, ref_k=cfg.ref_k)
@@ -287,23 +352,17 @@ def shard_index_routed(index, cfg: Config, mesh) -> ShardedIndex:
     it (2^28)."""
     check_bloom_size(cfg.bf_size)
     S = len(mesh)
-    W = index.bf.words.shape[0]
-    if W % S:
-        raise ValueError(f"{W} Bloom words do not split into {S} shards")
-    wps = W // S
+    words, ctx_words, counts_len = word_slices(index, mesh)
     tables = routed_tables(index, cfg, S)
-    words = [from_u32(index.bf.words[s * wps : (s + 1) * wps], d) for s, d in enumerate(mesh)]
-    counts_len = [int(popcount32(lanes(w)).sum()) for w in words]
+    kmap_keys = upload([t.bucket_keys for t in tables], mesh)
     minifilter = max(counts_len) < (1 << RANK_BITS)
-    shards = []
-    for s, (d, w, table) in enumerate(zip(mesh, words, tables)):
-        h = table.key_hashes if minifilter else np.zeros(0, np.uint64)
-        mf_rows, mf_bits = (torch.from_numpy(a).to(d) for a in
-                            minifilter_rows(h, cfg.bf_size, word_base=s * wps))
-        shards.append(Shard(device=d, bf_packed=pack_bloom_rows(w, mf_rows, mf_bits),
-                            ctx_words=from_u32(index.context_bf.words[s * wps : (s + 1) * wps], d),
-                            kmap_keys=from_u32(table.bucket_keys, d),
-                            state=None))
+    wps = index.bf.words.shape[0] // S
+    mf = [minifilter_rows(t.key_hashes if minifilter else np.zeros(0, np.uint64), cfg.bf_size,
+                          word_base=s * wps) for s, t in enumerate(tables)]
+    mf_rows, mf_bits = (upload(list(a), mesh) for a in zip(*mf))
+    shards = [Shard(device=d, bf_packed=pack_bloom_rows(w, r, b), ctx_words=cw, kmap_keys=kk,
+                    state=None)
+              for d, w, cw, kk, r, b in zip(mesh, words, ctx_words, kmap_keys, mf_rows, mf_bits)]
     del words
     sharded = ShardedIndex(shards=shards, counts_len=counts_len, cmax=max([1] + counts_len),
                            tables=tables, nbs=tables[0].n_buckets, size_bits=cfg.bf_size,
@@ -312,26 +371,42 @@ def shard_index_routed(index, cfg: Config, mesh) -> ShardedIndex:
     return sharded
 
 
-def exchange(mesh, payloads: list, dests: list) -> list:
-    """Row i of ``payloads[s]`` goes to shard ``dests[s][i]``.  Each source
-    sorts its rows by destination and sends one block to each shard, of
-    whatever size: returns, per shard, the rows it received, in source
-    order (on its own device)."""
+def exchange(mesh, payloads: list, dests: list, stats: dict) -> list:
+    """Row i of ``payloads[s]`` goes to shard ``dests[s][i]``; a row whose
+    destination is ``len(mesh)`` is dropped.  Every source sorts its rows
+    by destination and counts them per destination on its own device;
+    then the counts of all sources come to the host in one read
+    (:func:`read_host`), and each source sends one block to each shard, of
+    whatever size.  Returns, per shard, the rows it received, in source
+    order (on its own device).  Adds the read to ``stats["host_reads"]``
+    and the host wall to ``stats["exchange_s"]``."""
+    t0 = time.perf_counter()
     S = len(mesh)
-    blocks: list[list] = [[] for _ in range(S)]
+    rows, counts = [], []
     for payload, dest in zip(payloads, dests):
-        order = torch.argsort(dest, stable=True)
-        sizes = torch.bincount(dest, minlength=S).tolist()
-        for d, part in enumerate(torch.split(payload[order], sizes)):
+        dest, order = torch.sort(dest, stable=True)
+        rows.append(payload[order])
+        # per-destination counts from the sorted owners: no host wait (a
+        # CUDA bincount reads its input's maximum to the host)
+        edges = torch.searchsorted(dest, torch.arange(S + 2, device=dest.device))
+        counts.append(edges[1:] - edges[:-1])
+    sizes = read_host(counts)
+    blocks: list[list] = [[] for _ in range(S)]
+    for r, n in zip(rows, sizes):
+        for d, part in enumerate(torch.split(r, n)[:S]):
             blocks[d].append(part.to(mesh[d], non_blocking=True))
+    stats["host_reads"] = stats.get("host_reads", 0) + 1
+    stats["exchange_s"] = stats.get("exchange_s", 0.0) + time.perf_counter() - t0
     return [torch.cat(b) for b in blocks]
 
 
 def row_stats(routed: bool, n_shards: int) -> dict:
-    """The per-shard row counters a step adds to: the routed step's rows
-    after each hop, or the rows each shard received in the all-gather."""
+    """The counters a step adds to: the routed step's rows after each hop
+    per shard, its host reads and exchange wall, or the rows each shard
+    received in the all-gather."""
     if routed:
-        return {"hop1_rows": [0] * n_shards, "hop2_rows": [0] * n_shards}
+        return {"hop1_rows": [0] * n_shards, "hop2_rows": [0] * n_shards, "host_reads": 0,
+                "exchange_s": 0.0}
     return {"gathered_rows": [0] * n_shards}
 
 
@@ -351,9 +426,10 @@ def routed_step(sharded: ShardedIndex, mesh, ctx: list, counters: list, stats: d
     ``counters[s]`` (n_s,) are source shard s's slice of the batch, on
     ``mesh[s]`` (int32 storage).  Updates every shard's state in place and
     adds the rows each shard handled to ``stats["hop1_rows"]`` and
-    ``stats["hop2_rows"]``.  With ``events``, the K1 and K4 launches are
-    timed by their launchers (lists under "callstep_hash" and
-    "shard_update")."""
+    ``stats["hop2_rows"]`` (and the two exchanges to ``stats["host_reads"]``
+    and ``stats["exchange_s"]``).  The host waits twice, once in each
+    exchange.  With ``events``, the K1 and K4 launches are timed by their
+    launchers (lists under "callstep_hash" and "shard_update")."""
     k, ref_k, size_bits = sharded.k, sharded.ref_k, sharded.size_bits
     wc = (ref_k + 15) // 16
     wps = sharded.words_per_shard
@@ -370,14 +446,14 @@ def routed_step(sharded: ShardedIndex, mesh, ctx: list, counters: list, stats: d
         dst1.append(cw // wps)
     # hop 1: the context-word owner tests its context-filter bit
     pay2, dst2 = [], []
-    for d, (sh, got) in enumerate(zip(sharded.shards, exchange(mesh, pay1, dst1))):
+    for d, (sh, got) in enumerate(zip(sharded.shards, exchange(mesh, pay1, dst1, stats))):
         stats["hop1_rows"][d] += got.shape[0]
         lcw, cb = got[:, wc + 1].long(), got[:, wc + 2].long()
         known = (lanes(sh.ctx_words[lcw]) >> cb) & 1
         pay2.append(torch.cat([got[:, : wc + 1], known.to(torch.int32)[:, None]], dim=1))
         dst2.append(got[:, wc + 3].long())
     # hop 2: the Bloom-word owner applies the lane (K4)
-    for d, (sh, got) in enumerate(zip(sharded.shards, exchange(mesh, pay2, dst2))):
+    for d, (sh, got) in enumerate(zip(sharded.shards, exchange(mesh, pay2, dst2, stats))):
         stats["hop2_rows"][d] += got.shape[0]
         kernels.shard_update(sh.bf_packed, sh.kmap_keys, sh.state, got[:, :wc].contiguous(),
                              got[:, wc].contiguous(), got[:, wc + 1].bool(), k=k, ref_k=ref_k,
@@ -392,9 +468,10 @@ def gather_step(gathered: GatherIndex, mesh, ctx: list, counters: list, stats: d
     ``ctx[s]`` (n_s, wc) packed contexts and ``counters[s]`` (n_s,) are
     source shard s's slice of the batch, on ``mesh[s]`` (int32 storage).
     Updates every shard's state in place and adds the rows each shard
-    received to ``stats["gathered_rows"]``.  With ``events``, the K1 and K5
-    launches are timed by their launchers (lists under "callstep_hash" and
-    "gather_update")."""
+    received to ``stats["gathered_rows"]``.  Every copy, launch and the
+    OR-merge of the flags is issued without a host wait.  With ``events``,
+    the K1 and K5 launches are timed by their launchers (lists under
+    "callstep_hash" and "gather_update")."""
     k, ref_k, size_bits = gathered.k, gathered.ref_k, gathered.size_bits
     wps, nbps = gathered.words_per_shard, gathered.buckets_per_shard
 
@@ -453,8 +530,8 @@ class ShardedCallSession:
         S = len(self.mesh)
         n = packed.shape[0]
         bounds = [n * s // S for s in range(S + 1)]
-        ctx = [from_u32(packed[a:b], d) for a, b, d in zip(bounds, bounds[1:], self.mesh)]
-        cnt = [from_u32(counters[a:b], d) for a, b, d in zip(bounds, bounds[1:], self.mesh)]
+        ctx = upload([packed[a:b] for a, b in zip(bounds, bounds[1:])], self.mesh)
+        cnt = upload([counters[a:b] for a, b in zip(bounds, bounds[1:])], self.mesh)
         (routed_step if self.routed else gather_step)(self.sharded, self.mesh, ctx, cnt,
                                                       self.stats, self.events)
         self.stats["rows"] += n
@@ -510,9 +587,10 @@ def make_sharded_ref_scan(mesh, k: int, ref_k: int, size_bits: int, slice_chunk:
     ``scan(bf_words, ctx_shards, seqs, start, n_pos, stats)`` scans
     positions ``[start, start + S * slice_chunk)`` of one contig, slice s on
     shard s.  Each shard hashes its slice's windows (K2 hash-only, the
-    ref_k - 1 halo read from the contig), probes the alt words
-    (``bf_words[device]``, one copy per device), and sends only the hits to
-    the owners of their context words, which set the bits."""
+    ref_k - 1 halo read from the contig) and probes the alt words
+    (``bf_words[device]``, one copy per device); only then does the host
+    wait, once, in the exchange that sends the hits to the owners of their
+    context words (a miss goes nowhere), which set the bits."""
     S = len(mesh)
     wps = size_bits // 32 // S
 
@@ -528,11 +606,11 @@ def make_sharded_ref_scan(mesh, k: int, ref_k: int, size_bits: int, slice_chunk:
                                                          n, k, ref_k)
             bw, bb = xxh3_mod_size(c_hi, c_lo, size_bits)
             hit = ((lanes(bf_words[dev][bw]) >> bb) & 1).bool()
-            cw, cb = xxh3_mod_size(x_hi[hit], x_lo[hit], size_bits)
+            cw, cb = xxh3_mod_size(x_hi, x_lo, size_bits)
             payloads.append(torch.stack([cw % wps, cb], dim=1))
-            dests.append(cw // wps)
+            dests.append(torch.where(hit, cw // wps, S))
             stats["positions"] += n
-        for d, got in enumerate(exchange(mesh, payloads, dests)):
+        for d, got in enumerate(exchange(mesh, payloads, dests, stats)):
             stats["hits"][d] += got.shape[0]
             bloom_set(ctx_shards[d], got[:, 0], got[:, 1],
                       torch.ones(got.shape[0], dtype=torch.bool, device=got.device))
@@ -544,7 +622,11 @@ def build_context_sharded(index, refs_used: list[np.ndarray], cfg: Config, mesh,
                           slice_chunk: int = 1 << 20) -> None:
     """The reference context scan over a mesh (JAX ``:582``), updating
     ``index.context_bf.words``; equivalent to the host scan.  Short contigs
-    go first, on the host; the words come back sparse."""
+    go first, on the host.  The alt words and each contig cross from the
+    host once, to the mesh's first device, and are copied from there to
+    its other devices (virtual shards of one device share one copy); each
+    shard's context words cross as its slice; the words come back
+    sparse."""
     S = len(mesh)
     check_bloom_size(cfg.bf_size)
     W = index.bf.words.shape[0]
@@ -553,17 +635,18 @@ def build_context_sharded(index, refs_used: list[np.ndarray], cfg: Config, mesh,
     wps = W // S
     short_contigs_on_host(index, refs_used, cfg)
 
-    devices = list(dict.fromkeys(mesh))
-    bf_words = {d: from_u32(index.bf.words, d) for d in devices}
-    ctx = [from_u32(index.context_bf.words[s * wps : (s + 1) * wps], d)
-           for s, d in enumerate(mesh)]
+    t0 = time.perf_counter()
+    devices = cards_of(mesh)
+    bf_words = replicate(upload([index.bf.words], devices[:1])[0], devices)
+    ctx = upload(row_slices(index.context_bf.words, S), mesh)
+    synchronize(devices)
+    upload_s = time.perf_counter() - t0
     scan = make_sharded_ref_scan(mesh, cfg.k, cfg.ref_k, cfg.bf_size, slice_chunk)
-    stats = {"positions": 0, "hits": [0] * S}
+    stats = {"positions": 0, "hits": [0] * S, "host_reads": 0, "exchange_s": 0.0}
     for ref in refs_used:
         if len(ref) < cfg.ref_k:
             continue
-        seq = torch.from_numpy(np.ascontiguousarray(ref, dtype=np.uint8))
-        seqs = {d: seq.to(d) for d in devices}
+        seqs = replicate(upload([ref.astype(np.uint8, copy=False)], devices[:1])[0], devices)
         n_pos = len(ref) - cfg.ref_k + 1
         for start in range(0, n_pos, S * slice_chunk):
             scan(bf_words, ctx, seqs, start, n_pos, stats)
@@ -572,7 +655,9 @@ def build_context_sharded(index, refs_used: list[np.ndarray], cfg: Config, mesh,
         index.context_bf.words[s * wps + nz.cpu().numpy()] = to_u32(words[nz])
     print(f"[{TAG}] sharded context scan: {stats['positions']} positions over {S} shards "
           f"({', '.join(map(str, mesh))}); hits routed to their context-word owners "
-          f"{stats['hits']}", file=sys.stderr)
+          f"{stats['hits']}; upload {upload_s:.6g} s, scan {time.perf_counter() - t0 - upload_s:.6g}"
+          f" s (the sparse read-back included; {stats['host_reads']} host reads of split sizes, "
+          f"exchange {stats['exchange_s']:.6g} s)", file=sys.stderr)
 
 
 def log_sharded_step(stats: dict) -> None:
@@ -582,8 +667,14 @@ def log_sharded_step(stats: dict) -> None:
         rows, kernel = f"hop 1 {stats['hop1_rows']}, hop 2 {stats['hop2_rows']}", "K4"
     else:
         rows, kernel = f"gathered {stats['gathered_rows']}", "K5"
+    if stats["design"] == "routed":
+        waits = (f"; host waits {stats['host_reads'] / max(stats['steps'], 1):.6g} per step "
+                 f"({stats['host_reads']} reads of split sizes), exchange {stats['exchange_s']:.6g}"
+                 f" s")
+    else:
+        waits = "; no host wait in the steps"
     print(f"[{TAG}/metrics] sharded call step ({stats['design']}): {stats['rows']} distinct "
           f"k-mers in {stats['steps']} steps over {stats['shards']} shards; rows per shard, "
           f"{rows}; device time K1 hash-only {stats['hash_ms']} ms, {kernel} "
-          f"{stats['kernel_ms']} ms (launcher events); index upload {stats['upload_s']:.6g} s, "
-          f"write-back {stats['writeback_s']:.6g} s", file=sys.stderr)
+          f"{stats['kernel_ms']} ms (launcher events){waits}; index upload "
+          f"{stats['upload_s']:.6g} s, write-back {stats['writeback_s']:.6g} s", file=sys.stderr)

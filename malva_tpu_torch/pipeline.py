@@ -26,7 +26,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .backend import device_for, mesh_for
+from .backend import device_for, mesh_for, start_cards
 from .count.counter import count_reads_kmers, load_kmc_dump
 from .index.bloom_filter import BF
 from .index.device import (
@@ -834,13 +834,18 @@ def _reset_counters(index: Index) -> None:
 
 
 
-def _route(cfg: Config, work: int | None, floor: int, device=None, mesh=None):
+def _route(cfg: Config, work: int | None, floor: int, device=None, mesh=None, cards=None):
     """``(mesh, None)`` for the sharded device path, ``(None, device)``
     for one torch device, ``(None, None)`` for the host.  An explicit
     ``mesh`` or ``device`` is taken as given; with neither, the backend
-    and the work size decide (backend.py)."""
+    and the work size decide (backend.py).  Where the route is the mesh,
+    ``cards`` (``backend.start_cards``'s thread, or None) is joined."""
     m = None if mesh is None and device is not None else mesh_for(cfg, work, floor, mesh)
-    return (m, None) if m is not None else (None, device_for(cfg, work, floor, device))
+    if m is None:
+        return None, device_for(cfg, work, floor, device)
+    if cards is not None:
+        cards.join()
+    return m, None
 
 
 def _count_device(device=None, mesh=None):
@@ -861,6 +866,7 @@ def build_index(cfg: Config, timer: PhaseTimer | None = None, device=None,
     timer = timer or PhaseTimer(TAG)
     refs = load_reference(cfg.fasta_path, cfg.strip_chr)
     timer.pelapsed("Reference processed")
+    cards = start_cards(cfg, device, mesh)
 
     bf = BF(cfg.bf_size)
     ref_bf = KMAP()
@@ -882,7 +888,7 @@ def build_index(cfg: Config, timer: PhaseTimer | None = None, device=None,
 
     index = Index(bf=bf, ref_bf=ref_bf, context_bf=context_bf)
     total_ref = sum(len(refs[n]) for n in set(used_names) if n in refs)
-    m, dev = _route(cfg, total_ref, DEVICE_MIN_REF_POSITIONS, device, mesh)
+    m, dev = _route(cfg, total_ref, DEVICE_MIN_REF_POSITIONS, device, mesh, cards)
     refs_used = [refs[n] for n in used_names if n in refs and len(refs[n]) > 0]
     if m is not None:
         build_context_sharded(index, refs_used, cfg, m)
@@ -940,11 +946,13 @@ def call(cfg: Config, index: Index, out=None, timer: PhaseTimer | None = None,
     gate.set()
     pass2 = _prefetch(_iter_pass2_batches(cfg, refs), depth=pass2_depth, gate=gate)
     stats = None
+    cards = start_cards(cfg, device, mesh)
 
     if cfg.spill_dir and not (cfg.from_kmc_dump or cfg.from_kmc_db):
         from .count.spill import count_reads_kmers_spill
 
-        m, dev = _route(cfg, _file_size(cfg.sample_path), DEVICE_MIN_READ_BYTES, device, mesh)
+        m, dev = _route(cfg, _file_size(cfg.sample_path), DEVICE_MIN_READ_BYTES, device, mesh,
+                        cards)
         batches = count_reads_kmers_spill(cfg.sample_path, cfg.ref_k, cfg.spill_dir,
                                           device=m[0] if m is not None else dev)
         if m is not None:
@@ -957,12 +965,12 @@ def call(cfg: Config, index: Index, out=None, timer: PhaseTimer | None = None,
         timer.pelapsed("Sample k-mer counting + BF weights (spill)")
     elif cfg.from_kmc_dump or cfg.from_kmc_db:
         stats = _apply_kmc_stream(cfg, index, cfg.sample_path,
-                                  *_kmc_route(cfg, cfg.sample_path, device, mesh))
+                                  *_kmc_route(cfg, cfg.sample_path, device, mesh, cards))
         timer.pelapsed("Sample k-mer stream + BF weights")
     else:
         contexts, counts = _sample_kmers(cfg, cfg.sample_path, _count_device(device, mesh))
         timer.pelapsed("Sample k-mer counting")
-        m, dev = _route(cfg, contexts.shape[0], DEVICE_MIN_KMERS, device, mesh)
+        m, dev = _route(cfg, contexts.shape[0], DEVICE_MIN_KMERS, device, mesh, cards)
         if m is not None:
             with _held(gate):
                 stats = apply_sample_counts_sharded_stream(index, [(contexts, counts)], cfg, m)
@@ -1000,10 +1008,10 @@ def _sample_kmers(cfg: Config, path: str, device=None):
     return count_reads_kmers(path, cfg.ref_k, device=dev, return_packed=True)
 
 
-def _kmc_route(cfg: Config, path: str, device=None, mesh=None):
+def _kmc_route(cfg: Config, path: str, device=None, mesh=None, cards=None):
     """(mesh, device) of an external KMC artifact's call step, routed by
     its estimated k-mer count (see :func:`_route`)."""
-    return _route(cfg, _kmc_est_kmers(cfg, path), DEVICE_MIN_KMERS, device, mesh)
+    return _route(cfg, _kmc_est_kmers(cfg, path), DEVICE_MIN_KMERS, device, mesh, cards)
 
 
 def _apply_kmc_stream(cfg: Config, index: Index, path: str, mesh, target,
@@ -1041,14 +1049,15 @@ def call_batch(cfg: Config, index: Index, sample_paths: list[str], outs: list,
 
     dev = sharded = None
     planes: list[tuple[np.ndarray, np.ndarray]] = []
+    cards = start_cards(cfg, device, mesh)
     for sample_path in sample_paths:
         _reset_counters(index)
         kmc = cfg.from_kmc_dump or cfg.from_kmc_db
         if kmc:
-            m, target = _kmc_route(cfg, sample_path, device, mesh)
+            m, target = _kmc_route(cfg, sample_path, device, mesh, cards)
         else:
             contexts, counts = _sample_kmers(cfg, sample_path, _count_device(device, mesh))
-            m, target = _route(cfg, contexts.shape[0], DEVICE_MIN_KMERS, device, mesh)
+            m, target = _route(cfg, contexts.shape[0], DEVICE_MIN_KMERS, device, mesh, cards)
         if m is not None and sharded is None:
             sharded = shard_index_routed(index, cfg, m)
             print(f"[{TAG}] sharded index uploaded to {len(m)} shards once for "

@@ -708,3 +708,231 @@ def test_place_from_jax_arrays_runs_without_minifilter():
     assert any(g.any() for g in got)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+def _exchange_case(S, case):
+    """Sources of 0-40 rows (each row its source and index, so the order
+    shows), and their destinations: ``spread`` over every shard (the last
+    source empty), ``gaps`` over the even shards only (every other
+    destination receives nothing), ``one`` all to the last shard, ``drop``
+    a third to no shard (destination S)."""
+    rng = np.random.default_rng(S * 10 + len(case))
+    payloads, dests = [], []
+    for s in range(S):
+        n = 0 if case == "spread" and s == S - 1 else int(rng.integers(0, 41))
+        payloads.append(np.stack([np.full(n, s), np.arange(n), rng.integers(0, 1 << 30, n)],
+                                 axis=1).astype(np.int32))
+        if case == "one":
+            dests.append(np.full(n, S - 1))
+        elif case == "gaps":
+            dests.append(rng.integers(0, (S + 1) // 2, n) * 2)
+        else:
+            dests.append(rng.integers(0, S + (case == "drop"), n))
+    return payloads, dests
+
+
+@pytest.mark.parametrize("case", ["spread", "gaps", "one", "drop"])
+@pytest.mark.parametrize("S", [1, 2, 3, 8])
+def test_exchange_matches_numpy(S, case, monkeypatch):
+    """exchange against a numpy reference: each shard gets the rows sent to
+    it, source after source and in each source's own order; rows for shard
+    S go nowhere; empty sources and shards that receive nothing give empty
+    blocks; one host read for the whole hop."""
+    from malva_tpu_torch.parallel import sharded_index
+
+    payloads, dests = _exchange_case(S, case)
+    stats = {}
+    reads = _count_calls(monkeypatch, sharded_index, "read_host")
+    got = sharded_index.exchange([CPU] * S, [torch.from_numpy(p) for p in payloads],
+                                 [torch.from_numpy(d) for d in dests], stats)
+    assert len(got) == S and len(reads) == 1
+    assert stats["host_reads"] == 1 and stats["exchange_s"] >= 0
+    for d in range(S):
+        want = np.concatenate([p[dst == d] for p, dst in zip(payloads, dests)])
+        np.testing.assert_array_equal(got[d].numpy(), want.reshape(-1, 3))
+    assert sum(g.shape[0] for g in got) == sum(int((d < S).sum()) for d in dests)
+
+
+def _count_calls(monkeypatch, module, name):
+    calls = []
+    real = getattr(module, name)
+
+    def counted(*args, **kw):
+        calls.append(args)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("cards", ["one device", "four devices"])
+def test_context_scan_uploads_alt_words_once(cards, monkeypatch):
+    """The sharded context scan on a 4-shard CPU mesh reads the alt words
+    from the host once (one call of the one host-upload helper on
+    ``index.bf.words``), on a mesh of one device repeated and on one of
+    four distinct devices (``cpu:0``..``cpu:3``, where each device needs
+    the words), and still equals JAX's sharded scan and the host scan."""
+    import jax
+
+    from malva_tpu.parallel.mesh import make_mesh as jax_mesh
+    from malva_tpu.parallel.sharded_index import build_context_sharded as jax_scan
+
+    from malva_tpu_torch.parallel import sharded_index
+
+    cfg = _cfg()
+    rng = np.random.default_rng(31)
+    alpha = np.frombuffer(b"ACGTN", dtype=np.uint8)
+    refs = [alpha[rng.integers(0, 5, size=n)] for n in (3000, 900)]
+    idx = [_index(cfg, seed=6)[0] for _ in range(3)]
+    for ref in refs:
+        for start in (20, 400, 850):
+            for ix in idx:
+                ix.bf.add_keys(ref[start + 4 : start + 39][None, :])
+    host_idx, jax_idx, port_idx = idx
+    for ref in refs:
+        windows = np.lib.stride_tricks.sliding_window_view(ref, cfg.ref_k)
+        hits = host_idx.bf.test_keys(np.ascontiguousarray(windows[:, 4:39]))
+        host_idx.context_bf.add_keys(np.ascontiguousarray(windows[hits]))
+
+    mesh = [CPU] * 4 if cards == "one device" else [torch.device("cpu", i) for i in range(4)]
+    calls = _count_calls(monkeypatch, sharded_index, "upload")
+    jax_scan(jax_idx, refs, cfg, jax_mesh(min(4, len(jax.devices()))), slice_chunk=256)
+    build_context_sharded(port_idx, refs, cfg, mesh, slice_chunk=256)
+    words = port_idx.bf.words
+    assert sum(np.shares_memory(a, words) for args in calls for a in args[0]) == 1
+    assert host_idx.context_bf.words.any()
+    np.testing.assert_array_equal(port_idx.context_bf.words, host_idx.context_bf.words)
+    np.testing.assert_array_equal(port_idx.context_bf.words, jax_idx.context_bf.words)
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 8])
+def test_routed_step_reads_split_sizes_once_per_hop(n_shards, monkeypatch):
+    """One routed step reads split sizes from the devices twice, once per
+    hop, whatever the shard count; three session steps read six times and
+    say so in their stats; the all-gather step reads none.  The counters
+    still equal the host apply's."""
+    from malva_tpu_torch.parallel import sharded_index
+    from malva_tpu_torch.parallel.sharded_index import ShardedCallSession, gather_step, shard_index
+
+    cfg = _cfg()
+    host_idx, keys = _index(cfg, seed=14)
+    port_idx, _ = _index(cfg, seed=14)
+    contexts, counters = _contexts(keys, seed=15, n=1800)
+    mesh = [CPU] * n_shards
+    reads = _count_calls(monkeypatch, sharded_index, "read_host")
+    sess = ShardedCallSession(port_idx, cfg, mesh)
+    placed = len(reads)
+    packed = pack2bit_u32_np(contexts, 43)
+    sess.step(packed[:600], counters[:600])
+    assert len(reads) - placed == 2
+    sess.step(packed[600:1200], counters[600:1200])
+    sess.step(packed[1200:], counters[1200:])
+    stats = sess.finish()
+    assert len(reads) - placed == 6 and stats["host_reads"] == 6 and stats["exchange_s"] > 0
+    apply_sample_counts(host_idx, contexts, counters, cfg)
+    np.testing.assert_array_equal(port_idx.bf.counts, host_idx.bf.counts)
+    assert port_idx.ref_bf.kmers == host_idx.ref_bf.kmers
+
+    gathered = shard_index(port_idx, cfg, mesh)
+    before = len(reads)
+    ctx = sharded_index.upload(sharded_index.row_slices(packed, n_shards), mesh)
+    cnt = sharded_index.upload(sharded_index.row_slices(counters, n_shards), mesh)
+    gather_step(gathered, mesh, ctx, cnt, {"gathered_rows": [0] * n_shards})
+    assert len(reads) == before
+
+
+def test_card_startup_only_for_several_cards(monkeypatch, tmp_path, capfd):
+    """The cards' start-up thread is not started for ``--backend host``,
+    for a CPU mesh (virtual or of distinct devices) or for an explicit
+    device; on a host that reports four cards it starts for the cuda
+    backend, over the four, and not for virtual shards of one card."""
+    import shutil
+
+    from malva_tpu_torch import backend, cli
+    from malva_tpu_torch.parallel import mesh as mesh_mod
+
+    started = []
+
+    class Recorder:
+        def __init__(self, cards):
+            self.cards = tuple(cards)
+            started.append(self.cards)
+
+    monkeypatch.setattr(mesh_mod, "CardStartup", Recorder)
+    monkeypatch.setattr(backend, "_startup", None)
+    for name in ("ref.fa", "vars.vcf", "reads.fa"):
+        shutil.copy(os.path.join(D, name), tmp_path / name)
+    out = io.StringIO()
+    assert cli.main(["run", "--backend", "host", "-b", "1",
+                     *(str(tmp_path / n) for n in ("ref.fa", "vars.vcf", "reads.fa"))],
+                    out=out) == 0
+    assert out.getvalue() == _golden()
+    cfg = _diploid()
+    for mesh in ([CPU] * 4, [torch.device("cpu", i) for i in range(4)]):
+        index = tp.build_index(cfg, mesh=mesh)
+        out = io.StringIO()
+        tp.call(cfg, index, out, mesh=mesh)
+        assert out.getvalue() == _golden()
+    tp.build_index(cfg, device="cpu")
+    assert started == []
+    assert "card start-up" not in capfd.readouterr().err
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    big = Config(backend="cuda", bf_size=1 << 33)
+    first = backend.start_cards(big)
+    assert isinstance(first, Recorder)
+    assert started == [tuple(torch.device("cuda", i) for i in range(4))]
+    assert backend.start_cards(Config(backend="host", bf_size=1 << 33)) is None
+    assert backend.start_cards(big, device="cuda:1") is None
+    assert backend.start_cards(big, mesh=["cuda:0"] * 4) is None
+    assert backend.start_cards(Config(backend="cuda", bf_size=3 << 20)) is None
+    # one start-up per process: later entry points (call after build_index,
+    # auto as cuda, a mesh of some of the cards) get the same one
+    assert backend.start_cards(big) is first
+    assert backend.start_cards(Config(backend="auto", bf_size=1 << 33)) is first
+    assert backend.start_cards(big, mesh=["cuda:2", "cuda:3"]) is first
+    assert len(started) == 1
+
+
+def test_card_startup_error_is_raised_at_join(monkeypatch, capfd):
+    """An error in the start-up thread (here: libcuda failing to make a
+    context) is raised where the route joins it, with the thread's wall and
+    the wait logged, and is raised again at a later join."""
+    from malva_tpu_torch.parallel import mesh as mesh_mod
+
+    def fail(cards):
+        raise RuntimeError("cuDevicePrimaryCtxRetain(cuda:1) failed with CUresult 2")
+
+    monkeypatch.setattr(mesh_mod, "retain_primary_contexts", fail)
+    cards = mesh_mod.CardStartup([torch.device("cuda", 0), torch.device("cuda", 1)])
+    with pytest.raises(RuntimeError, match="CUresult 2"):
+        tp._route(Config(backend="host", bf_size=1 << 20), None, 0, mesh=[CPU] * 2, cards=cards)
+    assert cards.wall_s is not None and cards.waited_s >= 0
+    with pytest.raises(RuntimeError, match="CUresult 2"):
+        cards.join()
+    assert capfd.readouterr().err.count("card start-up: 2 cards (cuda:0, cuda:1)") == 1
+
+
+def test_cuda_backend_asks_cuda_only_at_the_route(monkeypatch):
+    """``--backend cuda`` raises without a device, whatever NVML counts,
+    and ``run``'s overlap decision for it does not ask CUDA (which would
+    start every card on the main thread before the index pass)."""
+    from malva_tpu_torch import backend, cli
+
+    asked = []
+
+    def unavailable():
+        asked.append(True)
+        return False
+
+    monkeypatch.setattr(torch.cuda, "is_available", unavailable)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    cfg = Config(backend="cuda", bf_size=1 << 33, sample_path=os.path.join(D, "reads.fa"))
+    assert not cli._overlaps_counting(cfg)
+    assert asked == []
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        backend.resolve(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tp._route(cfg, None, 0)
+    assert len(asked) == 2

@@ -12,7 +12,7 @@
 2. Builds the CUDA kernels from ``malva_tpu_torch/csrc`` with nvcc, one
    process per source, always anew, and fails unless ptxas reports a
    0-byte stack frame and no spill store or load for every instantiation
-   of K1-K5.
+   of K1-K7 (K4's slot entry included).
 3. Holds each kernel against its plain PyTorch version on the card, at
    the main path's shapes, with zero tolerance (integer hashing, keys and
    counters are exact): K1 hash-only on 2^21 packed contexts and K1 fused
@@ -26,7 +26,12 @@
    on shard 0 of that index cut 4 ways by bucket range (rows without a
    mini-filter, the shard's range of the one global bucket table) over
    2^21 gathered lanes, a quarter centred on map keys, with random merged
-   "known" flags, beside torch's gather of the owned lanes' rows; K3 on a
+   "known" flags, beside torch's gather of the owned lanes' rows; the
+   routed step's partitions on 4 virtual shards over 2^21 lanes of that
+   index cut into 4 source slices: K6 (route_pack) on each slice, K7
+   (route_probe) on each owner, K4's slot entry on shard 0 over the hop-2
+   blocks written for it (slot blocks, headers, tallies and the sorted
+   overflow lists bit-identical); K3 on a
    2^25-window read chunk (reads joined
    by 0xFF, with N, lowercase and reads shorter than ref_k) and on a
    short ragged chunk at each ref_k of
@@ -64,7 +69,8 @@
    (``make_mesh(devices=[cuda:0] * 4)``): ``build_index`` and ``call`` on
    the chr-scale input, then ``call_batch`` over the 5x and 3x reads on
    that index; each VCF equal to its host leg's, K1-K4 launched, the
-   sharded context scan and call-step lines logged; between them the
+   sharded context scan and call-step lines logged, K6, K7 and K4's slot
+   entry launched; between them the
    all-gather design on the run's index (``apply_sample_counts_sharded(...,
    routed=False)`` over the reads counted again on the card): its
    counters equal to the routed session's, K1 and K5 launched, and the VCF
@@ -75,8 +81,8 @@
    Then ``graft_entry.dryrun_multichip(4, [cuda:0] * 4)``.  On a host with
    two cards or more (``nvidia-smi -L``), the real-card leg: the chr-scale
    ``run --backend cuda`` with every card visible (the default route
-   shards over all of them) and under ``CUDA_VISIBLE_DEVICES=0``, each in
-   its own process (``malva_tpu_torch/tools/multicard_run.py run_once``):
+   shards over all of them), under ``CUDA_VISIBLE_DEVICES=0`` and, with
+   three cards or more, on the first two, each in its own process (``malva_tpu_torch/tools/multicard_run.py run_once``):
    both VCFs equal to the host run's, the walls, phases and the sharded
    path's scan, step and card start-up lines printed.  On one card it
    logs one line saying the leg needs two.  This process itself keeps to
@@ -359,9 +365,10 @@ def kernel_phase(device) -> list[dict]:
     del bf_words
     k4 = shard_update_check(ix, device, peak)
     k5 = gather_update_check(ix, device, peak)
+    route = route_check(ix, device, peak)
     results[0]["event_probe"] = event_timing_probe(ix, device)
     del ix
-    results += [seq_count_check(device, peak), k4, k5]
+    results += [seq_count_check(device, peak), k4, k5, *route]
     return results
 
 
@@ -414,15 +421,12 @@ def ref_scan_check(seq, bf_words, peak: float) -> dict:
             "gather_ms": gather_ms, "positions": CHUNK, "hits": n_hit}
 
 
-def shard_update_check(ix: dict, device, peak: float) -> dict:
-    """K4 against its plain version on shard 0 of the synthetic -b 1 index
-    split SHARDS ways: the shard's [word, local rank] rows with the
-    mini-filter of its own map keys in the rank's top bits (as
-    parallel/sharded_index.py builds them), the exact map of the keys whose
-    Bloom word it owns, and ROUTED lanes whose Bloom word it owns (the
-    routing's guarantee), a quarter of them centred on its map keys, with
-    random "context known" flags; then again with rows without the
-    mini-filter (every lane probes the map)."""
+def shard0(ix: dict, device):
+    """Shard 0 of the synthetic -b 1 index split SHARDS ways, as
+    parallel/sharded_index.py builds a routed shard: its [word, local
+    rank] rows with the mini-filter of its own map keys in the rank's top
+    bits (and a copy without it), the bucket table of the keys whose Bloom
+    word it owns, its counter count, and the mask of those keys."""
     import torch
 
     from malva_tpu_torch.index.device import (
@@ -432,9 +436,8 @@ def shard_update_check(ix: dict, device, peak: float) -> dict:
         pack_bloom_rows,
     )
     from malva_tpu_torch.index.kmap_table import BucketTable
-    from malva_tpu_torch.ops import kernels
     from malva_tpu_torch.ops.bloom import from_u32
-    from malva_tpu_torch.ops.xxh3 import xxh3_64, xxh3_mod_size
+    from malva_tpu_torch.ops.xxh3 import xxh3_64
 
     wps = SIZE_BITS // 32 // SHARDS
     keys = ix["keys"]
@@ -447,6 +450,26 @@ def shard_update_check(ix: dict, device, peak: float) -> dict:
     rows_off = rows.clone()
     rows_off[:, 1] &= RANK_MASK
     n_counts = int(rows_off[-1, 1]) + bin(int(rows[-1, 0]) & 0xFFFFFFFF).count("1")
+    return rows, rows_off, kmap_keys, table, n_counts, mine
+
+
+def shard_update_check(ix: dict, device, peak: float) -> dict:
+    """K4 against its plain version on shard 0 of the synthetic -b 1 index
+    split SHARDS ways: the shard's [word, local rank] rows with the
+    mini-filter of its own map keys in the rank's top bits (as
+    parallel/sharded_index.py builds them), the exact map of the keys whose
+    Bloom word it owns, and ROUTED lanes whose Bloom word it owns (the
+    routing's guarantee), a quarter of them centred on its map keys, with
+    random "context known" flags; then again with rows without the
+    mini-filter (every lane probes the map)."""
+    import torch
+
+    from malva_tpu_torch.ops import kernels
+    from malva_tpu_torch.ops.xxh3 import xxh3_mod_size
+
+    wps = SIZE_BITS // 32 // SHARDS
+    rows, rows_off, kmap_keys, table, n_counts, mine = shard0(ix, device)
+    keys = ix["keys"]
 
     ctx, counters = planted_contexts(keys[mine], 4 * ROUTED, ROUTED // 4, device)
     c_hi, c_lo = kernels.callstep_hash_plain(ctx, K, REF_K, with_ctx=False)[:2]
@@ -560,6 +583,150 @@ def gather_update_check(ix: dict, device, peak: float) -> dict:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None, "lanes": LANES, "owned_lanes": n_own,
             "gather_ms": gather_ms}
+
+
+def sorted_rows(overflow, tally, wc: int):
+    """The rows an overflow list holds, sorted (the kernels append them in
+    the order their atomics land)."""
+    n = int(tally[0])
+    cap = overflow.numel() // (wc + 1)
+    o = overflow.to("cpu").numpy()
+    rows = np.concatenate([o[: cap * wc].reshape(cap, wc)[:n], o[cap * wc :][:n, None]], axis=1)
+    return rows[np.lexsort(rows.T[::-1])] if n else rows
+
+
+def route_check(ix: dict, device, peak: float) -> list[dict]:
+    """The routed step's partitions on SHARDS virtual shards of the card,
+    over LANES lanes of the synthetic -b 1 index (a quarter centred on
+    shard 0's map keys), cut into SHARDS source slices: K6 (route_pack) on
+    each slice, K7 (route_probe) on each owner, then K4's slot entry on
+    shard 0 over the hop-2 blocks the owners wrote for it.  Each kernel
+    writes into zeroed buffers beside its plain version on the same
+    inputs; the slot blocks, their headers, the tallies and the overflow
+    lists (sorted) must be bit-identical, and K4's state too.  Timed with
+    CUDA events: K6 on source 0, K7 and K4 on shard 0."""
+    import torch
+
+    from malva_tpu_torch.ops import kernels
+    from malva_tpu_torch.ops.kernels import HOP1_COLS, HOP2_COLS, slot_words
+    from malva_tpu_torch.parallel.sharded_index import capacity
+
+    D, wc = SHARDS, (REF_K + 15) // 16
+    wps = SIZE_BITS // 32 // D
+    rows, _, kmap_keys, table, n_counts, mine = shard0(ix, device)
+    ctx, counters = planted_contexts(ix["keys"][mine], LANES, LANES // 4, device)
+    perm = torch.randperm(LANES, device=device, generator=torch.Generator(device=device)
+                          .manual_seed(7))
+    ctx, counters = ctx[perm].contiguous(), counters[perm].contiguous()
+    n = LANES // D
+    cap = capacity(n, D)
+    w1, w2 = slot_words(cap, wc, HOP1_COLS), slot_words(cap, wc, HOP2_COLS)
+    ovf_cap = n
+
+    def buffers(w):
+        recv = [torch.zeros(D * w, dtype=torch.int32, device=device) for _ in range(D)]
+        out = [[recv[d][s * w : (s + 1) * w] for d in range(D)] for s in range(D)]
+        ovf = [torch.zeros(ovf_cap * (wc + 1), dtype=torch.int32, device=device)
+               for _ in range(D)]
+        tally = [torch.zeros(1 + 2 * D, dtype=torch.int64, device=device) for _ in range(D)]
+        return recv, out, ovf, tally
+
+    slices = [(ctx[s * n : (s + 1) * n], counters[s * n : (s + 1) * n]) for s in range(D)]
+    hx = [kernels.callstep_hash_words(c, K, REF_K, True) for c, _ in slices]
+    got, want = {}, {}
+    for name, fn in (("kernel", (kernels.route_pack, kernels.route_probe)),
+                     ("plain", (kernels.route_pack_plain, kernels.route_probe_plain))):
+        one, two = buffers(w1), buffers(w2)
+        for s, (c, cnt) in enumerate(slices):
+            fn[0](hx[s], c, cnt, one[1][s], one[2][s], one[3][s], size_bits=SIZE_BITS, wps=wps,
+                  cap=cap)
+        for d in range(D):
+            fn[1](one[0][d], ix["ctx_words"][d * wps : (d + 1) * wps], two[1][d], two[2][d],
+                  two[3][d], wc=wc, cap_in=cap, cap=cap)
+        torch.cuda.synchronize()
+        (got if name == "kernel" else want).update(one=one, two=two)
+    errs = []
+    for hop in ("one", "two"):
+        g, w = got[hop], want[hop]
+        errs.append(max_abs_err(g[0] + g[3], w[0] + w[3]))
+        for d in range(D):
+            a, b = sorted_rows(g[2][d], g[3][d], wc), sorted_rows(w[2][d], w[3][d], wc)
+            if not np.array_equal(a, b):
+                raise AssertionError(f"route {hop}: overflow list {d} differs from the plain one")
+    t1 = [t.to("cpu") for t in got["one"][3]]
+    t2 = [t.to("cpu") for t in got["two"][3]]
+    hop1_live = int(sum(t[1 + 0] for t in t1))   # rows shard 0 receives in hop 1
+    sent1 = int(t1[0][1 : 1 + D].sum())           # rows source 0 sent
+    hop2_live = int(sum(t[1 + D + 0] for t in t2))
+    spilled = int(sum(t[0] for t in t1 + t2))
+    log(f"K6/K7 == plain on {D} virtual shards ({LANES} lanes, {n} a source, cap {cap}): "
+        f"source 0 sent {sent1} rows in hop 1, shard 0 received {hop1_live}, and {hop2_live} "
+        f"in hop 2; {spilled} rows spilled to the overflow lists")
+
+    # K4's slot entry on shard 0 over the hop-2 blocks the owners wrote for it
+    args = dict(n_blocks=D, cap=cap, k=K, ref_k=REF_K, size_bits=SIZE_BITS,
+                n_buckets=table.n_buckets, word_base=0, counts_len=n_counts, minifilter=True)
+    slots = got["two"][0][0]
+    st_k = torch.zeros(n_counts + table.n_buckets * 4, dtype=torch.int32, device=device)
+    st_p = torch.zeros_like(st_k)
+    kernels.shard_update_slots(rows, kmap_keys, st_k, slots, **args)
+    kernels.shard_update_slots_plain(rows, kmap_keys, st_p, slots, **args)
+    torch.cuda.synchronize()
+    err4 = max_abs_err([st_k], [st_p])
+    n_bf, n_map = int((st_k[:n_counts] != 0).sum()), int((st_k[n_counts:] != 0).sum())
+    if not n_bf or not n_map:
+        raise AssertionError("K4 slot check touched no counter or no map value")
+
+    # timing, on fresh scratch each call (the tallies and lists only grow)
+    scratch1, scratch2 = buffers(w1), buffers(w2)
+    state = torch.zeros_like(st_k)
+    k6 = dict(size_bits=SIZE_BITS, wps=wps, cap=cap)
+    k7 = dict(wc=wc, cap_in=cap, cap=cap)
+    c0, n0 = slices[0]
+    ms6 = cuda_ms(lambda: kernels.route_pack(hx[0], c0, n0, scratch1[1][0], scratch1[2][0],
+                                             scratch1[3][0], **k6), iters=20)
+    plain6 = cuda_ms(lambda: kernels.route_pack_plain(hx[0], c0, n0, scratch1[1][0],
+                                                      scratch1[2][0], scratch1[3][0], **k6),
+                     iters=3, warmup=1)
+    cw0 = ix["ctx_words"][:wps]
+    ms7 = cuda_ms(lambda: kernels.route_probe(got["one"][0][0], cw0, scratch2[1][0],
+                                              scratch2[2][0], scratch2[3][0], **k7), iters=20)
+    plain7 = cuda_ms(lambda: kernels.route_probe_plain(got["one"][0][0], cw0, scratch2[1][0],
+                                                       scratch2[2][0], scratch2[3][0], **k7),
+                     iters=3, warmup=1)
+    ms4 = cuda_ms(lambda: kernels.shard_update_slots(rows, kmap_keys, state, slots, **args),
+                  iters=20)
+    plain4 = cuda_ms(lambda: kernels.shard_update_slots_plain(rows, kmap_keys, state, slots,
+                                                              **args), iters=3, warmup=1)
+    # K6 per lane: its four hash words, context (12 B) and counter (4 B);
+    # per row sent, the row (28 B).  K7 per live row received: the row
+    # (28 B), its context word (4 B), the hop-2 row written (20 B).  K4's
+    # slot entry per live row: context, counter, known (20 B) and the Bloom
+    # row (8 B), 8 B read and written per counter and map value updated,
+    # and K4's per-lane hashing.
+    b6 = bound(n * 32 + sent1 * 28, 0, peak)
+    b7 = bound(hop1_live * (28 + 4 + 20), 0, peak)
+    b4 = bound(hop2_live * 28 + (n_bf + n_map) * 8,
+               hop2_live * (canonical_packed_ops(K) + ascii_ops(K) + xxh3_ops(K) + 23), peak)
+    for name, ms, b in (("K6", ms6, b6), ("K7", ms7, b7), ("K4 slots", ms4, b4)):
+        log(f"{name} {ms:.4f} ms (bound {b[0]:.4f} ms, {b[1]}; {b[0] / ms:.1%} of the bound)")
+    log(f"plain versions: K6 {plain6:.4f} ms, K7 {plain7:.4f} ms, K4 slots {plain4:.4f} ms")
+    src = "malva_tpu_torch/csrc/route.cu"
+    common = {"route": "cuda", "library_ms": None, "cap": cap, "shards": D}
+    return [
+        {"name": "route_pack", "source": src,
+         "replaces": "malva_tpu/parallel/sharded_index.py:330 (pack_dests, XLA, no Pallas "
+                     "counterpart)", "max_abs_err": errs[0], "ms": ms6, "plain_ms": plain6,
+         "bound_ms": b6[0], "bound_by": b6[1], "lanes": n, "rows_sent": sent1, **common},
+        {"name": "route_probe", "source": src,
+         "replaces": "malva_tpu/parallel/sharded_index.py:383 (XLA, no Pallas counterpart)",
+         "max_abs_err": errs[1], "ms": ms7, "plain_ms": plain7, "bound_ms": b7[0],
+         "bound_by": b7[1], "lanes": D * cap, "rows_live": hop1_live, **common},
+        {"name": "shard_update_slots", "source": "malva_tpu_torch/csrc/shard_step.cu",
+         "replaces": "malva_tpu/parallel/sharded_index.py:398 (XLA, no Pallas counterpart; "
+                     "K4's slot entry)", "max_abs_err": err4, "ms": ms4, "plain_ms": plain4,
+         "bound_ms": b4[0], "bound_by": b4[1], "lanes": D * cap, "rows_live": hop2_live,
+         **common}]
 
 
 def event_timing_probe(ix: dict, device) -> dict:
@@ -898,6 +1065,7 @@ def trace_summary(trace_dir: str) -> dict:
 
 
 SINGLE = ("callstep", "ref_scan", "seq_pack")  # kernels of the one-device legs
+ROUTED_KERNELS = ("shard_update", "route_pack", "route_probe", "shard_update_slots")
 
 
 def check_launches(name: str, launches: dict, kernels=SINGLE) -> None:
@@ -950,7 +1118,7 @@ def sharded_legs(src: str, reads3: str, work: str, run_vcf: bytes, batch_vcfs: d
     launches = dict(kernels.LAUNCHES)
     if open(out, "rb").read() != run_vcf:
         raise AssertionError("the sharded run's VCF differs from the host run's")
-    check_launches("sharded run", launches, SINGLE + ("shard_update",))
+    check_launches("sharded run", launches, SINGLE + ROUTED_KERNELS)
     for line in ("sharded context scan", "sharded call step"):
         if line not in err:
             raise AssertionError(f"the sharded run logged no '{line}' line")
@@ -972,7 +1140,7 @@ def sharded_legs(src: str, reads3: str, work: str, run_vcf: bytes, batch_vcfs: d
         if open(o, "rb").read() != batch_vcfs[os.path.basename(o)]:
             raise AssertionError(f"sharded call_batch: {os.path.basename(o)} differs from the "
                                  f"host batch leg's")
-    check_launches("sharded call_batch", batch_launches, ("callstep", "seq_pack", "shard_update"))
+    check_launches("sharded call_batch", batch_launches, ("callstep", "seq_pack") + ROUTED_KERNELS)
     if berr.count("sharded index uploaded") != 1:
         raise AssertionError("sharded call_batch did not place the sharded index once")
     log(f"sharded call_batch VCFs == host batch leg's; launches {batch_launches}")
@@ -1113,18 +1281,21 @@ def host_cards() -> tuple[int, str | None]:
 def real_cards_leg(src: str, work: str, run_vcf: bytes, cards: int, visible: str | None) -> dict:
     """The chr-scale ``run --backend cuda`` with every card visible (the
     default route shards over all of them: ``backend.mesh_for``) and with
-    the first alone, each in its own process: both VCFs must equal the host
-    run's, and the all-card run must have logged the sharded context scan
-    with its upload and scan, the sharded call step with its host waits,
-    and the cards' start-up.  Needs two cards or more."""
+    the first alone, and on a host of three cards or more also with the
+    first two, each in its own process: every VCF must equal the host
+    run's, and each sharded run must have logged the sharded context scan
+    with its upload and scan, the sharded call step with no host read in
+    its steps, and the cards' start-up.  Needs two cards or more."""
     from malva_tpu_torch.tools.multicard_run import run_once
 
     if cards < 2:
         log(f"real-card leg: skipped, it needs two cards or more and this host has {cards}")
         return {"skipped": f"{cards} card"}
     out = {}
-    first = (visible or "0").split(",")[0]
-    for label, vis in (("all", visible), ("one", first)):
+    ids = (visible or ",".join(map(str, range(cards)))).split(",")
+    legs = [("all", visible), ("one", ids[0])] + ([("two", ",".join(ids[:2]))] if cards >= 3
+                                                  else [])
+    for label, vis in legs:
         r = run_once(REPO, src, os.path.join(work, label), vis, label)
         if open(r.pop("vcf"), "rb").read() != run_vcf:
             raise AssertionError(f"the real-card run on {label} card(s) differs from the host run")
@@ -1133,10 +1304,11 @@ def real_cards_leg(src: str, work: str, run_vcf: bytes, cards: int, visible: str
         for line in r["metrics"]:
             log(f"real-card leg, {label} card(s): {line}")
         out[label] = r
-    lines = "\n".join(out["all"]["metrics"])
-    for want in ("sharded context scan", "host waits", "card start-up"):
-        if want not in lines:
-            raise AssertionError(f"the real-card run on all {cards} cards logged no '{want}'")
+    for label in ("all", "two"):
+        lines = "\n".join(out[label]["metrics"]) if label in out else None
+        for want in ("sharded context scan", "none in the steps", "card start-up"):
+            if lines is not None and want not in lines:
+                raise AssertionError(f"the real-card run on {label} cards logged no '{want}'")
     return out
 
 
@@ -1243,7 +1415,7 @@ def main_path_phase(cards: int, visible: str | None) -> dict:
         dryrun_multichip(SHARDS, ["cuda:0"] * SHARDS)
         legs["dryrun_multichip"] = time.perf_counter() - t0
         real = real_cards_leg(src, os.path.join(tmp, "real"), b, cards, visible)
-        for label in ("all", "one"):
+        for label in ("all", "two", "one"):
             if label in real:
                 legs[f"run cuda, {label} card(s), own process"] = real[label]["wall_s"]
                 walls[f"run cuda, {label} card(s)"] = real[label]["phases"]
@@ -1300,7 +1472,7 @@ def tools_phase() -> dict:
 
 
 def ptxas_check(log_text: str) -> dict:
-    """Per kernel of K1-K5 (csrc/), from this build's ptxas report: its
+    """Per kernel of K1-K7 (csrc/), from this build's ptxas report: its
     instantiations and their registers.  Raises unless every
     instantiation was compiled with a 0-byte stack frame and no spill
     store or load: the per-lane state must live in registers."""
@@ -1405,8 +1577,8 @@ def main() -> int:
     for r in results:
         # "launches": the first leg whose path runs the kernel (K4: the
         # sharded run; K5: the all-gather call on the sharded run's index)
-        first = {"shard_update": "sharded_launches",
-                 "gather_update": "gather_launches"}.get(r["name"], "launches")
+        first = {"gather_update": "gather_launches",
+                 **dict.fromkeys(ROUTED_KERNELS, "sharded_launches")}.get(r["name"], "launches")
         r["launches"] = main[first][r["name"]] if main else None
         r["launches_by_leg"] = {leg: main[leg][r["name"]] for leg in legs} if main else None
         r["share_of_bound"] = r["bound_ms"] / r["ms"]

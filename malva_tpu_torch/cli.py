@@ -14,6 +14,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -231,8 +232,9 @@ def main(argv: list[str] | None = None, out=None) -> int:
 
     from .utils.errors import InputError
 
+    out = out if out is not None else sys.stdout
     try:
-        return _main(argv, out if out is not None else sys.stdout)
+        return _main(argv, out)
     except (InputError, OSError, EOFError, struct.error,
             zipfile.BadZipFile, gzip.BadGzipFile, UnicodeDecodeError) as e:
         print(f"ERROR: {e}", file=sys.stderr)
@@ -248,10 +250,16 @@ def _main(argv: list[str] | None, out) -> int:
     timer = PhaseTimer(TAG, out=sys.stderr)
     prof = _Profile(args.profile_dir) if args.profile_dir else None
     try:
-        return _dispatch(args, cfg, timer, out)
+        rc = _dispatch(args, cfg, timer, out)
     finally:
         if prof is not None:
             prof.stop()
+    # the process's own end, so that a caller can split its exit (the
+    # interpreter's and CUDA's teardown) from the last phase
+    out.flush()
+    print(f"[{TAG}/metrics] main returned at {time.time():.6f} s (epoch); the process exits "
+          f"after", file=sys.stderr, flush=True)
+    return rc
 
 
 def _dispatch(args, cfg: Config, timer: PhaseTimer, out) -> int:

@@ -75,7 +75,7 @@ __global__ void __launch_bounds__(kStepThreads, 4)
 
 // K1's policy (step.cuh): the launch holds every Bloom word; a lane's
 // context is known where the context filter has the bit of its XXH3.
-struct CallstepPolicy : WholeMap {
+struct CallstepPolicy : ContiguousLanes, WholeMap {
   static constexpr bool kLaneIndex = false;
   const uint32_t* __restrict__ ctx_words;
 
@@ -98,7 +98,7 @@ __global__ void __launch_bounds__(kStepThreads, Shape<N>::kMinBlocks)
                     const uint32_t* __restrict__ ctx_words, const uint32_t* __restrict__ kmap_keys,
                     uint32_t* __restrict__ state, int64_t counts_len, uint64_t n_buckets,
                     uint64_t size_bits, int minifilter) {
-  step_body<N>(CallstepPolicy{{}, ctx_words}, ctx, counters, B, k, ref_k, bf_packed, kmap_keys, state,
+  step_body<N>(CallstepPolicy{{}, {}, ctx_words}, ctx, counters, B, k, ref_k, bf_packed, kmap_keys, state,
                counts_len, n_buckets, size_bits, minifilter);
 }
 

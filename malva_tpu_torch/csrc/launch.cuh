@@ -16,6 +16,17 @@
 
 namespace malva {
 
+// A slot block of the routed call step (route.cu's K6 and K7 write them,
+// shard_step.cu's SlotPolicy reads hop 2's): kSlotHead header words
+// ([rows, 0, 0, 0]), then cap rows as planes, the packed contexts (cap x N
+// words), then one plane of cap words per further column: kHop1Cols in
+// hop 1 (counter, context word less the owner's first word, context bit,
+// Bloom-word owner), kHop2Cols in hop 2 (counter, "context known").
+// ops/kernels.py checks its copy of these numbers against the library's
+// (malva_slot_layout) before it launches any of the three.
+constexpr int64_t kSlotHead = 4;
+constexpr int kHop1Cols = 4, kHop2Cols = 2;
+
 // A 16-byte copy from device memory into shared memory that the thread
 // does not wait for (cp.async, through L2 only).
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {

@@ -52,10 +52,8 @@ using namespace malva;
 namespace {
 
 // What K4 and K5 share: this shard holds words word_base .. word_base +
-// n_words - 1; a lane's context is known where the step said so.
-struct ShardRows {
-  static constexpr bool kLaneIndex = true;
-  const uint8_t* __restrict__ known;
+// n_words - 1.
+struct ShardWords {
   int64_t word_base, n_words;
 
   __device__ __forceinline__ bool owns(uint64_t idx) const {
@@ -65,6 +63,14 @@ struct ShardRows {
   __device__ __forceinline__ int64_t row(uint64_t idx) const {
     return (int64_t)(idx >> 5) - word_base;
   }
+};
+
+// A lane's context is known where the step said so, in the `known` array at
+// the lane's index.
+struct KnownFlags {
+  static constexpr bool kLaneIndex = true;
+  const uint8_t* __restrict__ known;
+
   template <int N>
   __device__ __forceinline__ uint32_t context_word(const uint32_t (&)[N], uint32_t lane, int,
                                                    uint64_t, uint32_t& bit) const {
@@ -75,14 +81,72 @@ struct ShardRows {
 
 // K4's policy (step.cuh): only lanes whose Bloom word is the shard's, and
 // the shard's own bucket table.
-struct ShardPolicy : ShardRows, WholeMap {
+struct ShardPolicy : ContiguousLanes, ShardWords, KnownFlags, WholeMap {
   __device__ __forceinline__ bool live(uint64_t idx, uint64_t) const { return owns(idx); }
+};
+
+// K4's slot entry (step.cuh): the lanes are the rows of the D hop-2 slot
+// blocks that route.cu's K7 wrote and the copies delivered, each block
+// [header (kSlotHead words: rows, 0, 0, 0) | contexts (cap x N) | counters
+// (cap) | known (cap)] (launch.cuh); lane i is row i % cap of block i /
+// cap, and a row at or past its block's count is staged with counter 0, so
+// it does nothing.  A tile within one block's rows is staged as
+// ContiguousLanes stages one; a tile that reaches past them, lane by lane.
+// No compaction pass.
+struct SlotPolicy : ShardWords, WholeMap {
+  static constexpr bool kLaneIndex = true;
+  const uint32_t* __restrict__ slots;
+  int64_t cap;
+
+  template <int N>
+  __device__ __forceinline__ int64_t block_words() const {
+    return kSlotHead + cap * (N + kHop2Cols);
+  }
+  __device__ __forceinline__ bool live(uint64_t idx, uint64_t) const { return owns(idx); }
+  template <int N>
+  __device__ __forceinline__ void stage(uint32_t* dst, uint32_t* cnt, const uint32_t*,
+                                        const uint32_t*, int64_t first, int64_t B,
+                                        int lane) const {
+    constexpr int W = Shape<N>::kTileWords, C = Shape<N>::kTileLanes;
+    const int64_t b = first / cap, r0 = first - b * cap;
+    const uint32_t* blk = slots + b * block_words<N>();
+    __syncwarp();  // the warp is done with the slices
+    if (r0 + C <= (int64_t)__ldg(blk)) {
+      const uint32_t* src = blk + kSlotHead + r0 * N;
+      const uint32_t* csrc = blk + kSlotHead + cap * N + r0;
+      if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(csrc)) & 15) == 0) {
+        for (int q = lane; q < W / 4; q += 32) cp_async16(dst + 4 * q, src + 4 * q);
+        for (int q = lane; q < C / 4; q += 32) cp_async16(cnt + 4 * q, csrc + 4 * q);
+      } else {
+        for (int q = lane; q < W; q += 32) dst[q] = __ldg(src + q);
+        for (int q = lane; q < C; q += 32) cnt[q] = __ldg(csrc + q);
+      }
+    } else {
+      for (int q = lane; q < C; q += 32) {
+        const int64_t i = first + q;
+        const int64_t bb = i / cap, r = i - bb * cap;
+        const uint32_t* p = slots + bb * block_words<N>();
+        const bool on = i < B && r < (int64_t)__ldg(p);
+#pragma unroll
+        for (int j = 0; j < N; ++j) dst[q * N + j] = on ? __ldg(p + kSlotHead + r * N + j) : 0u;
+        cnt[q] = on ? __ldg(p + kSlotHead + cap * N + r) : 0u;
+      }
+    }
+    cp_async_commit();
+  }
+  template <int N>
+  __device__ __forceinline__ uint32_t context_word(const uint32_t (&)[N], uint32_t lane, int,
+                                                   uint64_t, uint32_t& bit) const {
+    const int64_t b = (int64_t)lane / cap, r = (int64_t)lane - b * cap;
+    bit = 0;
+    return __ldg(slots + b * block_words<N>() + kSlotHead + cap * (N + 1) + r);
+  }
 };
 
 // K5's policy (step.cuh): lanes whose Bloom word or one of whose global
 // buckets is the shard's; the shard's buckets bucket_base .. + n_local - 1
 // of the global table of n_buckets.
-struct GatherPolicy : ShardRows {
+struct GatherPolicy : ContiguousLanes, ShardWords, KnownFlags {
   uint64_t n_buckets, bucket_base, n_local;
 
   __device__ __forceinline__ bool in_map(uint64_t c) const {
@@ -109,7 +173,7 @@ __global__ void __launch_bounds__(kStepThreads, Shape<N>::kMinBlocks)
                         const uint32_t* __restrict__ kmap_keys, uint32_t* __restrict__ state,
                         int64_t counts_len, uint64_t n_buckets, uint64_t size_bits,
                         int minifilter) {
-  step_body<N>(ShardPolicy{{known, word_base, n_words}, {}}, ctx, counters, B, k, ref_k,
+  step_body<N>(ShardPolicy{{}, {word_base, n_words}, {known}, {}}, ctx, counters, B, k, ref_k,
                bf_packed, kmap_keys, state, counts_len, n_buckets, size_bits, minifilter);
 }
 
@@ -121,9 +185,20 @@ __global__ void __launch_bounds__(kStepThreads, Shape<N>::kMinBlocks)
                          const uint32_t* __restrict__ kmap_keys, uint32_t* __restrict__ state,
                          int64_t counts_len, uint64_t n_buckets, uint64_t bucket_base,
                          uint64_t n_local, uint64_t size_bits) {
-  step_body<N>(GatherPolicy{{known, word_base, n_words}, n_buckets, bucket_base, n_local}, ctx,
+  step_body<N>(GatherPolicy{{}, {word_base, n_words}, {known}, n_buckets, bucket_base, n_local}, ctx,
                counters, B, k, ref_k, bf_packed, kmap_keys, state, counts_len, n_buckets,
                size_bits, 0);
+}
+
+template <int N>
+__global__ void __launch_bounds__(kStepThreads, Shape<N>::kMinBlocks)
+    shard_slots_kernel(const uint32_t* __restrict__ slots, int64_t cap, int64_t B, int k,
+                       int ref_k, const uint2* __restrict__ bf_packed, int64_t word_base,
+                       int64_t n_words, const uint32_t* __restrict__ kmap_keys,
+                       uint32_t* __restrict__ state, int64_t counts_len, uint64_t n_buckets,
+                       uint64_t size_bits, int minifilter) {
+  step_body<N>(SlotPolicy{{word_base, n_words}, {}, slots, cap}, nullptr, nullptr, B, k, ref_k,
+               bf_packed, kmap_keys, state, counts_len, n_buckets, size_bits, minifilter);
 }
 
 template <int N>
@@ -140,6 +215,23 @@ int launch_shard(const uint32_t* ctx, const uint32_t* counters, const uint8_t* k
                                                         bf_packed, word_base, n_words, kmap_keys,
                                                         state, counts_len, n_buckets, size_bits,
                                                         minifilter);
+  });
+}
+
+template <int N>
+int launch_slots(const uint32_t* slots, int64_t cap, int64_t B, int k, int ref_k,
+                 const uint2* bf_packed, int64_t word_base, int64_t n_words,
+                 const uint32_t* kmap_keys, uint32_t* state, int64_t counts_len,
+                 uint64_t n_buckets, uint64_t size_bits, int minifilter, void* ev_start,
+                 void* ev_stop, cudaStream_t stream) {
+  int grid = 0;
+  const int e = step_grid<N>(shard_slots_kernel<N>, B, &grid);
+  if (e != 0) return e;
+  return launch_timed(ev_start, ev_stop, stream, [&](cudaStream_t s) {
+    shard_slots_kernel<N><<<grid, kStepThreads, 0, s>>>(slots, cap, B, k, ref_k, bf_packed,
+                                                       word_base, n_words, kmap_keys, state,
+                                                       counts_len, n_buckets, size_bits,
+                                                       minifilter);
   });
 }
 
@@ -182,6 +274,30 @@ int malva_shard_update(const void* ctx, const void* counters, const void* known,
                            ev_start, ev_stop, (cudaStream_t)stream);
     MALVA_WORD_COUNTS(MALVA_K4_CASE)
 #undef MALVA_K4_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K4 over the n_blocks hop-2 slot blocks `slots` of cap rows each (the
+// lanes are the n_blocks * cap rows, < 2^32; see SlotPolicy).
+int malva_shard_update_slots(const void* slots, int64_t n_blocks, int64_t cap, int wc, int k,
+                             int ref_k, const void* bf_packed, int64_t word_base, int64_t n_words,
+                             const void* kmap_keys, void* state, int64_t counts_len,
+                             int64_t n_buckets, int64_t size_bits, int minifilter,
+                             void* ev_start, void* ev_stop, void* stream) {
+  const int64_t B = n_blocks * cap;
+  if (B <= 0) return launch_timed(ev_start, ev_stop, (cudaStream_t)stream, [](cudaStream_t) {});
+  if (B >= ((int64_t)1 << 32)) return (int)cudaErrorInvalidValue;
+  switch (wc) {
+#define MALVA_K4_SLOTS(n)                                                                     \
+  case n:                                                                                     \
+    return launch_slots<n>((const uint32_t*)slots, cap, B, k, ref_k, (const uint2*)bf_packed, \
+                           word_base, n_words, (const uint32_t*)kmap_keys, (uint32_t*)state,  \
+                           counts_len, (uint64_t)n_buckets, (uint64_t)size_bits, minifilter,  \
+                           ev_start, ev_stop, (cudaStream_t)stream);
+    MALVA_WORD_COUNTS(MALVA_K4_SLOTS)
+#undef MALVA_K4_SLOTS
     default:
       return (int)cudaErrorInvalidValue;
   }

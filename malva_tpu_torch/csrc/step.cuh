@@ -15,6 +15,10 @@
 // (ops/kernels.py).
 //
 // A policy says what the three steps do differently:
+//   * stage(...): how a warp's tile of lanes is copied into shared memory
+//     (K1, K4, K5: rows of contiguous context and counter arrays,
+//     ContiguousLanes; K4's slot entry: rows of the hop-2 slot blocks, with
+//     the rows past a block's count staged with counter 0, shard_step.cu);
 //   * live(idx, c): whether the lane of centre hash c (Bloom index idx) has
 //     anything to do in this launch (K1: always; K4: its Bloom word is the
 //     shard's, other lanes are no-ops; K5: its Bloom word is the shard's or
@@ -124,6 +128,17 @@ __device__ __forceinline__ void staged_wait() {
   cp_async_wait_all();
   __syncwarp();
 }
+
+// The staging of K1, K4 and K5: lane i's context and counter are row i of
+// contiguous arrays.
+struct ContiguousLanes {
+  template <int N>
+  __device__ __forceinline__ void stage(uint32_t* dst, uint32_t* cnt, const uint32_t* ctx,
+                                        const uint32_t* counters, int64_t first, int64_t B,
+                                        int lane) const {
+    stage_tile<N>(dst, cnt, ctx, counters, first, B, lane);
+  }
+};
 
 template <int N>
 __device__ __forceinline__ void staged_context(const uint32_t* tile, int slot, uint32_t (&w)[N]) {
@@ -252,14 +267,14 @@ __device__ __forceinline__ void step_body(const P& p, const uint32_t* __restrict
   uint64_t c[L] = {};
   uint32_t live = 0, head = 0, n_queued = 0;
   if (t < n_tiles) {
-    stage_tile<N>(tiles[warp][0], cnts[warp][0], ctx, counters, t * S::kTileLanes, B, lane);
+    p.template stage<N>(tiles[warp][0], cnts[warp][0], ctx, counters, t * S::kTileLanes, B, lane);
     live = centre_hashes<N>(p, tiles[warp][0], cnts[warp][0], k, ref_k, size_bits, lane, c);
   }
   for (; t < n_tiles; b ^= 1) {
     const int64_t next = t + stride;
     if (next < n_tiles)
-      stage_tile<N>(tiles[warp][b ^ 1], cnts[warp][b ^ 1], ctx, counters,
-                    next * S::kTileLanes, B, lane);
+      p.template stage<N>(tiles[warp][b ^ 1], cnts[warp][b ^ 1], ctx, counters,
+                          next * S::kTileLanes, B, lane);
     uint2 row[L];
 #pragma unroll
     for (int r = 0; r < L; ++r) {

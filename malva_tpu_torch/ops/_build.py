@@ -27,7 +27,7 @@ from ..utils.build_dir import build_dir
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = build_dir("kernels")
-SOURCES = ("callstep.cu", "ref_scan.cu", "seq_count.cu", "shard_step.cu")
+SOURCES = ("callstep.cu", "ref_scan.cu", "seq_count.cu", "shard_step.cu", "route.cu")
 HEADERS = ("xxh3.cuh", "lanes.cuh", "launch.cuh", "step.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # --split-compile=0: nvcc optimizes and assembles the kernels of one source
@@ -38,7 +38,8 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--split-compile=0", "-Xcompiler", "-f
 
 # the __global__ functions of SOURCES, as their mangled names contain them
 KERNELS = ("callstep_kernel", "callstep_hash_kernel", "ref_scan_kernel", "window_hash_kernel",
-           "seq_pack_kernel", "shard_update_kernel", "gather_update_kernel")
+           "seq_pack_kernel", "shard_update_kernel", "gather_update_kernel", "shard_slots_kernel",
+           "route_count_kernel", "route_scatter_kernel")
 
 _lib: ctypes.CDLL | None = None
 build_log = ""  # nvcc's output of the last build in this process (ptxas -v)
@@ -141,6 +142,16 @@ def library(fresh: bool = False) -> ctypes.CDLL:
                                p],
         "malva_gather_update": [p, p, p, i64, i, i, i, p, i64, i64, p, p, i64, i64, i64, i64,
                                 i64, p, p, p],
+        "malva_shard_update_slots": [p, i64, i64, i, i, i, p, i64, i64, p, p, i64, i64, i64, i,
+                                     p, p, p],
+        "malva_route_pack": [p, p, p, i64, i, i64, i64, i, p, i64, p, i64, p, p, p],
+        "malva_route_probe": [p, i64, i, p, i, p, i64, p, i64, p, p, p],
+        "malva_route_max_tiles": [],
+        "malva_enable_peer": [i, i],
+        "malva_route_plan_col": [ctypes.c_char_p],
+        "malva_slot_layout": [i],
+        "malva_routed_step": [i, p, i, i, i, i, i64, i64, i64, i64, i64, i, p, p, p, p, p, p, p,
+                              p, p, p, p, p, i64, i64],
         "malva_window_hash": [p, i64, i, i, p, p],
         "malva_ref_scan": [p, i64, i, i, p, p, i64, p],
         "malva_seq_pack": [p, i64, i, p, p, p],

@@ -1,5 +1,5 @@
-"""The five hand-written kernels of the device paths, their wrappers and
-their plain PyTorch versions.
+"""The hand-written kernels of the device paths, their wrappers and their
+plain PyTorch versions.
 
 Counterpart of ``malva_tpu/ops/pallas_kernels.py``.  Each wrapper takes
 the plain version for tensors on the CPU, and for CUDA tensors launches
@@ -41,6 +41,22 @@ falls back.  ``LAUNCHES`` counts kernel launches per wrapper.
   shard's, its row is gathered only for the first, and the probe skips a
   bucket of another shard without reading it.
 
+K4 has a second entry, ``shard_update_slots`` (``csrc/shard_step.cu``,
+the routed step's path): its lanes are the rows of the hop-2 slot blocks,
+masked past each block's count.  ``LAUNCHES["shard_update"]`` counts the
+launches of both entries (K4's), ``LAUNCHES["shard_update_slots"]`` those
+of the slot entry alone.
+
+* K6 ``route_pack`` and K7 ``route_probe`` (``csrc/route.cu``) have no
+  Pallas counterpart: they replace ``pack_dests``
+  (``malva_tpu/parallel/sharded_index.py:326-347``) for hop 1, and the
+  hop-1 owner's context-filter test with ``pack_dests`` for hop 2
+  (``:383-394``).  Each writes the rows of its lanes into fixed slot
+  blocks, one per destination, in lane order (as the stable sort of
+  ``pack_dests``), with the row count in each block's header, and appends
+  a lane past the capacity to the card's overflow list.  Each wrapper
+  launches two kernels (a count pass and the scatter) and counts one.
+
 ``callstep_hash`` / ``window_hash`` are the kernels' hash-only modes,
 which write exactly the TPU kernels' outputs so the card can check them
 against the TPU kernels' contract.
@@ -62,12 +78,13 @@ import torch
 
 from ..index.kmap_table import SLOTS, probe_bucket_table
 from . import _build
-from .bloom import bloom_set, lanes, scatter_add_u32
+from .bloom import bloom_set, lanes, scatter_add_u32, storage
 from .packed import canonical_center, decode_byte_cols, popcount32
 from .seq import canonical_decision, complement
 from .xxh3 import check_bloom_size, xxh3_64_cols, xxh3_mod_size
 
-LAUNCHES = {"callstep": 0, "ref_scan": 0, "seq_pack": 0, "shard_update": 0, "gather_update": 0}
+LAUNCHES = {"callstep": 0, "ref_scan": 0, "seq_pack": 0, "shard_update": 0, "gather_update": 0,
+            "shard_update_slots": 0, "route_pack": 0, "route_probe": 0}
 MAX_LEN = 240  # csrc/lanes.cuh kMaxLen
 
 
@@ -99,7 +116,8 @@ def _check_lengths(k: int, ref_k: int) -> None:
         raise ValueError(f"kernels need 1 <= k <= ref_k <= {MAX_LEN}, got k={k} ref_k={ref_k}")
 
 
-_TIMED = ("malva_callstep", "malva_callstep_hash", "malva_shard_update", "malva_gather_update")
+_TIMED = ("malva_callstep", "malva_callstep_hash", "malva_shard_update", "malva_gather_update",
+          "malva_shard_update_slots")
 
 
 def _launch(fn_name: str, device: torch.device, *args, events=None) -> None:
@@ -139,6 +157,17 @@ def callstep_hash(ctx_packed: torch.Tensor, k: int, ref_k: int, with_ctx: bool, 
     """K1 in hash-only mode; same outputs as :func:`callstep_hash_plain`."""
     if not _on_cuda(ctx_packed):
         return callstep_hash_plain(ctx_packed, k, ref_k, with_ctx)
+    return [lanes(o) for o in callstep_hash_words(ctx_packed, k, ref_k, with_ctx, events)]
+
+
+def callstep_hash_words(ctx_packed: torch.Tensor, k: int, ref_k: int, with_ctx: bool,
+                        events=None) -> torch.Tensor:
+    """K1 in hash-only mode, its outputs as they leave the kernel: one
+    (n_out, B) int32 tensor, the planes of :func:`callstep_hash_plain` as
+    uint32 bits (what K6 reads)."""
+    if not _on_cuda(ctx_packed):
+        return torch.stack([storage(o) for o in
+                            callstep_hash_plain(ctx_packed, k, ref_k, with_ctx)])
     _check(ctx_packed, torch.int32, "ctx_packed")
     _check_lengths(k, ref_k)
     B, wc = ctx_packed.shape
@@ -150,7 +179,7 @@ def callstep_hash(ctx_packed: torch.Tensor, k: int, ref_k: int, with_ctx: bool, 
     _launch("malva_callstep_hash", ctx_packed.device, ctx_packed.data_ptr(), B, wc, k, ref_k,
             int(with_ctx), out.data_ptr(), events=events)
     LAUNCHES["callstep"] += 1
-    return [lanes(o) for o in out]
+    return out
 
 
 def callstep_plain(bf_packed, ctx_words, kmap_keys, state, ctx_packed, counters, *,
@@ -352,6 +381,293 @@ def gather_update(bf_packed, kmap_keys, state, ctx_packed, counters, known, *, k
             bf_packed.shape[0], kmap_keys.data_ptr(), state.data_ptr(), counts_len, n_buckets,
             bucket_base, nbps, size_bits, events=events)
     LAUNCHES["gather_update"] += 1
+
+
+# -- K6, K7 and K4's slot entry: the routed step's partitions -------------------
+#
+# A slot block: SLOT_HEAD header words ([rows, 0, 0, 0]), then cap rows as
+# planes: the packed contexts (cap x wc words), then one plane of cap words
+# per column.  Hop 1 (K6 -> K7): counter, context word less the owner's
+# first word, context bit, Bloom-word owner.  Hop 2 (K7 -> K4): counter,
+# "context known".  An overflow list of ovf_cap rows: [contexts (ovf_cap x
+# wc) | counters (ovf_cap)].  A tally (int64): [rows appended to the
+# overflow list, rows sent in hop 1 to each of the D shards, rows sent in
+# hop 2 to each].  csrc/launch.cuh defines the same block format for the
+# kernels; route_layout() checks that the two agree before a launch.
+
+SLOT_HEAD = 4
+HOP1_COLS, HOP2_COLS = 4, 2
+
+
+def slot_words(cap: int, wc: int, cols: int) -> int:
+    """Words of a slot block of ``cap`` rows of ``wc`` context words and
+    ``cols`` further columns."""
+    return SLOT_HEAD + cap * (wc + cols)
+
+
+def slot_rows(block: torch.Tensor, cap: int, wc: int, cols: int) -> torch.Tensor:
+    """The live rows of one slot block as (rows, wc + cols) int32, without
+    a host read of the count (a mask over the cap rows)."""
+    live = torch.arange(cap, device=block.device) < block[0].to(torch.int64)
+    planes = block[SLOT_HEAD:].view(-1)
+    ctx = planes[: cap * wc].view(cap, wc)
+    more = planes[cap * wc :].view(cols, cap).t()
+    return torch.cat([ctx, more], dim=1)[live]
+
+
+def _partition(dest: torch.Tensor, rows: torch.Tensor, blocks: list, cap: int, wc: int,
+               overflow: torch.Tensor, tally: torch.Tensor, at: int) -> None:
+    """Plain partition of K6 and K7: row i of ``rows`` (int32, wc + cols
+    columns) goes to ``blocks[dest[i]]`` at its rank among the rows of that
+    destination (lane order), where the rank is below ``cap``; a row of
+    rank cap or more goes to the overflow list, in lane order; a dest of
+    ``len(blocks)`` goes nowhere."""
+    D = len(blocks)
+    cols = rows.shape[1] - wc
+    sdest, order = torch.sort(dest, stable=True)
+    first = torch.searchsorted(sdest, sdest)
+    rank = torch.arange(sdest.shape[0], device=dest.device) - first
+    srows = rows[order]
+    for d in range(D):
+        sel = (sdest == d) & (rank < cap)
+        pos, got = rank[sel], srows[sel]
+        planes = blocks[d][SLOT_HEAD:]
+        planes[: cap * wc].view(cap, wc)[pos] = got[:, :wc]
+        planes[cap * wc :].view(cols, cap)[:, pos] = got[:, wc:].t()
+        blocks[d][0] = torch.clamp((sdest == d).sum(), max=cap).to(torch.int32)
+        tally[at + d] += blocks[d][0].to(torch.int64)
+    over = torch.zeros_like(dest, dtype=torch.bool)
+    over[order] = (sdest < D) & (rank >= cap)
+    spilled = rows[over]
+    ovf_cap = overflow.shape[0] // (wc + 1)
+    q = tally[0] + torch.arange(spilled.shape[0], device=dest.device)
+    keep = q < ovf_cap
+    overflow[: ovf_cap * wc].view(ovf_cap, wc)[q[keep]] = spilled[keep, :wc]
+    overflow[ovf_cap * wc :][q[keep]] = spilled[keep, wc]
+    tally[0] += spilled.shape[0]
+
+
+def route_pack_plain(hx, ctx_packed, counters, blocks, overflow, tally, *, size_bits: int,
+                     wps: int, cap: int) -> None:
+    """Plain K6, the source side of hop 1 (pack_dests of
+    malva_tpu/parallel/sharded_index.py:326-347 over the source's lanes).
+    ``hx`` is K1 hash-only's words with the context hash
+    (:func:`callstep_hash_words`); each lane with a non-zero counter goes to
+    the shard that owns its context word (``cw // wps``) as the row
+    [context, counter, cw % wps, context bit, centre's Bloom word // wps],
+    into ``blocks[d]`` (slot blocks of ``cap`` hop-1 rows, updated in place
+    with their headers) or the overflow list; ``tally`` gets both counts."""
+    D, wc = len(blocks), ctx_packed.shape[1]
+    cw, cb = xxh3_mod_size(lanes(hx[0]), lanes(hx[1]), size_bits)
+    bw = xxh3_mod_size(lanes(hx[2]), lanes(hx[3]), size_bits)[0]
+    dest = torch.where(counters != 0, cw // wps, D)
+    more = torch.stack([counters, (cw % wps).to(torch.int32), cb.to(torch.int32),
+                        (bw // wps).to(torch.int32)], dim=1)
+    _partition(dest, torch.cat([ctx_packed, more], dim=1), blocks, cap, wc, overflow, tally, 1)
+
+
+def _check_route(name: str, blocks: list, cap: int, wc: int, cols: int, overflow, tally,
+                 device) -> None:
+    D = len(blocks)
+    if not 1 <= D <= 16 or cap < 1:
+        raise ValueError(f"{name}: 1 to 16 destinations and a capacity of 1 or more, got "
+                         f"{D} and {cap}")
+    for b in blocks:
+        _check(b, torch.int32, f"{name} block")
+        if b.device != device or b.numel() != slot_words(cap, wc, cols):
+            raise ValueError(f"{name}: a block must be {slot_words(cap, wc, cols)} words on "
+                             f"{device}")
+    _check(overflow, torch.int32, "overflow")
+    _check(tally, torch.int64, "tally")
+    if (overflow.device != device or overflow.numel() % (wc + 1) or tally.device != device
+            or tally.shape != (1 + 2 * D,)):
+        raise ValueError(f"{name}: the overflow list must be rows of {wc + 1} words and the "
+                         f"tally {1 + 2 * D} words, on {device}")
+
+
+def route_scratch(device, D: int) -> torch.Tensor:
+    """The scratch of K6's and K7's count pass (their per-tile counts),
+    for launches on ``device`` with ``D`` destinations."""
+    return torch.empty(_build.library().malva_route_max_tiles() * D, dtype=torch.int32,
+                       device=device)
+
+
+def _pointers(blocks: list):
+    import ctypes
+
+    return (ctypes.c_void_p * len(blocks))(*[b.data_ptr() for b in blocks])
+
+
+def route_pack(hx, ctx_packed, counters, blocks, overflow, tally, *, size_bits: int, wps: int,
+               cap: int, scratch=None) -> None:
+    """K6: same effect as :func:`route_pack_plain`.  ``scratch`` is the
+    count pass's buffer (made here when None)."""
+    if not _on_cuda(hx, ctx_packed, counters, overflow, tally, *blocks):
+        return route_pack_plain(hx, ctx_packed, counters, blocks, overflow, tally,
+                                size_bits=size_bits, wps=wps, cap=cap)
+    B, wc = ctx_packed.shape
+    for t, name in ((hx, "hx"), (ctx_packed, "ctx_packed"), (counters, "counters")):
+        _check(t, torch.int32, name)
+    if hx.dim() != 2 or hx.shape[0] < 4 or hx.shape[1] != B or counters.shape != (B,):
+        raise ValueError("route_pack: hx must be K1's (>= 4, B) words with the context hash")
+    check_bloom_size(size_bits)
+    _check_route("route_pack", blocks, cap, wc, HOP1_COLS, overflow, tally, ctx_packed.device)
+    scratch = route_scratch(ctx_packed.device, len(blocks)) if scratch is None else scratch
+    route_layout()
+    _launch("malva_route_pack", ctx_packed.device, hx.data_ptr(), ctx_packed.data_ptr(),
+            counters.data_ptr(), B, wc, size_bits, wps, len(blocks), _pointers(blocks), cap,
+            overflow.data_ptr(), overflow.numel() // (wc + 1), tally.data_ptr(),
+            scratch.data_ptr())
+    LAUNCHES["route_pack"] += 1
+
+
+def route_probe_plain(received, ctx_words, blocks, overflow, tally, *, wc: int, cap_in: int,
+                      cap: int) -> None:
+    """Plain K7, hop 1's owner: the live rows of the D hop-1 slot blocks
+    in ``received`` (one tensor of D blocks of ``cap_in`` rows), in block
+    and row order, each tested against the shard's context words, go to
+    their Bloom-word owner as [context, counter, known] into ``blocks[d]``
+    (``cap`` hop-2 rows each) or the overflow list (pack_dests of
+    malva_tpu/parallel/sharded_index.py:383-394)."""
+    D = len(blocks)
+    got = torch.cat([slot_rows(b, cap_in, wc, HOP1_COLS)
+                     for b in received.view(D, slot_words(cap_in, wc, HOP1_COLS))])
+    lcw, cb = got[:, wc + 1].to(torch.int64), got[:, wc + 2].to(torch.int64)
+    known = (lanes(ctx_words[lcw]) >> cb) & 1
+    rows = torch.cat([got[:, : wc + 1], known.to(torch.int32)[:, None]], dim=1)
+    _partition(got[:, wc + 3].to(torch.int64), rows, blocks, cap, wc, overflow, tally, 1 + D)
+
+
+def route_probe(received, ctx_words, blocks, overflow, tally, *, wc: int, cap_in: int, cap: int,
+                scratch=None) -> None:
+    """K7: same effect as :func:`route_probe_plain`."""
+    D = len(blocks)
+    if not _on_cuda(received, ctx_words, overflow, tally, *blocks):
+        return route_probe_plain(received, ctx_words, blocks, overflow, tally, wc=wc,
+                                 cap_in=cap_in, cap=cap)
+    _check(received, torch.int32, "received")
+    _check(ctx_words, torch.int32, "ctx_words")
+    if received.numel() != D * slot_words(cap_in, wc, HOP1_COLS):
+        raise ValueError(f"route_probe: received must be {D} hop-1 blocks of {cap_in} rows")
+    if D * cap_in >= 1 << 31:
+        raise ValueError("route_probe: 2^31 received rows or more")
+    _check_route("route_probe", blocks, cap, wc, HOP2_COLS, overflow, tally, received.device)
+    scratch = route_scratch(received.device, D) if scratch is None else scratch
+    route_layout()
+    _launch("malva_route_probe", received.device, received.data_ptr(), cap_in, wc,
+            ctx_words.data_ptr(), D, _pointers(blocks), cap, overflow.data_ptr(),
+            overflow.numel() // (wc + 1), tally.data_ptr(), scratch.data_ptr())
+    LAUNCHES["route_probe"] += 1
+
+
+def shard_update_slots_plain(bf_packed, kmap_keys, state, slots, *, n_blocks: int, cap: int,
+                             k: int, ref_k: int, size_bits: int, n_buckets: int, word_base: int,
+                             counts_len: int, minifilter: bool) -> None:
+    """Plain K4 slot entry: :func:`shard_update_plain` over the live rows
+    of the ``n_blocks`` hop-2 slot blocks in ``slots``, in block and row
+    order."""
+    wc = (ref_k + 15) // 16
+    got = torch.cat([slot_rows(b, cap, wc, HOP2_COLS)
+                     for b in slots.view(n_blocks, slot_words(cap, wc, HOP2_COLS))])
+    shard_update_plain(bf_packed, kmap_keys, state, got[:, :wc].contiguous(),
+                       got[:, wc].contiguous(), got[:, wc + 1] != 0, k=k, ref_k=ref_k,
+                       size_bits=size_bits, n_buckets=n_buckets, word_base=word_base,
+                       counts_len=counts_len, minifilter=minifilter)
+
+
+def shard_update_slots(bf_packed, kmap_keys, state, slots, *, n_blocks: int, cap: int, k: int,
+                       ref_k: int, size_bits: int, n_buckets: int, word_base: int,
+                       counts_len: int, minifilter: bool, events=None) -> None:
+    """K4's slot entry: same effect as :func:`shard_update_slots_plain`,
+    with no compaction of the slots."""
+    args = (bf_packed, kmap_keys, state, slots)
+    kw = dict(n_blocks=n_blocks, cap=cap, k=k, ref_k=ref_k, size_bits=size_bits,
+              n_buckets=n_buckets, word_base=word_base, counts_len=counts_len,
+              minifilter=minifilter)
+    if not _on_cuda(*args):
+        return shard_update_slots_plain(*args, **kw)
+    for t, name in zip(args, ("bf_packed", "kmap_keys", "state", "slots")):
+        _check(t, torch.int32, name)
+    _check_lengths(k, ref_k)
+    check_bloom_size(size_bits)
+    wc = (ref_k + 15) // 16
+    if (slots.numel() != n_blocks * slot_words(cap, wc, HOP2_COLS)
+            or bf_packed.dim() != 2 or bf_packed.shape[1] != 2
+            or kmap_keys.shape != (n_buckets, SLOTS * ((k + 15) // 16))
+            or state.shape != (counts_len + n_buckets * SLOTS,) or n_blocks * cap >= 1 << 32):
+        raise ValueError("shard_update_slots: array shapes do not match k, ref_k, n_buckets, "
+                         "counts_len and the slot blocks (or 2^32 rows or more)")
+    route_layout()
+    _launch("malva_shard_update_slots", state.device, slots.data_ptr(), n_blocks, cap, wc, k,
+            ref_k, bf_packed.data_ptr(), word_base, bf_packed.shape[0], kmap_keys.data_ptr(),
+            state.data_ptr(), counts_len, n_buckets, size_bits, int(minifilter), events=events)
+    LAUNCHES["shard_update"] += 1
+    LAUNCHES["shard_update_slots"] += 1
+
+
+# The plan of a whole routed step on CUDA: one int64 row per shard of
+# pointers (as integers) and sizes, then the blocks each shard writes in
+# hop 1 and in hop 2 ("max_dests" columns from "out1" and from "out2").
+# csrc/route.cu owns the column order (PlanCol); :func:`route_layout` reads
+# each column's index from the library by these names.
+PLAN_NAMES = ("dev", "hx", "recv1", "recv2", "ovf", "ovf_cap", "tally", "counts", "ctx_words",
+              "bf_packed", "n_words", "kmap_keys", "state", "ctx", "counters", "rows", "stream",
+              "ev_hash0", "ev_hash1", "ev_upd0", "ev_upd1", "out1", "out2", "width", "max_dests")
+_route_layout = None  # (the library, its plan columns), once checked
+
+
+def route_layout():
+    """The kernel library and the routed step's plan columns ({name:
+    column} over PLAN_NAMES, "width" the row's width), read from the
+    library, which owns their order; raises if the library lacks a column
+    or lays out slot blocks otherwise than SLOT_HEAD, HOP1_COLS and
+    HOP2_COLS here (``csrc/launch.cuh``), before any kernel of the route
+    runs on them.  Checked once per loaded library."""
+    global _route_layout
+    lib = _build.library()
+    if _route_layout is None or _route_layout[0] is not lib:
+        slots = tuple(lib.malva_slot_layout(what) for what in range(3))
+        if slots != (SLOT_HEAD, HOP1_COLS, HOP2_COLS):
+            raise RuntimeError(f"the kernel library's slot blocks are (header, hop-1 columns, "
+                               f"hop-2 columns) {slots}; ops/kernels.py has "
+                               f"{(SLOT_HEAD, HOP1_COLS, HOP2_COLS)}")
+        cols = {name: lib.malva_route_plan_col(name.encode()) for name in PLAN_NAMES}
+        missing = [name for name, col in cols.items() if col < 0]
+        if missing:
+            raise RuntimeError(f"the kernel library's step plan has no column {missing}")
+        _route_layout = (lib, cols)
+    return _route_layout
+
+
+def route_step(plan, *, wc: int, k: int, ref_k: int, size_bits: int, wps: int, cap: int,
+               n_buckets: int, counts_len: int, minifilter: bool, copies: dict | None) -> None:
+    """The routed step on CUDA in one C call (``csrc/route.cu
+    malva_routed_step``): over the D shards of ``plan`` (a (D, width)
+    int64 numpy array, see :func:`route_layout`), K1 hash-only and K6 on each source,
+    hop 1's copies, K7 on each owner, hop 2's copies and K4's slot entry on
+    each owner; each kernel's wrappers above are its single-launch form
+    and plain version.  ``copies`` holds the ctypes arrays of the hops'
+    card-to-card copies (``parallel/sharded_index.py Router``), or None
+    where no pair of shards crosses cards.  Counts one launch of each
+    kernel per shard."""
+    import ctypes
+
+    lib, cols = route_layout()
+    D, width = plan.shape[0], cols["width"]
+    if plan.shape != (D, width) or plan.dtype != "int64" or not plan.flags.c_contiguous:
+        raise ValueError(f"route_step: the plan must be a contiguous ({D}, {width}) int64 array")
+    c = copies or {"n": 0, "dev": None, "from": None, "to": None, "streams": None,
+                   "hops": [dict.fromkeys(("produced", "copied", "dst", "src", "bytes"))] * 2}
+    h1, h2 = c["hops"]
+    err = lib.malva_routed_step(
+        D, plan.ctypes.data_as(ctypes.c_void_p), wc, k, ref_k, int(minifilter), cap, size_bits,
+        wps, n_buckets, counts_len, c["n"], c["dev"], c["from"], c["to"], c["streams"],
+        h1["produced"], h2["produced"], h1["copied"], h2["copied"], h1["dst"], h1["src"],
+        h2["dst"], h2["src"], h1["bytes"] or 0, h2["bytes"] or 0)
+    if err != 0:
+        raise RuntimeError(f"malva_routed_step: CUDA launch failed with error {err}")
+    for name in ("callstep", "route_pack", "route_probe", "shard_update", "shard_update_slots"):
+        LAUNCHES[name] += D
 
 
 # -- K2: reference context scan ----------------------------------------------

@@ -3,8 +3,9 @@
 Counterpart of ``malva_tpu/parallel/mesh.py:17``.  A mesh is an ordered
 tuple of ``torch.device``s, one per index shard; one process drives all of
 them, as one JAX process drives its mesh, and the shards exchange lanes
-by tensor copies (``.to(device, non_blocking=True)``: peer to peer on a
-multi-GPU host).  A device may repeat: the shards then share it as
+card to card (the routed call step's fixed slot blocks on copy streams of
+their own, ``parallel/sharded_index.py Router``; the context scan's
+tensor copies).  A device may repeat: the shards then share it as
 virtual shards, the counterpart of XLA's virtual CPU device count.
 
 JAX starts every device when its backend starts; torch makes a card's
@@ -51,11 +52,14 @@ def cards_of(mesh) -> list:
     return list(dict.fromkeys(mesh))
 
 
-def retain_primary_contexts(cards) -> None:
+def retain_primary_contexts(cards) -> list:
     """Make each card's primary CUDA context through ``libcuda``
-    (``cuInit``, ``cuDevicePrimaryCtxRetain``), the context torch's
-    runtime then uses.  Each ctypes call releases the GIL, so the host's
-    Python work goes on while CUDA starts and each context is made."""
+    (``cuDevicePrimaryCtxRetain``), the context torch's runtime then uses,
+    each card in a thread of its own after one ``cuInit``.  Each ctypes
+    call releases the GIL, so the host's Python work goes on meanwhile.
+    Peer access between the cards is left to the routed step's router
+    (``parallel/sharded_index.py Router``) and torch's own copies.
+    Returns each card's wall in seconds; raises the first error met."""
     cuda = ctypes.CDLL("libcuda.so.1")
     cuda.cuInit.argtypes = [ctypes.c_uint]
     cuda.cuDeviceGet.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
@@ -68,29 +72,48 @@ def retain_primary_contexts(cards) -> None:
             raise RuntimeError(f"{what} failed with CUresult {rc}")
 
     check(cuda.cuInit(0), "cuInit")
-    for d in cards:
-        dev, ctx = ctypes.c_int(), ctypes.c_void_p()
-        check(cuda.cuDeviceGet(ctypes.byref(dev), d.index), f"cuDeviceGet({d})")
-        check(cuda.cuDevicePrimaryCtxRetain(ctypes.byref(ctx), dev),
-              f"cuDevicePrimaryCtxRetain({d})")
+    walls, errors = [0.0] * len(cards), [None] * len(cards)
+
+    def start(i: int) -> None:
+        t0 = time.perf_counter()
+        try:
+            dev, ctx = ctypes.c_int(), ctypes.c_void_p()
+            check(cuda.cuDeviceGet(ctypes.byref(dev), cards[i].index),
+                  f"cuDeviceGet({cards[i]})")
+            check(cuda.cuDevicePrimaryCtxRetain(ctypes.byref(ctx), dev),
+                  f"cuDevicePrimaryCtxRetain({cards[i]})")
+        except Exception as e:  # raised below, in the calling thread
+            errors[i] = e
+        finally:
+            walls[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=start, args=(i,), name=f"malva-card-{d}")
+               for i, d in enumerate(cards)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for e in errors:
+        if e is not None:
+            raise e
+    return walls
 
 
 class CardStartup:
     """The CUDA contexts of ``cards``, made in a background thread started
-    at construction: each card's primary context is made through libcuda
-    (:func:`retain_primary_contexts`), then each card is touched
-    with a one-element tensor and one element is copied from every card to
-    every other, which sets up torch on the card and the peer access that
-    the mesh's card-to-card copies use.  :meth:`join` waits for the
-    thread, logs its wall and the wait once, and raises in the joining
-    thread any error the thread met.  The thread is no daemon: a process
-    that ends without taking the mesh waits for it at exit rather than
-    tear CUDA down under it."""
+    at construction: the cards' primary contexts are made side by side
+    (:func:`retain_primary_contexts`), then torch is set up on each card
+    with a one-element tensor.  :meth:`join` waits for the thread, logs
+    its wall, the slowest card's and the wait once, and raises in the
+    joining thread any error the thread met.  The thread is no daemon: a
+    process that ends without taking the mesh waits for it at exit rather
+    than tear CUDA down under it."""
 
     def __init__(self, cards):
         self.cards = tuple(cards)
         self.error: Exception | None = None
         self.wall_s: float | None = None
+        self.card_walls: list = []
         self.waited_s: float | None = None
         self._t0 = time.perf_counter()
         self._thread = threading.Thread(target=self._run, name="malva-card-startup")
@@ -98,12 +121,9 @@ class CardStartup:
 
     def _run(self) -> None:
         try:
-            retain_primary_contexts(self.cards)
-            ones = [torch.ones(1, device=d) for d in self.cards]
-            for one in ones:
-                for d in self.cards:
-                    if d != one.device:
-                        one.to(d)
+            self.card_walls = retain_primary_contexts(self.cards)
+            for d in self.cards:
+                torch.ones(1, device=d)
             for d in self.cards:
                 torch.cuda.synchronize(d)
         except Exception as e:  # raised again by join(), in the thread that needs the cards
@@ -116,9 +136,11 @@ class CardStartup:
             t0 = time.perf_counter()
             self._thread.join()
             self.waited_s = time.perf_counter() - t0
+            slowest = f"{max(self.card_walls):.6g} s" if self.card_walls else "not reached"
             print(f"[{TAG}/metrics] card start-up: {len(self.cards)} cards "
                   f"({', '.join(map(str, self.cards))}) started in a background thread in "
-                  f"{self.wall_s:.6g} s; the mesh waited {self.waited_s:.6g} s for it",
+                  f"{self.wall_s:.6g} s (contexts side by side, the slowest "
+                  f"card {slowest}); the mesh waited {self.waited_s:.6g} s for it",
                   file=sys.stderr)
         if self.error is not None:
             raise self.error

@@ -17,25 +17,38 @@ placed from JAX's arrays, has none (``ShardedIndex.minifilter``).
 
 The routed step (JAX ``make_routed_call_step``): each source shard hashes
 its slice of the batch with K1's hash-only mode; hop 1 sends each lane to
-the owner of its context word, which tests the context-filter bit with a
-gather; hop 2 sends it on to the owner of its centre's Bloom word,
-carrying that bit, and the owner applies it with K4 (``shard_update``).
-A lane travels as its packed context words and its counter (plus the
-hop's few routing columns): K4 recomputes the centre hash, which costs
-less than carrying it.  JAX packs lanes into a fixed (D * cap, 8 + w_k)
-slot matrix, with an overflow flag, a discarded attempt and an all-gather
-rerun, because XLA needs static shapes.  Here each hop sends
-variable-size per-destination blocks (sort by owner, count, ``split``,
-copy), so there is no capacity, no overflow and no fallback.
+the owner of its context word, which tests the context-filter bit; hop 2
+sends it on to the owner of its centre's Bloom word, carrying that bit,
+and the owner applies it with K4 (``shard_update``).  A lane travels as
+its packed context words and its counter (plus the hop's few routing
+columns): K4 recomputes the centre hash, which costs less than carrying
+it.  As in JAX, each hop packs its lanes into fixed slots, ``cap`` rows
+per (source, destination) pair (JAX's capacity rule, :func:`capacity`),
+in lane order: K6 (``route_pack``) on each source and K7
+(``route_probe``, with the context test) on each hop-1 owner write one
+block per destination with its row count in a header, and K4's slot
+entry reads the received blocks as they are.  A :class:`Router`, made
+once per session, holds every card's blocks; each hop's blocks go card
+to card as fixed-size copies, each (source, destination) pair on a copy
+stream of its own, ordered by CUDA events (``csrc/route.cu``
+``malva_route_copies``), and blocks between shards of one device are
+written in place.  The sizes are known when the copies are issued, so a
+step reads nothing on the host.  A lane whose rank reaches ``cap`` (JAX
+then discards the attempt and reruns the batch through an all-gather) is
+appended to an overflow list on its card; the session reads the lists'
+sizes once, at its end, and reruns those rows through the routed step
+with ``cap`` at their number, which cannot overflow.  That is exact:
+each lane's update depends only on its own context and counter and the
+read-only index, and counter adds commute.
 
 How the data moves between the host and the cards (:func:`upload`,
-:func:`read_host`, :func:`exchange`): each host array crosses to the cards
-once, each shard taking only its slice, and an array that every device
-needs (the alt words and the contig bytes of the context scan) crosses to
-the first card and is copied from there card to card; a hop's split sizes
-come back to the host in one read for all sources, after every source's
-sort and count is issued, so the host waits once per hop, as JAX's hops
-are one ``all_to_all`` each.
+:func:`read_host`, :class:`Uploader`): each host array crosses to the
+cards once, each shard taking only its slice; a session's steps go
+through pinned host buffers, one thread per shard, made once.  An array
+that every device needs (the alt words and the contig bytes of the
+context scan) crosses to the first card and is copied from there card to
+card; the context scan's hits are routed by :func:`exchange`, which
+reads the hop's split sizes to the host once.
 
 The all-gather design (JAX ``shard_index :54``, ``write_back :101``,
 ``make_sharded_call_step :110``), reached only with ``routed=False``
@@ -53,6 +66,7 @@ every shard, which applies the whole batch to its ranges with K5
 
 from __future__ import annotations
 
+import ctypes
 import os
 import sys
 import time
@@ -75,7 +89,7 @@ from ..index.device import (
     timing_events,
 )
 from ..index.kmap_table import BucketTable
-from ..ops import kernels
+from ..ops import _build, kernels
 from ..ops.bloom import bloom_set, lanes, to_u32
 from ..ops.packed import popcount32
 from ..ops.xxh3 import check_bloom_size, xxh3_64, xxh3_mod_size
@@ -402,11 +416,12 @@ def exchange(mesh, payloads: list, dests: list, stats: dict) -> list:
 
 def row_stats(routed: bool, n_shards: int) -> dict:
     """The counters a step adds to: the routed step's rows after each hop
-    per shard, its host reads and exchange wall, or the rows each shard
-    received in the all-gather."""
+    per shard (summed from the blocks' headers at the end), its host reads,
+    the rows its overflow lists held and the bytes of slot blocks copied
+    card to card; or the rows each shard received in the all-gather."""
     if routed:
         return {"hop1_rows": [0] * n_shards, "hop2_rows": [0] * n_shards, "host_reads": 0,
-                "exchange_s": 0.0}
+                "overflow_rows": 0, "slot_bytes": 0}
     return {"gathered_rows": [0] * n_shards}
 
 
@@ -420,46 +435,342 @@ def step_events(events: dict | None, kind: str, device):
     return ev
 
 
+def _add(stats: dict, key: str, value) -> None:
+    stats[key] = stats.get(key, 0) + value
+
+
+def capacity(slice_rows: int, n_shards: int) -> int:
+    """Slot rows per (source, destination) pair for source slices of
+    ``slice_rows``: twice the uniform mean, at least 128 (JAX
+    ``make_routed_call_step``)."""
+    return max(128, -(-2 * slice_rows // n_shards))
+
+
+OVERFLOW_STEPS = 16  # the overflow lists hold the most that this many steps can spill
+
+
+class Router:
+    """The routed step's buffers on the mesh, made once per session: on
+    each shard's device, the D hop-1 and D hop-2 slot blocks it receives
+    (one per source) and, where a destination lies on another device, the
+    blocks it sends there; its overflow list, its tally and the count
+    pass's scratch; a copy stream for each (source, destination) pair of
+    two devices and the events that order the copies.
+
+    The overflow lists hold ``OVERFLOW_STEPS`` times the most a step can
+    spill on a card (its slice past ``cap`` in hop 1, what it receives past
+    ``cap`` in hop 2).  The host keeps that bound; only a session long
+    enough to reach it drains the lists before a step (one host read).
+    :meth:`drain` reads the tallies once and reruns the spilled rows."""
+
+    def __init__(self, sharded: "ShardedIndex", mesh, slice_rows: int, cap: int | None = None):
+        self.sharded, self.mesh = sharded, tuple(mesh)
+        D = self.D = len(self.mesh)
+        wc = self.wc = (sharded.ref_k + 15) // 16
+        self.slice_rows = slice_rows
+        self.cap = cap = capacity(slice_rows, D) if cap is None else cap
+        self.cuda = self.mesh[0].type == "cuda"
+        worst = self.spill_bound([slice_rows] * D)
+        self.ovf_cap = max(1, OVERFLOW_STEPS * max(worst))
+        self.bound = [0] * D
+        self.words = (kernels.slot_words(cap, wc, kernels.HOP1_COLS),
+                      kernels.slot_words(cap, wc, kernels.HOP2_COLS))
+        cross = [[a != b for b in self.mesh] for a in self.mesh]
+        self.pairs = [(s, d) for s in range(D) for d in range(D) if cross[s][d]]
+
+        def zeros(n, dev, dtype=torch.int32):
+            return torch.zeros(n, dtype=dtype, device=dev)
+
+        self.recv, self.out, send = [], [], []
+        for w in self.words:
+            recv = [zeros(D * w, dev) for dev in self.mesh]
+            sent = [zeros(D * w, dev) if any(cross[s]) else None for s, dev in enumerate(self.mesh)]
+            self.recv.append(recv)
+            send.append(sent)
+            self.out.append([[sent[s][d * w : (d + 1) * w] if cross[s][d]
+                              else recv[d][s * w : (s + 1) * w] for d in range(D)]
+                             for s in range(D)])
+        self.overflow = [zeros(self.ovf_cap * (wc + 1), dev) for dev in self.mesh]
+        self.tally = [zeros(1 + 2 * D, dev, torch.int64) for dev in self.mesh]
+        self.scratch = ([kernels.route_scratch(dev, D) for dev in self.mesh] if self.cuda
+                        else [None] * D)
+        self.slot_bytes = 4 * sum(self.words) * len(self.pairs)  # a step's copies
+        self.send = send
+        self.copies = self._copy_plan() if self.pairs and self.cuda else None
+        self.plan = self._step_plan() if self.cuda else None
+
+    def spill_bound(self, rows: list) -> list:
+        """The most rows each card's overflow list can gain in a step over
+        source slices of ``rows``: its slice past ``cap`` (hop 1) and what
+        it receives past ``cap`` (hop 2: at most ``cap`` from each source
+        and the step's rows in all)."""
+        got = min(self.D * self.cap, sum(rows))
+        return [max(0, n - self.cap) + max(0, got - self.cap) for n in rows]
+
+    def _copy_plan(self) -> dict:
+        """The ctypes arguments of both hops' copies for ``kernels.route_step``
+        (``csrc/route.cu malva_route_copies``), with peer access enabled
+        for every ordered pair of the mesh's cards (``malva_enable_peer``,
+        once per router; the one place the port enables it)."""
+        pairs = self.pairs
+        lib = _build.library()
+        for s, d in pairs:
+            err = lib.malva_enable_peer(self.mesh[s].index, self.mesh[d].index)
+            if err != 0:
+                raise RuntimeError(f"malva_enable_peer({self.mesh[s]}, {self.mesh[d]}): CUDA "
+                                   f"error {err}")
+        self._keep = []  # the torch streams and events the handles belong to
+
+        def arr(kind, values):
+            return (kind * len(values))(*values)
+
+        def events(devices, streams=None):
+            out = []
+            for i, dev in enumerate(devices):
+                ev = torch.cuda.Event()
+                ev.record(streams[i] if streams else torch.cuda.current_stream(dev))
+                self._keep.append(ev)
+                out.append(ev.cuda_event)
+            return arr(ctypes.c_void_p, out)
+
+        streams = [torch.cuda.Stream(device=self.mesh[s]) for s, _ in pairs]
+        self._keep += streams
+        produced = [events(self.mesh) for _ in range(2)]
+        plan = {"dev": arr(ctypes.c_int, [d.index for d in self.mesh]), "n": len(pairs),
+                "from": arr(ctypes.c_int, [s for s, _ in pairs]),
+                "to": arr(ctypes.c_int, [d for _, d in pairs]),
+                "streams": arr(ctypes.c_void_p, [st.cuda_stream for st in streams]),
+                "hops": []}
+        for hop, w in enumerate(self.words):
+            plan["hops"].append({
+                "produced": produced[hop],
+                "copied": events([self.mesh[s] for s, _ in pairs], streams),
+                "dst": arr(ctypes.c_void_p, [self.recv[hop][d][s * w:].data_ptr()
+                                             for s, d in pairs]),
+                "src": arr(ctypes.c_void_p, [self.send[hop][s][d * w:].data_ptr()
+                                             for s, d in pairs]),
+                "bytes": 4 * w})
+        return plan
+
+    def _step_plan(self) -> np.ndarray:
+        """The step's plan for ``kernels.route_step``: each shard's device,
+        buffers and index arrays (columns from ``kernels.route_layout``);
+        the slice, stream and events go in at each step.  K1's hash words go
+        to a buffer of the router's slices."""
+        sh, P = self.sharded, kernels.route_layout()[1]
+        if self.D > P["max_dests"]:
+            raise ValueError(f"the routed step takes at most {P['max_dests']} shards, got "
+                             f"{self.D}")
+        w_k = (sh.k + 15) // 16
+        self.hx = [torch.empty((4 + w_k) * self.slice_rows, dtype=torch.int32, device=dev)
+                   for dev in self.mesh]
+        plan = np.zeros((self.D, P["width"]), dtype=np.int64)
+        for s, (dev, shard) in enumerate(zip(self.mesh, sh.shards)):
+            for t, name in ((shard.bf_packed, "bf_packed"), (shard.kmap_keys, "kmap_keys"),
+                            (shard.state, "state"), (shard.ctx_words, "ctx_words")):
+                kernels._check(t, torch.int32, name)
+                if t.device != dev:
+                    raise ValueError(f"shard {s}'s {name} lies on {t.device}, not {dev}")
+            row = plan[s]
+            row[P["dev"]], row[P["ovf_cap"]] = dev.index, self.ovf_cap
+            row[P["n_words"]] = shard.bf_packed.shape[0]
+            for name, t in (("hx", self.hx[s]), ("recv1", self.recv[0][s]),
+                            ("recv2", self.recv[1][s]), ("ovf", self.overflow[s]),
+                            ("tally", self.tally[s]), ("counts", self.scratch[s]),
+                            ("ctx_words", shard.ctx_words), ("bf_packed", shard.bf_packed),
+                            ("kmap_keys", shard.kmap_keys), ("state", shard.state)):
+                row[P[name]] = t.data_ptr()
+            for hop, col in enumerate(("out1", "out2")):
+                row[P[col] : P[col] + self.D] = [b.data_ptr() for b in self.out[hop][s]]
+        return plan
+
+    def _exchange(self, hop: int) -> None:
+        """Off CUDA, hop ``hop``'s blocks to their destinations on other
+        devices, by tensor copies (on CUDA the step's C call copies)."""
+        w = self.words[hop]
+        for s, d in self.pairs:
+            self.recv[hop][d][s * w : (s + 1) * w].copy_(self.send[hop][s][d * w : (d + 1) * w])
+
+    def _step_cuda(self, ctx: list, counters: list, events: dict | None) -> None:
+        """The step on CUDA: this step's slices, streams and launcher
+        events into the plan, then one ``kernels.route_step``."""
+        sh, P, plan = self.sharded, kernels.route_layout()[1], self.plan
+        for s, (dev, c, n) in enumerate(zip(self.mesh, ctx, counters)):
+            kernels._check(c, torch.int32, "ctx")
+            kernels._check(n, torch.int32, "counters")
+            if c.device != dev or n.device != dev or c.shape != (n.shape[0], self.wc):
+                raise ValueError(f"source slice {s}: ({n.shape[0]}, {self.wc}) int32 contexts "
+                                 f"and counters on {dev}, got {tuple(c.shape)} on {c.device}")
+            stream = torch.cuda.current_stream(dev)
+            plan[s, P["ctx"]], plan[s, P["counters"]] = c.data_ptr(), n.data_ptr()
+            plan[s, P["rows"]], plan[s, P["stream"]] = c.shape[0], stream.cuda_stream
+            for col, kind in (("ev_hash0", "callstep_hash"), ("ev_upd0", "shard_update")):
+                ev = step_events(events, kind, dev)
+                if ev is not None:
+                    for e in ev:  # a torch event makes its CUDA event at its first record
+                        e.record(stream)
+                plan[s, P[col] : P[col] + 2] = [e.cuda_event for e in ev] if ev else 0
+        kernels.route_step(plan, wc=self.wc, k=sh.k, ref_k=sh.ref_k, size_bits=sh.size_bits,
+                           wps=sh.words_per_shard, cap=self.cap, n_buckets=sh.nbs,
+                           counts_len=sh.cmax, minifilter=sh.minifilter, copies=self.copies)
+
+    def step(self, ctx: list, counters: list, stats: dict, events: dict | None = None) -> None:
+        """One routed step over source slices ``ctx[s]`` (n_s, wc) and
+        ``counters[s]`` (n_s,) on ``mesh[s]``: K1 hash-only and K6 on each
+        source, hop 1's copies, K7 on each owner, hop 2's copies and K4's
+        slot entry on each owner; on CUDA all of it in one C call
+        (:meth:`_step_cuda`), elsewhere through each kernel's wrapper (the
+        plain versions).  No host read, unless the overflow lists could
+        fill in this step (then :meth:`drain` first)."""
+        sh, D, cap, wc = self.sharded, self.D, self.cap, self.wc
+        rows = [c.shape[0] for c in ctx]
+        if max(rows) > self.slice_rows:
+            raise ValueError(f"a source slice of {max(rows)} rows; the router holds "
+                             f"{self.slice_rows}")
+        more = self.spill_bound(rows)
+        if any(b + m > self.ovf_cap for b, m in zip(self.bound, more)):
+            self.drain(stats)
+        self.bound = [b + m for b, m in zip(self.bound, more)]
+        _add(stats, "slot_bytes", self.slot_bytes)
+        if self.plan is not None:
+            return self._step_cuda(ctx, counters, events)
+        k, ref_k, size_bits, wps = sh.k, sh.ref_k, sh.size_bits, sh.words_per_shard
+        for s, (c, n) in enumerate(zip(ctx, counters)):
+            hx = kernels.callstep_hash_words(c, k, ref_k, with_ctx=True,
+                                             events=step_events(events, "callstep_hash",
+                                                                self.mesh[s]))
+            kernels.route_pack(hx, c, n, self.out[0][s], self.overflow[s], self.tally[s],
+                               size_bits=size_bits, wps=wps, cap=cap, scratch=self.scratch[s])
+        self._exchange(0)
+        for d, shard in enumerate(sh.shards):
+            kernels.route_probe(self.recv[0][d], shard.ctx_words, self.out[1][d],
+                                self.overflow[d], self.tally[d], wc=wc, cap_in=cap, cap=cap,
+                                scratch=self.scratch[d])
+        self._exchange(1)
+        for d, shard in enumerate(sh.shards):
+            kernels.shard_update_slots(shard.bf_packed, shard.kmap_keys, shard.state,
+                                       self.recv[1][d], n_blocks=D, cap=cap, k=k, ref_k=ref_k,
+                                       size_bits=size_bits, n_buckets=sh.nbs, word_base=d * wps,
+                                       counts_len=sh.cmax, minifilter=sh.minifilter,
+                                       events=step_events(events, "shard_update", self.mesh[d]))
+
+    def drain(self, stats: dict) -> None:
+        """Read every card's tally once: add the rows each shard received
+        in each hop to ``stats``, then rerun the rows the overflow lists
+        hold through a routed step whose capacity is their number (so
+        nothing spills again), and empty the lists."""
+        D, wc = self.D, self.wc
+        tallies = read_host(self.tally)
+        _add(stats, "host_reads", 1)
+        for t in self.tally:
+            t.zero_()
+        self.bound = [0] * D
+        for key, at in (("hop1_rows", 1), ("hop2_rows", 1 + D)):
+            stats.setdefault(key, [0] * D)
+            for d in range(D):
+                stats[key][d] += sum(t[at + d] for t in tallies)
+        spilled = [t[0] for t in tallies]
+        if max(spilled) > self.ovf_cap:
+            raise RuntimeError(f"the routed step's overflow lists took {max(spilled)} rows; "
+                               f"they hold {self.ovf_cap}")
+        total = sum(spilled)
+        if total == 0:
+            return
+        _add(stats, "overflow_rows", total)
+        oc = self.ovf_cap
+        ctx = [o[: oc * wc].view(oc, wc)[:n] for o, n in zip(self.overflow, spilled)]
+        cnt = [o[oc * wc : oc * wc + n] for o, n in zip(self.overflow, spilled)]
+        rerun = Router(self.sharded, self.mesh, max(spilled), cap=total)
+        rerun.step(ctx, cnt, stats)
+        rerun.drain(stats)
+
+
+class Uploader:
+    """A session's way from the host to the shards' devices: each step's
+    slice of shard s is copied into one of two pinned host buffers (in
+    turn) by the session's thread for that shard, and from there into the
+    shard's device buffer of the same turn on an upload stream of its own;
+    the shard's compute stream waits for that copy, and a buffer is written
+    again only after the step that read it (events, no host read).  The
+    threads and buffers are made once, for slices of up to ``rows`` rows.
+    Off CUDA, each slice is copied into a fresh tensor."""
+
+    def __init__(self, mesh, rows: int, wc: int):
+        self.mesh, self.rows, self.turn = tuple(mesh), rows, 0
+        self.cuda = self.mesh[0].type == "cuda"
+        if not self.cuda:
+            return
+        D = len(self.mesh)
+        self.pool = ThreadPoolExecutor(D, thread_name_prefix="malva-upload")
+
+        def pair(shape, **kw):
+            return [torch.empty(shape, dtype=torch.int32, **kw) for _ in range(2)]
+
+        self.pinned = [(pair((rows, wc), pin_memory=True), pair((rows,), pin_memory=True))
+                       for _ in range(D)]
+        self.device = [(pair((rows, wc), device=d), pair((rows,), device=d)) for d in self.mesh]
+        self.streams = [torch.cuda.Stream(device=d) for d in self.mesh]
+        self.uploaded = [[torch.cuda.Event() for _ in range(2)] for _ in range(D)]
+        self.used = [[torch.cuda.Event() for _ in range(2)] for _ in range(D)]
+
+    def put(self, packed: np.ndarray, counters: np.ndarray, bounds: list) -> tuple[list, list]:
+        """Shard s's slice, rows ``bounds[s]:bounds[s + 1]`` of the host
+        arrays, on its device: (contexts, counters)."""
+        parts = [(packed[a:b], counters[a:b]) for a, b in zip(bounds, bounds[1:])]
+        if not self.cuda:
+            return (upload([p for p, _ in parts], self.mesh),
+                    upload([c for _, c in parts], self.mesh))
+        b = self.turn
+        got = list(self.pool.map(lambda s: self._put(s, b, *parts[s]), range(len(self.mesh))))
+        for dev, ev in zip(self.mesh, (u[b] for u in self.uploaded)):
+            torch.cuda.current_stream(dev).wait_event(ev)
+        return [g[0] for g in got], [g[1] for g in got]
+
+    def _put(self, s: int, b: int, ctx: np.ndarray, cnt: np.ndarray):
+        n = ctx.shape[0]
+        if n > self.rows:
+            raise ValueError(f"a slice of {n} rows; the session's buffers hold {self.rows}")
+        (pc, pn), (dc, dn) = self.pinned[s], self.device[s]
+        self.uploaded[s][b].synchronize()  # the pinned buffer's last copy (two steps ago) is out
+        pc[b][:n].numpy()[...] = ctx.view(np.int32)
+        pn[b][:n].numpy()[...] = cnt.view(np.int32)
+        stream = self.streams[s]
+        with torch.cuda.stream(stream):
+            stream.wait_event(self.used[s][b])
+            dc[b][:n].copy_(pc[b][:n], non_blocking=True)
+            dn[b][:n].copy_(pn[b][:n], non_blocking=True)
+            self.uploaded[s][b].record(stream)
+        return dc[b][:n], dn[b][:n]
+
+    def done(self) -> None:
+        """The step that read this turn's buffers is issued."""
+        if self.cuda:
+            for dev, ev in zip(self.mesh, (u[self.turn] for u in self.used)):
+                ev.record(torch.cuda.current_stream(dev))
+            self.turn ^= 1
+
+    def close(self) -> None:
+        if self.cuda:
+            self.pool.shutdown()
+
+
 def routed_step(sharded: ShardedIndex, mesh, ctx: list, counters: list, stats: dict,
-                events: dict | None = None) -> None:
+                events: dict | None = None, router: Router | None = None) -> None:
     """One routed call step.  ``ctx[s]`` (n_s, wc) packed contexts and
     ``counters[s]`` (n_s,) are source shard s's slice of the batch, on
-    ``mesh[s]`` (int32 storage).  Updates every shard's state in place and
-    adds the rows each shard handled to ``stats["hop1_rows"]`` and
-    ``stats["hop2_rows"]`` (and the two exchanges to ``stats["host_reads"]``
-    and ``stats["exchange_s"]``).  The host waits twice, once in each
-    exchange.  With ``events``, the K1 and K4 launches are timed by their
-    launchers (lists under "callstep_hash" and "shard_update")."""
-    k, ref_k, size_bits = sharded.k, sharded.ref_k, sharded.size_bits
-    wc = (ref_k + 15) // 16
-    wps = sharded.words_per_shard
-
-    # source: hash the own slice once (K1 hash-only), route by context word
-    pay1, dst1 = [], []
-    for s, (c, n) in enumerate(zip(ctx, counters)):
-        ev = step_events(events, "callstep_hash", mesh[s])
-        x_hi, x_lo, c_hi, c_lo = kernels.callstep_hash(c, k, ref_k, with_ctx=True, events=ev)[:4]
-        cw, cb = xxh3_mod_size(x_hi, x_lo, size_bits)
-        bw, _ = xxh3_mod_size(c_hi, c_lo, size_bits)
-        cols = torch.stack([cw % wps, cb, bw // wps], dim=1).to(torch.int32)
-        pay1.append(torch.cat([c, n[:, None], cols], dim=1))
-        dst1.append(cw // wps)
-    # hop 1: the context-word owner tests its context-filter bit
-    pay2, dst2 = [], []
-    for d, (sh, got) in enumerate(zip(sharded.shards, exchange(mesh, pay1, dst1, stats))):
-        stats["hop1_rows"][d] += got.shape[0]
-        lcw, cb = got[:, wc + 1].long(), got[:, wc + 2].long()
-        known = (lanes(sh.ctx_words[lcw]) >> cb) & 1
-        pay2.append(torch.cat([got[:, : wc + 1], known.to(torch.int32)[:, None]], dim=1))
-        dst2.append(got[:, wc + 3].long())
-    # hop 2: the Bloom-word owner applies the lane (K4)
-    for d, (sh, got) in enumerate(zip(sharded.shards, exchange(mesh, pay2, dst2, stats))):
-        stats["hop2_rows"][d] += got.shape[0]
-        kernels.shard_update(sh.bf_packed, sh.kmap_keys, sh.state, got[:, :wc].contiguous(),
-                             got[:, wc].contiguous(), got[:, wc + 1].bool(), k=k, ref_k=ref_k,
-                             size_bits=size_bits, n_buckets=sharded.nbs, word_base=d * wps,
-                             counts_len=sharded.cmax, minifilter=sharded.minifilter,
-                             events=step_events(events, "shard_update", mesh[d]))
+    ``mesh[s]`` (int32 storage).  Updates every shard's state in place.
+    With a session's ``router`` the step reads nothing on the host, and
+    ``router.drain`` adds the rows each shard handled (``hop1_rows``,
+    ``hop2_rows``) to the stats at the end; without one, a router is made
+    for this step and drained after it (one host read).  With ``events``,
+    the K1 and K4 launches are timed by their launchers (lists under
+    "callstep_hash" and "shard_update")."""
+    own = router is None
+    if own:
+        router = Router(sharded, mesh, max(c.shape[0] for c in ctx))
+    router.step(ctx, counters, stats, events)
+    if own:
+        router.drain(stats)
 
 
 def gather_step(gathered: GatherIndex, mesh, ctx: list, counters: list, stats: dict,
@@ -501,13 +812,15 @@ def gather_step(gathered: GatherIndex, mesh, ctx: list, counters: list, stats: d
 class ShardedCallSession:
     """The sharded call phase over many steps (JAX ``:628``): the index is
     sharded once (or a given one restarts from the host counters), each
-    :meth:`step` splits a block of packed rows into one contiguous slice
-    per shard and runs the routed step (or, with ``routed=False``, the
-    all-gather step), and :meth:`finish` writes the counters back and
-    returns the stats."""
+    :meth:`step` cuts a block of packed rows into steps of at most
+    ``batch`` rows (``MALVA_SHARD_BATCH`` by default), each split into one
+    contiguous slice per shard and uploaded (:class:`Uploader`), and runs
+    the routed step (or, with ``routed=False``, the all-gather step), and
+    :meth:`finish` drains the routed step's overflow lists (the session's
+    one host read), writes the counters back and returns the stats."""
 
     def __init__(self, index, cfg: Config, mesh, sharded: ShardedIndex | GatherIndex | None = None,
-                 routed: bool = True):
+                 routed: bool = True, batch: int | None = None):
         t0 = time.perf_counter()
         if sharded is None:
             sharded = (shard_index_routed if routed else shard_index)(index, cfg, mesh)
@@ -518,6 +831,10 @@ class ShardedCallSession:
             sharded.restart(index)
         self.index, self.mesh, self.sharded, self.routed = index, mesh, sharded, routed
         S = len(mesh)
+        self.batch = batch or int(os.environ.get("MALVA_SHARD_BATCH", 1 << 20))
+        slice_rows = -(-self.batch // S)
+        self.router = Router(sharded, mesh, slice_rows) if routed else None
+        self.uploader = Uploader(mesh, slice_rows, (cfg.ref_k + 15) // 16)
         self.kernel = "shard_update" if routed else "gather_update"
         self.timed = mesh[0].type == "cuda"
         self.events = {"callstep_hash": [], self.kernel: []} if self.timed else None
@@ -525,25 +842,34 @@ class ShardedCallSession:
                       "design": "routed" if routed else "gather", **row_stats(routed, S),
                       "hash_ms": None, "kernel_ms": None,
                       "upload_s": time.perf_counter() - t0, "writeback_s": None}
+        if routed:
+            self.stats["slot_rows"] = self.router.cap
 
     def step(self, packed: np.ndarray, counters: np.ndarray) -> None:
         S = len(self.mesh)
-        n = packed.shape[0]
-        bounds = [n * s // S for s in range(S + 1)]
-        ctx = upload([packed[a:b] for a, b in zip(bounds, bounds[1:])], self.mesh)
-        cnt = upload([counters[a:b] for a, b in zip(bounds, bounds[1:])], self.mesh)
-        (routed_step if self.routed else gather_step)(self.sharded, self.mesh, ctx, cnt,
-                                                      self.stats, self.events)
-        self.stats["rows"] += n
-        self.stats["steps"] += 1
+        for at in range(0, max(packed.shape[0], 1), self.batch):
+            rows, cnts = packed[at : at + self.batch], counters[at : at + self.batch]
+            n = rows.shape[0]
+            ctx, cnt = self.uploader.put(rows, cnts, [n * s // S for s in range(S + 1)])
+            if self.routed:
+                self.router.step(ctx, cnt, self.stats, self.events)
+            else:
+                gather_step(self.sharded, self.mesh, ctx, cnt, self.stats, self.events)
+            self.uploader.done()
+            self.stats["rows"] += n
+            self.stats["steps"] += 1
 
     def finish(self) -> dict:
+        if self.routed:
+            self.router.drain(self.stats)
+        self.uploader.close()
         if self.timed:
             self.stats["hash_ms"] = events_ms(self.events["callstep_hash"])
             self.stats["kernel_ms"] = events_ms(self.events[self.kernel])
         t0 = time.perf_counter()
         self.sharded.write_back(self.index)
         self.stats["writeback_s"] = time.perf_counter() - t0
+        self.router = self.uploader = None
         return self.stats
 
 
@@ -558,8 +884,8 @@ def apply_sample_counts_sharded_stream(index, batches, cfg: Config, mesh,
     Returns the session's stats."""
     if batch is None:
         batch = int(os.environ.get("MALVA_SHARD_BATCH", 1 << 20))
-    return run_session(ShardedCallSession(index, cfg, mesh, sharded=sharded), batches, cfg,
-                       batch)
+    return run_session(ShardedCallSession(index, cfg, mesh, sharded=sharded, batch=batch),
+                       batches, cfg, batch)
 
 
 def run_session(sess: ShardedCallSession, batches, cfg: Config, batch: int) -> dict:
@@ -577,9 +903,22 @@ def apply_sample_counts_sharded(index, contexts: np.ndarray, counters: np.ndarra
                                 mesh, batch: int = 1 << 20, routed: bool = True) -> dict:
     """Multi-device equivalent of ``malva_tpu.pipeline.apply_sample_counts``
     (JAX ``:705``): the routed step, or the all-gather step where
-    ``routed=False``, ``batch`` rows a step.  Returns the session's stats."""
-    sess = ShardedCallSession(index, cfg, mesh, routed=routed)
+    ``routed=False``, ``batch`` rows a step (no more than the rows given,
+    as JAX sizes its slice to the problem).  Returns the session's stats."""
+    batch = max(1, min(batch, contexts.shape[0]))
+    sess = ShardedCallSession(index, cfg, mesh, routed=routed, batch=batch)
     return run_session(sess, [(contexts, counters)], cfg, batch)
+
+
+def release(stats: dict) -> None:
+    """Once a mesh's session is done and its tensors dropped, give the
+    device memory that the caching allocator holds back to the cards,
+    before the host genotypes and writes the VCF (so the process's exit
+    has less to tear down); its seconds into ``stats["release_s"]``."""
+    t0 = time.perf_counter()
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+    stats["release_s"] = time.perf_counter() - t0
 
 
 def make_sharded_ref_scan(mesh, k: int, ref_k: int, size_bits: int, slice_chunk: int):
@@ -665,16 +1004,16 @@ def log_sharded_step(stats: dict) -> None:
     device time of its kernels (launcher events)."""
     if stats["design"] == "routed":
         rows, kernel = f"hop 1 {stats['hop1_rows']}, hop 2 {stats['hop2_rows']}", "K4"
+        waits = (f"; host reads {stats['host_reads']} in all, none in the steps (the overflow "
+                 f"lists' sizes at the end; {stats['overflow_rows']} rows rerun from them); "
+                 f"slots of {stats['slot_rows']} rows a (source, destination) pair, "
+                 f"{stats['slot_bytes']} bytes of them copied card to card")
     else:
         rows, kernel = f"gathered {stats['gathered_rows']}", "K5"
-    if stats["design"] == "routed":
-        waits = (f"; host waits {stats['host_reads'] / max(stats['steps'], 1):.6g} per step "
-                 f"({stats['host_reads']} reads of split sizes), exchange {stats['exchange_s']:.6g}"
-                 f" s")
-    else:
         waits = "; no host wait in the steps"
     print(f"[{TAG}/metrics] sharded call step ({stats['design']}): {stats['rows']} distinct "
           f"k-mers in {stats['steps']} steps over {stats['shards']} shards; rows per shard, "
           f"{rows}; device time K1 hash-only {stats['hash_ms']} ms, {kernel} "
           f"{stats['kernel_ms']} ms (launcher events){waits}; index upload "
-          f"{stats['upload_s']:.6g} s, write-back {stats['writeback_s']:.6g} s", file=sys.stderr)
+          f"{stats['upload_s']:.6g} s, write-back {stats['writeback_s']:.6g} s, device memory "
+          f"released in {stats.get('release_s', 0.0):.6g} s", file=sys.stderr)

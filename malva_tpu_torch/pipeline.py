@@ -44,6 +44,7 @@ from .parallel.sharded_index import (
     apply_sample_counts_sharded_stream,
     build_context_sharded,
     log_sharded_step,
+    release,
     shard_index_routed,
 )
 from .utils import native
@@ -854,8 +855,13 @@ def _count_device(device=None, mesh=None):
 
 
 def _log_stats(stats: dict | None) -> None:
-    if stats is not None:
-        (log_sharded_step if "shards" in stats else log_step_rate)(stats)
+    """Log a device call step's stats; after a sharded one, the mesh's
+    device memory goes back to the cards first (``release``)."""
+    if stats is not None and "shards" in stats:
+        release(stats)
+        log_sharded_step(stats)
+    elif stats is not None:
+        log_step_rate(stats)
 
 
 def build_index(cfg: Config, timer: PhaseTimer | None = None, device=None,
@@ -1050,7 +1056,7 @@ def call_batch(cfg: Config, index: Index, sample_paths: list[str], outs: list,
     dev = sharded = None
     planes: list[tuple[np.ndarray, np.ndarray]] = []
     cards = start_cards(cfg, device, mesh)
-    for sample_path in sample_paths:
+    for i, sample_path in enumerate(sample_paths):
         _reset_counters(index)
         kmc = cfg.from_kmc_dump or cfg.from_kmc_db
         if kmc:
@@ -1077,6 +1083,8 @@ def call_batch(cfg: Config, index: Index, sample_paths: list[str], outs: list,
         else:
             stats = None
             apply_sample_counts(index, contexts, counts, cfg)
+        if i == len(sample_paths) - 1:
+            sharded = None  # the last sample: its tensors go before the VCFs are written
         _log_stats(stats)
         planes.append((index.bf.counts.astype(np.uint16),  # truncation == mod 2^16
                        index.ref_bf.snapshot_values()))

@@ -21,7 +21,9 @@ another against from one thread per card.
 
 Prints one line per run and one JSON object as the last line: the card,
 the probe, every run (wall, PhaseTimer phases, the sharded path's metrics
-lines) and, per checkout and card count, the median wall and phases.
+lines, and the process's exit: from the CLI's "main returned" line to the
+process's end, where the checkout logs one) and, per checkout and card
+count, the median wall, exit and phases.
 
     python -m malva_tpu_torch.tools.multicard_run              # this checkout
     python -m malva_tpu_torch.tools.multicard_run OLD NEW      # two checkouts
@@ -107,12 +109,14 @@ def run_once(checkout: str, src: str, work: str, visible: str | None, label: str
     with open(out, "w") as f:
         p = subprocess.run([sys.executable, "-m", "malva_tpu_torch.cli", *RUN, fa, vcf, fq],
                            cwd=checkout, env=env, stdout=f, stderr=subprocess.PIPE, text=True)
-    wall = time.perf_counter() - t0
+    wall, ended = time.perf_counter() - t0, time.time()
+    returned = re.search(r"main returned at ([0-9.]+) s", p.stderr)
     if p.returncode != 0:
         raise RuntimeError(f"run in {checkout} ({label} cards) exited {p.returncode}: "
                            f"{p.stderr[-3000:]}")
-    return {"checkout": checkout, "cards": label, "vcf": out,
-            "wall_s": wall, "phases": phase_walls(p.stderr), "metrics": metric_lines(p.stderr)}
+    return {"checkout": checkout, "cards": label, "vcf": out, "wall_s": wall,
+            "exit_s": ended - float(returned.group(1)) if returned else None,
+            "phases": phase_walls(p.stderr), "metrics": metric_lines(p.stderr)}
 
 
 def probe() -> dict:
@@ -155,11 +159,16 @@ def medians(runs: list[dict]) -> dict:
     of each phase over the runs."""
     out: dict = {}
     for r in runs:
-        e = out.setdefault(r["checkout"], {}).setdefault(r["cards"], {"walls": [], "phases": {}})
+        e = out.setdefault(r["checkout"], {}).setdefault(r["cards"],
+                                                          {"walls": [], "exits": [], "phases": {}})
         e["walls"].append(r["wall_s"])
+        if r.get("exit_s") is not None:
+            e["exits"].append(r["exit_s"])
         for name, v in r["phases"].items():
             e["phases"].setdefault(name, []).append(v)
     return {c: {k: {"wall_s": statistics.median(e["walls"]), "walls_s": e["walls"],
+                    "exit_s": statistics.median(e["exits"]) if e["exits"] else None,
+                    "exits_s": e["exits"],
                     "phases": {n: statistics.median(v) for n, v in e["phases"].items()}}
                 for k, e in by.items()} for c, by in out.items()}
 
@@ -193,7 +202,8 @@ def main(argv=None) -> int:
                                              f"VCF differs from the first run's")
                     got["round"] = r
                     runs.append(got)
-                    log(f"{c} {got['cards']} card(s), round {r}: {got['wall_s']:.6g} s; "
+                    log(f"{c} {got['cards']} card(s), round {r}: {got['wall_s']:.6g} s "
+                        f"(exit {got['exit_s']}); "
                         f"{json.dumps(got['phases'])}; " + " | ".join(got["metrics"]))
         probed = probe()
         log(f"probe: {json.dumps(probed)}")

@@ -5,11 +5,15 @@ port.  A seeded index (the port's host ``BF`` and ``KMAP``: 200k alt
 k-mers, 100k exact-map keys, 50k contexts), one fixed GLOBAL batch of
 random canonical contexts, and both designs at D = 1, 2, 4, 8 shards where
 the mesh allows: the routed step (``parallel/sharded_index.py
-routed_step``: K1 hash-only on each source slice, two exchanges, K4 on the
-owners; O(B/D) work per shard) and the all-gather step (``gather_step``:
-every shard gets the whole batch, hashes it with K1 hash-only and applies
-it with K5; O(B) work per shard).  Each line gives ms per batch (host
-clock, ending in a synchronize), M k-mers/s, the kernels' device time
+Router.step``: K1 hash-only and K6 on each source slice, hop 1's slot
+copies, K7 on the context-word owners, hop 2's copies, K4's slot entry on
+the Bloom-word owners; O(B/D) work per shard, no host read in a step)
+and the all-gather step (``gather_step``: every shard gets the whole
+batch, hashes it with K1 hash-only and applies it with K5; O(B) work per
+shard).  Each line gives ms per batch (host clock over the timed steps
+and, for the routed step, the router's drain, its one host read and the
+rerun of any overflowed rows, ending in a synchronize), the host's time
+to issue the steps, M k-mers/s, the kernels' device time
 from their launchers' events, and the speed-up against D = 1; every run
 must leave the same counters and map values (written back), or the tool
 fails.
@@ -85,6 +89,7 @@ def run_design(index, cfg, mesh, routed: bool, packed: np.ndarray,
     from ..index.device import events_ms
     from ..ops.bloom import from_u32
     from ..parallel.sharded_index import (
+        Router,
         gather_step,
         routed_step,
         row_stats,
@@ -102,9 +107,15 @@ def run_design(index, cfg, mesh, routed: bool, packed: np.ndarray,
     bounds = [n * s // S for s in range(S + 1)]
     ctx = [from_u32(packed[a:b], d) for a, b, d in zip(bounds, bounds[1:], mesh)]
     cnt = [from_u32(counters[a:b], d) for a, b, d in zip(bounds, bounds[1:], mesh)]
-    step = routed_step if routed else gather_step
     kernel = "shard_update" if routed else "gather_update"
     stats = row_stats(routed, S)
+    router = Router(sharded, mesh, max(c.shape[0] for c in ctx)) if routed else None
+
+    def step(*args):
+        if routed:
+            routed_step(*args, router=router)
+        else:
+            gather_step(*args)
     cuda = mesh[0].type == "cuda"
 
     def sync():
@@ -112,16 +123,24 @@ def run_design(index, cfg, mesh, routed: bool, packed: np.ndarray,
             for dev in dict.fromkeys(mesh):
                 torch.cuda.synchronize(dev)
 
+    def drain():
+        if routed:
+            router.drain(stats)
+
     step(sharded, mesh, ctx, cnt, stats)  # warm-up
+    drain()
     sync()
     events = {"callstep_hash": [], kernel: []} if cuda else None
     t0 = time.perf_counter()
     for _ in range(ITERS):
         step(sharded, mesh, ctx, cnt, stats, events)
+    issued = (time.perf_counter() - t0) / ITERS
+    drain()
     sync()
     dt = (time.perf_counter() - t0) / ITERS
     sharded.write_back(index)
-    return {"ms_per_batch": dt * 1e3, "mkmers_per_s": n / dt / 1e6,
+    return {"ms_per_batch": dt * 1e3, "issue_ms_per_batch": issued * 1e3,
+            "mkmers_per_s": n / dt / 1e6,
             "k1_ms_per_batch": events and events_ms(events["callstep_hash"]) / ITERS,
             "kernel_ms_per_batch": events and events_ms(events[kernel]) / ITERS,
             "place_s": place_s, "rows": stats,
@@ -172,7 +191,8 @@ def main(argv=None) -> int:
             r.update(virtual=virtual, shards=d)
             results[(kind, d)] = r
             print(f"[scale] {kind:6s} D={d} ({'virtual' if virtual else 'cards'}): "
-                  f"{r['ms_per_batch']:9.3f} ms/batch ({r['mkmers_per_s']:8.2f} M/s); device time "
+                  f"{r['ms_per_batch']:9.3f} ms/batch ({r['mkmers_per_s']:8.2f} M/s; the host "
+                  f"issued it in {r['issue_ms_per_batch']:.3f} ms); device time "
                   f"K1 hash-only {r['k1_ms_per_batch']} ms, {'K4' if routed else 'K5'} "
                   f"{r['kernel_ms_per_batch']} ms per batch (launcher events); placement "
                   f"{r['place_s']:.3f} s", file=sys.stderr)

@@ -73,8 +73,9 @@ def test_routed_step_matches_jax_and_host(n_shards):
 
 def test_skewed_input_all_to_one_shard():
     """Every lane routed to one shard (identical contexts; JAX's capacity
-    overflow case, test_sharded.py:63): no capacity, same state as the
-    host apply."""
+    overflow case, test_sharded.py:63): the lanes past each slot block's
+    capacity go to the overflow lists and are rerun at the session's end,
+    and the state is the host apply's."""
     cfg = _cfg()
     host_idx, (alt, _, _) = _index(cfg)
     port_idx, _ = _index(cfg)
@@ -86,6 +87,7 @@ def test_skewed_input_all_to_one_shard():
     stats = apply_sample_counts_sharded(port_idx, contexts, counters, cfg, [CPU] * 8,
                                         batch=2048)
     assert sorted(stats["hop2_rows"])[-2:] == [0, 2048]
+    assert stats["overflow_rows"] > 0
     np.testing.assert_array_equal(host_idx.bf.counts, port_idx.bf.counts)
     assert host_idx.ref_bf.kmers == port_idx.ref_bf.kmers
     assert port_idx.bf.counts.max() == 2048
@@ -807,10 +809,11 @@ def test_context_scan_uploads_alt_words_once(cards, monkeypatch):
 
 @pytest.mark.parametrize("n_shards", [1, 2, 8])
 def test_routed_step_reads_split_sizes_once_per_hop(n_shards, monkeypatch):
-    """One routed step reads split sizes from the devices twice, once per
-    hop, whatever the shard count; three session steps read six times and
-    say so in their stats; the all-gather step reads none.  The counters
-    still equal the host apply's."""
+    """The routed step no longer reads split sizes per hop: its hops are
+    fixed slot blocks whose counts travel in their headers, so three
+    session steps read nothing on the host, and the session reads the
+    tallies once, at its end, and says so in its stats; the all-gather
+    step reads none.  The counters still equal the host apply's."""
     from malva_tpu_torch.parallel import sharded_index
     from malva_tpu_torch.parallel.sharded_index import ShardedCallSession, gather_step, shard_index
 
@@ -820,15 +823,17 @@ def test_routed_step_reads_split_sizes_once_per_hop(n_shards, monkeypatch):
     contexts, counters = _contexts(keys, seed=15, n=1800)
     mesh = [CPU] * n_shards
     reads = _count_calls(monkeypatch, sharded_index, "read_host")
-    sess = ShardedCallSession(port_idx, cfg, mesh)
+    sess = ShardedCallSession(port_idx, cfg, mesh, batch=600)
     placed = len(reads)
     packed = pack2bit_u32_np(contexts, 43)
     sess.step(packed[:600], counters[:600])
-    assert len(reads) - placed == 2
+    assert len(reads) - placed == 0
     sess.step(packed[600:1200], counters[600:1200])
     sess.step(packed[1200:], counters[1200:])
+    assert len(reads) - placed == 0
     stats = sess.finish()
-    assert len(reads) - placed == 6 and stats["host_reads"] == 6 and stats["exchange_s"] > 0
+    assert len(reads) - placed == 1 and stats["host_reads"] == 1
+    assert sum(stats["hop1_rows"]) == sum(stats["hop2_rows"]) == 1800
     apply_sample_counts(host_idx, contexts, counters, cfg)
     np.testing.assert_array_equal(port_idx.bf.counts, host_idx.bf.counts)
     assert port_idx.ref_bf.kmers == host_idx.ref_bf.kmers

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # everything (needs one card)
     python3 chip_smoke.py --kernels-only
+    python3 chip_smoke.py --kernels-only --parent DIR   # and DIR's K6, K7 in turns
 
 1. Prints torch's and CUDA's versions and the card's name and power limit.
    Builds the port's native host library from its own source
@@ -31,14 +32,21 @@
    index cut into 4 source slices: K6 (route_pack) on each slice, K7
    (route_probe) on each owner, K4's slot entry on shard 0 over the hop-2
    blocks written for it (slot blocks, headers, tallies and the sorted
-   overflow lists bit-identical); K3 on a
+   overflow lists bit-identical), then K6 and K7 alone at D = 1, 3, 4 and
+   16 with owners spread, clumped, all to one shard and none live, from
+   one lane to 2^22 (2048 tiles, more than the card holds at once), each
+   case launched twice on one scratch, which each launch must leave
+   zeroed (with ``--parent DIR``, the kernels of the checkout at DIR, built
+   from its sources, are timed in turns with this one's on the same
+   inputs); K3 on a
    2^25-window read chunk (reads joined
    by 0xFF, with N, lowercase and reads shorter than ref_k) and on a
    short ragged chunk at each ref_k of
    K3_REF_KS (IUPAC codes, palindromes, a length that is not a whole
    number of tiles, an unaligned start), and the whole device sort-count
    step against the host counter's sort-count of the same windows.  Times
-   each with CUDA events, beside its bound: the larger of the bytes it
+   each with CUDA events over calls the host has queued ahead (the card
+   spins first), beside its bound: the larger of the bytes it
    must move over the device memory rate and the least integer
    instructions its function needs (rolling canonical codes, codes to
    ASCII four bytes at a time, XXH3; the hashes only where this run's
@@ -112,6 +120,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -132,6 +141,7 @@ K3_REF_KS = (15, 31, 32, 33, 43, 63, 64, 65, 96)  # K3's short ragged chunks
 K3_TILE = 8192               # csrc/seq_count.cu kTile
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
 ISSUE_LANES_PER_SM = 128     # Hopper: 4 warp instructions issued per SM and clock
+SLEEP_CYCLES_PER_MS = 2_000_000  # torch.cuda._sleep: at most 2 GHz, so at least 1 ms
 
 
 def log(msg: str) -> None:
@@ -139,13 +149,17 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of fn() in ms, by CUDA events after a warm-up."""
+    """Mean device time of fn() in ms, by CUDA events after a warm-up.
+    The card first spins for 0.1 ms a call (torch.cuda._sleep), so that
+    the host queues every call before the first runs: the events then
+    hold the calls back to back, without the host's time to issue them."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES_PER_MS // 10 * iters)
     a.record()
     for _ in range(iters):
         fn()
@@ -285,7 +299,7 @@ def main_path_chunk(device):
     return torch.from_numpy(seq).to(device)
 
 
-def kernel_phase(device) -> list[dict]:
+def kernel_phase(device, parent=None) -> list[dict]:
     """Every kernel of the main path against its plain version."""
     import torch
 
@@ -365,7 +379,7 @@ def kernel_phase(device) -> list[dict]:
     del bf_words
     k4 = shard_update_check(ix, device, peak)
     k5 = gather_update_check(ix, device, peak)
-    route = route_check(ix, device, peak)
+    route = route_check(ix, device, peak, parent)
     results[0]["event_probe"] = event_timing_probe(ix, device)
     del ix
     results += [seq_count_check(device, peak), k4, k5, *route]
@@ -586,16 +600,162 @@ def gather_update_check(ix: dict, device, peak: float) -> dict:
 
 
 def sorted_rows(overflow, tally, wc: int):
-    """The rows an overflow list holds, sorted (the kernels append them in
-    the order their atomics land)."""
+    """The rows an overflow list holds, sorted, on its device (the kernels
+    append them in the order their atomics land)."""
+    import torch
+
     n = int(tally[0])
     cap = overflow.numel() // (wc + 1)
-    o = overflow.to("cpu").numpy()
-    rows = np.concatenate([o[: cap * wc].reshape(cap, wc)[:n], o[cap * wc :][:n, None]], axis=1)
-    return rows[np.lexsort(rows.T[::-1])] if n else rows
+    rows = torch.cat([overflow[: cap * wc].view(cap, wc)[:n], overflow[cap * wc :][:n, None]], 1)
+    for c in reversed(range(wc + 1)):  # lexicographic: stable sorts from the last column
+        rows = rows[torch.sort(rows[:, c], stable=True)[1]]
+    return rows
 
 
-def route_check(ix: dict, device, peak: float) -> list[dict]:
+ROUTE_DESTS = (1, 3, 4, 16)
+ROUTE_OWNERS = ("spread", "clumped", "one", "none")
+ROUTE_LANES = (1, 2049, 1 << 22)  # a lane; a tile (2048 lanes) and a lane; more tiles than fit
+
+
+def route_owners(gen, n: int, D: int, case: str, device):
+    """Owner shard of each of n lanes: spread evenly ("none" too: those
+    lanes hold no live row), clumped (runs of 37 of one shard, most lanes
+    to shard 0) or all to the last shard."""
+    import torch
+
+    if case == "one":
+        return torch.full((n,), D - 1, dtype=torch.int64, device=device)
+    spread = torch.randint(0, D, (n,), generator=gen, device=device)
+    if case != "clumped":
+        return spread
+    runs = torch.randint(0, D, (-(-n // 37),), generator=gen, device=device)
+    runs = runs.repeat_interleave(37)[:n]
+    return torch.where(torch.rand(n, generator=gen, device=device) < 0.6, 0, runs)
+
+
+def route_hash(gen, word, size_bits: int):
+    """(hi, lo) int64 XXH3 halves whose Bloom index has word ``word`` and
+    a random bit, under either of the index's size rules (ops/xxh3.py
+    xxh3_mod_size)."""
+    import torch
+
+    bit = torch.randint(0, 32, word.shape, generator=gen, device=word.device)
+    if size_bits < 1 << 33:
+        return torch.randint(0, 1 << 32, word.shape, generator=gen, device=word.device), \
+            word << 5 | bit
+    return (word >> 28) << 1 | (word >> 27) & 1, (word & ((1 << 27) - 1)) << 5 | bit
+
+
+def route_case(kind: str, D: int, case: str, n: int, gen, device) -> tuple[int, int, int]:
+    """K6 (kind "pack", n source lanes) or K7 ("probe", D received blocks
+    of max(1, n // D) rows) on one case, launched twice on one scratch
+    into fresh buffers, beside its plain version: the slot blocks, their
+    headers and the tallies bit-identical, the overflow lists equal as
+    sorted rows, and the scratch zeroed again after each launch.  Returns
+    (lanes, rows sent, rows spilled)."""
+    import torch
+
+    from malva_tpu_torch.ops import kernels
+    from malva_tpu_torch.ops.bloom import storage
+    from malva_tpu_torch.ops.kernels import HOP1_COLS, HOP2_COLS, slot_words
+    from malva_tpu_torch.parallel.sharded_index import capacity
+
+    wc = (REF_K + 15) // 16
+
+    def i32(shape):
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int32, generator=gen,
+                             device=device)
+
+    if kind == "pack":
+        size_bits = 3 << 33 if D == 3 else SIZE_BITS
+        wps = size_bits // 32 // D
+        cw = route_owners(gen, n, D, case, device) * wps + torch.randint(
+            0, wps, (n,), generator=gen, device=device)
+        bw = route_owners(gen, n, D, "spread", device) * wps + torch.randint(
+            0, wps, (n,), generator=gen, device=device)
+        hx = storage(torch.stack([*route_hash(gen, cw, size_bits),
+                                  *route_hash(gen, bw, size_bits)]))
+        counters = torch.randint(1, 1 << 31, (n,), dtype=torch.int32, generator=gen, device=device)
+        counters[torch.rand(n, generator=gen, device=device) < 0.1] = 0
+        if case == "none":
+            counters.zero_()
+        inputs, lanes, cap, cols = (hx, i32((n, wc)), counters), n, capacity(n, D), HOP1_COLS
+        kw = dict(size_bits=size_bits, wps=wps, cap=cap)
+        fns = (kernels.route_pack, kernels.route_pack_plain)
+    else:
+        cap_in = max(1, n // D)
+        w1 = slot_words(cap_in, wc, HOP1_COLS)
+        received = torch.zeros(D, w1, dtype=torch.int32, device=device)
+        fill = torch.randint(0, cap_in + 1, (D,), generator=gen, device=device)
+        fill[torch.rand(D, generator=gen, device=device) < 0.4] = cap_in
+        received[:, 0] = 0 if case == "none" else fill.to(torch.int32)
+        received[:, 4 : 4 + cap_in * (wc + 1)] = i32((D, cap_in * (wc + 1)))
+        planes = received[:, 4 + cap_in * (wc + 1) :].view(D, 3, cap_in)
+        planes[:, 0] = torch.randint(0, 1 << 20, (D, cap_in), generator=gen, device=device)
+        planes[:, 1] = torch.randint(0, 32, (D, cap_in), generator=gen, device=device)
+        planes[:, 2] = route_owners(gen, D * cap_in, D, case, device).view(D, cap_in)
+        inputs = (received.view(-1), i32((1 << 20,)))
+        lanes, cap, cols = D * cap_in, capacity(cap_in, D), HOP2_COLS
+        kw = dict(wc=wc, cap_in=cap_in, cap=cap)
+        fns = (kernels.route_probe, kernels.route_probe_plain)
+    ovf_cap = lanes + 1
+
+    def buffers():
+        return ([torch.zeros(slot_words(cap, wc, cols), dtype=torch.int32, device=device)
+                 for _ in range(D)],
+                torch.zeros(ovf_cap * (wc + 1), dtype=torch.int32, device=device),
+                torch.zeros(1 + 2 * D, dtype=torch.int64, device=device))
+
+    want = buffers()
+    fns[1](*inputs, *want, **kw)
+    scratch = kernels.route_scratch(device, D)
+    for launch in (1, 2):
+        got = buffers()
+        fns[0](*inputs, *got, **kw, scratch=scratch)
+        torch.cuda.synchronize()
+        where = f"{kind} D={D} {case} {lanes} lanes, launch {launch}"
+        try:
+            max_abs_err(got[0] + [got[2]], want[0] + [want[2]])
+        except AssertionError as e:
+            raise AssertionError(f"route {where}: {e}") from None
+        if not torch.equal(sorted_rows(got[1], got[2], wc), sorted_rows(want[1], want[2], wc)):
+            raise AssertionError(f"route {where}: the overflow list differs from the plain one")
+        if scratch.any():
+            raise AssertionError(f"route {where}: the scratch was not left zeroed")
+    t = want[2].to("cpu")
+    sent = int(t[1 : 1 + 2 * D].sum())
+    if case == "none" and sent:
+        raise AssertionError(f"route {kind} D={D}: rows sent with no live lane")
+    return lanes, sent, int(t[0])
+
+
+def route_cases(device) -> int:
+    """K6 and K7 against their plain versions at D in ROUTE_DESTS, owners
+    in ROUTE_OWNERS, over ROUTE_LANES lanes (the largest launch has 2048
+    tiles, more than the card holds at once, so tiles wait on tiles that
+    started before them); each case launched twice on one scratch."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(10)
+    t0 = time.perf_counter()
+    n_cases = spilled = 0
+    for D in ROUTE_DESTS:
+        for case in ROUTE_OWNERS:
+            for n in ROUTE_LANES:
+                for kind in ("pack", "probe"):
+                    spilled += route_case(kind, D, case, n, gen, device)[2]
+                    n_cases += 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"K6/K7 == plain in {n_cases} cases (D {ROUTE_DESTS}, owners {ROUTE_OWNERS}, lanes "
+        f"{ROUTE_LANES}: up to {ROUTE_LANES[-1] // 2048} tiles of 2048 on {sms} SMs), each "
+        f"launched twice on one scratch, left zeroed; {spilled} rows spilled "
+        f"({time.perf_counter() - t0:.6g} s)")
+    if not spilled:
+        raise AssertionError("route cases: no row spilled to an overflow list")
+    return n_cases
+
+
+def route_check(ix: dict, device, peak: float, parent=None) -> list[dict]:
     """The routed step's partitions on SHARDS virtual shards of the card,
     over LANES lanes of the synthetic -b 1 index (a quarter centred on
     shard 0's map keys), cut into SHARDS source slices: K6 (route_pack) on
@@ -608,7 +768,7 @@ def route_check(ix: dict, device, peak: float) -> list[dict]:
     import torch
 
     from malva_tpu_torch.ops import kernels
-    from malva_tpu_torch.ops.kernels import HOP1_COLS, HOP2_COLS, slot_words
+    from malva_tpu_torch.ops.kernels import HOP1_COLS, HOP2_COLS, SLOT_HEAD, slot_words
     from malva_tpu_torch.parallel.sharded_index import capacity
 
     D, wc = SHARDS, (REF_K + 15) // 16
@@ -651,7 +811,7 @@ def route_check(ix: dict, device, peak: float) -> list[dict]:
         errs.append(max_abs_err(g[0] + g[3], w[0] + w[3]))
         for d in range(D):
             a, b = sorted_rows(g[2][d], g[3][d], wc), sorted_rows(w[2][d], w[3][d], wc)
-            if not np.array_equal(a, b):
+            if not torch.equal(a, b):
                 raise AssertionError(f"route {hop}: overflow list {d} differs from the plain one")
     t1 = [t.to("cpu") for t in got["one"][3]]
     t2 = [t.to("cpu") for t in got["two"][3]]
@@ -677,23 +837,28 @@ def route_check(ix: dict, device, peak: float) -> list[dict]:
     if not n_bf or not n_map:
         raise AssertionError("K4 slot check touched no counter or no map value")
 
-    # timing, on fresh scratch each call (the tallies and lists only grow)
+    # timing, into fresh buffers (the tallies and lists only grow), each
+    # kernel on a scratch of its own
     scratch1, scratch2 = buffers(w1), buffers(w2)
     state = torch.zeros_like(st_k)
+    c0, n0 = slices[0]
+    cw0 = ix["ctx_words"][:wps]
+    a6 = (hx[0], c0, n0, scratch1[1][0], scratch1[2][0], scratch1[3][0])
+    a7 = (got["one"][0][0], cw0, scratch2[1][0], scratch2[2][0], scratch2[3][0])
     k6 = dict(size_bits=SIZE_BITS, wps=wps, cap=cap)
     k7 = dict(wc=wc, cap_in=cap, cap=cap)
-    c0, n0 = slices[0]
-    ms6 = cuda_ms(lambda: kernels.route_pack(hx[0], c0, n0, scratch1[1][0], scratch1[2][0],
-                                             scratch1[3][0], **k6), iters=20)
-    plain6 = cuda_ms(lambda: kernels.route_pack_plain(hx[0], c0, n0, scratch1[1][0],
-                                                      scratch1[2][0], scratch1[3][0], **k6),
-                     iters=3, warmup=1)
-    cw0 = ix["ctx_words"][:wps]
-    ms7 = cuda_ms(lambda: kernels.route_probe(got["one"][0][0], cw0, scratch2[1][0],
-                                              scratch2[2][0], scratch2[3][0], **k7), iters=20)
-    plain7 = cuda_ms(lambda: kernels.route_probe_plain(got["one"][0][0], cw0, scratch2[1][0],
-                                                       scratch2[2][0], scratch2[3][0], **k7),
-                     iters=3, warmup=1)
+    sc6, sc7 = kernels.route_scratch(device, D), kernels.route_scratch(device, D)
+    ms6 = cuda_ms(lambda: kernels.route_pack(*a6, **k6, scratch=sc6), iters=20)
+    plain6 = cuda_ms(lambda: kernels.route_pack_plain(*a6, **k6), iters=3, warmup=1)
+    ms7 = cuda_ms(lambda: kernels.route_probe(*a7, **k7, scratch=sc7), iters=20)
+    # K7 again with its context-filter reads inside 1 MiB (L2 hits): what
+    # its random reads from device memory cost
+    near = a7[0].clone()
+    lcw = near.view(D, w1)[:, SLOT_HEAD + cap * (wc + 1) :][:, :cap]
+    lcw &= (1 << 18) - 1
+    ms7_near = cuda_ms(lambda: kernels.route_probe(near, *a7[1:], **k7, scratch=sc7), iters=20)
+    plain7 = cuda_ms(lambda: kernels.route_probe_plain(*a7, **k7), iters=3, warmup=1)
+    ab = route_ab(parent, a6, k6, a7, k7, device) if parent is not None else None
     ms4 = cuda_ms(lambda: kernels.shard_update_slots(rows, kmap_keys, state, slots, **args),
                   iters=20)
     plain4 = cuda_ms(lambda: kernels.shard_update_slots_plain(rows, kmap_keys, state, slots,
@@ -710,23 +875,75 @@ def route_check(ix: dict, device, peak: float) -> list[dict]:
                hop2_live * (canonical_packed_ops(K) + ascii_ops(K) + xxh3_ops(K) + 23), peak)
     for name, ms, b in (("K6", ms6, b6), ("K7", ms7, b7), ("K4 slots", ms4, b4)):
         log(f"{name} {ms:.4f} ms (bound {b[0]:.4f} ms, {b[1]}; {b[0] / ms:.1%} of the bound)")
-    log(f"plain versions: K6 {plain6:.4f} ms, K7 {plain7:.4f} ms, K4 slots {plain4:.4f} ms")
+    log(f"plain versions: K6 {plain6:.4f} ms, K7 {plain7:.4f} ms, K4 slots {plain4:.4f} ms; "
+        f"K7 with its context-filter reads inside 1 MiB {ms7_near:.4f} ms")
+    if ab:
+        for name, t in ab.items():
+            log(f"{name} in turns with the parent's, ms: parent {t['parent']}, this "
+                f"{t['change']}")
+    n_cases = route_cases(device)
     src = "malva_tpu_torch/csrc/route.cu"
     common = {"route": "cuda", "library_ms": None, "cap": cap, "shards": D}
     return [
         {"name": "route_pack", "source": src,
          "replaces": "malva_tpu/parallel/sharded_index.py:330 (pack_dests, XLA, no Pallas "
                      "counterpart)", "max_abs_err": errs[0], "ms": ms6, "plain_ms": plain6,
-         "bound_ms": b6[0], "bound_by": b6[1], "lanes": n, "rows_sent": sent1, **common},
+         "bound_ms": b6[0], "bound_by": b6[1], "lanes": n, "rows_sent": sent1,
+         "cases": n_cases // 2, "parent_ab_ms": ab and ab["route_pack"], **common},
         {"name": "route_probe", "source": src,
          "replaces": "malva_tpu/parallel/sharded_index.py:383 (XLA, no Pallas counterpart)",
          "max_abs_err": errs[1], "ms": ms7, "plain_ms": plain7, "bound_ms": b7[0],
-         "bound_by": b7[1], "lanes": D * cap, "rows_live": hop1_live, **common},
+         "bound_by": b7[1], "lanes": D * cap, "rows_live": hop1_live, "cases": n_cases // 2,
+         "near_reads_ms": ms7_near,
+         "parent_ab_ms": ab and ab["route_probe"], **common},
         {"name": "shard_update_slots", "source": "malva_tpu_torch/csrc/shard_step.cu",
          "replaces": "malva_tpu/parallel/sharded_index.py:398 (XLA, no Pallas counterpart; "
                      "K4's slot entry)", "max_abs_err": err4, "ms": ms4, "plain_ms": plain4,
          "bound_ms": b4[0], "bound_by": b4[1], "lanes": D * cap, "rows_live": hop2_live,
          **common}]
+
+
+def route_ab(parent, a6: tuple, k6: dict, a7: tuple, k7: dict, device) -> dict:
+    """K6 and K7 of this checkout and of ``parent`` (another checkout's
+    kernel library, ``--parent``) through their C entry points on the same
+    inputs and buffers, each on its own scratch, in turns: parent, this,
+    this, parent, twice.  {kernel: {"parent": [ms, ...], "change": [...]}}."""
+    import torch
+
+    from malva_tpu_torch.ops import _build, kernels
+
+    lib = _build.library()
+    parent.malva_route_pack.argtypes = lib.malva_route_pack.argtypes
+    parent.malva_route_probe.argtypes = lib.malva_route_probe.argtypes
+    D = len(a6[3])
+    scratch = {lib: kernels.route_scratch(device, D),
+               parent: torch.zeros(parent.malva_route_max_tiles() * D, dtype=torch.int32,
+                                   device=device)}
+    stream = torch.cuda.current_stream().cuda_stream
+    hx, ctx, cnt, blocks6, ovf6, tally6 = a6
+    recv, cw, blocks7, ovf7, tally7 = a7
+    ptr6, ptr7 = kernels._pointers(blocks6), kernels._pointers(blocks7)
+    wc = ctx.shape[1]
+
+    def pack(l):
+        err = l.malva_route_pack(hx.data_ptr(), ctx.data_ptr(), cnt.data_ptr(), ctx.shape[0], wc,
+                                 k6["size_bits"], k6["wps"], D, ptr6, k6["cap"], ovf6.data_ptr(),
+                                 ovf6.numel() // (wc + 1), tally6.data_ptr(),
+                                 scratch[l].data_ptr(), stream)
+        assert err == 0, err
+
+    def probe(l):
+        err = l.malva_route_probe(recv.data_ptr(), k7["cap_in"], wc, cw.data_ptr(), D, ptr7,
+                                  k7["cap"], ovf7.data_ptr(), ovf7.numel() // (wc + 1),
+                                  tally7.data_ptr(), scratch[l].data_ptr(), stream)
+        assert err == 0, err
+
+    out = {}
+    for name, fn in (("route_pack", pack), ("route_probe", probe)):
+        t = out[name] = {"parent": [], "change": []}
+        for l in (parent, lib, lib, parent) * 2:
+            t["parent" if l is parent else "change"].append(cuda_ms(lambda: fn(l), iters=20))
+    return out
 
 
 def event_timing_probe(ix: dict, device) -> dict:
@@ -1527,6 +1744,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (no main-path run, no ok line)")
+    ap.add_argument("--parent", default=None,
+                    help="another checkout: also time its K6 and K7 in turns with this one's")
     args = ap.parse_args()
     cards, visible = host_cards()
     import torch
@@ -1558,8 +1777,13 @@ def main() -> int:
     ptxas = ptxas_check(_build.build_log)
 
     walls = {"kernel build": build_s}
+    parent = None
+    if args.parent:
+        t0 = time.perf_counter()
+        parent = _build.library_at(Path(args.parent).resolve() / "malva_tpu_torch" / "csrc")
+        log(f"{args.parent}'s kernels built in {time.perf_counter() - t0:.6g} s")
     t0 = time.perf_counter()
-    results = kernel_phase(torch.device("cuda"))
+    results = kernel_phase(torch.device("cuda"), parent)
     walls["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     genotype = genotype_phase()

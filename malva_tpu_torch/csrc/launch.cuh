@@ -1,5 +1,5 @@
 // What the kernels' launches share: on the device, the asynchronous
-// copies into shared memory (K1, K2, K3); on the host, the size of a
+// copies into shared memory (K1, K2, K3, K6, K7); on the host, the size of a
 // persistent grid (K1, K2, K3) and the timed launch of the call-step
 // kernels (K1, K4, K5).
 //
@@ -32,6 +32,13 @@ constexpr int kHop1Cols = 4, kHop2Cols = 2;
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// The same for 4 bytes (cp.async through L1: the words of a context row
+// that one lane copies share their lines with its neighbours').
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -14,45 +14,55 @@
 // within a destination, as pack_dests' stable sort does, so the slots are
 // deterministic; a lane whose rank reaches cap is appended instead to the
 // source card's overflow list ([contexts (ovf_cap x N) | counters
-// (ovf_cap)], by atomic add on tally[0]), which the session reruns once,
-// at its end.  Counter adds commute, so the state does not depend on
-// either order.
+// (ovf_cap)], at a place taken by atomic add on tally[0]), which the
+// session reruns once, at its end.  Counter adds commute, so the state
+// does not depend on either order.
 //
-// Each kernel is two launches.  The count pass gives each tile of the
-// launch's lanes (kTileRounds blocks of lanes) its count per destination
-// (warp-aggregated shared atomics).  The scatter pass gives each tile its
-// base per destination by summing the counts of the tiles before it (the
-// whole block reads them, at most kMaxTiles x D words), ranks its lanes in
-// rounds of one block of lanes (__match_any_sync within a warp, an
-// exclusive scan over the warps), and writes each lane's row to its
-// destination's block at base + rank, or to the overflow list; its last
-// tile writes every destination's header (min(total, cap)) and adds it to
-// the tally, from which the session's rows per hop are summed at its end.
-// Small tiles keep many blocks in flight: the writes are scattered and
-// each round waits on its reads.
+// Each kernel is one launch over tiles of kTileLanes lanes (route.cuh holds
+// the tile logic, which the g++ tests run).  A tile takes its index from a
+// ticket, so it waits only on tiles that started before it.  Its threads
+// load their lanes' words (coalesced, every read in flight before any is
+// used; K7's random context-filter reads too) and rank them by
+// destination, warp by warp with ballots, then over the warps with one
+// scan.  The tile publishes its count per destination to the scratch (a
+// 64-bit status word each), starts copying its contexts into their places
+// in shared memory (cp.async, grouped by destination), and its warp 0
+// looks back over the statuses of the tiles before it, a window of 16 x 32
+// / D' tiles a step, for its base per destination (decoupled look-back).
+// Then each of a destination's planes gets its rows as one run, with
+// 16-byte stores where the run is aligned; rows past cap go the same way
+// to the overflow list, whose place the tile takes with one atomic add.
+// The last tile writes every header (min(total, cap)) and adds it to the
+// tally; the tile that finishes last resets the scratch for the next
+// launch, so the scratch is zeroed once, when it is made.  K7's lanes are
+// the live rows of its input blocks, block after block, so no tile of its
+// launch holds only stale rows.
 //
 // Bound: bytes.  K6 reads the hash planes, contexts and counters of its
-// lanes (16 + 4N + 4 bytes each, the count pass 12 of them again) and
-// writes one row of 4 (N + 4) bytes; K7 reads the received rows, one
-// random context-filter word per row, and writes rows of 4 (N + 2) bytes.
-// The rows are scattered at most D ways, so the writes stay in few open
-// lines; chip_smoke.py counts the bytes and times both beside that bound.
+// lanes (16 + 4N + 4 bytes each) and writes one row of 4 (N + 4) bytes;
+// K7 reads the received rows, one random context-filter word per row, and
+// writes rows of 4 (N + 2) bytes.  All of a launch's tiles are resident at
+// once at the main path's sizes, so a launch is a read phase, the
+// look-back's wait for the slowest tile, then a write phase.  K7's random
+// reads each fetch a 32-byte sector for 4 bytes and take most of its time
+// (PERF.md).  chip_smoke.py counts the bytes and times both beside that
+// bound.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
+#include <atomic>
+
 #include "launch.cuh"
-#include "xxh3.cuh"
+#include "route.cuh"
 
 using namespace malva;
 
 namespace {
 
-constexpr int kRouteThreads = 256;
-constexpr int kRouteWarps = kRouteThreads / 32;
-constexpr int kMaxDests = 16;    // shards of a mesh
-constexpr int kTileRounds = 4;   // rounds of kRouteThreads lanes a tile, where tiles are few
-constexpr int kMaxTiles = 8192;  // tiles of a launch (a tile sums the counts before it)
+static_assert(PackLanes::kCols == kHop1Cols && ProbeLanes::kCols == kHop2Cols,
+              "the lanes' columns are the slot format's");
+static_assert(1 << kDestBits == kMaxDests, "a destination fits its bits");
 
 struct Blocks {
   uint32_t* p[kMaxDests];  // the destinations' blocks
@@ -67,209 +77,261 @@ struct Blocks {
   }
 };
 
-// K6's lanes: a source slice.  Lane i (counter != 0) goes to the owner of
-// its context word.
-struct PackLanes {
-  const uint32_t* __restrict__ hx;   // K1 hash-only planes: ctx hi, lo, centre hi, lo (B each)
-  const uint32_t* __restrict__ ctx;  // (B, N)
-  const uint32_t* __restrict__ cnt;  // (B,)
-  int64_t B, wps;
-  uint64_t size_bits;
-  int N;
-
-  __device__ void prepare(uint32_t*, int) const {}
-  __device__ __forceinline__ uint64_t context_index(int64_t i) const {
-    return bloom_index((uint64_t)__ldg(hx + i) << 32 | __ldg(hx + B + i), size_bits);
-  }
-  __device__ __forceinline__ int dest(int64_t i, const uint32_t*, int D) const {
-    if (__ldg(cnt + i) == 0) return D;
-    return (int)((int64_t)(context_index(i) >> 5) / wps);
-  }
-  // Row r of block blk (cap rows), from lane i going to d.
-  __device__ __forceinline__ void write(int64_t i, const uint32_t*, int d, uint32_t* blk,
-                                        int64_t cap, int64_t r) const {
-    const uint64_t x = context_index(i);
-    const uint64_t c = bloom_index((uint64_t)__ldg(hx + 2 * B + i) << 32 | __ldg(hx + 3 * B + i),
-                                   size_bits);
-    uint32_t* row = blk + kSlotHead;
-    for (int j = 0; j < N; ++j) row[r * N + j] = __ldg(ctx + i * N + j);
-    row += cap * N;
-    row[r] = __ldg(cnt + i);
-    row[cap + r] = (uint32_t)((int64_t)(x >> 5) - (int64_t)d * wps);
-    row[2 * cap + r] = (uint32_t)(x & 31);
-    row[3 * cap + r] = (uint32_t)((int64_t)(c >> 5) / wps);
-  }
-  __device__ __forceinline__ void spill(int64_t i, const uint32_t*, uint32_t* ovf, int64_t ovf_cap,
-                                        int64_t q) const {
-    for (int j = 0; j < N; ++j) ovf[q * N + j] = __ldg(ctx + i * N + j);
-    ovf[ovf_cap * N + q] = __ldg(cnt + i);
-  }
-};
-
-// K7's lanes: the D received hop-1 blocks of cap_in rows, lane i row
-// i % cap_in of block i / cap_in, live below the block's header count.  A
-// live row goes to the owner of its Bloom word with its context-filter bit.
-struct ProbeLanes {
-  const uint32_t* __restrict__ in;         // D blocks of kSlotHead + cap_in (N + kHop1Cols)
-  const uint32_t* __restrict__ ctx_words;  // the shard's context words
-  int64_t cap_in;
-  int N;
-
-  __device__ __forceinline__ int64_t block_words() const {
-    return kSlotHead + cap_in * (N + kHop1Cols);
-  }
-  __device__ void prepare(uint32_t* head, int D) const {
-    if (threadIdx.x < D) head[threadIdx.x] = __ldg(in + threadIdx.x * block_words());
-  }
-  __device__ __forceinline__ const uint32_t* row_of(int64_t i, int64_t& r) const {
-    const int64_t b = i / cap_in;
-    r = i - b * cap_in;
-    return in + b * block_words() + kSlotHead;
-  }
-  __device__ __forceinline__ int dest(int64_t i, const uint32_t* head, int D) const {
-    int64_t r;
-    const uint32_t* p = row_of(i, r);
-    if (r >= head[i / cap_in]) return D;
-    return (int)__ldg(p + cap_in * (N + 3) + r);
-  }
-  __device__ __forceinline__ void write(int64_t i, const uint32_t*, int, uint32_t* blk,
-                                        int64_t cap, int64_t rr) const {
-    int64_t r;
-    const uint32_t* p = row_of(i, r);
-    const uint32_t lcw = __ldg(p + cap_in * (N + 1) + r), cb = __ldg(p + cap_in * (N + 2) + r);
-    const uint32_t known = (__ldg(ctx_words + lcw) >> cb) & 1u;
-    uint32_t* row = blk + kSlotHead;
-    for (int j = 0; j < N; ++j) row[rr * N + j] = __ldg(p + r * N + j);
-    row += cap * N;
-    row[rr] = __ldg(p + cap_in * N + r);
-    row[cap + rr] = known;
-  }
-  __device__ __forceinline__ void spill(int64_t i, const uint32_t*, uint32_t* ovf, int64_t ovf_cap,
-                                        int64_t q) const {
-    int64_t r;
-    const uint32_t* p = row_of(i, r);
-    for (int j = 0; j < N; ++j) ovf[q * N + j] = __ldg(p + r * N + j);
-    ovf[ovf_cap * N + q] = __ldg(p + cap_in * N + r);
-  }
-};
-
-// Tile t's lanes: [t * tile, min((t + 1) * tile, n)).
-template <class Src>
-__global__ void __launch_bounds__(kRouteThreads)
-    route_count_kernel(Src src, int64_t n, int64_t tile, int D, uint32_t* __restrict__ counts) {
-  __shared__ uint32_t hist[kMaxDests];
-  __shared__ uint32_t head[kMaxDests];
-  if (threadIdx.x < kMaxDests) hist[threadIdx.x] = 0;
-  src.prepare(head, D);
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int64_t first = (int64_t)blockIdx.x * tile;
-  const int64_t last = first + tile < n ? first + tile : n;
-  for (int64_t at = first; at < last; at += kRouteThreads) {
-    const int64_t i = at + threadIdx.x;
-    const int d = i < last ? src.dest(i, head, D) : D;
-    const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
-    if (d < D && lane == __ffs(peers) - 1) atomicAdd(&hist[d], (uint32_t)__popc(peers));
-  }
-  __syncthreads();
-  if (threadIdx.x < D) counts[(int64_t)blockIdx.x * D + threadIdx.x] = hist[threadIdx.x];
+// A tile publishes a status with a relaxed store: the word carries its
+// count itself, and no reader reads anything else the tile wrote, so a
+// release would only wait for the tile's earlier memory operations.
+__device__ __forceinline__ void publish(unsigned long long* p, uint64_t status) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"((unsigned long long)status)
+               : "memory");
 }
 
-template <class Src>
-__global__ void __launch_bounds__(kRouteThreads)
-    route_scatter_kernel(Src src, int64_t n, int64_t tile, int D, const uint32_t* __restrict__ counts,
-                         Blocks out, int64_t cap, uint32_t* __restrict__ ovf, int64_t ovf_cap,
-                         unsigned long long* __restrict__ tally, int tally_at) {
-  __shared__ uint32_t head[kMaxDests];
-  __shared__ uint32_t base[kMaxDests];                // next position of each destination
-  __shared__ uint32_t wbase[kRouteWarps][kMaxDests];  // a round's count, then base, per warp
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  src.prepare(head, D);
-  if (threadIdx.x < kMaxDests) base[threadIdx.x] = 0;
-  __syncthreads();
-  {  // the counts of the tiles before this one, [t][d] flattened, by the whole block
-    const int used = kRouteThreads / D * D;  // thread q sums destination q % D
-    uint32_t sum = 0;
-    if (threadIdx.x < used)
-      for (int64_t f = threadIdx.x; f < (int64_t)blockIdx.x * D; f += used) sum += __ldg(counts + f);
-    if (sum) atomicAdd(&base[threadIdx.x % D], sum);
-  }
-  __syncthreads();
-  if (blockIdx.x == gridDim.x - 1 && threadIdx.x < D) {  // the last tile: every header and tally
-    const uint32_t total = base[threadIdx.x] + __ldg(counts + (int64_t)blockIdx.x * D + threadIdx.x);
-    const uint32_t rows = total < cap ? total : (uint32_t)cap;
-    out.at(threadIdx.x)[0] = rows;
-    atomicAdd(tally + tally_at + threadIdx.x, (unsigned long long)rows);
-  }
-  const unsigned lt = (1u << lane) - 1u;
-  const int64_t first = (int64_t)blockIdx.x * tile;
-  const int64_t last = first + tile < n ? first + tile : n;
-  for (int64_t at = first; at < last; at += kRouteThreads) {
-    for (int q = threadIdx.x; q < kRouteWarps * kMaxDests; q += kRouteThreads)
-      wbase[q / kMaxDests][q % kMaxDests] = 0;
-    __syncthreads();  // also: head and base are set, the last round has read wbase
-    const int64_t i = at + threadIdx.x;
-    const int d = i < last ? src.dest(i, head, D) : D;
-    const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
-    if (d < D && lane == __ffs(peers) - 1) wbase[warp][d] = __popc(peers);
-    __syncthreads();
-    if (threadIdx.x < D) {  // exclusive scan over the warps, in warp (= lane) order
-      uint32_t run = base[threadIdx.x];
-      for (int w = 0; w < kRouteWarps; ++w) {
-        const uint32_t c = wbase[w][threadIdx.x];
-        wbase[w][threadIdx.x] = run;
-        run += c;
-      }
-      base[threadIdx.x] = run;
+// A look-back step reads its window with relaxed loads, all in flight at
+// once.  Nothing it reads depends on another tile's other writes, so no
+// acquire is needed: each load would wait for the one before, and a fence
+// after them for the tile's context copies issued just before.
+__device__ __forceinline__ unsigned long long ld_relaxed(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// What warp 0 of a tile hands the block.
+struct TileShared {
+  uint32_t woff[kRouteWarps][kMaxDests];  // the warps' counts, then their staged offsets
+  DestRun run[kMaxDests];
+  uint32_t heads[kMaxDests];       // the rows of each input block, where it has a header
+  uint32_t start[kMaxDests + 1];   // the first lane of each
+  int64_t tile;
+  int last_done;
+};
+
+// Warp 0: the look-back for the tile's base per destination (lanes (j, e)
+// of route.cuh's window), its inclusive prefixes published, the rows of
+// each destination that go to the block and to the overflow list (one
+// atomic add a tile), and in the last tile each block's header and tally.
+__device__ void tile_bases(TileShared& sh, int64_t t, int64_t last, int D, const Blocks& out,
+                           int64_t cap, unsigned long long* __restrict__ tally, int tally_at,
+                           unsigned long long* __restrict__ status) {
+  const int lane = threadIdx.x & 31, lanes = dest_lanes(D), rows = 32 / lanes;
+  const int e = lane & (lanes - 1), j = lane / lanes;
+  uint32_t base = 0;
+  bool done = t == 0 || e >= D;
+  int64_t next = t - 1;  // the nearest tile not yet taken
+  while (__any_sync(~0u, !done)) {
+    uint64_t w[kLookBack];
+#pragma unroll
+    for (int k = 0; k < kLookBack; ++k) {
+      const int64_t at = next - j - rows * k;
+      w[k] = !done && at >= 0 ? ld_relaxed(status + at * D + e) : 0;
     }
-    __syncthreads();
-    const int64_t pos = d < D ? (int64_t)wbase[warp][d] + __popc(peers & lt) : 0;
-    if (d < D && pos < cap) src.write(i, head, d, out.at(d), cap, pos);
-    const bool spills = d < D && pos >= cap;
-    const unsigned over = __ballot_sync(0xFFFFFFFFu, spills);
-    if (over) {
-      unsigned long long at0 = 0;
-      if (lane == __ffs(over) - 1) at0 = atomicAdd(tally, (unsigned long long)__popc(over));
-      at0 = __shfl_sync(0xFFFFFFFFu, at0, __ffs(over) - 1);
-      const int64_t q = (int64_t)at0 + __popc(over & lt);
-      if (spills && q < ovf_cap) src.spill(i, head, ovf, ovf_cap, q);
+    int stop = lane_stop(w, j, rows);
+    for (int m = lanes; m < 32; m *= 2) stop = min(stop, __shfl_xor_sync(~0u, stop, m));
+    uint32_t sum = lane_sum(w, j, rows, stop);
+    int found = lane_prefix_at(w, j, rows, stop);
+    for (int m = lanes; m < 32; m *= 2) {
+      sum += __shfl_xor_sync(~0u, sum, m);
+      found |= __shfl_xor_sync(~0u, found, m);
+    }
+    if (!done) {
+      base += sum;
+      next -= stop + found;
+      done = found;
+      if (stop + found == 0) __nanosleep(64);
+    }
+  }
+  DestRun& r = sh.run[lane & (kMaxDests - 1)];
+  if (lane < D) {  // lane e, row 0
+    if (t > 0) publish(status + t * D + lane, status_word(kStatusPrefix, base + r.tot));
+    set_base(r, base, cap);
+  }
+  __syncwarp();
+  const uint32_t all = __reduce_add_sync(~0u, lane < D ? r.over : 0u);
+  unsigned long long q0 = 0;
+  if (lane == 0 && all) q0 = atomicAdd(tally, (unsigned long long)all);
+  q0 = __shfl_sync(~0u, q0, 0);
+  if (lane < D) {
+    r.ovf_at = (int64_t)q0 + tot_before(sh.run, lane, true);
+    if (t == last) {
+      const int64_t total = (int64_t)r.base + r.tot;
+      const uint32_t rows_in = (uint32_t)(total < cap ? total : cap);
+      out.at(lane)[0] = rows_in;
+      atomicAdd(tally + tally_at + lane, (unsigned long long)rows_in);
     }
   }
 }
 
-// Tiles of kTileRounds blocks of lanes, or more where that would make more
-// than kMaxTiles of them.
-void tiling(int64_t n, int64_t* tile, int* n_tiles) {
-  const int64_t unit = kRouteThreads, most = unit * kMaxTiles;
-  const int64_t rounds = (n + most - 1) / most;
-  *tile = unit * (rounds > kTileRounds ? rounds : kTileRounds);
-  const int64_t t = (n + *tile - 1) / *tile;
-  *n_tiles = t > 0 ? (int)t : 1;
+// Tile t of a launch of K6 or K7 (Src), which holds `live` lanes that can
+// hold a row: rank, publish, look back, stage, write.
+template <class Src>
+__device__ __forceinline__ void route_tile(const Src& src, int64_t t, int live, int64_t last,
+                                           int D, const Blocks& out, int64_t cap,
+                                           uint32_t* __restrict__ ovf, int64_t ovf_cap,
+                                           unsigned long long* __restrict__ tally, int tally_at,
+                                           unsigned long long* __restrict__ status,
+                                           TileShared& sh, uint32_t* stage) {
+  constexpr int C = Src::kCols;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, N = src.N;
+  uint32_t* cols = stage + kTileLanes * N;
+
+  typename Src::Raw raw[kRouteItems] = {};
+#pragma unroll
+  for (int i = 0; i < kRouteItems; ++i)
+    if (item_lane(warp, i, lane) < live)
+      raw[i] = src.fetch(t * kTileLanes + item_lane(warp, i, lane), sh.start);
+#pragma unroll
+  for (int i = 0; i < kRouteItems; ++i)
+    if (item_lane(warp, i, lane) < live) src.fetch2(raw[i]);
+
+  // each lane's rank among the warp's lanes of its destination
+  const int bits = dest_bits(D);
+  const uint32_t lt = (1u << lane) - 1u;
+  int dest[kRouteItems];
+  uint32_t pos[kRouteItems];
+  uint32_t run = 0;  // lane e < D: the warp's lanes so far with destination e
+#pragma unroll
+  for (int i = 0; i < kRouteItems; ++i) {
+    dest[i] = item_lane(warp, i, lane) < live ? src.dest(raw[i], D) : D;
+    uint32_t ballot[kDestBits];
+    const uint32_t valid = __ballot_sync(~0u, dest[i] < D);
+#pragma unroll
+    for (int b = 0; b < kDestBits; ++b)
+      ballot[b] = b < bits ? __ballot_sync(~0u, dest[i] >> b & 1) : 0u;
+    const uint32_t own = dest_mask(valid, ballot, bits, dest[i]);
+    pos[i] = __shfl_sync(~0u, run, dest[i] & 31) + __popc(own & lt);
+    if (lane < D) run += __popc(dest_mask(valid, ballot, bits, lane));
+  }
+  if (lane < kMaxDests) sh.woff[warp][lane] = lane < D ? run : 0u;
+  __syncthreads();
+
+  // warp 0: the tile's counts, published at once, and the staged offsets
+  if (warp == 0) {
+    if (lane < D) {
+      sh.run[lane].tot = warp_offsets(sh.woff, lane);
+      publish(status + t * D + lane,
+              status_word(t == 0 ? kStatusPrefix : kStatusAggregate, sh.run[lane].tot));
+    }
+    __syncwarp();
+    if (lane < D) {
+      const uint32_t soff = sh.run[lane].soff = tot_before(sh.run, lane);
+#pragma unroll
+      for (int w = 0; w < kRouteWarps; ++w) sh.woff[w][lane] += soff;
+    }
+  }
+  __syncthreads();
+
+  // the contexts into their places, in flight during the look-back
+#pragma unroll
+  for (int i = 0; i < kRouteItems; ++i) {
+    if (dest[i] >= D) continue;
+    pos[i] += sh.woff[warp][dest[i]];
+    const uint32_t* row = src.ctx_row(t * kTileLanes + item_lane(warp, i, lane), sh.start);
+    for (int q = 0; q < N; ++q) cp_async4(stage + pos[i] * N + q, row + q);
+  }
+  cp_async_commit();
+  if (warp == 0) tile_bases(sh, t, last, D, out, cap, tally, tally_at, status);
+
+  // the columns (K7's context-filter reads have had the look-back's time)
+#pragma unroll
+  for (int i = 0; i < kRouteItems; ++i) {
+    if (dest[i] >= D) continue;
+    uint32_t col[C];
+    src.columns(raw[i], dest[i], col);
+#pragma unroll
+    for (int c = 0; c < C; ++c) cols[c * kTileLanes + pos[i]] = col[c];
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // each destination's runs, a warp a run
+  for (int job = warp; job < D * run_kinds(C); job += kRouteWarps) {
+    const int e = job / run_kinds(C);
+    const Run w = tile_run<C>(job % run_kinds(C), sh.run[e], out.at(e) + kSlotHead, stage, cols,
+                              N, cap, ovf, ovf_cap);
+    write_run(w.dst, w.src, w.n, lane, 32);
+  }
+}
+
+// One launch of K6 or K7 (Src), one block a tile.  Dynamic shared memory:
+// the tile's staging (route.cuh stage_words).  scratch: [ticket, tiles
+// done, status[tile][D]].  The tiles past the last that holds a lane do
+// nothing; the last writes the headers.
+template <class Src>
+__global__ void __launch_bounds__(kRouteThreads, 2)
+    route_kernel(Src src, int D, Blocks out, int64_t cap, uint32_t* __restrict__ ovf,
+                 int64_t ovf_cap, unsigned long long* __restrict__ tally, int tally_at,
+                 unsigned long long* __restrict__ scratch, int n_tiles) {
+  extern __shared__ __align__(16) uint32_t stage[];
+  __shared__ TileShared sh;
+  unsigned long long* status = scratch + kScratchHead;
+
+  if (threadIdx.x == 0) sh.tile = (int64_t)atomicAdd(scratch, 1ull);
+  if ((int)threadIdx.x < D) sh.heads[threadIdx.x] = src.head_rows(threadIdx.x);
+  __syncthreads();
+  if (threadIdx.x == 0) block_starts(sh.heads, D, sh.start);
+  __syncthreads();
+  const int64_t t = sh.tile, lanes = src.lanes(sh.start), last = last_tile(lanes);
+  if (t <= last)
+    route_tile(src, t, tile_live(lanes, t), last, D, out, cap, ovf, ovf_cap, tally, tally_at,
+               status, sh, stage);
+
+  // the tile that finishes last resets the scratch: every look-back is over
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    sh.last_done = atomicAdd(scratch + 1, 1ull) == (unsigned long long)(n_tiles - 1);
+  }
+  __syncthreads();
+  if (sh.last_done) {
+    for (int64_t q = threadIdx.x; q < (last + 1) * D; q += kRouteThreads) status[q] = 0;
+    if (threadIdx.x == 0) scratch[0] = scratch[1] = 0;
+  }
+}
+
+// Dynamic shared memory of a launch: the tile's staging.
+template <class Src>
+size_t stage_bytes(int N) {
+  return sizeof(uint32_t) * stage_words(N, Src::kCols);
+}
+
+// Lets route_kernel<Src> take the most shared memory any N asks, once per
+// card.  Returns the first CUDA error, or 0.
+template <class Src>
+int allow_stage() {
+  static std::atomic<uint64_t> cards{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const uint64_t bit = 1ull << (dev & 63);
+  if (cards.load() & bit) return 0;
+  e = cudaFuncSetAttribute(route_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)stage_bytes<Src>(kMaxWords));
+  if (e == cudaSuccess) cards.fetch_or(bit);
+  return (int)e;
 }
 
 template <class Src>
-int launch_route(const Src& src, int64_t n, int D, uint32_t* counts, void* const* blocks,
-                 int64_t cap, uint32_t* ovf, int64_t ovf_cap, unsigned long long* tally,
-                 int tally_at, cudaStream_t stream) {
-  if (D < 1 || D > kMaxDests || cap < 1) return (int)cudaErrorInvalidValue;
+int launch_route(const Src& src, int D, void* const* blocks, int64_t cap, uint32_t* ovf,
+                 int64_t ovf_cap, unsigned long long* tally, int tally_at, void* scratch,
+                 cudaStream_t stream) {
+  if (D < 1 || D > kMaxDests || cap < 1 || src.N < 1 || src.N > kMaxWords ||
+      src.tiles() > kMaxTiles)
+    return (int)cudaErrorInvalidValue;
   Blocks out{};
   for (int d = 0; d < D; ++d) out.p[d] = (uint32_t*)blocks[d];
-  int64_t tile = 0;
-  int n_tiles = 0;
-  tiling(n, &tile, &n_tiles);
-  route_count_kernel<Src><<<n_tiles, kRouteThreads, 0, stream>>>(src, n, tile, D, counts);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  route_scatter_kernel<Src><<<n_tiles, kRouteThreads, 0, stream>>>(
-      src, n, tile, D, counts, out, cap, ovf, ovf_cap, tally, tally_at);
+  const int err = allow_stage<Src>();
+  if (err) return err;
+  const int n_tiles = (int)src.tiles();
+  route_kernel<Src><<<n_tiles, kRouteThreads, stage_bytes<Src>(src.N), stream>>>(
+      src, D, out, cap, ovf, ovf_cap, tally, tally_at, (unsigned long long*)scratch, n_tiles);
   return (int)cudaGetLastError();
 }
 
 // The columns of a routed step's plan: one row of int64 per shard, filled
 // once by the router (its buffers) and each step (its slice, stream and
-// events); pointers as integers; kOut1 and kOut2 begin kMaxDests columns
-// each.  This file owns the order: ops/kernels.py reads each column's
-// index by its name in kPlanNames (malva_route_plan_col).
+// events); pointers as integers; kCounts is K6's and K7's scratch; kOut1
+// and kOut2 begin kMaxDests columns each.  This file owns the order:
+// ops/kernels.py reads each column's index by its name in kPlanNames
+// (malva_route_plan_col).
 enum PlanCol {
   kDev, kHx, kRecv1, kRecv2, kOvf, kOvfCap, kTally, kCounts, kCtxWords, kBfPacked, kNWords,
   kKmapKeys, kState, kCtx, kCounters, kRows, kStream, kEvHash0, kEvHash1, kEvUpd0, kEvUpd1,
@@ -305,10 +367,10 @@ int malva_shard_update_slots(const void* slots, int64_t n_blocks, int64_t cap, i
                              void* ev_start, void* ev_stop, void* stream);
 int malva_route_pack(const void* hx, const void* ctx, const void* counters, int64_t B, int wc,
                      int64_t size_bits, int64_t wps, int D, void* const* blocks, int64_t cap,
-                     void* ovf, int64_t ovf_cap, void* tally, void* counts, void* stream);
+                     void* ovf, int64_t ovf_cap, void* tally, void* scratch, void* stream);
 int malva_route_probe(const void* in, int64_t cap_in, int wc, const void* ctx_words, int D,
                       void* const* blocks, int64_t cap, void* ovf, int64_t ovf_cap, void* tally,
-                      void* counts, void* stream);
+                      void* scratch, void* stream);
 int malva_route_copies(int D, const int* dev, void* const* compute, void* const* produced,
                        void* const* guard, int n, const int* from, const int* to,
                        void* const* dst, void* const* src, int64_t bytes,
@@ -328,38 +390,41 @@ int malva_slot_layout(int what) {
   return what == 0 ? (int)kSlotHead : what == 1 ? kHop1Cols : what == 2 ? kHop2Cols : -1;
 }
 
-// The largest number of tiles a launch uses: the `counts` scratch holds
-// route_max_tiles() * D words.
-int malva_route_max_tiles() { return kMaxTiles; }
+// 8-byte words of the scratch of K6's and K7's launches with D
+// destinations ([ticket, tiles done, a status per tile and destination]),
+// made zeroed once and reset by each launch.  A launch of more than
+// kMaxTiles tiles is refused.
+int64_t malva_route_scratch_words(int D) { return kScratchHead + (int64_t)kMaxTiles * D; }
 
 // K6 over the B lanes of a source slice: `hx` K1 hash-only's planes (with
 // the context hash), `ctx` (B, wc) packed contexts, `counters` (B,); each
 // lane with a counter goes to destination cw / wps, into blocks[d] (cap rows
 // of hop 1 each), or to the overflow list; the tally gets the overflow at
-// [0] and the rows sent to d at [1 + d].
+// [0] and the rows sent to d at [1 + d].  `scratch`: malva_route_scratch_words
+// (D) words, zeroed when made.  One kernel launch.
 int malva_route_pack(const void* hx, const void* ctx, const void* counters, int64_t B, int wc,
                      int64_t size_bits, int64_t wps, int D, void* const* blocks, int64_t cap,
-                     void* ovf, int64_t ovf_cap, void* tally, void* counts, void* stream) {
-  if (wc < 1 || wps < 1) return (int)cudaErrorInvalidValue;
+                     void* ovf, int64_t ovf_cap, void* tally, void* scratch, void* stream) {
+  if (wps < 1 || wps > UINT32_MAX || B < 0) return (int)cudaErrorInvalidValue;
   const PackLanes src{(const uint32_t*)hx, (const uint32_t*)ctx, (const uint32_t*)counters, B,
-                      wps, (uint64_t)size_bits, wc};
-  return launch_route(src, B, D, (uint32_t*)counts, blocks, cap, (uint32_t*)ovf, ovf_cap,
-                      (unsigned long long*)tally, 1, (cudaStream_t)stream);
+                      (uint32_t)wps, (uint64_t)size_bits, wc};
+  return launch_route(src, D, blocks, cap, (uint32_t*)ovf, ovf_cap, (unsigned long long*)tally,
+                      1, scratch, (cudaStream_t)stream);
 }
 
 // K7 over the D received hop-1 blocks `in` (cap_in rows each) of one shard
 // with context words `ctx_words`: each live row goes to its Bloom-word
 // owner, into blocks[d] (cap rows of hop 2 each), with its context-filter
 // bit, or to the overflow list; the tally gets the rows sent to d at
-// [1 + D + d].
+// [1 + D + d].  `scratch` as K6's.  One kernel launch.
 int malva_route_probe(const void* in, int64_t cap_in, int wc, const void* ctx_words, int D,
                       void* const* blocks, int64_t cap, void* ovf, int64_t ovf_cap, void* tally,
-                      void* counts, void* stream) {
-  if (wc < 1 || cap_in < 1) return (int)cudaErrorInvalidValue;
-  const ProbeLanes src{(const uint32_t*)in, (const uint32_t*)ctx_words, cap_in, wc};
-  return launch_route(src, (int64_t)D * cap_in, D, (uint32_t*)counts, blocks, cap,
-                      (uint32_t*)ovf, ovf_cap, (unsigned long long*)tally, 1 + D,
-                      (cudaStream_t)stream);
+                      void* scratch, void* stream) {
+  if (cap_in < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  const ProbeLanes src{(const uint32_t*)in, (const uint32_t*)ctx_words, cap_in,
+                       kSlotHead + cap_in * (wc + kHop1Cols), (int)kSlotHead, wc, D};
+  return launch_route(src, D, blocks, cap, (uint32_t*)ovf, ovf_cap, (unsigned long long*)tally,
+                      1 + D, scratch, (cudaStream_t)stream);
 }
 
 // Peer access from card `dev` to card `peer`, where the pair can have it,

@@ -28,7 +28,7 @@ from ..utils.build_dir import build_dir
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = build_dir("kernels")
 SOURCES = ("callstep.cu", "ref_scan.cu", "seq_count.cu", "shard_step.cu", "route.cu")
-HEADERS = ("xxh3.cuh", "lanes.cuh", "launch.cuh", "step.cuh")
+HEADERS = ("xxh3.cuh", "lanes.cuh", "launch.cuh", "step.cuh", "route.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # --split-compile=0: nvcc optimizes and assembles the kernels of one source
 # side by side on every core, so that callstep.cu's 30 instantiations do
@@ -39,7 +39,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--split-compile=0", "-Xcompiler", "-f
 # the __global__ functions of SOURCES, as their mangled names contain them
 KERNELS = ("callstep_kernel", "callstep_hash_kernel", "ref_scan_kernel", "window_hash_kernel",
            "seq_pack_kernel", "shard_update_kernel", "gather_update_kernel", "shard_slots_kernel",
-           "route_count_kernel", "route_scatter_kernel")
+           "route_kernel")
 
 _lib: ctypes.CDLL | None = None
 build_log = ""  # nvcc's output of the last build in this process (ptxas -v)
@@ -53,11 +53,12 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _digest() -> str:
+def _digest(csrc: Path = CSRC) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES + HEADERS:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+        if (csrc / name).exists():
+            h.update(name.encode())
+            h.update((csrc / name).read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -79,7 +80,7 @@ def _run_all(cmds: list[list[str]]) -> None:
             raise RuntimeError(f"nvcc failed (rc={p.returncode}):\n{p.stdout}")
 
 
-def _compile(so: Path) -> None:
+def _compile(so: Path, csrc: Path = CSRC) -> None:
     global build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{so.stem}.tmp{os.getpid()}"
@@ -87,7 +88,7 @@ def _compile(so: Path) -> None:
     tmp = so.with_suffix(f".tmp{os.getpid()}")
     build_log = ""
     try:
-        _run_all([[nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+        _run_all([[nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(csrc / s)]
                   for s, o in zip(SOURCES, objs)])
         _run_all([[nvcc(), *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]])
     finally:
@@ -123,6 +124,17 @@ def ptxas_report(log: str) -> list[dict]:
     return out
 
 
+def library_at(csrc: Path) -> ctypes.CDLL:
+    """The kernel library of another checkout's ``csrc`` (the same
+    SOURCES), built into this build directory and loaded beside this
+    one's, so that one process can time two versions; its functions'
+    argtypes are the caller's to set."""
+    so = BUILD_DIR / f"libmalva_kernels_{_digest(csrc)}.so"
+    if not so.exists():
+        _compile(so, csrc)
+    return ctypes.CDLL(str(so))
+
+
 def library(fresh: bool = False) -> ctypes.CDLL:
     """The loaded kernel library, built on first use (or built anew when
     ``fresh``, so that ``build_log`` holds this build's ptxas report)."""
@@ -146,7 +158,7 @@ def library(fresh: bool = False) -> ctypes.CDLL:
                                      p, p, p],
         "malva_route_pack": [p, p, p, i64, i, i64, i64, i, p, i64, p, i64, p, p, p],
         "malva_route_probe": [p, i64, i, p, i, p, i64, p, i64, p, p, p],
-        "malva_route_max_tiles": [],
+        "malva_route_scratch_words": [i],
         "malva_enable_peer": [i, i],
         "malva_route_plan_col": [ctypes.c_char_p],
         "malva_slot_layout": [i],
@@ -160,5 +172,6 @@ def library(fresh: bool = False) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.malva_route_scratch_words.restype = ctypes.c_int64
     _lib = lib
     return lib

@@ -55,7 +55,13 @@ of the slot entry alone.
   blocks, one per destination, in lane order (as the stable sort of
   ``pack_dests``), with the row count in each block's header, and appends
   a lane past the capacity to the card's overflow list.  Each wrapper
-  launches two kernels (a count pass and the scatter) and counts one.
+  launches one kernel, a single pass over tiles of 2048 lanes: a tile ranks
+  its lanes by destination in registers, publishes its counts and looks
+  back over the tiles before it for its bases (decoupled look-back, in a
+  zeroed scratch that each launch leaves zeroed), stages its rows in
+  shared memory grouped by destination and writes each destination's
+  rows as runs.  They are bound by bytes: each lane's words read once,
+  each row written once.
 
 ``callstep_hash`` / ``window_hash`` are the kernels' hash-only modes,
 which write exactly the TPU kernels' outputs so the card can check them
@@ -397,6 +403,7 @@ def gather_update(bf_packed, kmap_keys, state, ctx_packed, counters, known, *, k
 
 SLOT_HEAD = 4
 HOP1_COLS, HOP2_COLS = 4, 2
+ROUTE_MAX_LANES = 1 << 27  # lanes of one K6 or K7 launch (csrc/route.cuh kMaxTiles x kTileLanes)
 
 
 def slot_words(cap: int, wc: int, cols: int) -> int:
@@ -486,9 +493,11 @@ def _check_route(name: str, blocks: list, cap: int, wc: int, cols: int, overflow
 
 
 def route_scratch(device, D: int) -> torch.Tensor:
-    """The scratch of K6's and K7's count pass (their per-tile counts),
-    for launches on ``device`` with ``D`` destinations."""
-    return torch.empty(_build.library().malva_route_max_tiles() * D, dtype=torch.int32,
+    """The scratch of K6's and K7's launches with ``D`` destinations on
+    ``device`` (a ticket, a count of finished tiles and each tile's status
+    per destination): made zeroed once; each launch leaves it zeroed, so
+    launches in order on one stream may share it."""
+    return torch.zeros(_build.library().malva_route_scratch_words(D), dtype=torch.int64,
                        device=device)
 
 
@@ -500,8 +509,8 @@ def _pointers(blocks: list):
 
 def route_pack(hx, ctx_packed, counters, blocks, overflow, tally, *, size_bits: int, wps: int,
                cap: int, scratch=None) -> None:
-    """K6: same effect as :func:`route_pack_plain`.  ``scratch`` is the
-    count pass's buffer (made here when None)."""
+    """K6: same effect as :func:`route_pack_plain`.  ``scratch`` is
+    :func:`route_scratch`'s (made here when None)."""
     if not _on_cuda(hx, ctx_packed, counters, overflow, tally, *blocks):
         return route_pack_plain(hx, ctx_packed, counters, blocks, overflow, tally,
                                 size_bits=size_bits, wps=wps, cap=cap)
@@ -511,6 +520,8 @@ def route_pack(hx, ctx_packed, counters, blocks, overflow, tally, *, size_bits: 
     if hx.dim() != 2 or hx.shape[0] < 4 or hx.shape[1] != B or counters.shape != (B,):
         raise ValueError("route_pack: hx must be K1's (>= 4, B) words with the context hash")
     check_bloom_size(size_bits)
+    if B > ROUTE_MAX_LANES:
+        raise ValueError(f"route_pack: {B} lanes, more than one launch takes ({ROUTE_MAX_LANES})")
     _check_route("route_pack", blocks, cap, wc, HOP1_COLS, overflow, tally, ctx_packed.device)
     scratch = route_scratch(ctx_packed.device, len(blocks)) if scratch is None else scratch
     route_layout()
@@ -549,8 +560,9 @@ def route_probe(received, ctx_words, blocks, overflow, tally, *, wc: int, cap_in
     _check(ctx_words, torch.int32, "ctx_words")
     if received.numel() != D * slot_words(cap_in, wc, HOP1_COLS):
         raise ValueError(f"route_probe: received must be {D} hop-1 blocks of {cap_in} rows")
-    if D * cap_in >= 1 << 31:
-        raise ValueError("route_probe: 2^31 received rows or more")
+    if D * cap_in > ROUTE_MAX_LANES:
+        raise ValueError(f"route_probe: {D * cap_in} received rows, more than one launch takes "
+                         f"({ROUTE_MAX_LANES})")
     _check_route("route_probe", blocks, cap, wc, HOP2_COLS, overflow, tally, received.device)
     scratch = route_scratch(received.device, D) if scratch is None else scratch
     route_layout()

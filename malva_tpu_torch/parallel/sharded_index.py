@@ -453,8 +453,8 @@ class Router:
     """The routed step's buffers on the mesh, made once per session: on
     each shard's device, the D hop-1 and D hop-2 slot blocks it receives
     (one per source) and, where a destination lies on another device, the
-    blocks it sends there; its overflow list, its tally and the count
-    pass's scratch; a copy stream for each (source, destination) pair of
+    blocks it sends there; its overflow list, its tally and K6's and K7's
+    scratch; a copy stream for each (source, destination) pair of
     two devices and the events that order the copies.
 
     The overflow lists hold ``OVERFLOW_STEPS`` times the most a step can
@@ -470,6 +470,10 @@ class Router:
         self.slice_rows = slice_rows
         self.cap = cap = capacity(slice_rows, D) if cap is None else cap
         self.cuda = self.mesh[0].type == "cuda"
+        if self.cuda and max(slice_rows, D * cap) > kernels.ROUTE_MAX_LANES:
+            raise ValueError(f"a routed step takes at most {kernels.ROUTE_MAX_LANES} rows a "
+                             f"source slice and received a shard; got slices of {slice_rows} "
+                             f"rows and {D} x {cap} slots (a smaller MALVA_SHARD_BATCH)")
         worst = self.spill_bound([slice_rows] * D)
         self.ovf_cap = max(1, OVERFLOW_STEPS * max(worst))
         self.bound = [0] * D

@@ -27,10 +27,19 @@ import threading
 import numpy as np
 
 
+_spoken = threading.Lock()  # held by whichever prints the run's one ERROR: line
+
+
+def _error(msg: str) -> None:
+    """Print ``ERROR: msg``, unless an ERROR: line is already out."""
+    if _spoken.acquire(blocking=False):
+        print(f"ERROR: {msg}", file=sys.stderr, flush=True)
+
+
 def _watchdog(seconds: float, what: str) -> threading.Timer:
     def die():
-        print(f"ERROR: {what} exceeded {seconds:.0f}s (peer lost mid-collective or process "
-              f"topology mismatch); aborting", file=sys.stderr, flush=True)
+        _error(f"{what} exceeded {seconds:.0f}s (peer lost mid-collective or process topology "
+               f"mismatch); aborting")
         os._exit(1)
 
     t = threading.Timer(seconds, die)
@@ -68,63 +77,66 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     a = _parser().parse_args(argv)
-    watchdog = _watchdog(a.timeout, "distributed run") if a.timeout else None
-
-    import torch.distributed as dist
-
-    from .parallel.distributed import (build_index_distributed, call_distributed, host_shard,
-                                       initialize, world)
-    from .pipeline import build_index
-    from .utils.config import Config
-
-    # the topology check is one collective, which can itself hang on a
-    # mismatch, so set-up has its own watchdog even without --timeout
-    init_timeout = a.timeout or float(os.environ.get("MALVA_INIT_TIMEOUT", 120.0))
-    init_watchdog = _watchdog(init_timeout, "distributed init/topology check")
+    # every return cancels both watchdogs, so none can speak after main
+    watchdogs = [_watchdog(a.timeout, "distributed run")] if a.timeout else []
     try:
-        # gloo's own limit lies past the watchdogs, which speak first
-        initialize(a.coordinator, a.num_processes, a.process_id,
-                   timeout=(a.timeout or 1800.0) + 60.0)
-    except (RuntimeError, ValueError) as e:  # the CLI's one-line ERROR contract
-        print(f"ERROR: distributed init failed: {_first_line(e)}", file=sys.stderr)
-        return 1
-    finally:
-        init_watchdog.cancel()
+        import torch.distributed as dist
 
-    cfg = Config(fasta_path=a.reference, vcf_path=a.variants, sample_path=a.reads[0], k=a.k,
-                 ref_k=a.r, error_rate=np.float32(0.001),
-                 bf_size=Config.bf_gb_to_bits(a.b), freq_key=a.freq_key,
-                 haploid=a.haploid)
-    # each process's spill-count producers overlap the index phase;
-    # count_distributed resumes their finished stores at the merge
-    producers = []
-    if a.spill_dir and not os.environ.get("MALVA_NO_OVERLAP"):
-        for i, path in enumerate(host_shard(a.reads)):
-            producers.append(subprocess.Popen(
-                [sys.executable, "-m", "malva_tpu_torch.count.spill", path, str(a.r),
-                 f"{a.spill_dir}/h{a.process_id}_{i}"], stdout=subprocess.DEVNULL))
-    try:
-        index = build_index_distributed(cfg) if a.num_processes > 1 else build_index(cfg)
-        for p in producers:
-            if p.wait() != 0:
-                print("[malva-tpu-torch/dist] overlapped counting producer failed; counting "
-                      "resumes inline", file=sys.stderr)
-        out = open(a.out, "w") if world()[0] == 0 else io.StringIO()
-        with out:
-            call_distributed(cfg, index, a.reads, out, spill_dir=a.spill_dir)
-    except dist.DistError as e:  # a lost peer that gloo reports instead of hanging
-        print(f"ERROR: distributed run failed: {_first_line(e)}", file=sys.stderr)
-        return 1
+        from .parallel.distributed import (build_index_distributed, call_distributed,
+                                           host_shard, initialize, world)
+        from .pipeline import build_index
+        from .utils.config import Config
+
+        # the topology check is one collective, which can itself hang on a
+        # mismatch, so set-up has its own watchdog even without --timeout
+        init_timeout = a.timeout or float(os.environ.get("MALVA_INIT_TIMEOUT", 120.0))
+        init_watchdog = _watchdog(init_timeout, "distributed init/topology check")
+        watchdogs.append(init_watchdog)
+        try:
+            # gloo's own limit lies past the watchdogs, which speak first
+            initialize(a.coordinator, a.num_processes, a.process_id,
+                       timeout=(a.timeout or 1800.0) + 60.0)
+        except (RuntimeError, ValueError) as e:  # the CLI's one-line ERROR contract
+            _error(f"distributed init failed: {_first_line(e)}")
+            return 1
+        finally:
+            init_watchdog.cancel()
+
+        cfg = Config(fasta_path=a.reference, vcf_path=a.variants, sample_path=a.reads[0],
+                     k=a.k, ref_k=a.r, error_rate=np.float32(0.001),
+                     bf_size=Config.bf_gb_to_bits(a.b), freq_key=a.freq_key,
+                     haploid=a.haploid)
+        # each process's spill-count producers overlap the index phase;
+        # count_distributed resumes their finished stores at the merge
+        producers = []
+        if a.spill_dir and not os.environ.get("MALVA_NO_OVERLAP"):
+            for i, path in enumerate(host_shard(a.reads)):
+                producers.append(subprocess.Popen(
+                    [sys.executable, "-m", "malva_tpu_torch.count.spill", path, str(a.r),
+                     f"{a.spill_dir}/h{a.process_id}_{i}"], stdout=subprocess.DEVNULL))
+        try:
+            index = build_index_distributed(cfg) if a.num_processes > 1 else build_index(cfg)
+            for p in producers:
+                if p.wait() != 0:
+                    print("[malva-tpu-torch/dist] overlapped counting producer failed; "
+                          "counting resumes inline", file=sys.stderr)
+            out = open(a.out, "w") if world()[0] == 0 else io.StringIO()
+            with out:
+                call_distributed(cfg, index, a.reads, out, spill_dir=a.spill_dir)
+        except dist.DistError as e:  # a lost peer that gloo reports instead of hanging
+            _error(f"distributed run failed: {_first_line(e)}")
+            return 1
+        finally:
+            for p in producers:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        return 0
     finally:
-        for p in producers:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    if watchdog is not None:
-        watchdog.cancel()
-    if dist.is_initialized():
-        dist.destroy_process_group()
-    return 0
+        for w in watchdogs:
+            w.cancel()
 
 
 if __name__ == "__main__":

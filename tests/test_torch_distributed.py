@@ -110,6 +110,64 @@ def test_mismatched_topology_fails_with_one_error_line(reads, tmp_path):
             assert len(lines) == 1, err[-2000:]
 
 
+# A process that runs main with its set-up patched (CASE, TIMEOUT), then
+# stays alive past every watchdog, as a slow interpreter teardown would.
+# The modules main imports are imported first, so that main reaches its
+# set-up at once and only the patched calls decide what happens when.
+WATCHDOG_DRIVER = r"""
+import sys, time
+import torch.distributed as dist
+from malva_tpu_torch import pipeline, run_distributed as rd
+from malva_tpu_torch.parallel import distributed
+
+case, timeout, args = sys.argv[1], float(sys.argv[2]), sys.argv[3:]
+
+def init_fails(*a, **k):
+    raise RuntimeError("no peer answered")
+
+def watchdog_first(*a, **k):
+    while not rd._spoken.locked():  # a watchdog has claimed the line
+        time.sleep(0.001)
+    raise RuntimeError("no peer answered")
+
+def raise_then_slow_print(*a, **k):
+    real = rd._error
+    rd._error = lambda msg: (real(msg), time.sleep(timeout * 2))  # the watchdogs fall due
+    raise RuntimeError("no peer answered")
+
+def run_fails(cfg):
+    raise dist.DistError("peer lost")
+
+if case == "run":
+    distributed.initialize = lambda *a, **k: None
+    distributed.build_index_distributed = run_fails
+else:
+    distributed.initialize = {"init": init_fails, "watchdog first": watchdog_first,
+                              "raise first": raise_then_slow_print}[case]
+rc = rd.main(args + ["--timeout", str(timeout)])
+time.sleep(timeout * 1.5)
+sys.exit(rc)
+"""
+
+
+@pytest.mark.parametrize("case", ["init", "run", "watchdog first", "raise first"])
+def test_one_error_line_whatever_fires(tmp_path, case):
+    """Exactly one ERROR: line and exit code 1, when main has printed its
+    error and the watchdogs fall due while the process lives on (init or
+    run failed), when a watchdog speaks before initialize raises, and
+    when the watchdogs fall due while the raise's line is printed."""
+    args = _args(0, 2, 0, tmp_path / "out.vcf", [os.path.join(D, "reads.fa")])[3:]
+    p = subprocess.run([sys.executable, "-c", WATCHDOG_DRIVER, case, "2", *args], env=_env(),
+                       stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True, timeout=120)
+    lines = [ln for ln in p.stderr.splitlines() if ln.startswith("ERROR:")]
+    assert p.returncode == 1 and len(lines) == 1, p.stderr[-2000:]
+    want = {"init": "distributed init failed", "run": "distributed run failed",
+            "watchdog first": "distributed ", "raise first": "distributed init failed"}[case]
+    assert lines[0].startswith(f"ERROR: {want}"), lines
+    if case == "watchdog first":
+        assert "exceeded" in lines[0], lines
+
+
 def test_count_distributed_single_process_matches_counter(tmp_path):
     """With no process group one process owns every range: the distinct
     k-mers and counts are the counter's (test_sharded.py:94)."""

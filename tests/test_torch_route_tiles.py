@@ -1,0 +1,599 @@
+"""K6's and K7's tile logic (malva_tpu_torch/csrc/route.cuh) built for the
+host with g++, against the kernels' plain versions, bit for bit (tolerance
+zero: destinations, ranks, rows and counts are integers).
+
+A host harness emulates one launch of route.cu's kernel with the same
+functions: tiles take their tickets in order, each reads the input
+blocks' headers, ranks its lanes warp by warp (the ballots and the
+shuffle done serially), publishes its status and stages its rows; then,
+in an order of tiles given by a seed, each looks back over the statuses
+before it (a warp's window, its lanes one after another), takes its place
+in the overflow list, writes its runs (the 32 lanes of a warp one after
+another) and, when it is the last to finish, resets the scratch.  Any
+order gives the same slots, headers and tallies; only the overflow list's
+order follows it.
+
+The plain versions are held against a numpy pack_dests by
+tests/test_torch_route.py.
+"""
+
+import ctypes
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from malva_tpu_torch.ops import kernels
+from malva_tpu_torch.ops.kernels import HOP1_COLS, HOP2_COLS, SLOT_HEAD, slot_words
+from test_torch_route import CASES, hash_words, np_pack_dests, owners
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "malva_tpu_torch", "csrc")
+
+HARNESS_CXX = r"""
+#include <stdint.h>
+#include <algorithm>
+#include <numeric>
+#include <random>
+#include <vector>
+#include "route.cuh"
+using namespace malva;
+
+extern "C" int tile_lanes() { return kTileLanes; }
+extern "C" int max_tiles() { return kMaxTiles; }
+extern "C" int scratch_head() { return kScratchHead; }
+
+// A look-back step of destination e from tile `next` back, the lanes of
+// its column of the window one after another; returns the offsets taken.
+static int look_back_window(const uint64_t* status, int D, int e, int64_t next, uint32_t* base,
+                            bool* done) {
+  const int rows = 32 / dest_lanes(D);
+  uint64_t w[32][kLookBack];
+  int stop = rows * kLookBack;
+  for (int j = 0; j < rows; ++j) {
+    for (int k = 0; k < kLookBack; ++k) {
+      const int64_t at = next - j - rows * k;
+      w[j][k] = at >= 0 ? status[at * D + e] : 0;
+    }
+    stop = std::min(stop, lane_stop(w[j], j, rows));
+  }
+  bool found = false;
+  for (int j = 0; j < rows; ++j) {
+    *base += lane_sum(w[j], j, rows, stop);
+    found |= lane_prefix_at(w[j], j, rows, stop);
+  }
+  *done = found;
+  return stop + found;
+}
+
+// One launch over src's tiles; `order` seeds the order in which the tiles
+// look back (0: ticket order).  Returns 0, or 1 for too many tiles, 2 for
+// a look-back that met an unpublished status.
+template <class Src>
+static int emulate(const Src& src, int D, uint32_t* const* out, int64_t cap, uint32_t* ovf,
+                   int64_t ovf_cap, uint64_t* tally, int tally_at, uint64_t* scratch,
+                   unsigned order, int head) {
+  constexpr int C = Src::kCols;
+  const int N = src.N, bits = dest_bits(D);
+  const int64_t n_tiles = src.tiles();
+  if (n_tiles > kMaxTiles) return 1;
+  uint64_t* status = scratch + kScratchHead;
+  uint32_t heads[kMaxDests] = {}, start[kMaxDests + 1] = {};
+  for (int d = 0; d < D; ++d) heads[d] = src.head_rows(d);
+  block_starts(heads, D, start);
+  const int64_t lanes = src.lanes(start), last = last_tile(lanes);
+  struct Tile {
+    int64_t t;
+    bool idle;  // past the last tile that holds a lane
+    uint32_t woff[kRouteWarps][kMaxDests];
+    DestRun run[kMaxDests];
+    std::vector<uint32_t> stage;
+  };
+  std::vector<Tile> tiles(n_tiles);
+  for (Tile& tl : tiles) {  // in ticket order: rank, publish, stage
+    const int64_t t = tl.t = (int64_t)scratch[0]++;
+    const int live = tile_live(lanes, t);
+    tl.idle = t > last;
+    if (tl.idle) continue;
+    std::vector<int> dest(kTileLanes);
+    std::vector<uint32_t> col((size_t)kTileLanes * C), rank(kTileLanes);
+    for (int w = 0; w < kRouteWarps; ++w) {
+      uint32_t run[32] = {};
+      for (int i = 0; i < kRouteItems; ++i) {
+        uint32_t valid = 0, ballot[kDestBits] = {};
+        for (int lane = 0; lane < 32; ++lane) {
+          const int j = item_lane(w, i, lane);
+          int d = D;
+          if (j < live) {
+            typename Src::Raw raw = src.fetch(t * kTileLanes + j, start);
+            src.fetch2(raw);
+            d = src.dest(raw, D);
+            if (d < D) src.columns(raw, d, &col[(size_t)j * C]);
+          }
+          dest[j] = d;
+          valid |= (uint32_t)(d < D) << lane;
+          for (int b = 0; b < bits; ++b) ballot[b] |= (uint32_t)(d >> b & 1) << lane;
+        }
+        for (int lane = 0; lane < 32; ++lane) {
+          const int j = item_lane(w, i, lane);
+          rank[j] = run[dest[j] & 31] +
+                    popc32(dest_mask(valid, ballot, bits, dest[j]) & ((1u << lane) - 1u));
+        }
+        for (int lane = 0; lane < D; ++lane)
+          run[lane] += popc32(dest_mask(valid, ballot, bits, lane));
+      }
+      for (int e = 0; e < kMaxDests; ++e) tl.woff[w][e] = e < D ? run[e] : 0;
+    }
+    for (int e = 0; e < D; ++e) {
+      tl.run[e].tot = warp_offsets(tl.woff, e);
+      status[t * D + e] = status_word(t == 0 ? kStatusPrefix : kStatusAggregate, tl.run[e].tot);
+    }
+    for (int e = 0; e < D; ++e) {
+      tl.run[e].soff = tot_before(tl.run, e);
+      for (int w = 0; w < kRouteWarps; ++w) tl.woff[w][e] += tl.run[e].soff;
+    }
+    tl.stage.assign(stage_words(N, C), 0);
+    uint32_t* cols = tl.stage.data() + (size_t)kTileLanes * N;
+    for (int j = 0; j < live; ++j) {
+      if (dest[j] >= D) continue;
+      const uint32_t pos = tl.woff[j / (32 * kRouteItems)][dest[j]] + rank[j];
+      for (int c = 0; c < C; ++c) cols[c * kTileLanes + pos] = col[(size_t)j * C + c];
+      const uint32_t* row = src.ctx_row(t * kTileLanes + j, start);
+      for (int q = 0; q < N; ++q) tl.stage[(size_t)pos * N + q] = row[q];
+    }
+  }
+  std::vector<int64_t> turn(n_tiles);
+  std::iota(turn.begin(), turn.end(), 0);
+  if (order) std::shuffle(turn.begin(), turn.end(), std::mt19937(order));
+  for (int64_t k : turn) {  // look back, place the overflow, write, finish
+    Tile& tl = tiles[k];
+    const int64_t t = tl.t;
+    for (int e = 0; e < D && !tl.idle; ++e) {
+      uint32_t base = 0;
+      bool done = t == 0;
+      int64_t next = t - 1;
+      while (!done) {
+        const int took = look_back_window(status, D, e, next, &base, &done);
+        if (!took) return 2;
+        next -= took;
+      }
+      if (t > 0) status[t * D + e] = status_word(kStatusPrefix, base + tl.run[e].tot);
+      set_base(tl.run[e], base, cap);
+    }
+    const uint64_t q0 = tally[0];
+    tally[0] += tl.idle ? 0 : tot_before(tl.run, D, true);
+    for (int e = 0; e < D && !tl.idle; ++e) {
+      DestRun& r = tl.run[e];
+      r.ovf_at = (int64_t)q0 + tot_before(tl.run, e, true);
+      if (t == last) {
+        const int64_t total = (int64_t)r.base + r.tot;
+        out[e][0] = (uint32_t)(total < cap ? total : cap);
+        tally[tally_at + e] += out[e][0];
+      }
+      const uint32_t* cols = tl.stage.data() + (size_t)kTileLanes * N;
+      for (int kind = 0; kind < run_kinds(C); ++kind) {
+        const Run w = tile_run<C>(kind, r, out[e] + head, tl.stage.data(), cols, N, cap, ovf,
+                                  ovf_cap);
+        for (int lane = 0; lane < 32; ++lane) write_run(w.dst, w.src, w.n, lane, 32);
+      }
+    }
+    if (++scratch[1] == (uint64_t)n_tiles) {
+      for (int64_t q = 0; q < (last + 1) * D; ++q) status[q] = 0;
+      scratch[0] = scratch[1] = 0;
+    }
+  }
+  return 0;
+}
+
+extern "C" int emulate_pack(const uint32_t* hx, const uint32_t* ctx, const uint32_t* cnt,
+                            int64_t B, int wc, uint64_t size_bits, uint32_t wps, int D,
+                            uint32_t* const* out, int64_t cap, uint32_t* ovf, int64_t ovf_cap,
+                            uint64_t* tally, uint64_t* scratch, unsigned order, int head) {
+  const PackLanes src{hx, ctx, cnt, B, wps, size_bits, wc};
+  return emulate(src, D, out, cap, ovf, ovf_cap, tally, 1, scratch, order, head);
+}
+
+extern "C" int emulate_probe(const uint32_t* in, int64_t cap_in, int wc,
+                             const uint32_t* ctx_words, int D, uint32_t* const* out,
+                             int64_t cap, uint32_t* ovf, int64_t ovf_cap, uint64_t* tally,
+                             uint64_t* scratch, unsigned order, int head, int hop1_cols) {
+  const ProbeLanes src{in, ctx_words, cap_in, head + cap_in * (wc + hop1_cols), head, wc, D};
+  return emulate(src, D, out, cap, ovf, ovf_cap, tally, 1 + D, scratch, order, head);
+}
+
+// One look-back step over `statuses` (n of them, nearest first: tile
+// n - 1 down to tile 0) as destination 0 of D.
+extern "C" int look_back(const uint64_t* statuses, int64_t n, int D, uint32_t* sum, int* done) {
+  std::vector<uint64_t> status((size_t)n * D);
+  for (int64_t q = 0; q < n; ++q) status[(size_t)(n - 1 - q) * D] = statuses[q];
+  bool d = false;
+  const int took = look_back_window(status.data(), D, 0, n - 1, sum, &d);
+  *done = d;
+  return took;
+}
+
+extern "C" void write_words(uint32_t* dst, const uint32_t* src, int64_t n, int width) {
+  for (int lane = 0; lane < width; ++lane) write_run(dst, src, n, lane, width);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def tiles_cxx(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++")
+    d = tmp_path_factory.mktemp("route_tiles")
+    (d / "tiles.cpp").write_text(HARNESS_CXX)
+    subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall", "-Werror",
+                    "-Wno-unknown-pragmas", f"-I{CSRC}", "-o", str(d / "tiles.so"),
+                    str(d / "tiles.cpp")], check=True)
+    lib = ctypes.CDLL(str(d / "tiles.so"))
+    p, i, i64, u32, u64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32,
+                           ctypes.c_uint64)
+    lib.emulate_pack.argtypes = [p, p, p, i64, i, u64, u32, i, p, i64, p, i64, p, p,
+                                 ctypes.c_uint, i]
+    lib.emulate_probe.argtypes = [p, i64, i, p, i, p, i64, p, i64, p, p, ctypes.c_uint, i, i]
+    lib.look_back.argtypes = [p, i64, i, p, p]
+    lib.write_words.argtypes = [p, p, i64, i]
+    return lib
+
+
+WC = 3
+T = 2048  # route.cuh kTileLanes, checked by test_tile_constants
+
+
+def test_tile_constants(tiles_cxx):
+    """The tile size these tests cut their cases by, the lanes a launch
+    takes (ops/kernels.py ROUTE_MAX_LANES), and the scratch the wrapper
+    makes: a ticket, a count of finished tiles and a status per tile and
+    destination (ops/kernels.py route_scratch asks the kernel library,
+    whose malva_route_scratch_words is kScratchHead + kMaxTiles * D)."""
+    assert tiles_cxx.tile_lanes() == T
+    assert tiles_cxx.scratch_head() == 2 and tiles_cxx.max_tiles() == 1 << 16
+    assert T * tiles_cxx.max_tiles() == kernels.ROUTE_MAX_LANES
+    route_cu = open(os.path.join(CSRC, "route.cu")).read()
+    assert "return kScratchHead + (int64_t)kMaxTiles * D;" in route_cu
+
+
+def _pointers(arrays):
+    return (ctypes.c_void_p * len(arrays))(*[a.ctypes.data for a in arrays])
+
+
+def _scratch(lib, D):
+    return np.zeros(lib.scratch_head() + lib.max_tiles() * D, np.uint64)
+
+
+def _u32(a):
+    return np.ascontiguousarray(np.asarray(a, np.int64).astype(np.uint32))
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32).copy())
+
+
+def _ovf_rows(ovf, n, ovf_cap):
+    """The rows an overflow list holds (the first min(n, ovf_cap)), sorted."""
+    o = np.asarray(ovf).view(np.int32)
+    k = min(n, ovf_cap)
+    r = np.concatenate([o[: ovf_cap * WC].reshape(ovf_cap, WC)[:k], o[ovf_cap * WC :][:k, None]],
+                       axis=1)
+    return r[np.lexsort(r.T[::-1])]
+
+
+def _same_route(blocks, ovf, tally, want_blocks, want_ovf, want_tally, ovf_cap, spilled=None):
+    """Blocks and tallies bit for bit; overflow lists as sorted rows (the
+    emulated atomics land in the seeded order).  Where more rows spilled
+    than the list holds, the list holds ovf_cap of ``spilled`` (all the
+    rows that spilled, from a list with room)."""
+    for got, want in zip(blocks, want_blocks):
+        np.testing.assert_array_equal(got.view(np.int32), want.numpy())
+    np.testing.assert_array_equal(tally.view(np.int64), want_tally.numpy())
+    n = int(want_tally[0])
+    got = _ovf_rows(ovf, n, ovf_cap)
+    if n <= ovf_cap:
+        np.testing.assert_array_equal(got, _ovf_rows(want_ovf.numpy(), n, ovf_cap))
+    else:
+        rows = {tuple(r) for r in spilled}
+        assert len(spilled) == n and all(tuple(r) in rows for r in got)
+        assert len({tuple(r) for r in got}) == len(np.unique(got, axis=0))
+
+
+def _pack_inputs(rng, n, D, case):
+    """A source slice of n lanes (JAX's capacity for it) whose context
+    words go to owners as ``case`` says; a tenth of the counters zero.
+    D = 3 at 3 * 2^33 bits (the index's n_gib rule), else 2^20 bits."""
+    size_bits = 3 << 33 if D == 3 else 1 << 20
+    wps = size_bits // 32 // D
+    dest = owners(rng, n, D, case)
+    cw = dest * wps + rng.integers(0, wps, n)
+    bw = owners(rng, n, D, "spread") * wps + rng.integers(0, wps, n)
+    x_hi, x_lo = hash_words(rng, cw, size_bits)
+    c_hi, c_lo = hash_words(rng, bw, size_bits)
+    counters = np.where(rng.random(n) < 0.1, 0, rng.integers(1, 1 << 32, n))
+    hx = _u32(np.stack([x_hi, x_lo, c_hi, c_lo]).reshape(4, n))
+    ctx = _u32(rng.integers(0, 1 << 32, (n, WC)))
+    return hx, ctx, _u32(counters), size_bits, wps, dest, cw, bw
+
+
+def _run_pack(lib, hx, ctx, counters, size_bits, wps, D, cap, ovf_cap, order, scratch,
+              blocks=None, ovf=None, tally=None):
+    n = counters.shape[0]
+    w = slot_words(cap, WC, HOP1_COLS)
+    blocks = [np.zeros(w, np.uint32) for _ in range(D)] if blocks is None else blocks
+    ovf = np.zeros(ovf_cap * (WC + 1), np.uint32) if ovf is None else ovf
+    tally = np.zeros(1 + 2 * D, np.uint64) if tally is None else tally
+    err = lib.emulate_pack(hx.ctypes.data, ctx.ctypes.data, counters.ctypes.data, n, WC,
+                           size_bits, wps, D, _pointers(blocks), cap, ovf.ctypes.data, ovf_cap,
+                           tally.ctypes.data, scratch.ctypes.data, order, SLOT_HEAD)
+    assert err == 0
+    return blocks, ovf, tally
+
+
+def _plain_pack(hx, ctx, counters, size_bits, wps, D, cap, ovf_cap, blocks=None, ovf=None,
+                tally=None):
+    w = slot_words(cap, WC, HOP1_COLS)
+    blocks = [torch.zeros(w, dtype=torch.int32) for _ in range(D)] if blocks is None else blocks
+    ovf = torch.zeros(ovf_cap * (WC + 1), dtype=torch.int32) if ovf is None else ovf
+    tally = torch.zeros(1 + 2 * D, dtype=torch.int64) if tally is None else tally
+    kernels.route_pack_plain(_t(hx), _t(ctx), _t(counters), blocks, ovf, tally,
+                             size_bits=size_bits, wps=wps, cap=cap)
+    return blocks, ovf, tally
+
+
+def _check_pack(lib, rng, n, D, case, order, cap=None):
+    hx, ctx, counters, size_bits, wps, dest, cw, bw = _pack_inputs(rng, n, D, case)
+    cap = kernels_capacity(n, D) if cap is None else cap
+    ovf_cap = n + 1
+    scratch = _scratch(lib, D)
+    got = _run_pack(lib, hx, ctx, counters, size_bits, wps, D, cap, ovf_cap, order, scratch)
+    want = _plain_pack(hx, ctx, counters, size_bits, wps, D, cap, ovf_cap)
+    _same_route(*got, *want, ovf_cap)
+    assert not scratch.any()  # the last tile to finish reset it
+    # and through the plain version, numpy's pack_dests
+    payload = np.concatenate([ctx.astype(np.int64),
+                              np.stack([counters, cw - dest * wps, hx[1] & 31, bw // wps], 1)],
+                             axis=1)
+    slots, counts, over = np_pack_dests(dest, payload, counters > 0, D, cap)
+    for d in range(D):
+        b = got[0][d].astype(np.int64)
+        assert b[0] == counts[d]
+        rows = np.concatenate([b[SLOT_HEAD : SLOT_HEAD + cap * WC].reshape(cap, WC),
+                               b[SLOT_HEAD + cap * WC :].reshape(HOP1_COLS, cap).T], axis=1)
+        np.testing.assert_array_equal(rows, slots[d * cap : (d + 1) * cap])
+    assert int(got[2][0]) == over.shape[0]
+    return over.shape[0]
+
+
+def kernels_capacity(n, D):
+    from malva_tpu_torch.parallel.sharded_index import capacity
+
+    return capacity(n, D)
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("D", [1, 2, 3, 8, 16])
+def test_pack_tiles_match_plain(tiles_cxx, D, case):
+    """K6's emulated launch over 5 tiles and a lane (JAX's capacity; the
+    clumped and one-owner cases overflow it) equals route_pack_plain and
+    numpy's pack_dests, with the tiles looking back in a shuffled order."""
+    rng = np.random.default_rng(1000 + 10 * D + CASES.index(case))
+    n = 0 if case == "empty" else 5 * T + 1
+    spilled = _check_pack(tiles_cxx, rng, n, D, case, order=7 + D)
+    if case == "one" and D > 2:
+        assert spilled > 0
+
+
+@pytest.mark.parametrize("n", [0, 1, T - 1, T, 9 * T + 1])
+@pytest.mark.parametrize("D", [1, 4, 16])
+def test_pack_tile_edges(tiles_cxx, n, D):
+    """K6 from no lane to many tiles and a lane, at D = 1, 4 and 16, with
+    a capacity of a third of the lanes and a small overflow list: rows
+    past cap spill, and past the list's room are counted but dropped."""
+    rng = np.random.default_rng(2000 + n + D)
+    hx, ctx, counters, size_bits, wps, *_ = _pack_inputs(rng, n, D, "clumped")
+    cap, ovf_cap = max(1, n // 3), max(1, n // 8)
+    want = _plain_pack(hx, ctx, counters, size_bits, wps, D, cap, ovf_cap)
+    roomy = _plain_pack(hx, ctx, counters, size_bits, wps, D, cap, n + 1)
+    spilled = _ovf_rows(roomy[1].numpy(), int(roomy[2][0]), n + 1)
+    if n > T:
+        assert int(want[2][0]) > ovf_cap  # the list overflows
+    for order in (0, 99):
+        scratch = _scratch(tiles_cxx, D)
+        got = _run_pack(tiles_cxx, hx, ctx, counters, size_bits, wps, D, cap, ovf_cap, order,
+                        scratch)
+        _same_route(*got, *want, ovf_cap, spilled)
+        assert not scratch.any()
+
+
+@pytest.mark.parametrize("D", [2, 16])
+def test_two_launches_on_one_scratch(tiles_cxx, D):
+    """Two launches of K6 (the second over a longer slice, into the same
+    blocks, list and tally) and then one of K7, all on one scratch: each
+    leaves it zeroed, and the blocks, list and tally equal the plain
+    versions' after the same calls."""
+    rng = np.random.default_rng(3000 + D)
+    scratch = _scratch(tiles_cxx, D)
+    cap, ovf_cap = 3 * T // D, 16 * T
+    blocks = ovf = tally = None
+    want = (None, None, None)
+    for n in (3 * T + 5, 4 * T + 17):
+        hx, ctx, counters, size_bits, wps, *_ = _pack_inputs(rng, n, D, "clumped")
+        blocks, ovf, tally = _run_pack(tiles_cxx, hx, ctx, counters, size_bits, wps, D, cap,
+                                       ovf_cap, 5, scratch, blocks, ovf, tally)
+        want = _plain_pack(hx, ctx, counters, size_bits, wps, D, cap, ovf_cap, *want)
+        assert not scratch.any()
+        _same_route(blocks, ovf, tally, *want, ovf_cap)
+    assert tally[0] > 0
+    received, ctx_words, cap_in = _probe_inputs(rng, D, "spread", 2 * T + 3)
+    got = _run_probe(tiles_cxx, received, ctx_words, D, cap_in, cap, ovf_cap, 11, scratch)
+    plain = _plain_probe(received, ctx_words, D, cap_in, cap, ovf_cap)
+    _same_route(*got, *plain, ovf_cap)
+    assert not scratch.any()
+
+
+def _probe_inputs(rng, D, case, cap_in):
+    """D received hop-1 blocks of cap_in rows: each full, empty or part
+    full at random (one full at least unless empty), stale rows past the
+    counts, owners as ``case`` says."""
+    n_ctx_words = 5000
+    ctx_words = rng.integers(0, 1 << 32, n_ctx_words)
+    fill = [0 if case == "empty" else
+            int(rng.choice([0, cap_in, rng.integers(1, max(2, cap_in))])) for _ in range(D)]
+    if case != "empty" and max(fill) == 0:
+        fill[0] = cap_in
+    w1 = slot_words(cap_in, WC, HOP1_COLS)
+    received = np.zeros(D * w1, np.int64)
+    for b in range(D):
+        rows = np.concatenate([rng.integers(0, 1 << 32, (cap_in, WC + 1)),
+                               rng.integers(0, n_ctx_words, (cap_in, 1)),
+                               rng.integers(0, 32, (cap_in, 1)),
+                               owners(rng, cap_in, D, "spread" if case == "empty" else case)
+                               [:, None]], axis=1)
+        blk = received[b * w1 : (b + 1) * w1]
+        blk[0] = fill[b]
+        blk[SLOT_HEAD : SLOT_HEAD + cap_in * WC] = rows[:, :WC].reshape(-1)
+        blk[SLOT_HEAD + cap_in * WC :] = rows[:, WC:].T.reshape(-1)
+    return _u32(received), _u32(ctx_words), cap_in
+
+
+def _run_probe(lib, received, ctx_words, D, cap_in, cap, ovf_cap, order, scratch):
+    blocks = [np.zeros(slot_words(cap, WC, HOP2_COLS), np.uint32) for _ in range(D)]
+    ovf = np.zeros(ovf_cap * (WC + 1), np.uint32)
+    tally = np.zeros(1 + 2 * D, np.uint64)
+    err = lib.emulate_probe(received.ctypes.data, cap_in, WC, ctx_words.ctypes.data, D,
+                            _pointers(blocks), cap, ovf.ctypes.data, ovf_cap, tally.ctypes.data,
+                            scratch.ctypes.data, order, SLOT_HEAD, HOP1_COLS)
+    assert err == 0
+    return blocks, ovf, tally
+
+
+def _plain_probe(received, ctx_words, D, cap_in, cap, ovf_cap):
+    blocks = [torch.zeros(slot_words(cap, WC, HOP2_COLS), dtype=torch.int32) for _ in range(D)]
+    ovf = torch.zeros(ovf_cap * (WC + 1), dtype=torch.int32)
+    tally = torch.zeros(1 + 2 * D, dtype=torch.int64)
+    kernels.route_probe_plain(_t(received), _t(ctx_words), blocks, ovf, tally, wc=WC,
+                              cap_in=cap_in, cap=cap)
+    return blocks, ovf, tally
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("D", [1, 2, 3, 8, 16])
+def test_probe_tiles_match_plain(tiles_cxx, D, case):
+    """K7's emulated launch over D received blocks of 2 tiles and a row
+    each, part full at random (a launch's lanes are the live rows, block
+    after block, so a tile can span the end of one block and the start of
+    the next, and the tiles past them do nothing) equals route_probe_plain,
+    and through it numpy's pack_dests of the live rows by Bloom-word owner,
+    with the context-filter bit."""
+    rng = np.random.default_rng(4000 + 10 * D + CASES.index(case))
+    cap_in = 2 * T + 1
+    received, ctx_words, _ = _probe_inputs(rng, D, case, cap_in)
+    cap = kernels_capacity(cap_in, D)
+    ovf_cap = D * cap_in
+    scratch = _scratch(tiles_cxx, D)
+    got = _run_probe(tiles_cxx, received, ctx_words, D, cap_in, cap, ovf_cap, 3 + D, scratch)
+    want = _plain_probe(received, ctx_words, D, cap_in, cap, ovf_cap)
+    _same_route(*got, *want, ovf_cap)
+    assert not scratch.any()
+    w1 = slot_words(cap_in, WC, HOP1_COLS)
+    live = []
+    for b in range(D):
+        blk = received[b * w1 : (b + 1) * w1].astype(np.int64)
+        rows = np.concatenate([blk[SLOT_HEAD : SLOT_HEAD + cap_in * WC].reshape(cap_in, WC),
+                               blk[SLOT_HEAD + cap_in * WC :].reshape(HOP1_COLS, cap_in).T], 1)
+        live.append(rows[: blk[0]])
+    live = np.concatenate(live)
+    known = (ctx_words.astype(np.int64)[live[:, WC + 1]] >> live[:, WC + 2]) & 1
+    payload = np.concatenate([live[:, : WC + 1], known[:, None]], axis=1)
+    slots, counts, over = np_pack_dests(live[:, WC + 3], payload, np.ones(len(live), bool), D,
+                                        cap)
+    for d in range(D):
+        b = got[0][d].astype(np.int64)
+        assert b[0] == counts[d]
+        rows = np.concatenate([b[SLOT_HEAD : SLOT_HEAD + cap * WC].reshape(cap, WC),
+                               b[SLOT_HEAD + cap * WC :].reshape(HOP2_COLS, cap).T], axis=1)
+        np.testing.assert_array_equal(rows, slots[d * cap : (d + 1) * cap])
+    assert int(got[2][0]) == over.shape[0]
+
+
+@pytest.mark.parametrize("cap_in", [1, T - 1, T, 3 * T + 1])
+def test_probe_block_edges(tiles_cxx, cap_in):
+    """K7 over 4 blocks of 1 row up to 3 tiles and a row, with a small
+    slot capacity and overflow list."""
+    rng = np.random.default_rng(5000 + cap_in)
+    D = 4
+    received, ctx_words, _ = _probe_inputs(rng, D, "clumped", cap_in)
+    cap, ovf_cap = max(1, cap_in // 2), D * cap_in
+    for order in (0, 13):
+        scratch = _scratch(tiles_cxx, D)
+        got = _run_probe(tiles_cxx, received, ctx_words, D, cap_in, cap, ovf_cap, order, scratch)
+        want = _plain_probe(received, ctx_words, D, cap_in, cap, ovf_cap)
+        _same_route(*got, *want, ovf_cap)
+        assert not scratch.any()
+
+
+AGG, PRE = 1 << 62, 2 << 62
+
+
+def _look_back_reference(statuses, width):
+    """A look-back step read one status after another, nearest first, over
+    the first ``width``: (taken, sum mod 2^32, done)."""
+    total = 0
+    for q, st in enumerate(statuses[:width]):
+        flag = st >> 62
+        if flag == 0:
+            return q, total, False
+        total = (total + (st & 0xFFFFFFFF)) & 0xFFFFFFFF
+        if flag == 2:
+            return q + 1, total, True
+    return min(width, len(statuses)), total, False
+
+
+@pytest.mark.parametrize("D", [1, 3, 4, 16])
+@pytest.mark.parametrize("kind", ["prefix", "unpublished", "aggregates", "wrap", "edges"])
+def test_look_back_window(tiles_cxx, D, kind):
+    """A warp's look-back step (a window of 16 x 32 / D' tiles, D' = D
+    rounded up to a power of two, each lane its share, the stop and the
+    sums reduced over the lanes) equals reading the statuses one after
+    another: aggregates summed up to the first inclusive prefix (then
+    done), a stop before an unpublished status, a whole window of
+    aggregates taken; counts wrap at 2^32 as the device's do."""
+    width = 16 * (32 // (1 << (D - 1).bit_length()))
+    rng = np.random.default_rng(D * 7 + len(kind))
+    for _ in range(40):
+        n = int(rng.integers(1, 3 * width))
+        counts = rng.integers(0, 1 << 32 if kind == "wrap" else 1000, n).astype(np.uint64)
+        flags = np.full(n, 1, np.uint64)
+        if kind in ("prefix", "wrap"):
+            flags[rng.integers(0, n)] = 2
+        elif kind == "unpublished":
+            flags[rng.integers(0, n)] = 0
+            flags[rng.integers(0, n)] = 2
+        elif kind == "edges":
+            flags[min(n - 1, width - 1 + int(rng.integers(0, 2)))] = 2
+        flags[-1] = 2  # tile 0 always holds its prefix
+        statuses = (flags << np.uint64(62)) | counts
+        total, done = ctypes.c_uint32(0), ctypes.c_int(0)
+        took = tiles_cxx.look_back(statuses.ctypes.data, n, D, ctypes.byref(total),
+                                   ctypes.byref(done))
+        assert (took, total.value, bool(done.value)) == _look_back_reference(
+            [int(x) for x in statuses], width)
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 37, 128, 1001])
+@pytest.mark.parametrize("shift", [0, 1, 2, 3])
+def test_write_run(tiles_cxx, n, shift):
+    """A run of n words written by a warp to a destination at each
+    alignment mod 16 bytes (16-byte stores in the middle) lands whole and
+    touches nothing around it."""
+    rng = np.random.default_rng(n * 4 + shift)
+    src = _u32(rng.integers(0, 1 << 32, n + 1))
+    dst = np.zeros(n + 12, np.uint32)
+    at = (-(dst.ctypes.data // 4) + shift) % 4  # dst + at: `shift` words past a 16-byte boundary
+    tiles_cxx.write_words(dst.ctypes.data + 4 * at, src.ctypes.data, n, 32)
+    np.testing.assert_array_equal(dst[at : at + n], src[:n])
+    assert not dst[:at].any() and not dst[at + n :].any()

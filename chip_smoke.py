@@ -13,7 +13,7 @@
 2. Builds the CUDA kernels from ``malva_tpu_torch/csrc`` with nvcc, one
    process per source, always anew, and fails unless ptxas reports a
    0-byte stack frame and no spill store or load for every instantiation
-   of K1-K7 (K4's slot entry included).
+   of K1-K9 (K4's slot entry included).
 3. Holds each kernel against its plain PyTorch version on the card, at
    the main path's shapes, with zero tolerance (integer hashing, keys and
    counters are exact): K1 hash-only on 2^21 packed contexts and K1 fused
@@ -38,7 +38,17 @@
    case launched twice on one scratch, which each launch must leave
    zeroed (with ``--parent DIR``, the kernels of the checkout at DIR, built
    from its sources, are timed in turns with this one's on the same
-   inputs); K3 on a
+   inputs), with torch's gather of the Bloom rows K4's slot entry reads
+   timed beside it; the sharded context scan's K8 (scan_pack: K2's codes,
+   then their partition by owner into slot blocks) on each of 4 slices of
+   2^20 positions of a reference-shaped contig and K9 (scan_set) on each
+   owner over the blocks written for it (codes, blocks, tallies and
+   context words bit-identical), then K8's partition alone at D = 1, 3, 4
+   and 16 with hits spread, clumped, on one owner and none, from 1 to 2^22
+   codes, with slots that overflow, each case launched twice on one
+   scratch; then the scan alone on a 2^28-position contig, the one-card
+   scan against the sharded scan on 4 virtual shards, in turns (equal
+   words, no host read in the chunks); K3 on a
    2^25-window read chunk (reads joined
    by 0xFF, with N, lowercase and reads shorter than ref_k) and on a
    short ragged chunk at each ref_k of
@@ -91,8 +101,9 @@
    ``run --backend cuda`` with every card visible (the default route
    shards over all of them), under ``CUDA_VISIBLE_DEVICES=0`` and, with
    three cards or more, on the first two, each in its own process (``malva_tpu_torch/tools/multicard_run.py run_once``):
-   both VCFs equal to the host run's, the walls, phases and the sharded
-   path's scan, step and card start-up lines printed.  On one card it
+   both VCFs equal to the host run's, the sharded context scan's line with
+   no host read in its chunks, the walls, phases and the sharded path's
+   scan, step and card start-up lines printed.  On one card it
    logs one line saying the leg needs two.  This process itself keeps to
    the first card there (``CUDA_VISIBLE_DEVICES`` set before CUDA starts),
    so that every other leg runs as on a one-card host.
@@ -380,9 +391,11 @@ def kernel_phase(device, parent=None) -> list[dict]:
     k4 = shard_update_check(ix, device, peak)
     k5 = gather_update_check(ix, device, peak)
     route = route_check(ix, device, peak, parent)
+    scan = scan_check(ix, device, peak)
+    scan[0]["scan_alone"] = scan_alone(ix)
     results[0]["event_probe"] = event_timing_probe(ix, device)
     del ix
-    results += [seq_count_check(device, peak), k4, k5, *route]
+    results += [seq_count_check(device, peak), k4, k5, *route, *scan]
     return results
 
 
@@ -769,6 +782,7 @@ def route_check(ix: dict, device, peak: float, parent=None) -> list[dict]:
 
     from malva_tpu_torch.ops import kernels
     from malva_tpu_torch.ops.kernels import HOP1_COLS, HOP2_COLS, SLOT_HEAD, slot_words
+    from malva_tpu_torch.ops.xxh3 import xxh3_mod_size
     from malva_tpu_torch.parallel.sharded_index import capacity
 
     D, wc = SHARDS, (REF_K + 15) // 16
@@ -861,6 +875,15 @@ def route_check(ix: dict, device, peak: float, parent=None) -> list[dict]:
     ab = route_ab(parent, a6, k6, a7, k7, device) if parent is not None else None
     ms4 = cuda_ms(lambda: kernels.shard_update_slots(rows, kmap_keys, state, slots, **args),
                   iters=20)
+    # the random reads alone: torch's gather of the Bloom rows the slot
+    # entry reads, those of its live rows' centres
+    live = torch.cat([kernels.slot_rows(b, cap, wc, HOP2_COLS) for b in slots.view(D, w2)])
+    c_hi, c_lo = kernels.callstep_hash(live[:, :wc].contiguous(), K, REF_K, False)[:2]
+    read = xxh3_mod_size(c_hi, c_lo, SIZE_BITS)[0]
+    if int((read >= wps).sum()):
+        raise AssertionError("K4 slot check: a hop-2 row of shard 0 has another shard's word")
+    gather4 = cuda_ms(lambda: rows.index_select(0, read), iters=20)
+    del live, c_hi, c_lo
     plain4 = cuda_ms(lambda: kernels.shard_update_slots_plain(rows, kmap_keys, state, slots,
                                                               **args), iters=3, warmup=1)
     # K6 per lane: its four hash words, context (12 B) and counter (4 B);
@@ -876,7 +899,8 @@ def route_check(ix: dict, device, peak: float, parent=None) -> list[dict]:
     for name, ms, b in (("K6", ms6, b6), ("K7", ms7, b7), ("K4 slots", ms4, b4)):
         log(f"{name} {ms:.4f} ms (bound {b[0]:.4f} ms, {b[1]}; {b[0] / ms:.1%} of the bound)")
     log(f"plain versions: K6 {plain6:.4f} ms, K7 {plain7:.4f} ms, K4 slots {plain4:.4f} ms; "
-        f"K7 with its context-filter reads inside 1 MiB {ms7_near:.4f} ms")
+        f"K7 with its context-filter reads inside 1 MiB {ms7_near:.4f} ms; torch's gather of "
+        f"the Bloom rows K4's slot entry reads {gather4:.4f} ms")
     if ab:
         for name, t in ab.items():
             log(f"{name} in turns with the parent's, ms: parent {t['parent']}, this "
@@ -900,7 +924,7 @@ def route_check(ix: dict, device, peak: float, parent=None) -> list[dict]:
          "replaces": "malva_tpu/parallel/sharded_index.py:398 (XLA, no Pallas counterpart; "
                      "K4's slot entry)", "max_abs_err": err4, "ms": ms4, "plain_ms": plain4,
          "bound_ms": b4[0], "bound_by": b4[1], "lanes": D * cap, "rows_live": hop2_live,
-         **common}]
+         "gather_ms": gather4, **common}]
 
 
 def route_ab(parent, a6: tuple, k6: dict, a7: tuple, k7: dict, device) -> dict:
@@ -944,6 +968,282 @@ def route_ab(parent, a6: tuple, k6: dict, a7: tuple, k7: dict, device) -> dict:
         for l in (parent, lib, lib, parent) * 2:
             t["parent" if l is parent else "change"].append(cuda_ms(lambda: fn(l), iters=20))
     return out
+
+
+SCAN_ALONE = 1 << 28  # positions of the scan-alone contig
+SCAN_DESTS = (1, 3, 4, 16)
+SCAN_OWNERS = ("spread", "clumped", "one", "none")
+# codes of a case: its slot rows (None: a third of a uniform share, so that rows spill)
+SCAN_CASE_CODES = {1: 1, 2049: 2049, 1 << 22: None}
+
+
+def scan_rows(overflow, n: int, W: int):
+    """The first n rows of a scan overflow list ([W planes | owner plane]),
+    sorted, on its device (the kernel appends them in the order its
+    atomics land)."""
+    import torch
+
+    rows = overflow.view(W + 1, -1)[:, :n].t()
+    for c in reversed(range(W + 1)):  # lexicographic: stable sorts from the last column
+        rows = rows[torch.sort(rows[:, c], stable=True)[1]]
+    return rows
+
+
+def scan_case(D: int, case: str, n: int, gen, device) -> int:
+    """K8's partition (its second launch, ``malva_scan_route``, called
+    through the library) on n codes whose hits go to owners as ``case``
+    says (a fifth of the positions miss; "none": every one), launched twice
+    on one scratch into fresh buffers, beside ``scan_partition_plain``: the
+    slot blocks, headers and tallies bit-identical, the overflow lists
+    equal as sorted rows, the scratch left zeroed.  Rows of one word at
+    D = 3, 4 and 16 (2^33 bits, 3 x 2^33 at D = 3), of two at D = 1.
+    Returns the rows spilled."""
+    import torch
+
+    from malva_tpu_torch.ops import _build, kernels
+
+    size_bits = 3 << 33 if D == 3 else SIZE_BITS
+    wps = size_bits // 32 // D
+    W = kernels.scan_row_words(wps)
+    word = route_owners(gen, n, D, case, device) * wps + torch.randint(
+        0, wps, (n,), generator=gen, device=device)
+    codes = word * 32 + torch.randint(0, 32, (n,), generator=gen, device=device)
+    miss = torch.rand(n, generator=gen, device=device) < 0.2
+    codes[miss | (case == "none")] = -1
+    cap = SCAN_CASE_CODES[n] or max(1, n // (3 * D))
+    ovf_cap = n + 1
+
+    def buffers():
+        return ([torch.zeros(kernels.scan_slot_words(cap, W), dtype=torch.int32, device=device)
+                 for _ in range(D)],
+                torch.zeros(ovf_cap * (W + 1), dtype=torch.int32, device=device),
+                torch.zeros(1 + D, dtype=torch.int64, device=device))
+
+    want = buffers()
+    kernels.scan_partition_plain(codes, *want, wps=wps, cap=cap)
+    lib = _build.library()
+    scratch = kernels.route_scratch(device, D)
+    stream = torch.cuda.current_stream().cuda_stream
+    spilled = int(want[2][0])
+    for launch in (1, 2):
+        got = buffers()
+        err = lib.malva_scan_route(codes.data_ptr(), n, wps, W, D, kernels._pointers(got[0]), cap,
+                                   got[1].data_ptr(), ovf_cap, got[2].data_ptr(),
+                                   scratch.data_ptr(), stream)
+        torch.cuda.synchronize()
+        where = f"scan D={D} {case} {n} codes, cap {cap}, launch {launch}"
+        if err:
+            raise RuntimeError(f"{where}: CUDA error {err}")
+        try:
+            max_abs_err(got[0] + [got[2]], want[0] + [want[2]])
+        except AssertionError as e:
+            raise AssertionError(f"{where}: {e}") from None
+        if not torch.equal(scan_rows(got[1], spilled, W), scan_rows(want[1], spilled, W)):
+            raise AssertionError(f"{where}: the overflow list differs from the plain one")
+        if scratch.any():
+            raise AssertionError(f"{where}: the scratch was not left zeroed")
+    if case == "none" and int(want[2][1:].sum()):
+        raise AssertionError(f"scan D={D}: rows sent with no hit")
+    return spilled
+
+
+def scan_cases(device) -> int:
+    """K8's partition against its plain version at D in SCAN_DESTS, owners
+    in SCAN_OWNERS, over the codes of SCAN_CASE_CODES; each case launched
+    twice on one scratch."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    t0 = time.perf_counter()
+    n_cases = spilled = 0
+    for D in SCAN_DESTS:
+        for case in SCAN_OWNERS:
+            for n in SCAN_CASE_CODES:
+                spilled += scan_case(D, case, n, gen, device)
+                n_cases += 1
+    log(f"K8's partition == plain in {n_cases} cases (D {SCAN_DESTS}, owners {SCAN_OWNERS}, "
+        f"codes {tuple(SCAN_CASE_CODES)}), each launched twice on one scratch, left zeroed; "
+        f"{spilled} rows spilled ({time.perf_counter() - t0:.6g} s)")
+    if not spilled:
+        raise AssertionError("scan cases: no row spilled to an overflow list")
+    return n_cases
+
+
+def main_path_contig(n: int, seed: int) -> np.ndarray:
+    """n bytes shaped like the run's reference (uppercase ACGT, runs of N
+    and IUPAC codes at 1e-4), from a seed."""
+    rng = np.random.default_rng(seed)
+    seq = np.frombuffer(b"ACGT", dtype=np.uint8)[rng.integers(0, 4, n)]
+    for start in rng.integers(0, n, 4):
+        seq[start : start + int(rng.integers(n // 4000, n // 200))] = ord("N")
+    iupac = rng.random(n) < 1e-4
+    seq[iupac] = np.frombuffer(b"RYSWKMBDHV", dtype=np.uint8)[rng.integers(0, 10, int(iupac.sum()))]
+    return seq
+
+
+def scan_check(ix: dict, device, peak: float) -> list[dict]:
+    """K8 and K9 at the sharded scan's shapes: one chunk of SHARDS x CHUNK
+    positions of a contig shaped like the run's reference, on SHARDS
+    virtual shards of the card over the synthetic -b 1 index's alt words,
+    with the scan's slot capacity (``scan_capacity``): K8 (``scan_pack``)
+    on each shard's slice (its codes too) and K9 (``scan_set``) on each
+    owner over the blocks written for it, beside their plain versions on
+    the same inputs (bit-identical codes, blocks, tallies and context
+    words); then the K8 and K9 cases (``scan_cases``).  Timed with CUDA
+    events: K8 on slice 0, K9 on owner 0."""
+    import torch
+
+    from malva_tpu_torch.ops import _build, kernels
+    from malva_tpu_torch.parallel.sharded_index import scan_capacity
+
+    D, n = SHARDS, CHUNK
+    wps = SIZE_BITS // 32 // D
+    W = kernels.scan_row_words(wps)
+    cap = scan_capacity(n, D)
+    w = kernels.scan_slot_words(cap, W)
+    contig = torch.from_numpy(main_path_contig(D * n + REF_K - 1, 9)).to(device)
+    slices = [contig[s * n : (s + 1) * n + REF_K - 1] for s in range(D)]
+    bf_words = ix["bf_packed"][:, 0].contiguous()
+    kw = dict(k=K, ref_k=REF_K, size_bits=SIZE_BITS, wps=wps, cap=cap)
+
+    def buffers():
+        recv = [torch.zeros(D * w, dtype=torch.int32, device=device) for _ in range(D)]
+        out = [[recv[d][s * w : (s + 1) * w] for d in range(D)] for s in range(D)]
+        ovf = [torch.zeros(n * (W + 1), dtype=torch.int32, device=device) for _ in range(D)]
+        tally = [torch.zeros(1 + D, dtype=torch.int64, device=device) for _ in range(D)]
+        ctx = [torch.zeros(wps, dtype=torch.int32, device=device) for _ in range(D)]
+        return recv, out, ovf, tally, ctx
+
+    codes = torch.empty(n, dtype=torch.int64, device=device)
+    got, want = buffers(), buffers()
+    code_err = 0
+    for s, seq in enumerate(slices):
+        kernels.scan_pack(seq, n, bf_words, got[1][s], got[2][s], got[3][s], codes=codes, **kw)
+        kernels.scan_pack_plain(seq, n, bf_words, want[1][s], want[2][s], want[3][s], **kw)
+        torch.cuda.synchronize()
+        plain_codes = kernels.scan_codes_plain(seq, n, bf_words, k=K, ref_k=REF_K,
+                                               size_bits=SIZE_BITS)
+        code_err = max(code_err, max_abs_err([codes], [plain_codes]))
+    err8 = max(code_err, max_abs_err(got[0] + got[3], want[0] + want[3]))
+    for d in range(D):
+        kernels.scan_set(got[4][d], got[0][d], n_blocks=D, cap=cap, W=W)
+        kernels.scan_set_plain(want[4][d], want[0][d], n_blocks=D, cap=cap, W=W)
+    torch.cuda.synchronize()
+    err9 = max_abs_err(got[4], want[4])
+    t = [x.to("cpu") for x in got[3]]
+    hits0 = int(t[0][1:].sum())                 # rows slice 0 sent
+    live0 = int(sum(x[1] for x in t))           # rows owner 0 received
+    spilled = int(sum(x[0] for x in t))
+    n_set = int(sum((c != 0).sum() for c in got[4]))
+    if not live0 or not n_set:
+        raise AssertionError("K8/K9 check: no hit reached owner 0, or no context word set")
+    if spilled:
+        raise AssertionError(f"K8 check: {spilled} rows spilled at the scan's capacity {cap}")
+    log(f"K8/K9 == plain on {D} virtual shards ({n} positions a slice, cap {cap}, rows of "
+        f"{4 * W} bytes): slice 0 sent {hits0} hits, owner 0 received {live0}; {n_set} context "
+        f"words set")
+
+    # timing, into fresh buffers (the tallies only grow)
+    tb = buffers()
+    sc = kernels.route_scratch(device, D)
+    ms8 = cuda_ms(lambda: kernels.scan_pack(slices[0], n, bf_words, tb[1][0], tb[2][0], tb[3][0],
+                                            codes=codes, scratch=sc, **kw), iters=20)
+    plain8 = cuda_ms(lambda: kernels.scan_pack_plain(slices[0], n, bf_words, tb[1][0], tb[2][0],
+                                                     tb[3][0], **kw), iters=3, warmup=1)
+    # K8's first launch alone (K2's codes mode), through the library: the
+    # rest of K8's time is its partition
+    lib, stream = _build.library(), torch.cuda.current_stream().cuda_stream
+    codes8 = cuda_ms(lambda: lib.malva_scan_codes(slices[0].data_ptr(), n, K, REF_K,
+                                                  bf_words.data_ptr(), SIZE_BITS,
+                                                  codes.data_ptr(), stream), iters=20)
+    ms9 = cuda_ms(lambda: kernels.scan_set(tb[4][0], got[0][0], n_blocks=D, cap=cap, W=W),
+                  iters=20)
+    plain9 = cuda_ms(lambda: kernels.scan_set_plain(tb[4][0], got[0][0], n_blocks=D, cap=cap,
+                                                    W=W), iters=3, warmup=1)
+    # K8: the slice's bytes with the halo, one 32-byte sector of alt words a
+    # position, the slot rows written and the headers; K2's operations (the
+    # centre per position, the window per hit).  K9: the rows read and one
+    # 32-byte sector a row ORed, with the headers.
+    b8 = bound(n + REF_K - 1 + n * 32 + hits0 * 4 * W + D * 16,
+               n * (rolling_ops(K) + ascii_ops(K) + xxh3_ops(K) + 8)
+               + hits0 * (canonical_packed_ops(REF_K) + ascii_ops(REF_K) + xxh3_ops(REF_K) + 8),
+               peak)
+    b9 = bound(live0 * (4 * W + 32) + D * 16, live0 * 6, peak)
+    for name, ms, b, plain in (("K8", ms8, b8, plain8), ("K9", ms9, b9, plain9)):
+        log(f"{name} {ms:.4f} ms (bound {b[0]:.4f} ms, {b[1]}; {b[0] / ms:.1%} of the bound), "
+            f"plain {plain:.4f} ms")
+    log(f"K8's codes launch alone {codes8:.4f} ms, its partition the rest")
+    n_cases = scan_cases(device)
+    common = {"route": "cuda", "library_ms": None, "cap": cap, "shards": D, "row_bytes": 4 * W}
+    return [
+        {"name": "scan_pack", "source": "malva_tpu_torch/csrc/ref_scan.cu, "
+                                        "malva_tpu_torch/csrc/route.cu",
+         "replaces": "malva_tpu/ops/pallas_kernels.py:222 (pallas_call :273), K2's sharded "
+                     "entry, with the hits' all-gather of "
+                     "malva_tpu/parallel/sharded_index.py:567-569",
+         "max_abs_err": err8, "ms": ms8, "plain_ms": plain8, "bound_ms": b8[0],
+         "bound_by": b8[1], "positions": n, "hits": hits0, "codes_ms": codes8, "cases": n_cases,
+         **common},
+        {"name": "scan_set", "source": "malva_tpu_torch/csrc/ref_scan.cu",
+         "replaces": "malva_tpu/parallel/sharded_index.py:570-572 (bloom_set on the owner, XLA, "
+                     "no Pallas counterpart)",
+         "max_abs_err": err9, "ms": ms9, "plain_ms": plain9, "bound_ms": b9[0],
+         "bound_by": b9[1], "rows_live": live0, **common}]
+
+
+def scan_alone(ix: dict) -> dict:
+    """The context scan alone on a SCAN_ALONE-position contig (random ACGT from a
+    numpy seed) over the synthetic -b 1 index's alt words: the one-card
+    scan (``build_context_device``, K2) and the sharded scan on SHARDS
+    virtual shards of the card (``build_context_sharded``, K8 and K9), in
+    turns (one, sharded, sharded, one); the words must be equal.  Walls by
+    the host clock (each returns after its read-back), and the sharded
+    scan's own line."""
+    import types
+
+    import torch
+
+    from malva_tpu_torch.index.device import build_context_device
+    from malva_tpu_torch.ops.bloom import to_u32
+    from malva_tpu_torch.parallel.sharded_index import build_context_sharded
+    from malva_tpu_torch.utils.config import Config
+
+    rng = np.random.default_rng(12)
+    contig = np.frombuffer(b"ACGT", dtype=np.uint8)[rng.integers(0, 4, SCAN_ALONE + REF_K - 1)]
+    words = to_u32(ix["bf_packed"][:, 0])
+    cfg = Config(k=K, ref_k=REF_K, bf_size=SIZE_BITS)
+    mesh = [torch.device("cuda", 0)] * SHARDS
+    walls: dict = {"one card": [], "sharded": []}
+    got, lines = {}, []
+    for kind in ("one card", "sharded", "sharded", "one card"):
+        index = types.SimpleNamespace(bf=types.SimpleNamespace(words=words),
+                                      context_bf=types.SimpleNamespace(
+                                          words=np.zeros_like(words)))
+        tee = _Tee(sys.stderr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(tee):
+            if kind == "one card":
+                build_context_device(index, [contig], cfg, torch.device("cuda", 0))
+            else:
+                build_context_sharded(index, [contig], cfg, mesh)
+        walls[kind].append(time.perf_counter() - t0)
+        lines += [ln for ln in tee.buf.getvalue().splitlines() if "sharded context scan:" in ln]
+        if kind in got:
+            if not np.array_equal(got[kind], index.context_bf.words):
+                raise AssertionError(f"scan alone: two {kind} scans differ")
+        got[kind] = index.context_bf.words
+    if not np.array_equal(got["one card"], got["sharded"]):
+        raise AssertionError("scan alone: the sharded scan's words differ from the one-card scan's")
+    if not got["one card"].any():
+        raise AssertionError("scan alone: no context bit set")
+    for line in lines:
+        if "host reads 0 in the chunks" not in line:
+            raise AssertionError(f"scan alone: host reads in the chunks: {line}")
+    log(f"scan alone, {SCAN_ALONE} positions, one card against {SHARDS} virtual shards (s, in "
+        f"turns): "
+        f"{json.dumps(walls)}; words equal; {lines[-1]}")
+    return {"positions": SCAN_ALONE, "walls_s": walls, "sharded_lines": lines}
 
 
 def event_timing_probe(ix: dict, device) -> dict:
@@ -1283,6 +1583,8 @@ def trace_summary(trace_dir: str) -> dict:
 
 SINGLE = ("callstep", "ref_scan", "seq_pack")  # kernels of the one-device legs
 ROUTED_KERNELS = ("shard_update", "route_pack", "route_probe", "shard_update_slots")
+SCAN_KERNELS = ("scan_pack", "scan_set")  # the sharded context scan's
+CHUNKS_READ_NOTHING = "host reads 0 in the chunks"  # the sharded context scan's line says so
 
 
 def check_launches(name: str, launches: dict, kernels=SINGLE) -> None:
@@ -1308,8 +1610,9 @@ def sharded_legs(src: str, reads3: str, work: str, run_vcf: bytes, batch_vcfs: d
     """``build_index`` + ``call`` through the port's library with a mesh of
     SHARDS virtual shards of the one card, then ``call_batch`` with the
     same mesh over the 5x and 3x reads on that index: the VCFs must equal
-    the host legs', and K1 (hash-only), K2 (hash-only), K3 and K4 must
-    have launched."""
+    the host legs', and K1 (hash-only), K3, K4, K6, K7, K8 and K9 must
+    have launched, and the sharded context scan must log no host read in
+    its chunks."""
     import torch
 
     from malva_tpu_torch import cli, pipeline
@@ -1335,10 +1638,11 @@ def sharded_legs(src: str, reads3: str, work: str, run_vcf: bytes, batch_vcfs: d
     launches = dict(kernels.LAUNCHES)
     if open(out, "rb").read() != run_vcf:
         raise AssertionError("the sharded run's VCF differs from the host run's")
-    check_launches("sharded run", launches, SINGLE + ROUTED_KERNELS)
-    for line in ("sharded context scan", "sharded call step"):
+    check_launches("sharded run", launches, ("callstep", "seq_pack") + SCAN_KERNELS
+                   + ROUTED_KERNELS)
+    for line in ("sharded context scan", CHUNKS_READ_NOTHING, "sharded call step"):
         if line not in err:
-            raise AssertionError(f"the sharded run logged no '{line}' line")
+            raise AssertionError(f"the sharded run logged no '{line}'")
     stats = got["stats"]
     log(f"sharded run VCF == host run's; launches {launches}; call step {json.dumps(stats)}")
     gather = gather_leg(cfg, got["index"], mesh, fq, os.path.join(work, "gather.vcf"), run_vcf)
@@ -1523,7 +1827,8 @@ def real_cards_leg(src: str, work: str, run_vcf: bytes, cards: int, visible: str
         out[label] = r
     for label in ("all", "two"):
         lines = "\n".join(out[label]["metrics"]) if label in out else None
-        for want in ("sharded context scan", "none in the steps", "card start-up"):
+        for want in ("sharded context scan", CHUNKS_READ_NOTHING, "none in the steps",
+                     "card start-up"):
             if lines is not None and want not in lines:
                 raise AssertionError(f"the real-card run on {label} cards logged no '{want}'")
     return out
@@ -1689,7 +1994,7 @@ def tools_phase() -> dict:
 
 
 def ptxas_check(log_text: str) -> dict:
-    """Per kernel of K1-K7 (csrc/), from this build's ptxas report: its
+    """Per kernel of K1-K9 (csrc/), from this build's ptxas report: its
     instantiations and their registers.  Raises unless every
     instantiation was compiled with a 0-byte stack frame and no spill
     store or load: the per-lane state must live in registers."""
@@ -1802,7 +2107,8 @@ def main() -> int:
         # "launches": the first leg whose path runs the kernel (K4: the
         # sharded run; K5: the all-gather call on the sharded run's index)
         first = {"gather_update": "gather_launches",
-                 **dict.fromkeys(ROUTED_KERNELS, "sharded_launches")}.get(r["name"], "launches")
+                 **dict.fromkeys(ROUTED_KERNELS + SCAN_KERNELS, "sharded_launches")
+                 }.get(r["name"], "launches")
         r["launches"] = main[first][r["name"]] if main else None
         r["launches_by_leg"] = {leg: main[leg][r["name"]] for leg in legs} if main else None
         r["share_of_bound"] = r["bound_ms"] / r["ms"]

@@ -40,8 +40,21 @@
 //   sets their bits with every lane busy, rather than once per position
 //   slot with most lanes idle.
 //
-// The hash-only mode (the TPU kernel's outputs, for the sharded scan and
-// the checks) runs the same tile code and writes four planes.
+// The hash-only mode (the TPU kernel's outputs, for the checks) runs the
+// same tile code and writes four planes.
+//
+// The codes mode is the first launch of K8 (scan_pack, the sharded scan's
+// entry; route.cu partitions its output): the scan's tile code, but where
+// the scan sets a bit it writes the context's Bloom index as the
+// position's 8-byte code, and a position that misses writes ~0.  K9
+// (scan_set, below) sets the bits on the shard that owns them, from the
+// slot blocks K8's partition wrote and the copies brought: one atomicOr a
+// row, as the scan's own.  K8 is bound like the scan, by the alt-filter
+// read per position (a 32-byte sector); its two launches add 8 bytes of
+// code written and read per position, the price of reusing K6's tile
+// logic for the partition rather than fusing it here.  K9 is bound by
+// one 32-byte sector a row; at the main path's hit counts its launch
+// costs more than its work.
 #include <cuda_runtime.h>
 
 #include "lanes.cuh"
@@ -58,6 +71,8 @@ constexpr int kTile = kThreads * kPerThread;   // positions per tile
 // a tile's bytes with the halo, at most, and 16 bytes the readers may touch past them
 constexpr int kBufWords = ((kTile + kMaxLen - 1 + 15) / 16 * 16 + 16) / 4;
 
+enum Mode { kScan, kHashOnly, kCodes };
+
 struct Tiles {
   uint32_t raw[2][kBufWords];  // the chunk's bytes, two tiles in turn
   uint32_t rev[kBufWords];     // the current tile's RCN-reversed copy
@@ -65,10 +80,11 @@ struct Tiles {
   uint8_t rcn[256];
 };
 
-template <bool kHashOnly>
+template <Mode kMode>
 __device__ void scan_tiles(const uint8_t* __restrict__ seq, int64_t n_pos, int k, int ref_k,
                            const uint32_t* __restrict__ bf_words, uint32_t* __restrict__ ctx_words,
-                           uint64_t size_bits, uint32_t* __restrict__ out) {
+                           uint64_t size_bits, uint32_t* __restrict__ out,
+                           uint64_t* __restrict__ codes) {
   __shared__ __align__(16) Tiles sm;
   const int tid = threadIdx.x;
   for (int i = tid; i < 256; i += kThreads) sm.rcn[i] = rcn((uint8_t)i);
@@ -97,7 +113,7 @@ __device__ void scan_tiles(const uint8_t* __restrict__ seq, int64_t n_pos, int k
 
     const int64_t first = tile * kTile;
     const int n_here = n_pos - first < kTile ? (int)(n_pos - first) : kTile;
-    if constexpr (kHashOnly) {
+    if constexpr (kMode == kHashOnly) {
 #pragma unroll 1
       for (int p = tid; p < n_here; p += kThreads) {
         const uint64_t c = window_hash_at(fwd, sm.rev, E, p + off, k);
@@ -140,6 +156,8 @@ __device__ void scan_tiles(const uint8_t* __restrict__ seq, int64_t n_pos, int k
           const unsigned go = __ballot_sync(0xFFFFFFFFu, hit);
           const int at = n_hits + __popc(go & ((1u << (tid & 31)) - 1u));
           if (hit) hits[at] = (g + r) * kThreads + tid;
+          else if (kMode == kCodes && (g + r) * kThreads + tid < n_here)
+            codes[first + (g + r) * kThreads + tid] = ~0ull;
           n_hits += __popc(go);
         }
 #pragma unroll
@@ -150,7 +168,10 @@ __device__ void scan_tiles(const uint8_t* __restrict__ seq, int64_t n_pos, int k
 #pragma unroll 1
       for (int e = tid & 31; e < n_hits; e += 32) {
         const uint64_t cidx = bloom_index(window_hash_at(fwd, sm.rev, E, hits[e], ref_k), size_bits);
-        atomicOr(ctx_words + (cidx >> 5), 1u << (cidx & 31));
+        if constexpr (kMode == kCodes)
+          codes[first + hits[e]] = cidx;
+        else
+          atomicOr(ctx_words + (cidx >> 5), 1u << (cidx & 31));
       }
     }
   }
@@ -159,14 +180,43 @@ __device__ void scan_tiles(const uint8_t* __restrict__ seq, int64_t n_pos, int k
 __global__ void __launch_bounds__(kThreads)
     window_hash_kernel(const uint8_t* __restrict__ seq, int64_t n_pos, int k, int ref_k,
                        uint32_t* __restrict__ out) {
-  scan_tiles<true>(seq, n_pos, k, ref_k, nullptr, nullptr, 0, out);
+  scan_tiles<kHashOnly>(seq, n_pos, k, ref_k, nullptr, nullptr, 0, out, nullptr);
 }
 
 __global__ void __launch_bounds__(kThreads)
     ref_scan_kernel(const uint8_t* __restrict__ seq, int64_t n_pos, int k, int ref_k,
                     const uint32_t* __restrict__ bf_words, uint32_t* __restrict__ ctx_words,
                     uint64_t size_bits) {
-  scan_tiles<false>(seq, n_pos, k, ref_k, bf_words, ctx_words, size_bits, nullptr);
+  scan_tiles<kScan>(seq, n_pos, k, ref_k, bf_words, ctx_words, size_bits, nullptr, nullptr);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    scan_codes_kernel(const uint8_t* __restrict__ seq, int64_t n_pos, int k, int ref_k,
+                      const uint32_t* __restrict__ bf_words, uint64_t size_bits,
+                      uint64_t* __restrict__ codes) {
+  scan_tiles<kCodes>(seq, n_pos, k, ref_k, bf_words, nullptr, size_bits, nullptr, codes);
+}
+
+// K9: the live rows of n_blocks received slot blocks (kSlotHead header
+// words, then W planes of cap words: a shard-local bit index, low word
+// first), each bit ORed into the shard's context words.  blockIdx.y is
+// the slot block; the blocks of x stride over its rows.
+constexpr int kSetThreads = 256;
+constexpr int kSetBlocksX = 64;
+
+template <int W>
+__global__ void __launch_bounds__(kSetThreads)
+    scan_set_kernel(const uint32_t* __restrict__ slots, int64_t cap,
+                    uint32_t* __restrict__ ctx_words) {
+  const uint32_t* blk = slots + (int64_t)blockIdx.y * (kSlotHead + cap * W);
+  const uint32_t head = __ldg(blk);
+  const int64_t rows = head < cap ? head : cap;
+  for (int64_t i = (int64_t)blockIdx.x * kSetThreads + threadIdx.x; i < rows;
+       i += (int64_t)gridDim.x * kSetThreads) {
+    uint64_t local = __ldg(blk + kSlotHead + i);
+    if (W == 2) local |= (uint64_t)__ldg(blk + kSlotHead + cap + i) << 32;
+    atomicOr(ctx_words + (local >> 5), 1u << (local & 31));
+  }
 }
 
 int64_t n_tiles(int64_t n_pos) { return (n_pos + kTile - 1) / kTile; }
@@ -183,6 +233,36 @@ int malva_window_hash(const void* seq, int64_t n_pos, int k, int ref_k, void* ou
   if (e != 0) return e;
   window_hash_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)seq, n_pos, k, ref_k, (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// K8's first launch: the codes of n_pos positions (see above).
+int malva_scan_codes(const void* seq, int64_t n_pos, int k, int ref_k, const void* bf_words,
+                     int64_t size_bits, void* codes, void* stream) {
+  if (n_pos <= 0) return 0;
+  int grid = 0;
+  const int e = persistent_grid(scan_codes_kernel, kThreads, 0, n_tiles(n_pos), &grid);
+  if (e != 0) return e;
+  scan_codes_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)seq, n_pos, k, ref_k, (const uint32_t*)bf_words, (uint64_t)size_bits,
+      (uint64_t*)codes);
+  return (int)cudaGetLastError();
+}
+
+// K9 over n_blocks slot blocks of cap rows of W words (1 or 2) into
+// ctx_words.  One launch.
+int malva_scan_set(const void* slots, int n_blocks, int64_t cap, int W, void* ctx_words,
+                   void* stream) {
+  if (n_blocks < 1 || n_blocks > 65535 || cap < 1 || (W != 1 && W != 2))
+    return (int)cudaErrorInvalidValue;
+  const int64_t want = (cap + kSetThreads - 1) / kSetThreads;
+  const dim3 grid((unsigned)(want < kSetBlocksX ? want : kSetBlocksX), (unsigned)n_blocks);
+  if (W == 1)
+    scan_set_kernel<1><<<grid, kSetThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)slots, cap, (uint32_t*)ctx_words);
+  else
+    scan_set_kernel<2><<<grid, kSetThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)slots, cap, (uint32_t*)ctx_words);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,8 @@
 // K6 and K7: the two partition kernels of the routed sharded call step, and
-// the launcher of the step's card-to-card copies.
+// the launcher of the step's card-to-card copies.  K8 (scan_pack), the
+// sharded context scan's entry, ends in the same partition over K2's codes
+// (ScanLanes, below), and its chunk step, K8, the copies and K9
+// (ref_scan.cu), is one C call here too.
 //
 // No Pallas counterpart.  They replace pack_dests (malva_tpu/parallel/
 // sharded_index.py:326-347, a sort by owner into a (D * cap) slot matrix
@@ -60,7 +63,7 @@ using namespace malva;
 
 namespace {
 
-static_assert(PackLanes::kCols == kHop1Cols && ProbeLanes::kCols == kHop2Cols,
+static_assert(PackLanes::kSlotCols == kHop1Cols && ProbeLanes::kSlotCols == kHop2Cols,
               "the lanes' columns are the slot format's");
 static_assert(1 << kDestBits == kMaxDests, "a destination fits its bits");
 
@@ -243,10 +246,12 @@ __device__ __forceinline__ void route_tile(const Src& src, int64_t t, int live, 
   __syncthreads();
 
   // each destination's runs, a warp a run
-  for (int job = warp; job < D * run_kinds(C); job += kRouteWarps) {
-    const int e = job / run_kinds(C);
-    const Run w = tile_run<C>(job % run_kinds(C), sh.run[e], out.at(e) + kSlotHead, stage, cols,
-                              N, cap, ovf, ovf_cap);
+  constexpr int kRuns = run_kinds(Src::kSlotCols, Src::kOvfCols);
+  for (int job = warp; job < D * kRuns; job += kRouteWarps) {
+    const int e = job / kRuns;
+    const Run w = tile_run<Src::kSlotCols, Src::kOvfCols>(job % kRuns, sh.run[e],
+                                                          out.at(e) + kSlotHead, stage, cols, N,
+                                                          cap, ovf, ovf_cap);
     write_run(w.dst, w.src, w.n, lane, 32);
   }
 }
@@ -313,7 +318,7 @@ template <class Src>
 int launch_route(const Src& src, int D, void* const* blocks, int64_t cap, uint32_t* ovf,
                  int64_t ovf_cap, unsigned long long* tally, int tally_at, void* scratch,
                  cudaStream_t stream) {
-  if (D < 1 || D > kMaxDests || cap < 1 || src.N < 1 || src.N > kMaxWords ||
+  if (D < 1 || D > kMaxDests || cap < 1 || src.N < 0 || src.N > kMaxWords ||
       src.tiles() > kMaxTiles)
     return (int)cudaErrorInvalidValue;
   Blocks out{};
@@ -353,6 +358,24 @@ constexpr PlanName kPlanNames[] = {
     {"out1", kOut1},       {"out2", kOut2},             {"width", kPlanCols},
     {"max_dests", kMaxDests}};
 
+// The columns of a sharded scan step's plan (malva_sharded_scan_step): one
+// row of int64 per shard, filled once by the scan (its buffers) and each
+// chunk (its slice of the contig and the launchers' events); kOut begins
+// kMaxDests columns, the blocks the shard writes for each owner.
+// ops/kernels.py reads each column's index by its name (malva_scan_plan_col).
+enum ScanCol {
+  kSDev, kSStream, kSSeq, kSNPos, kSBfWords, kSCodes, kSOvf, kSTally, kSScratch, kSRecv,
+  kSCtxWords, kSEvPack0, kSEvPack1, kSEvSet0, kSEvSet1, kSOut, kScanCols = kSOut + kMaxDests
+};
+
+constexpr PlanName kScanNames[] = {
+    {"dev", kSDev},         {"stream", kSStream},       {"seq", kSSeq},
+    {"n_pos", kSNPos},      {"bf_words", kSBfWords},    {"codes", kSCodes},
+    {"ovf", kSOvf},         {"tally", kSTally},         {"scratch", kSScratch},
+    {"recv", kSRecv},       {"ctx_words", kSCtxWords},  {"ev_pack0", kSEvPack0},
+    {"ev_pack1", kSEvPack1}, {"ev_set0", kSEvSet0},     {"ev_set1", kSEvSet1},
+    {"out", kSOut},         {"width", kScanCols},       {"max_dests", kMaxDests}};
+
 }  // namespace
 
 extern "C" {
@@ -375,11 +398,23 @@ int malva_route_copies(int D, const int* dev, void* const* compute, void* const*
                        void* const* guard, int n, const int* from, const int* to,
                        void* const* dst, void* const* src, int64_t bytes,
                        void* const* streams, void* const* copied);
+// K8's first launch and K9 (ref_scan.cu).
+int malva_scan_codes(const void* seq, int64_t n_pos, int k, int ref_k, const void* bf_words,
+                     int64_t size_bits, void* codes, void* stream);
+int malva_scan_set(const void* slots, int n_blocks, int64_t cap, int W, void* ctx_words,
+                   void* stream);
 
 // The plan column (PlanCol) of `name`, "width" for the row's width and
 // "max_dests" for the columns after kOut1 and kOut2; -1 for another name.
 int malva_route_plan_col(const char* name) {
   for (const PlanName& p : kPlanNames)
+    if (strcmp(p.name, name) == 0) return p.col;
+  return -1;
+}
+
+// The scan step's plan column (ScanCol) of `name`, as malva_route_plan_col.
+int malva_scan_plan_col(const char* name) {
+  for (const PlanName& p : kScanNames)
     if (strcmp(p.name, name) == 0) return p.col;
   return -1;
 }
@@ -535,6 +570,88 @@ int malva_routed_step(int D, const int64_t* plan, int wc, int k, int ref_k, int 
                                    (int64_t)d * wps, at(d, kNWords), ptr(d, kKmapKeys),
                                    ptr(d, kState), counts_len, n_buckets, size_bits, minifilter,
                                    ptr(d, kEvUpd0), ptr(d, kEvUpd1), compute[d]);
+  }
+  const int r = (int)cudaSetDevice(cur);
+  return e ? e : r;
+}
+
+// K8's partition alone (its second launch): the n codes (u64: a context's
+// Bloom index, or ~0 for no hit) into blocks[d] of each hit's owner d (cap
+// rows of W words each: the shard-local bit index), in position order, or
+// to the overflow list ([W planes | owner plane] of ovf_cap rows); the
+// tally gets the rows spilled at [0] and the rows sent to d at [1 + d].
+// `scratch`: malva_route_scratch_words(D) words, zeroed when made.
+int malva_scan_route(const void* codes, int64_t n, int64_t wps, int W, int D, void* const* blocks,
+                     int64_t cap, void* ovf, int64_t ovf_cap, void* tally, void* scratch,
+                     void* stream) {
+  if (wps < 1 || wps > UINT32_MAX || n < 0 || (W != 1 && W != 2) ||
+      (W == 1 && wps > (int64_t)1 << 27))
+    return (int)cudaErrorInvalidValue;
+  auto go = [&](auto src) {
+    return launch_route(src, D, blocks, cap, (uint32_t*)ovf, ovf_cap, (unsigned long long*)tally,
+                        1, scratch, (cudaStream_t)stream);
+  };
+  if (W == 1) return go(ScanLanes<1>{(const uint32_t*)codes, n, (uint32_t)wps, 0});
+  return go(ScanLanes<2>{(const uint32_t*)codes, n, (uint32_t)wps, 0});
+}
+
+// K8 (scan_pack), the sharded context scan's entry, over n_pos positions
+// of a shard's slice of the contig (`seq`, n_pos + ref_k - 1 bytes with the
+// halo): K2's codes mode writes each position's code into `codes` (n_pos
+// u64), then malva_scan_route partitions them.  Two launches.
+int malva_scan_pack(const void* seq, int64_t n_pos, int k, int ref_k, const void* bf_words,
+                    int64_t size_bits, void* codes, int64_t wps, int W, int D,
+                    void* const* blocks, int64_t cap, void* ovf, int64_t ovf_cap, void* tally,
+                    void* scratch, void* stream) {
+  const int e = malva_scan_codes(seq, n_pos, k, ref_k, bf_words, size_bits, codes, stream);
+  return e ? e : malva_scan_route(codes, n_pos, wps, W, D, blocks, cap, ovf, ovf_cap, tally,
+                                  scratch, stream);
+}
+
+// One chunk of the sharded context scan over the D shards of `plan`
+// (ScanCol), in one call: K8 on each shard's slice; the slot blocks' copies
+// between cards (malva_route_copies, where n pairs cross cards: produced,
+// copied as in the routed step, and done[d], recorded after K9 on d, as
+// the guard: a block is not written again before its owner has read it);
+// K9 on each owner over the D blocks it received.  Where a shard's
+// ev_pack0/1 and ev_set0/1 are not null, they are recorded around its K8
+// and its K9.  No host wait.  Returns the first CUDA error, or 0.
+int malva_sharded_scan_step(int D, const int64_t* plan, int k, int ref_k, int64_t size_bits,
+                            int64_t wps, int W, int64_t cap, int64_t ovf_cap, int n,
+                            const int* dev, const int* from, const int* to, void* const* streams,
+                            void* const* produced, void* const* done, void* const* copied,
+                            void* const* dst, void* const* src, int64_t bytes) {
+  if (D < 1 || D > kMaxDests) return (int)cudaErrorInvalidValue;
+  auto at = [&](int s, int c) { return plan[(int64_t)s * kScanCols + c]; };
+  auto ptr = [&](int s, int c) { return (void*)at(s, c); };
+  auto record = [&](int s, int c) {
+    return ptr(s, c) ? (int)cudaEventRecord((cudaEvent_t)ptr(s, c), (cudaStream_t)ptr(s, kSStream))
+                     : 0;
+  };
+  int cur = 0;
+  int e = (int)cudaGetDevice(&cur);
+  void* compute[kMaxDests];
+  for (int s = 0; s < D; ++s) compute[s] = ptr(s, kSStream);
+  for (int s = 0; s < D && !e; ++s) {
+    e = (int)cudaSetDevice((int)at(s, kSDev));
+    if (!e) e = record(s, kSEvPack0);
+    if (!e)
+      e = malva_scan_pack(ptr(s, kSSeq), at(s, kSNPos), k, ref_k, ptr(s, kSBfWords), size_bits,
+                          ptr(s, kSCodes), wps, W, D,
+                          (void* const*)(plan + (int64_t)s * kScanCols + kSOut), cap,
+                          ptr(s, kSOvf), ovf_cap, ptr(s, kSTally), ptr(s, kSScratch),
+                          compute[s]);
+    if (!e) e = record(s, kSEvPack1);
+  }
+  if (!e && n)
+    e = malva_route_copies(D, dev, compute, produced, done, n, from, to, dst, src, bytes, streams,
+                           copied);
+  for (int d = 0; d < D && !e; ++d) {
+    e = (int)cudaSetDevice((int)at(d, kSDev));
+    if (!e) e = record(d, kSEvSet0);
+    if (!e) e = malva_scan_set(ptr(d, kSRecv), D, cap, W, ptr(d, kSCtxWords), compute[d]);
+    if (!e) e = record(d, kSEvSet1);
+    if (!e && n) e = (int)cudaEventRecord((cudaEvent_t)done[d], (cudaStream_t)compute[d]);
   }
   const int r = (int)cudaSetDevice(cur);
   return e ? e : r;

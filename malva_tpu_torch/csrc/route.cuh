@@ -1,5 +1,5 @@
-// The tile logic of K6 and K7 (route.cu), header-only and __host__
-// __device__, so that a host build runs the same code (the g++ tests of
+// The tile logic of K6, K7 and K8's partition (route.cu), header-only and
+// __host__ __device__, so that a host build runs the same code (the g++ tests of
 // tests/test_torch_route_tiles.py emulate a launch with it, the warp
 // intrinsics done serially).  What stays in route.cu is what only a card
 // has: ballots and shuffles, shared memory, cp.async, atomics and the
@@ -163,32 +163,34 @@ MALVA_HD void set_base(DestRun& r, uint32_t base, int64_t cap) {
 // a row), then C column planes of kTileLanes words, in destination order.
 MALVA_HDC int stage_words(int N, int C) { return kTileLanes * (N + C); }
 
-// What a tile writes for a destination: run_kinds(C) runs of words from
+// What a tile writes for a destination: run_kinds(S, O) runs of words from
 // its staging (`ctx`, `cols`) to its block's rows (`rows`, past the
-// header: the context plane, then C planes of cap) and to the overflow
-// list (contexts (ovf_cap x N), then counters, column 0); kind: the
-// context plane, each column, the overflow contexts, the overflow
-// counters.
+// header: the context plane, then S planes of cap) and to the overflow
+// list (contexts (ovf_cap x N), then O column planes of ovf_cap); kind:
+// the context plane, each of the S slot columns, the overflow contexts,
+// each of the O overflow columns.  Both take the first of the staged
+// columns.
 struct Run {
   uint32_t* dst;
   const uint32_t* src;
   int64_t n;
 };
 
-MALVA_HDC int run_kinds(int C) { return C + 3; }
+MALVA_HDC int run_kinds(int S, int O) { return S + 2 + O; }
 
-template <int C>
+template <int S, int O>
 MALVA_HD Run tile_run(int kind, const DestRun& r, uint32_t* rows, const uint32_t* ctx,
                       const uint32_t* cols, int N, int64_t cap, uint32_t* ovf, int64_t ovf_cap) {
   if (kind == 0)
     return {rows + (int64_t)r.base * N, ctx + (int64_t)r.soff * N, (int64_t)r.slot * N};
-  if (kind <= C)
+  if (kind <= S)
     return {rows + cap * (N + kind - 1) + r.base, cols + (kind - 1) * kTileLanes + r.soff,
             r.slot};
   const int64_t room = ovf_cap - r.ovf_at;
   const int64_t n = room < 0 ? 0 : room < r.over ? room : r.over;
-  if (kind == C + 1) return {ovf + r.ovf_at * N, ctx + (int64_t)(r.soff + r.slot) * N, n * N};
-  return {ovf + ovf_cap * N + r.ovf_at, cols + r.soff + r.slot, n};
+  if (kind == S + 1) return {ovf + r.ovf_at * N, ctx + (int64_t)(r.soff + r.slot) * N, n * N};
+  const int j = kind - S - 2;
+  return {ovf + ovf_cap * (N + j) + r.ovf_at, cols + j * kTileLanes + r.soff + r.slot, n};
 }
 
 // n words from src (any alignment) to dst by `width` threads, thread
@@ -212,7 +214,7 @@ MALVA_HD void write_run(uint32_t* dst, const uint32_t* src, int64_t n, int lane,
   for (int64_t q = head + 4 * quads + lane; q < n; q += width) dst[q] = src[q];
 }
 
-// -- the lanes of K6 and K7 ------------------------------------------------------
+// -- the lanes of K6, K7 and K8 ------------------------------------------------
 // A launch numbers its lanes in lane order from 0; tile t holds lanes
 // [t * kTileLanes, (t + 1) * kTileLanes), and the tiles past the last that
 // holds a lane do nothing (K7's lanes are the live rows alone, so the
@@ -241,7 +243,7 @@ MALVA_HD int tile_live(int64_t lanes, int64_t t) {
 // the owner of its context word, with [counter, context word less the
 // owner's first, context bit, Bloom-word owner].
 struct PackLanes {
-  static constexpr int kCols = 4;
+  static constexpr int kCols = 4, kSlotCols = 4, kOvfCols = 1;
   struct Raw {
     uint32_t x_hi, x_lo, c_hi, c_lo, cnt;
   };
@@ -285,7 +287,7 @@ struct PackLanes {
 // block after block.  A row goes to its Bloom-word owner with [counter,
 // context-filter bit].
 struct ProbeLanes {
-  static constexpr int kCols = 2;
+  static constexpr int kCols = 2, kSlotCols = 2, kOvfCols = 1;
   struct Raw {
     uint32_t own, cnt, lcw, cb, word;
   };
@@ -325,6 +327,45 @@ struct ProbeLanes {
     uint32_t r;
     return row_of((uint32_t)i, start, &r) + (int64_t)r * N;
   }
+};
+
+// K8's lanes: the positions of a chunk, each with K2's code (scan_tiles'
+// codes mode): the context's Bloom index where the position's centre hits
+// the alt filter, else ~0.  A hit goes to the owner of its context word
+// (cw / wps) as its shard-local bit index (index - d * wps * 32) in W
+// words, low word first (W = 1 where a shard's bits fit in 32).  A row
+// has no context words (N = 0); the overflow list keeps the owner beside
+// the W words, so that the owner can take it at the end.
+template <int W>
+struct ScanLanes {
+  static constexpr int kCols = W + 1, kSlotCols = W, kOvfCols = W + 1;
+  struct Raw {
+    uint32_t lo, hi;
+  };
+  const uint32_t* codes;  // (n,) u64 codes, as u32 pairs
+  int64_t n;
+  uint32_t wps;
+  int N;                  // 0
+
+  MALVA_HD int64_t tiles() const { return last_tile(n) + 1; }
+  MALVA_HD uint32_t head_rows(int) const { return 0; }
+  MALVA_HD int64_t lanes(const uint32_t*) const { return n; }
+  MALVA_HD Raw fetch(int64_t i, const uint32_t*) const {
+    return {load_ro(codes + 2 * i), load_ro(codes + 2 * i + 1)};
+  }
+  MALVA_HD void fetch2(Raw&) const {}
+  MALVA_HD int dest(const Raw& r, int D) const {
+    if ((r.lo & r.hi) == ~0u) return D;
+    const uint32_t d = (uint32_t)(((uint64_t)r.hi << 32 | r.lo) >> 5) / wps;
+    return d < (uint32_t)D ? (int)d : D;
+  }
+  MALVA_HD void columns(const Raw& r, int d, uint32_t* col) const {
+    const uint64_t local = ((uint64_t)r.hi << 32 | r.lo) - (uint64_t)d * wps * 32;
+    col[0] = (uint32_t)local;
+    if (W == 2) col[1] = (uint32_t)(local >> 32);
+    col[W] = (uint32_t)d;
+  }
+  MALVA_HD const uint32_t* ctx_row(int64_t, const uint32_t*) const { return codes; }
 };
 
 }  // namespace malva

@@ -63,6 +63,17 @@ of the slot entry alone.
   rows as runs.  They are bound by bytes: each lane's words read once,
   each row written once.
 
+* K8 ``scan_pack`` and K9 ``scan_set`` are the sharded context scan's
+  (``parallel/sharded_index.py``), K2's sharded entry: on each shard's
+  slice of a chunk, K8 runs K2's tile code in a third mode that writes
+  each position's code (the context's Bloom index where its centre hits
+  the alt filter, else -1), then partitions the hits by the owner of
+  their context word into fixed slot blocks with K6's tile logic (a third
+  lane policy, ``csrc/route.cuh`` ``ScanLanes``), each row the
+  shard-local bit index; K9 ORs the rows of the blocks an owner received
+  into its context words.  They replace the hit all-gather and
+  ``bloom_set`` of ``malva_tpu/parallel/sharded_index.py:519-569``.
+
 ``callstep_hash`` / ``window_hash`` are the kernels' hash-only modes,
 which write exactly the TPU kernels' outputs so the card can check them
 against the TPU kernels' contract.
@@ -84,13 +95,14 @@ import torch
 
 from ..index.kmap_table import SLOTS, probe_bucket_table
 from . import _build
-from .bloom import bloom_set, lanes, scatter_add_u32, storage
+from .bloom import M32, bloom_set, lanes, scatter_add_u32, storage
 from .packed import canonical_center, decode_byte_cols, popcount32
 from .seq import canonical_decision, complement
 from .xxh3 import check_bloom_size, xxh3_64_cols, xxh3_mod_size
 
 LAUNCHES = {"callstep": 0, "ref_scan": 0, "seq_pack": 0, "shard_update": 0, "gather_update": 0,
-            "shard_update_slots": 0, "route_pack": 0, "route_probe": 0}
+            "shard_update_slots": 0, "route_pack": 0, "route_probe": 0, "scan_pack": 0,
+            "scan_set": 0}
 MAX_LEN = 240  # csrc/lanes.cuh kMaxLen
 
 
@@ -423,14 +435,16 @@ def slot_rows(block: torch.Tensor, cap: int, wc: int, cols: int) -> torch.Tensor
 
 
 def _partition(dest: torch.Tensor, rows: torch.Tensor, blocks: list, cap: int, wc: int,
-               overflow: torch.Tensor, tally: torch.Tensor, at: int) -> None:
-    """Plain partition of K6 and K7: row i of ``rows`` (int32, wc + cols
-    columns) goes to ``blocks[dest[i]]`` at its rank among the rows of that
-    destination (lane order), where the rank is below ``cap``; a row of
-    rank cap or more goes to the overflow list, in lane order; a dest of
-    ``len(blocks)`` goes nowhere."""
+               overflow: torch.Tensor, tally: torch.Tensor, at: int, slot_cols: int | None = None,
+               ovf_cols: int = 1) -> None:
+    """Plain partition of K6, K7 and K8: row i of ``rows`` (int32, wc +
+    cols columns) goes to ``blocks[dest[i]]`` at its rank among the rows of
+    that destination (lane order), where the rank is below ``cap``, as its
+    contexts and first ``slot_cols`` columns (all by default); a row of rank
+    cap or more goes to the overflow list, in lane order, as its contexts
+    and first ``ovf_cols`` columns; a dest of ``len(blocks)`` goes nowhere."""
     D = len(blocks)
-    cols = rows.shape[1] - wc
+    cols = rows.shape[1] - wc if slot_cols is None else slot_cols
     sdest, order = torch.sort(dest, stable=True)
     first = torch.searchsorted(sdest, sdest)
     rank = torch.arange(sdest.shape[0], device=dest.device) - first
@@ -440,17 +454,18 @@ def _partition(dest: torch.Tensor, rows: torch.Tensor, blocks: list, cap: int, w
         pos, got = rank[sel], srows[sel]
         planes = blocks[d][SLOT_HEAD:]
         planes[: cap * wc].view(cap, wc)[pos] = got[:, :wc]
-        planes[cap * wc :].view(cols, cap)[:, pos] = got[:, wc:].t()
+        planes[cap * wc :].view(cols, cap)[:, pos] = got[:, wc : wc + cols].t()
         blocks[d][0] = torch.clamp((sdest == d).sum(), max=cap).to(torch.int32)
         tally[at + d] += blocks[d][0].to(torch.int64)
     over = torch.zeros_like(dest, dtype=torch.bool)
     over[order] = (sdest < D) & (rank >= cap)
     spilled = rows[over]
-    ovf_cap = overflow.shape[0] // (wc + 1)
+    ovf_cap = overflow.shape[0] // (wc + ovf_cols)
     q = tally[0] + torch.arange(spilled.shape[0], device=dest.device)
     keep = q < ovf_cap
     overflow[: ovf_cap * wc].view(ovf_cap, wc)[q[keep]] = spilled[keep, :wc]
-    overflow[ovf_cap * wc :][q[keep]] = spilled[keep, wc]
+    overflow[ovf_cap * wc :].view(ovf_cols, ovf_cap)[:, q[keep]] = \
+        spilled[keep, wc : wc + ovf_cols].t()
     tally[0] += spilled.shape[0]
 
 
@@ -756,6 +771,187 @@ def ref_scan(bf_words, ctx_words, seq, n_pos: int, *, k: int, ref_k: int,
     _launch("malva_ref_scan", seq.device, seq.data_ptr(), n_pos, k, ref_k, bf_words.data_ptr(),
             ctx_words.data_ptr(), size_bits)
     LAUNCHES["ref_scan"] += 1
+
+
+# -- K8 and K9: the sharded context scan ---------------------------------------
+#
+# A scan slot block: SLOT_HEAD header words ([rows, 0, 0, 0]), then W planes
+# of cap words: each row a shard-local bit index, low word first (W = 1
+# where a shard's bits fit in 32, else 2; scan_row_words).  The overflow
+# list of ovf_cap rows: W planes, then the owner's plane.  A tally (int64):
+# [rows appended to the overflow list, rows sent to each of the D owners].
+
+
+def scan_row_words(wps: int) -> int:
+    """Words of a scan row for shards of ``wps`` context words."""
+    return 1 if wps * 32 <= 1 << 32 else 2
+
+
+def scan_slot_words(cap: int, W: int) -> int:
+    return SLOT_HEAD + cap * W
+
+
+def scan_codes_plain(seq, n_pos: int, bf_words, *, k: int, ref_k: int, size_bits: int):
+    """Plain codes of K8's first launch: for each of the first n_pos
+    windows of ``seq``, the Bloom index of its canonical window where its
+    canonical centre hits ``bf_words``, else -1 (int64)."""
+    c_hi, c_lo, x_hi, x_lo = window_hash_plain(seq, n_pos, k, ref_k)
+    bw, bb = xxh3_mod_size(c_hi, c_lo, size_bits)
+    hit = ((lanes(bf_words[bw]) >> bb) & 1).bool()
+    cw, cb = xxh3_mod_size(x_hi, x_lo, size_bits)
+    return torch.where(hit, cw * 32 + cb, -1)
+
+
+def scan_partition_plain(codes, blocks, overflow, tally, *, wps: int, cap: int) -> None:
+    """Plain partition of K8 (``ScanLanes``): each hit (code >= 0) goes to
+    the owner of its context word, ``code // (32 * wps)``, as its
+    shard-local bit index ``code - owner * 32 * wps`` in W words, into
+    ``blocks[owner]`` (scan slot blocks of ``cap`` rows, updated in place
+    with their headers) in position order, or to the overflow list with its
+    owner; ``tally`` gets both counts."""
+    D, W = len(blocks), scan_row_words(wps)
+    dest = torch.where(codes >= 0, torch.clamp(codes // (32 * wps), max=D), D)
+    local = codes - torch.clamp(dest, max=D - 1) * 32 * wps
+    words = [storage(local & M32)] + ([storage(local >> 32)] if W == 2 else [])
+    rows = torch.stack([*words, dest.to(torch.int32)], dim=1)
+    _partition(dest, rows, blocks, cap, 0, overflow, tally, 1, slot_cols=W, ovf_cols=W + 1)
+
+
+def scan_pack_plain(seq, n_pos: int, bf_words, blocks, overflow, tally, *, k: int, ref_k: int,
+                    size_bits: int, wps: int, cap: int, codes=None) -> None:
+    """Plain K8: :func:`scan_codes_plain` (into ``codes`` too, where given),
+    then :func:`scan_partition_plain`."""
+    got = scan_codes_plain(seq, n_pos, bf_words, k=k, ref_k=ref_k, size_bits=size_bits)
+    if codes is not None:
+        codes[:n_pos] = got
+    scan_partition_plain(got, blocks, overflow, tally, wps=wps, cap=cap)
+
+
+def _check_scan(blocks: list, cap: int, W: int, overflow, tally, device) -> None:
+    D = len(blocks)
+    if not 1 <= D <= 16 or cap < 1:
+        raise ValueError(f"scan_pack: 1 to 16 owners and a capacity of 1 or more, got {D} and "
+                         f"{cap}")
+    for b in blocks:
+        _check(b, torch.int32, "scan_pack block")
+        if b.device != device or b.numel() != scan_slot_words(cap, W):
+            raise ValueError(f"scan_pack: a block must be {scan_slot_words(cap, W)} words on "
+                             f"{device}")
+    _check(overflow, torch.int32, "overflow")
+    _check(tally, torch.int64, "tally")
+    if (overflow.device != device or overflow.numel() % (W + 1) or tally.device != device
+            or tally.shape != (1 + D,)):
+        raise ValueError(f"scan_pack: the overflow list must be rows of {W + 1} words and the "
+                         f"tally {1 + D} words, on {device}")
+
+
+def scan_pack(seq, n_pos: int, bf_words, blocks, overflow, tally, *, k: int, ref_k: int,
+              size_bits: int, wps: int, cap: int, codes=None, scratch=None) -> None:
+    """K8: same effect as :func:`scan_pack_plain`, in one C call of two
+    launches (K2's codes mode into ``codes``, n_pos int64 made here when
+    None, then the partition on ``scratch``, :func:`route_scratch`'s);
+    ``codes`` ends holding :func:`scan_codes_plain`'s."""
+    if n_pos > 0:
+        _check_seq(seq, n_pos, ref_k)
+    if not _on_cuda(seq, bf_words, overflow, tally, *blocks):
+        return scan_pack_plain(seq, n_pos, bf_words, blocks, overflow, tally, k=k, ref_k=ref_k,
+                               size_bits=size_bits, wps=wps, cap=cap, codes=codes)
+    _check(seq, torch.uint8, "seq")
+    _check(bf_words, torch.int32, "bf_words")
+    _check_lengths(k, ref_k)
+    check_bloom_size(size_bits)
+    if bf_words.shape != (size_bits // 32,):
+        raise ValueError("scan_pack: the alt words do not match size_bits")
+    W = scan_row_words(wps)
+    _check_scan(blocks, cap, W, overflow, tally, seq.device)
+    if n_pos > ROUTE_MAX_LANES:
+        raise ValueError(f"scan_pack: {n_pos} positions, more than one launch takes "
+                         f"({ROUTE_MAX_LANES})")
+    dev = seq.device
+    codes = torch.empty(max(1, n_pos), dtype=torch.int64, device=dev) if codes is None else codes
+    if codes.dtype != torch.int64 or codes.device != dev or codes.numel() < n_pos:
+        raise ValueError(f"scan_pack: codes must hold {n_pos} int64 on {dev}")
+    scratch = route_scratch(dev, len(blocks)) if scratch is None else scratch
+    route_layout()
+    _launch("malva_scan_pack", dev, seq.data_ptr(), n_pos, k, ref_k, bf_words.data_ptr(),
+            size_bits, codes.data_ptr(), wps, W, len(blocks), _pointers(blocks), cap,
+            overflow.data_ptr(), overflow.numel() // (W + 1), tally.data_ptr(),
+            scratch.data_ptr())
+    LAUNCHES["scan_pack"] += 1
+
+
+def scan_set_plain(ctx_words, slots, *, n_blocks: int, cap: int, W: int) -> None:
+    """Plain K9: each live row of the ``n_blocks`` scan slot blocks in
+    ``slots`` (a shard-local bit index) set in ``ctx_words``, in place."""
+    got = torch.cat([slot_rows(b, cap, 0, W).to(torch.int64)
+                     for b in slots.view(n_blocks, scan_slot_words(cap, W))])
+    local = got[:, 0] & M32
+    if W == 2:
+        local = local | (got[:, 1] << 32)
+    bloom_set(ctx_words, local >> 5, local & 31, torch.ones_like(local, dtype=torch.bool))
+
+
+def scan_set(ctx_words, slots, *, n_blocks: int, cap: int, W: int) -> None:
+    """K9: same effect as :func:`scan_set_plain`; one launch."""
+    if not _on_cuda(ctx_words, slots):
+        return scan_set_plain(ctx_words, slots, n_blocks=n_blocks, cap=cap, W=W)
+    _check(ctx_words, torch.int32, "ctx_words")
+    _check(slots, torch.int32, "slots")
+    if W not in (1, 2) or cap < 1 or slots.numel() != n_blocks * scan_slot_words(cap, W):
+        raise ValueError(f"scan_set: slots must be {n_blocks} blocks of {cap} rows of 1 or 2 "
+                         f"words")
+    _launch("malva_scan_set", ctx_words.device, slots.data_ptr(), n_blocks, cap, W,
+            ctx_words.data_ptr())
+    LAUNCHES["scan_set"] += 1
+
+
+SCAN_PLAN_NAMES = ("dev", "stream", "seq", "n_pos", "bf_words", "codes", "ovf", "tally",
+                   "scratch", "recv", "ctx_words", "ev_pack0", "ev_pack1", "ev_set0", "ev_set1",
+                   "out", "width", "max_dests")
+_scan_layout = None  # (the library, its scan plan columns), once checked
+
+
+def scan_layout():
+    """The kernel library and the scan step's plan columns ({name: column}
+    over SCAN_PLAN_NAMES), read from the library, which owns their order;
+    raises if the library lacks a column.  Checked once per loaded
+    library."""
+    global _scan_layout
+    lib = route_layout()[0]
+    if _scan_layout is None or _scan_layout[0] is not lib:
+        cols = {name: lib.malva_scan_plan_col(name.encode()) for name in SCAN_PLAN_NAMES}
+        missing = [name for name, col in cols.items() if col < 0]
+        if missing:
+            raise RuntimeError(f"the kernel library's scan plan has no column {missing}")
+        _scan_layout = (lib, cols)
+    return _scan_layout
+
+
+def scan_step(plan, *, k: int, ref_k: int, size_bits: int, wps: int, W: int, cap: int,
+              ovf_cap: int, copies: dict | None) -> None:
+    """One chunk of the sharded context scan on CUDA in one C call
+    (``csrc/route.cu malva_sharded_scan_step``): K8 on each shard of
+    ``plan`` (a (D, width) int64 numpy array, see :func:`scan_layout`), the
+    slot blocks' copies between cards, K9 on each owner.  ``copies`` holds
+    the ctypes arrays of the copies (``parallel/sharded_index.py
+    ScanRouter``), or None where no pair of shards crosses cards.  Counts
+    one launch of K8 and of K9 per shard."""
+    import ctypes
+
+    lib, cols = scan_layout()
+    D, width = plan.shape[0], cols["width"]
+    if plan.shape != (D, width) or plan.dtype != "int64" or not plan.flags.c_contiguous:
+        raise ValueError(f"scan_step: the plan must be a contiguous ({D}, {width}) int64 array")
+    c = copies or dict.fromkeys(("dev", "from", "to", "streams", "produced", "done", "copied",
+                                 "dst", "src"))
+    err = lib.malva_sharded_scan_step(
+        D, plan.ctypes.data_as(ctypes.c_void_p), k, ref_k, size_bits, wps, W, cap, ovf_cap,
+        c.get("n", 0), c["dev"], c["from"], c["to"], c["streams"], c["produced"], c["done"],
+        c["copied"], c["dst"], c["src"], c.get("bytes", 0))
+    if err != 0:
+        raise RuntimeError(f"malva_sharded_scan_step: CUDA launch failed with error {err}")
+    LAUNCHES["scan_pack"] += D
+    LAUNCHES["scan_set"] += D
 
 
 # -- K3: sample counter front end --------------------------------------------

@@ -3,9 +3,9 @@
 Counterpart of ``malva_tpu/parallel/mesh.py:17``.  A mesh is an ordered
 tuple of ``torch.device``s, one per index shard; one process drives all of
 them, as one JAX process drives its mesh, and the shards exchange lanes
-card to card (the routed call step's fixed slot blocks on copy streams of
-their own, ``parallel/sharded_index.py Router``; the context scan's
-tensor copies).  A device may repeat: the shards then share it as
+card to card (the routed call step's and the context scan's fixed slot
+blocks on copy streams of their own, ``parallel/sharded_index.py Router``
+and ``ScanRouter``).  A device may repeat: the shards then share it as
 virtual shards, the counterpart of XLA's virtual CPU device count.
 
 JAX starts every device when its backend starts; torch makes a card's
@@ -57,8 +57,8 @@ def retain_primary_contexts(cards) -> list:
     (``cuDevicePrimaryCtxRetain``), the context torch's runtime then uses,
     each card in a thread of its own after one ``cuInit``.  Each ctypes
     call releases the GIL, so the host's Python work goes on meanwhile.
-    Peer access between the cards is left to the routed step's router
-    (``parallel/sharded_index.py Router``) and torch's own copies.
+    Peer access between the cards is left to
+    ``parallel/sharded_index.py enable_peer``.
     Returns each card's wall in seconds; raises the first error met."""
     cuda = ctypes.CDLL("libcuda.so.1")
     cuda.cuInit.argtypes = [ctypes.c_uint]

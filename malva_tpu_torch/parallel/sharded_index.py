@@ -47,8 +47,11 @@ cards once, each shard taking only its slice; a session's steps go
 through pinned host buffers, one thread per shard, made once.  An array
 that every device needs (the alt words and the contig bytes of the
 context scan) crosses to the first card and is copied from there card to
-card; the context scan's hits are routed by :func:`exchange`, which
-reads the hop's split sizes to the host once.
+card, with peer access on (:func:`enable_peer`).  The context scan's hits
+go to the owners of their context words as the routed step's lanes do:
+K8 packs them into fixed slot blocks, the blocks go card to card, and K9
+sets their bits on the owner (:class:`ScanRouter`), with no host read
+until the scan's end.
 
 The all-gather design (JAX ``shard_index :54``, ``write_back :101``,
 ``make_sharded_call_step :110``), reached only with ``routed=False``
@@ -90,7 +93,7 @@ from ..index.device import (
 )
 from ..index.kmap_table import BucketTable
 from ..ops import _build, kernels
-from ..ops.bloom import bloom_set, lanes, to_u32
+from ..ops.bloom import lanes, to_u32
 from ..ops.packed import popcount32
 from ..ops.xxh3 import check_bloom_size, xxh3_64, xxh3_mod_size
 from ..utils.config import Config
@@ -131,10 +134,14 @@ def replicate(t: torch.Tensor, devices) -> dict:
     return {d: t if d == devices[0] else t.to(d, non_blocking=True) for d in devices}
 
 
+HOST_READS = [0]  # read_host's calls in this process (the context scan logs its chunks')
+
+
 def read_host(tensors: list) -> list:
     """Equal-shape tensors on the mesh's devices, read to the host at once
     (a list per tensor): they are gathered on the first one's device and
     read there, so the host waits once, for every card."""
+    HOST_READS[0] += 1
     first = tensors[0].device
     return torch.stack([t.to(first, non_blocking=True) for t in tensors]).tolist()
 
@@ -385,35 +392,6 @@ def shard_index_routed(index, cfg: Config, mesh) -> ShardedIndex:
     return sharded
 
 
-def exchange(mesh, payloads: list, dests: list, stats: dict) -> list:
-    """Row i of ``payloads[s]`` goes to shard ``dests[s][i]``; a row whose
-    destination is ``len(mesh)`` is dropped.  Every source sorts its rows
-    by destination and counts them per destination on its own device;
-    then the counts of all sources come to the host in one read
-    (:func:`read_host`), and each source sends one block to each shard, of
-    whatever size.  Returns, per shard, the rows it received, in source
-    order (on its own device).  Adds the read to ``stats["host_reads"]``
-    and the host wall to ``stats["exchange_s"]``."""
-    t0 = time.perf_counter()
-    S = len(mesh)
-    rows, counts = [], []
-    for payload, dest in zip(payloads, dests):
-        dest, order = torch.sort(dest, stable=True)
-        rows.append(payload[order])
-        # per-destination counts from the sorted owners: no host wait (a
-        # CUDA bincount reads its input's maximum to the host)
-        edges = torch.searchsorted(dest, torch.arange(S + 2, device=dest.device))
-        counts.append(edges[1:] - edges[:-1])
-    sizes = read_host(counts)
-    blocks: list[list] = [[] for _ in range(S)]
-    for r, n in zip(rows, sizes):
-        for d, part in enumerate(torch.split(r, n)[:S]):
-            blocks[d].append(part.to(mesh[d], non_blocking=True))
-    stats["host_reads"] = stats.get("host_reads", 0) + 1
-    stats["exchange_s"] = stats.get("exchange_s", 0.0) + time.perf_counter() - t0
-    return [torch.cat(b) for b in blocks]
-
-
 def row_stats(routed: bool, n_shards: int) -> dict:
     """The counters a step adds to: the routed step's rows after each hop
     per shard (summed from the blocks' headers at the end), its host reads,
@@ -444,6 +422,72 @@ def capacity(slice_rows: int, n_shards: int) -> int:
     ``slice_rows``: twice the uniform mean, at least 128 (JAX
     ``make_routed_call_step``)."""
     return max(128, -(-2 * slice_rows // n_shards))
+
+
+_PEERS: set = set()  # ordered (card, card) index pairs whose peer access is on
+
+
+def enable_peer(cards) -> None:
+    """Peer access for every ordered pair of distinct CUDA cards in
+    ``cards`` (``csrc/route.cu malva_enable_peer``), once per pair in a
+    process, so that their copies go card to card without the CUDA
+    driver staging them through the host.  The one place the port enables it: the
+    context scan before it copies the alt words and the contigs between
+    cards, and the routed step's router before its slot copies."""
+    idx = [d.index for d in map(torch.device, cards) if d.type == "cuda"]
+    pairs = [(a, b) for a in dict.fromkeys(idx) for b in dict.fromkeys(idx)
+             if a != b and (a, b) not in _PEERS]
+    if not pairs:
+        return
+    lib = _build.library()
+    for a, b in pairs:
+        err = lib.malva_enable_peer(a, b)
+        if err != 0:
+            raise RuntimeError(f"malva_enable_peer(cuda:{a}, cuda:{b}): CUDA error {err}")
+        _PEERS.add((a, b))
+
+
+def copy_plan(mesh, pairs: list, hops: list, keep: list) -> dict:
+    """The ctypes arguments of slot-block copies between cards
+    (``csrc/route.cu malva_route_copies``) for ``kernels.route_step`` and
+    ``kernels.scan_step``, with peer access on for the mesh's cards
+    (:func:`enable_peer`).  ``pairs`` are the (source, destination) shards
+    on two devices, each with a copy stream of its own; ``hops`` are
+    (recv, send, words) per hop: shard d receives source s's block at
+    ``recv[d][s * words:]``, sent from ``send[s][d * words:]``.  Per hop:
+    the events each shard's compute stream records when its blocks are
+    written ("produced") and each copy's ("copied"); "done", one event per
+    shard recorded here, is the scan's guard.  The torch streams and events
+    the handles belong to go into ``keep``."""
+    enable_peer(mesh)
+
+    def arr(kind, values):
+        return (kind * len(values))(*values)
+
+    def events(devices, streams=None):
+        out = []
+        for i, dev in enumerate(devices):
+            ev = torch.cuda.Event()
+            ev.record(streams[i] if streams else torch.cuda.current_stream(dev))
+            keep.append(ev)
+            out.append(ev.cuda_event)
+        return arr(ctypes.c_void_p, out)
+
+    streams = [torch.cuda.Stream(device=mesh[s]) for s, _ in pairs]
+    keep += streams
+    plan = {"dev": arr(ctypes.c_int, [d.index for d in mesh]), "n": len(pairs),
+            "from": arr(ctypes.c_int, [s for s, _ in pairs]),
+            "to": arr(ctypes.c_int, [d for _, d in pairs]),
+            "streams": arr(ctypes.c_void_p, [st.cuda_stream for st in streams]),
+            "done": events(mesh), "hops": []}
+    for recv, send, w in hops:
+        plan["hops"].append({
+            "produced": events(mesh),
+            "copied": events([mesh[s] for s, _ in pairs], streams),
+            "dst": arr(ctypes.c_void_p, [recv[d][s * w:].data_ptr() for s, d in pairs]),
+            "src": arr(ctypes.c_void_p, [send[s][d * w:].data_ptr() for s, d in pairs]),
+            "bytes": 4 * w})
+    return plan
 
 
 OVERFLOW_STEPS = 16  # the overflow lists hold the most that this many steps can spill
@@ -513,48 +557,11 @@ class Router:
 
     def _copy_plan(self) -> dict:
         """The ctypes arguments of both hops' copies for ``kernels.route_step``
-        (``csrc/route.cu malva_route_copies``), with peer access enabled
-        for every ordered pair of the mesh's cards (``malva_enable_peer``,
-        once per router; the one place the port enables it)."""
-        pairs = self.pairs
-        lib = _build.library()
-        for s, d in pairs:
-            err = lib.malva_enable_peer(self.mesh[s].index, self.mesh[d].index)
-            if err != 0:
-                raise RuntimeError(f"malva_enable_peer({self.mesh[s]}, {self.mesh[d]}): CUDA "
-                                   f"error {err}")
-        self._keep = []  # the torch streams and events the handles belong to
-
-        def arr(kind, values):
-            return (kind * len(values))(*values)
-
-        def events(devices, streams=None):
-            out = []
-            for i, dev in enumerate(devices):
-                ev = torch.cuda.Event()
-                ev.record(streams[i] if streams else torch.cuda.current_stream(dev))
-                self._keep.append(ev)
-                out.append(ev.cuda_event)
-            return arr(ctypes.c_void_p, out)
-
-        streams = [torch.cuda.Stream(device=self.mesh[s]) for s, _ in pairs]
-        self._keep += streams
-        produced = [events(self.mesh) for _ in range(2)]
-        plan = {"dev": arr(ctypes.c_int, [d.index for d in self.mesh]), "n": len(pairs),
-                "from": arr(ctypes.c_int, [s for s, _ in pairs]),
-                "to": arr(ctypes.c_int, [d for _, d in pairs]),
-                "streams": arr(ctypes.c_void_p, [st.cuda_stream for st in streams]),
-                "hops": []}
-        for hop, w in enumerate(self.words):
-            plan["hops"].append({
-                "produced": produced[hop],
-                "copied": events([self.mesh[s] for s, _ in pairs], streams),
-                "dst": arr(ctypes.c_void_p, [self.recv[hop][d][s * w:].data_ptr()
-                                             for s, d in pairs]),
-                "src": arr(ctypes.c_void_p, [self.send[hop][s][d * w:].data_ptr()
-                                             for s, d in pairs]),
-                "bytes": 4 * w})
-        return plan
+        (:func:`copy_plan`)."""
+        self._keep = []
+        return copy_plan(self.mesh, self.pairs,
+                         [(self.recv[h], self.send[h], w) for h, w in enumerate(self.words)],
+                         self._keep)
 
     def _step_plan(self) -> np.ndarray:
         """The step's plan for ``kernels.route_step``: each shard's device,
@@ -925,51 +932,206 @@ def release(stats: dict) -> None:
     stats["release_s"] = time.perf_counter() - t0
 
 
-def make_sharded_ref_scan(mesh, k: int, ref_k: int, size_bits: int, slice_chunk: int):
-    """The sharded context scan's step (JAX ``:519``):
-    ``scan(bf_words, ctx_shards, seqs, start, n_pos, stats)`` scans
-    positions ``[start, start + S * slice_chunk)`` of one contig, slice s on
-    shard s.  Each shard hashes its slice's windows (K2 hash-only, the
-    ref_k - 1 halo read from the contig) and probes the alt words
-    (``bf_words[device]``, one copy per device); only then does the host
-    wait, once, in the exchange that sends the hits to the owners of their
-    context words (a miss goes nowhere), which set the bits."""
-    S = len(mesh)
-    wps = size_bits // 32 // S
+# One position in SCAN_HIT_SHARE a hit: the most the scan's slots hold
+# without a spill where the hits spread evenly over the owners.  At chr
+# scale 22,067 of 10^7 positions hit, 21,824 of them on one owner (PERF.md
+# section 6): a third of one pair's slots, had they all come in one chunk.
+SCAN_HIT_SHARE = 4
 
-    def scan(bf_words: dict, ctx_shards: list, seqs: dict, start: int, n_pos: int,
-             stats: dict) -> None:
-        payloads, dests = [], []
-        for s, dev in enumerate(mesh):
-            p0 = start + s * slice_chunk
-            n = min(slice_chunk, n_pos - p0)
-            if n <= 0:  # the contig ends before this shard's slice
-                break
-            c_hi, c_lo, x_hi, x_lo = kernels.window_hash(seqs[dev][p0 : p0 + n + ref_k - 1],
-                                                         n, k, ref_k)
-            bw, bb = xxh3_mod_size(c_hi, c_lo, size_bits)
-            hit = ((lanes(bf_words[dev][bw]) >> bb) & 1).bool()
-            cw, cb = xxh3_mod_size(x_hi, x_lo, size_bits)
-            payloads.append(torch.stack([cw % wps, cb], dim=1))
-            dests.append(torch.where(hit, cw // wps, S))
-            stats["positions"] += n
-        for d, got in enumerate(exchange(mesh, payloads, dests, stats)):
-            stats["hits"][d] += got.shape[0]
-            bloom_set(ctx_shards[d], got[:, 0], got[:, 1],
-                      torch.ones(got.shape[0], dtype=torch.bool, device=got.device))
 
-    return scan
+def scan_capacity(slice_rows: int, n_shards: int) -> int:
+    """Slot rows per (source, owner) pair of the sharded context scan for
+    source slices of ``slice_rows`` positions: an even share of one hit in
+    SCAN_HIT_SHARE positions, at least 128, at most a slice."""
+    return min(slice_rows, max(128, -(-slice_rows // (SCAN_HIT_SHARE * n_shards))))
+
+
+class ScanRouter:
+    """The sharded context scan's step (JAX ``make_sharded_ref_scan :519``)
+    and its buffers on the mesh, made once per scan: on each shard's
+    device, the D slot blocks it receives (one per source, ``cap`` rows
+    each, rows of W words: :func:`kernels.scan_row_words`) and, where an
+    owner lies on another device, the blocks it sends there; its overflow
+    list (a slice's rows) and tally; on CUDA, K2's codes and K8's scratch
+    per card, the copy streams and events (:func:`copy_plan`) and the
+    step's plan.
+
+    :meth:`step` scans positions ``[start, start + S * slice_rows)`` of one
+    contig, slice s on shard s: K8 (``kernels.scan_pack``) hashes each
+    position's windows (the ref_k - 1 halo read from the contig), probes
+    the alt words (one copy per device) and packs each hit, by the owner
+    of its context word, into that owner's slot block, in position order;
+    the blocks go card to card; K9 (``kernels.scan_set``) on each owner
+    sets their bits in its context words.  On CUDA that is one C call
+    (``kernels.scan_step``) and no host read.  A hit past ``cap`` goes to
+    the source's overflow list; :meth:`finish` reads the tallies once, at
+    the end, and sets the listed bits on their owners.  Setting a bit is
+    idempotent, so a scan whose lists overflowed is run again with slots of
+    a whole slice (:func:`build_context_sharded`), which cannot spill."""
+
+    def __init__(self, mesh, ctx: list, bf_words: dict, k: int, ref_k: int, size_bits: int,
+                 slice_rows: int, cap: int | None = None):
+        self.mesh, self.ctx, self.bf_words = tuple(mesh), ctx, bf_words
+        D = self.D = len(self.mesh)
+        self.k, self.ref_k, self.size_bits = k, ref_k, size_bits
+        self.wps = size_bits // 32 // D
+        self.W = kernels.scan_row_words(self.wps)
+        self.slice_rows = slice_rows
+        self.cap = scan_capacity(slice_rows, D) if cap is None else cap
+        self.ovf_cap = max(1, slice_rows)
+        self.cuda = self.mesh[0].type == "cuda"
+        w = self.words = kernels.scan_slot_words(self.cap, self.W)
+        cross = [[a != b for b in self.mesh] for a in self.mesh]
+        self.pairs = [(s, d) for s in range(D) for d in range(D) if cross[s][d]]
+
+        def zeros(n, dev, dtype=torch.int32):
+            return torch.zeros(n, dtype=dtype, device=dev)
+
+        self.recv = [zeros(D * w, dev) for dev in self.mesh]
+        self.send = [zeros(D * w, dev) if any(cross[s]) else None
+                     for s, dev in enumerate(self.mesh)]
+        self.out = [[self.send[s][d * w : (d + 1) * w] if cross[s][d]
+                     else self.recv[d][s * w : (s + 1) * w] for d in range(D)] for s in range(D)]
+        self.overflow = [zeros(self.ovf_cap * (self.W + 1), dev) for dev in self.mesh]
+        self.tally = [zeros(1 + D, dev, torch.int64) for dev in self.mesh]
+        self.slot_bytes = 4 * w * len(self.pairs)  # a chunk's copies
+        self.copies = self.plan = None
+        if self.cuda:
+            cards = cards_of(self.mesh)
+            self.codes = {d: torch.empty(slice_rows, dtype=torch.int64, device=d) for d in cards}
+            self.scratch = {d: kernels.route_scratch(d, D) for d in cards}
+            self._keep: list = []
+            if self.pairs:
+                self.copies = copy_plan(self.mesh, self.pairs,
+                                        [(self.recv, self.send, w)], self._keep)
+                self.copies.update(self.copies.pop("hops")[0])
+            self.plan = self._plan()
+
+    def _plan(self) -> np.ndarray:
+        """The scan step's plan for ``kernels.scan_step``: each shard's
+        device and buffers (columns from ``kernels.scan_layout``); the
+        slice, stream and events go in at each chunk."""
+        P = self.P = kernels.scan_layout()[1]
+        if self.D > P["max_dests"]:
+            raise ValueError(f"the sharded scan takes at most {P['max_dests']} shards, got "
+                             f"{self.D}")
+        plan = np.zeros((self.D, P["width"]), dtype=np.int64)
+        for s, dev in enumerate(self.mesh):
+            for t, name in ((self.ctx[s], "ctx_words"), (self.bf_words[dev], "bf_words")):
+                kernels._check(t, torch.int32, name)
+                if t.device != dev:
+                    raise ValueError(f"shard {s}'s {name} lies on {t.device}, not {dev}")
+            if self.ctx[s].numel() != self.wps:
+                raise ValueError(f"shard {s} holds {self.ctx[s].numel()} context words, not "
+                                 f"{self.wps}")
+            row = plan[s]
+            row[P["dev"]] = dev.index
+            for name, t in (("bf_words", self.bf_words[dev]), ("codes", self.codes[dev]),
+                            ("ovf", self.overflow[s]), ("tally", self.tally[s]),
+                            ("scratch", self.scratch[dev]), ("recv", self.recv[s]),
+                            ("ctx_words", self.ctx[s])):
+                row[P[name]] = t.data_ptr()
+            row[P["out"] : P["out"] + self.D] = [b.data_ptr() for b in self.out[s]]
+        return plan
+
+    def _slice(self, s: int, start: int, n_pos: int) -> tuple[int, int]:
+        """Shard s's first position and count in the chunk at ``start``."""
+        p0 = start + s * self.slice_rows
+        return p0, max(0, min(self.slice_rows, n_pos - p0))
+
+    def step(self, seqs: dict, start: int, n_pos: int, stats: dict,
+             events: dict | None = None) -> None:
+        """One chunk of the contig ``seqs[device]`` (a copy per device) of
+        ``n_pos`` positions, from ``start``; with ``events``, the K8 and K9
+        launches are timed (lists under "scan_pack" and "scan_set")."""
+        D, cap, ref_k = self.D, self.cap, self.ref_k
+        for s in range(D):
+            stats["positions"] += self._slice(s, start, n_pos)[1]
+        stats["slot_bytes"] += self.slot_bytes
+        if self.plan is not None:
+            return self._step_cuda(seqs, start, n_pos, events)
+        for s, dev in enumerate(self.mesh):
+            p0, n = self._slice(s, start, n_pos)
+            kernels.scan_pack(seqs[dev][p0 : p0 + n + ref_k - 1] if n else seqs[dev][:0], n,
+                              self.bf_words[dev], self.out[s], self.overflow[s], self.tally[s],
+                              k=self.k, ref_k=ref_k, size_bits=self.size_bits, wps=self.wps,
+                              cap=cap)
+        self._copy()
+        for d in range(D):
+            kernels.scan_set(self.ctx[d], self.recv[d], n_blocks=D, cap=cap, W=self.W)
+
+    def _copy(self) -> None:
+        """Off CUDA, the blocks to their owners on other devices, by tensor
+        copies (on CUDA the step's C call copies)."""
+        w = self.words
+        for s, d in self.pairs:
+            self.recv[d][s * w : (s + 1) * w].copy_(self.send[s][d * w : (d + 1) * w])
+
+    def _step_cuda(self, seqs: dict, start: int, n_pos: int, events: dict | None) -> None:
+        P, plan = self.P, self.plan
+        for s, dev in enumerate(self.mesh):
+            p0, n = self._slice(s, start, n_pos)
+            seq = seqs[dev]
+            kernels._check(seq, torch.uint8, "seq")
+            if n and (seq.device != dev or seq.numel() < p0 + n + self.ref_k - 1):
+                raise ValueError(f"shard {s}: the contig on {seq.device} ends before position "
+                                 f"{p0 + n + self.ref_k - 1}")
+            stream = torch.cuda.current_stream(dev)
+            plan[s, P["seq"]], plan[s, P["n_pos"]] = seq.data_ptr() + (p0 if n else 0), n
+            plan[s, P["stream"]] = stream.cuda_stream
+            for col, kind in (("ev_pack0", "scan_pack"), ("ev_set0", "scan_set")):
+                ev = step_events(events, kind, dev)
+                if ev is not None:
+                    for e in ev:  # a torch event makes its CUDA event at its first record
+                        e.record(stream)
+                plan[s, P[col] : P[col] + 2] = [e.cuda_event for e in ev] if ev else 0
+        kernels.scan_step(plan, k=self.k, ref_k=self.ref_k, size_bits=self.size_bits,
+                          wps=self.wps, W=self.W, cap=self.cap, ovf_cap=self.ovf_cap,
+                          copies=self.copies)
+
+    def finish(self, stats: dict) -> bool:
+        """Read every card's tally once: add the slot rows each owner got
+        to ``stats["hits"]`` and the spilled rows to
+        ``stats["overflow_rows"]``, then set each listed bit on its owner
+        (K9 over a block of the list's rows for that owner, the rows of
+        other owners sorted past its count).  False, with nothing set from
+        the lists, where a list took more rows than it holds."""
+        D, W, oc = self.D, self.W, self.ovf_cap
+        tallies = read_host(self.tally)
+        stats["host_reads_end"] += 1
+        for d in range(D):
+            stats["hits"][d] += sum(t[1 + d] for t in tallies)
+        spilled = [t[0] for t in tallies]
+        stats["overflow_rows"] += sum(spilled)
+        if max(spilled) > oc:
+            return False
+        for s, n in enumerate(spilled):
+            if n == 0:
+                continue
+            rows = self.overflow[s].view(W + 1, oc)[:, :n]
+            owner = rows[W]
+            for d in range(D):
+                mine = owner == d
+                order = torch.sort((~mine).to(torch.uint8), stable=True)[1]
+                head = torch.zeros(kernels.SLOT_HEAD, dtype=torch.int32, device=owner.device)
+                head[0] = mine.sum()
+                block = torch.cat([head, rows[:W, order].reshape(-1)])
+                kernels.scan_set(self.ctx[d], block.to(self.mesh[d]), n_blocks=1, cap=n, W=W)
+        return True
 
 
 def build_context_sharded(index, refs_used: list[np.ndarray], cfg: Config, mesh,
                           slice_chunk: int = 1 << 20) -> None:
     """The reference context scan over a mesh (JAX ``:582``), updating
     ``index.context_bf.words``; equivalent to the host scan.  Short contigs
-    go first, on the host.  The alt words and each contig cross from the
+    go first, on the host.  Peer access goes on between the mesh's cards
+    (:func:`enable_peer`); the alt words and each contig cross from the
     host once, to the mesh's first device, and are copied from there to
     its other devices (virtual shards of one device share one copy); each
-    shard's context words cross as its slice; the words come back
-    sparse."""
+    shard's context words cross as its slice; each chunk of ``S *
+    slice_chunk`` positions is one :meth:`ScanRouter.step` (slots of
+    :func:`scan_capacity` rows), with no host read; the tallies come back
+    once, and the words sparse."""
     S = len(mesh)
     check_bloom_size(cfg.bf_size)
     W = index.bf.words.shape[0]
@@ -978,29 +1140,67 @@ def build_context_sharded(index, refs_used: list[np.ndarray], cfg: Config, mesh,
     wps = W // S
     short_contigs_on_host(index, refs_used, cfg)
 
-    t0 = time.perf_counter()
     devices = cards_of(mesh)
-    bf_words = replicate(upload([index.bf.words], devices[:1])[0], devices)
+    times: dict = {}
+    t = t0 = time.perf_counter()
+
+    def mark(name: str, since: float, sync: bool = True) -> float:
+        if sync:
+            synchronize(devices)
+        now = time.perf_counter()
+        times[name] = times.get(name, 0.0) + now - since
+        return now
+
+    enable_peer(devices)
+    t = mark("peer access", t)
+    first = upload([index.bf.words], devices[:1])[0]
+    t = mark("alt words upload", t)
+    bf_words = replicate(first, devices)
+    t = mark("alt words replicated", t)
     ctx = upload(row_slices(index.context_bf.words, S), mesh)
-    synchronize(devices)
-    upload_s = time.perf_counter() - t0
-    scan = make_sharded_ref_scan(mesh, cfg.k, cfg.ref_k, cfg.bf_size, slice_chunk)
-    stats = {"positions": 0, "hits": [0] * S, "host_reads": 0, "exchange_s": 0.0}
-    for ref in refs_used:
-        if len(ref) < cfg.ref_k:
-            continue
-        seqs = replicate(upload([ref.astype(np.uint8, copy=False)], devices[:1])[0], devices)
-        n_pos = len(ref) - cfg.ref_k + 1
-        for start in range(0, n_pos, S * slice_chunk):
-            scan(bf_words, ctx, seqs, start, n_pos, stats)
+    t = mark("context words upload", t)
+    router = ScanRouter(mesh, ctx, bf_words, cfg.k, cfg.ref_k, cfg.bf_size, slice_chunk)
+    t = mark("buffers", t)
+    timed = mesh[0].type == "cuda"
+    stats = {"positions": 0, "chunks": 0, "hits": [0] * S, "overflow_rows": 0,
+             "host_reads_chunks": 0, "host_reads_end": 0, "rescans": 0, "slot_bytes": 0}
+    events = {"scan_pack": [], "scan_set": []} if timed else None
+    while True:
+        for ref in refs_used:
+            if len(ref) < cfg.ref_k:
+                continue
+            seqs = replicate(upload([ref.astype(np.uint8, copy=False)], devices[:1])[0], devices)
+            t = mark("contigs", t, sync=False)
+            n_pos = len(ref) - cfg.ref_k + 1
+            reads = HOST_READS[0]
+            for start in range(0, n_pos, S * slice_chunk):
+                router.step(seqs, start, n_pos, stats, events)
+                stats["chunks"] += 1
+            stats["host_reads_chunks"] += HOST_READS[0] - reads
+            t = mark("chunks", t, sync=False)
+        t = mark("chunks", t)
+        if router.finish(stats):
+            break
+        # an overflow list overflowed: scan again with slots that cannot spill
+        stats["rescans"] += 1
+        router = ScanRouter(mesh, ctx, bf_words, cfg.k, cfg.ref_k, cfg.bf_size, slice_chunk,
+                            cap=slice_chunk)
+    t = mark("overflow and tallies", t)
     for s, words in enumerate(ctx):  # the scan only sets bits: nonzero words stay nonzero
         nz = torch.nonzero(words).squeeze(1)
         index.context_bf.words[s * wps + nz.cpu().numpy()] = to_u32(words[nz])
-    print(f"[{TAG}] sharded context scan: {stats['positions']} positions over {S} shards "
-          f"({', '.join(map(str, mesh))}); hits routed to their context-word owners "
-          f"{stats['hits']}; upload {upload_s:.6g} s, scan {time.perf_counter() - t0 - upload_s:.6g}"
-          f" s (the sparse read-back included; {stats['host_reads']} host reads of split sizes, "
-          f"exchange {stats['exchange_s']:.6g} s)", file=sys.stderr)
+    t = mark("read-back", t)
+    k8, k9 = (events_ms(events[n]) if timed else None for n in ("scan_pack", "scan_set"))
+    again = f", scanned {stats['rescans']} times more" if stats["rescans"] else ""
+    print(f"[{TAG}] sharded context scan: {stats['positions']} positions in {stats['chunks']} "
+          f"chunks over {S} shards ({', '.join(map(str, mesh))}); hits routed to their "
+          f"context-word owners {stats['hits']} in the slots, {stats['overflow_rows']} rows "
+          f"through the overflow lists{again}; host reads {stats['host_reads_chunks']} in the "
+          f"chunks, {stats['host_reads_end']} at the end; slots of {router.cap} rows of "
+          f"{4 * router.W} bytes a (source, owner) pair, {stats['slot_bytes']} bytes of them "
+          f"copied card to card; K8 {k8} ms, K9 {k9} ms (launcher events); "
+          + ", ".join(f"{n} {v:.6g} s" for n, v in times.items())
+          + f"; {time.perf_counter() - t0:.6g} s in all", file=sys.stderr)
 
 
 def log_sharded_step(stats: dict) -> None:

@@ -8,7 +8,9 @@ chip_smoke.py's chr-scale inputs (``tools/make_synth_scale.py --mbp 10
 --backend cuda -k 35 -r 43 -b 1 -f AF`` from each given checkout, each run
 in its own process on its own copy of the inputs: with every card visible
 and with one, in turns (checkout A all cards, A one card, B all cards, B
-one card, then the next round in the reverse order), three rounds.
+one card, then the next round in the reverse order), three rounds, or
+``--rounds N``.  On a host of three cards or more each round also runs
+every checkout on the first two cards (between all and one).
 Every VCF must be byte-identical to the first.  Each checkout builds its
 kernels and native library in a process of its own first, so no run
 includes a build.
@@ -27,6 +29,7 @@ count, the median wall, exit and phases.
 
     python -m malva_tpu_torch.tools.multicard_run              # this checkout
     python -m malva_tpu_torch.tools.multicard_run OLD NEW      # two checkouts
+    python -m malva_tpu_torch.tools.multicard_run --rounds 5 OLD NEW
 
 It needs a checkout (``tools/make_synth_scale.py``) and at least two cards.
 """
@@ -176,7 +179,11 @@ def medians(runs: list[dict]) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("checkouts", nargs="*", help="checkouts to run from (default: this one)")
+    ap.add_argument("--rounds", type=int, default=ROUNDS,
+                    help=f"rounds of alternated runs (default {ROUNDS})")
     args = ap.parse_args(argv)
+    if args.rounds < 1:
+        raise SystemExit("multicard_run: --rounds takes 1 or more")
     if torch.cuda.device_count() < 2:  # counts the cards, makes no context
         raise SystemExit("multicard_run: needs at least two cards")
     checkouts = [os.path.abspath(c) for c in args.checkouts or [str(REPO)]]
@@ -190,9 +197,12 @@ def main(argv=None) -> int:
             prepare(c)
         runs, first = [], None
         visible = os.environ.get("CUDA_VISIBLE_DEVICES")
-        for r in range(ROUNDS):
+        ids = (visible or ",".join(map(str, range(torch.cuda.device_count())))).split(",")
+        legs = ([(visible, "all")] + ([(",".join(ids[:2]), "two")] if len(ids) >= 3 else [])
+                + [(ids[0], "one")])
+        for r in range(args.rounds):
             for c in (checkouts if r % 2 == 0 else checkouts[::-1]):
-                for vis, label in ((visible, "all"), ("0", "one")):
+                for vis, label in legs:
                     got = run_once(c, src, os.path.join(tmp, f"r{len(runs)}"), vis, label)
                     vcf = open(got.pop("vcf"), "rb").read()
                     if first is None:

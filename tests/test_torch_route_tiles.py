@@ -19,6 +19,7 @@ tests/test_torch_route.py.
 
 import ctypes
 import os
+from collections import Counter
 import shutil
 import subprocess
 
@@ -174,9 +175,10 @@ static int emulate(const Src& src, int D, uint32_t* const* out, int64_t cap, uin
         tally[tally_at + e] += out[e][0];
       }
       const uint32_t* cols = tl.stage.data() + (size_t)kTileLanes * N;
-      for (int kind = 0; kind < run_kinds(C); ++kind) {
-        const Run w = tile_run<C>(kind, r, out[e] + head, tl.stage.data(), cols, N, cap, ovf,
-                                  ovf_cap);
+      for (int kind = 0; kind < run_kinds(Src::kSlotCols, Src::kOvfCols); ++kind) {
+        const Run w = tile_run<Src::kSlotCols, Src::kOvfCols>(kind, r, out[e] + head,
+                                                              tl.stage.data(), cols, N, cap, ovf,
+                                                              ovf_cap);
         for (int lane = 0; lane < 32; ++lane) write_run(w.dst, w.src, w.n, lane, 32);
       }
     }
@@ -202,6 +204,16 @@ extern "C" int emulate_probe(const uint32_t* in, int64_t cap_in, int wc,
                              uint64_t* scratch, unsigned order, int head, int hop1_cols) {
   const ProbeLanes src{in, ctx_words, cap_in, head + cap_in * (wc + hop1_cols), head, wc, D};
   return emulate(src, D, out, cap, ovf, ovf_cap, tally, 1 + D, scratch, order, head);
+}
+
+extern "C" int emulate_scan(const uint32_t* codes, int64_t n, uint32_t wps, int W, int D,
+                            uint32_t* const* out, int64_t cap, uint32_t* ovf, int64_t ovf_cap,
+                            uint64_t* tally, uint64_t* scratch, unsigned order, int head) {
+  if (W == 1)
+    return emulate(ScanLanes<1>{codes, n, wps, 0}, D, out, cap, ovf, ovf_cap, tally, 1, scratch,
+                   order, head);
+  return emulate(ScanLanes<2>{codes, n, wps, 0}, D, out, cap, ovf, ovf_cap, tally, 1, scratch,
+                 order, head);
 }
 
 // One look-back step over `statuses` (n of them, nearest first: tile
@@ -237,6 +249,7 @@ def tiles_cxx(tmp_path_factory):
     lib.emulate_pack.argtypes = [p, p, p, i64, i, u64, u32, i, p, i64, p, i64, p, p,
                                  ctypes.c_uint, i]
     lib.emulate_probe.argtypes = [p, i64, i, p, i, p, i64, p, i64, p, p, ctypes.c_uint, i, i]
+    lib.emulate_scan.argtypes = [p, i64, u32, i, i, p, i64, p, i64, p, p, ctypes.c_uint, i]
     lib.look_back.argtypes = [p, i64, i, p, p]
     lib.write_words.argtypes = [p, p, i64, i]
     return lib
@@ -597,3 +610,74 @@ def test_write_run(tiles_cxx, n, shift):
     tiles_cxx.write_words(dst.ctypes.data + 4 * at, src.ctypes.data, n, 32)
     np.testing.assert_array_equal(dst[at : at + n], src[:n])
     assert not dst[:at].any() and not dst[at + n :].any()
+
+
+def _scan_codes(rng, n, D, W):
+    """n positions' K2 codes (int64 Bloom indices; a fifth miss, -1) whose
+    context words go mostly to owner 0 (clumped), on shards of wps words:
+    2^15 (rows of one word) or 2^28 (a shard's bits past 2^32: two)."""
+    wps = 1 << 15 if W == 1 else 1 << 28
+    word = owners(rng, n, D, "clumped") * wps + rng.integers(0, wps, n)
+    codes = np.where(rng.random(n) < 0.2, -1, word * 32 + rng.integers(0, 32, n))
+    return codes.astype(np.int64), wps
+
+
+def _scan_ovf_rows(ovf, n, W, ovf_cap):
+    """The rows a scan overflow list holds ([W planes | owner plane] of
+    ovf_cap), the first min(n, ovf_cap), sorted."""
+    o = np.asarray(ovf).view(np.int32).reshape(W + 1, ovf_cap)[:, : min(n, ovf_cap)].T
+    return o[np.lexsort(o.T[::-1])]
+
+
+@pytest.mark.parametrize("W", [1, 2])
+@pytest.mark.parametrize("n", [0, 1, T - 1, T, 5 * T + 1])
+@pytest.mark.parametrize("D", [1, 2, 3, 8, 16])
+def test_scan_tiles_match_plain(tiles_cxx, D, n, W):
+    """K8's partition (ScanLanes, rows of W words) emulated from no
+    position to five tiles and a position, with a slot capacity of a
+    sixth of the positions and a list of a sixteenth, so that rows spill to
+    the overflow list and, past many tiles, out of it: the slot blocks,
+    headers and tallies equal scan_partition_plain's bit for bit, the list
+    holds the same rows, each with its owner, and the scratch is left
+    zeroed.  Every slot row is its hit's shard-local bit index."""
+    rng = np.random.default_rng(6000 + 100 * D + 10 * W + n % 97)
+    codes, wps = _scan_codes(rng, n, D, W)
+    cap, ovf_cap = max(1, n // 6), max(1, n // 16)
+    w = kernels.scan_slot_words(cap, W)
+    want = ([torch.zeros(w, dtype=torch.int32) for _ in range(D)],
+            torch.zeros(ovf_cap * (W + 1), dtype=torch.int32),
+            torch.zeros(1 + D, dtype=torch.int64))
+    kernels.scan_partition_plain(torch.from_numpy(codes), *want, wps=wps, cap=cap)
+    roomy = torch.zeros((n + 1) * (W + 1), dtype=torch.int32)
+    kernels.scan_partition_plain(torch.from_numpy(codes), [torch.zeros_like(b) for b in want[0]],
+                                 roomy, torch.zeros(1 + D, dtype=torch.int64), wps=wps, cap=cap)
+    spilled = int(want[2][0])
+    every = Counter(map(tuple, _scan_ovf_rows(roomy.numpy(), spilled, W, n + 1)))
+    if n > T:
+        assert spilled > ovf_cap  # the list overflows
+    for order in (0, 17 + D):
+        scratch = _scratch(tiles_cxx, D)
+        blocks = [np.zeros(w, np.uint32) for _ in range(D)]
+        ovf = np.zeros(ovf_cap * (W + 1), np.uint32)
+        tally = np.zeros(1 + D, np.uint64)
+        err = tiles_cxx.emulate_scan(codes.ctypes.data, n, wps, W, D, _pointers(blocks), cap,
+                                     ovf.ctypes.data, ovf_cap, tally.ctypes.data,
+                                     scratch.ctypes.data, order, SLOT_HEAD)
+        assert err == 0
+        for got, b in zip(blocks, want[0]):
+            np.testing.assert_array_equal(got.view(np.int32), b.numpy())
+        np.testing.assert_array_equal(tally.view(np.int64), want[2].numpy())
+        got_rows = _scan_ovf_rows(ovf, spilled, W, ovf_cap)
+        if spilled <= ovf_cap:
+            np.testing.assert_array_equal(got_rows, _scan_ovf_rows(want[1].numpy(), spilled, W,
+                                                                   ovf_cap))
+        else:  # ovf_cap of the rows that spilled (two hits may share a code)
+            assert len(got_rows) == ovf_cap and not Counter(map(tuple, got_rows)) - every
+        assert not scratch.any()
+    hits = codes[codes >= 0]
+    for d in range(D):
+        live = int(want[0][d][0])
+        rows = want[0][d][SLOT_HEAD:].numpy().view(np.uint32).astype(np.int64).reshape(W, cap)
+        local = rows[0] | (rows[1] << 32 if W == 2 else 0)
+        mine = hits[hits // (32 * wps) == d]
+        np.testing.assert_array_equal(local[:live], (mine - d * 32 * wps)[:cap])

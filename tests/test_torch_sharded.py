@@ -712,49 +712,6 @@ def test_place_from_jax_arrays_runs_without_minifilter():
         np.testing.assert_array_equal(g, w)
 
 
-def _exchange_case(S, case):
-    """Sources of 0-40 rows (each row its source and index, so the order
-    shows), and their destinations: ``spread`` over every shard (the last
-    source empty), ``gaps`` over the even shards only (every other
-    destination receives nothing), ``one`` all to the last shard, ``drop``
-    a third to no shard (destination S)."""
-    rng = np.random.default_rng(S * 10 + len(case))
-    payloads, dests = [], []
-    for s in range(S):
-        n = 0 if case == "spread" and s == S - 1 else int(rng.integers(0, 41))
-        payloads.append(np.stack([np.full(n, s), np.arange(n), rng.integers(0, 1 << 30, n)],
-                                 axis=1).astype(np.int32))
-        if case == "one":
-            dests.append(np.full(n, S - 1))
-        elif case == "gaps":
-            dests.append(rng.integers(0, (S + 1) // 2, n) * 2)
-        else:
-            dests.append(rng.integers(0, S + (case == "drop"), n))
-    return payloads, dests
-
-
-@pytest.mark.parametrize("case", ["spread", "gaps", "one", "drop"])
-@pytest.mark.parametrize("S", [1, 2, 3, 8])
-def test_exchange_matches_numpy(S, case, monkeypatch):
-    """exchange against a numpy reference: each shard gets the rows sent to
-    it, source after source and in each source's own order; rows for shard
-    S go nowhere; empty sources and shards that receive nothing give empty
-    blocks; one host read for the whole hop."""
-    from malva_tpu_torch.parallel import sharded_index
-
-    payloads, dests = _exchange_case(S, case)
-    stats = {}
-    reads = _count_calls(monkeypatch, sharded_index, "read_host")
-    got = sharded_index.exchange([CPU] * S, [torch.from_numpy(p) for p in payloads],
-                                 [torch.from_numpy(d) for d in dests], stats)
-    assert len(got) == S and len(reads) == 1
-    assert stats["host_reads"] == 1 and stats["exchange_s"] >= 0
-    for d in range(S):
-        want = np.concatenate([p[dst == d] for p, dst in zip(payloads, dests)])
-        np.testing.assert_array_equal(got[d].numpy(), want.reshape(-1, 3))
-    assert sum(g.shape[0] for g in got) == sum(int((d < S).sum()) for d in dests)
-
-
 def _count_calls(monkeypatch, module, name):
     calls = []
     real = getattr(module, name)

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py              # everything (needs one card)
     python3 chip_smoke.py --kernels-only
-    python3 chip_smoke.py --kernels-only --parent DIR   # and DIR's K6, K7 in turns
+    python3 chip_smoke.py --kernels-only --parent DIR   # and DIR's kernels in turns
 
 1. Prints torch's and CUDA's versions and the card's name and power limit.
    Builds the port's native host library from its own source
@@ -32,21 +32,26 @@
    index cut into 4 source slices: K6 (route_pack) on each slice, K7
    (route_probe) on each owner, K4's slot entry on shard 0 over the hop-2
    blocks written for it (slot blocks, headers, tallies and the sorted
-   overflow lists bit-identical), then K6 and K7 alone at D = 1, 3, 4 and
-   16 with owners spread, clumped, all to one shard and none live, from
-   one lane to 2^22 (2048 tiles, more than the card holds at once), each
-   case launched twice on one scratch, which each launch must leave
+   overflow lists bit-identical), and again over the hop-2 blocks of a
+   mix like the run's (2^16 of the 2^21 lanes on map keys), each mix with
+   torch's gather of its live rows' Bloom rows timed beside it and the
+   probe's bucket reads in its bound; then K6 and K7 alone at D = 1, 3, 4
+   and 16 with owners spread, clumped, all to one shard and none live,
+   from one lane to 2^22 (2048 tiles, more than the card holds at once),
+   each case launched twice on one scratch, which each launch must leave
    zeroed (with ``--parent DIR``, the kernels of the checkout at DIR, built
    from its sources, are timed in turns with this one's on the same
-   inputs), with torch's gather of the Bloom rows K4's slot entry reads
-   timed beside it; the sharded context scan's K8 (scan_pack: K2's codes,
-   then their partition by owner into slot blocks) on each of 4 slices of
-   2^20 positions of a reference-shaped contig and K9 (scan_set) on each
-   owner over the blocks written for it (codes, blocks, tallies and
-   context words bit-identical), then K8's partition alone at D = 1, 3, 4
-   and 16 with hits spread, clumped, on one owner and none, from 1 to 2^22
-   codes, with slots that overflow, each case launched twice on one
-   scratch; then the scan alone on a 2^28-position contig, the one-card
+   inputs: K4's slot entry at both mixes, K6, K7, K8 and K9); the sharded
+   context scan's K8 (scan_pack, one launch: K2's tiles partition their
+   hits by owner into slot blocks) on each of 4 slices of 2^20 positions
+   of a reference-shaped contig, its launches counted from a profiler
+   trace, K2's scan timed on the same slice, and K9 (scan_set) on each
+   owner over the blocks written for it (blocks, tallies and context words
+   bit-identical), then K8 at D = 1, 3, 4 and 16 with hits spread,
+   clumped, on one owner and none, from 1 to 2^22 positions, and with
+   every position a hit over 2^22, with slots that overflow, each case
+   launched twice on one scratch; then the scan alone on a 2^28-position
+   contig, the one-card
    scan against the sharded scan on 4 virtual shards, in turns (equal
    words, no host read in the chunks); K3 on a
    2^25-window read chunk (reads joined
@@ -96,6 +101,9 @@
    index upload of that chr-scale index alone, in its four parts.  Then
    ``python -m malva_tpu_torch.run_distributed`` in two processes (gloo)
    with the 5x reads split in two: rank 0's VCF equal to the host run's.
+   With ``--parent DIR``, the scan alone on 4 virtual shards and the
+   chr-scale sharded run from both checkouts, each in its own process, in
+   turns: the scan's walls and K4's slot entry's time a launch on the run.
    Then ``graft_entry.dryrun_multichip(4, [cuda:0] * 4)``.  On a host with
    two cards or more (``nvidia-smi -L``), the real-card leg: the chr-scale
    ``run --backend cuda`` with every card visible (the default route
@@ -391,7 +399,7 @@ def kernel_phase(device, parent=None) -> list[dict]:
     k4 = shard_update_check(ix, device, peak)
     k5 = gather_update_check(ix, device, peak)
     route = route_check(ix, device, peak, parent)
-    scan = scan_check(ix, device, peak)
+    scan = scan_check(ix, device, peak, parent)
     scan[0]["scan_alone"] = scan_alone(ix)
     results[0]["event_probe"] = event_timing_probe(ix, device)
     del ix
@@ -533,13 +541,16 @@ def shard_update_check(ix: dict, device, peak: float) -> dict:
     if out[True]["n_bf"] != out[False]["n_bf"] or out[True]["n_map"] != out[False]["n_map"]:
         raise AssertionError(f"K4 with and without the mini-filter updated other counters {out}")
     on, ms = out[True], out[True]["ms"]
+    cand, reads = bucket_reads(ctx, rows, kmap_keys, table.n_buckets)
     # per lane: context (12 B), counter (4 B), "known" flag (1 B), Bloom row
-    # (8 B); 8 B read and written per counter and map value updated.  The
-    # centre's canonical form, ASCII and hash, and 23 as in K1.
-    b_ms, b_by = bound(ROUTED * 25 + (on["n_bf"] + on["n_map"]) * 8,
+    # (8 B); 8 B read and written per counter and map value updated; a
+    # 32-byte sector per bucket the probe reads (with the mini-filter).
+    # The centre's canonical form, ASCII and hash, and 23 as in K1.
+    b_ms, b_by = bound(ROUTED * 25 + (on["n_bf"] + on["n_map"]) * 8 + reads * 32,
                        ROUTED * (canonical_packed_ops(K) + ascii_ops(K) + xxh3_ops(K) + 23), peak)
     log(f"K4 == plain on shard 0 of {SHARDS} ({on['n_bf']} counters, {on['n_map']} map values "
-        f"updated, {int(mine.sum())} map keys), with the shard's mini-filter and without it; "
+        f"updated, {int(mine.sum())} map keys; {cand} probe candidates, {reads} bucket reads), "
+        f"with the shard's mini-filter and without it; "
         f"K4 {ms:.4f} ms (bound {b_ms:.4f} ms, {b_by}; {b_ms / ms:.1%} of the bound), without "
         f"the mini-filter {out[False]['ms']:.4f} ms, torch's gather of the same rows "
         f"{gather_ms:.4f} ms, plain {plain_ms:.4f} ms per {ROUTED} routed lanes")
@@ -547,7 +558,8 @@ def shard_update_check(ix: dict, device, peak: float) -> dict:
             "replaces": "malva_tpu/parallel/sharded_index.py:398 (XLA, no Pallas counterpart)",
             "max_abs_err": max(on["err"], out[False]["err"]), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "lanes": ROUTED,
-            "gather_ms": gather_ms, "no_minifilter_ms": out[False]["ms"]}
+            "gather_ms": gather_ms, "no_minifilter_ms": out[False]["ms"], "candidates": cand,
+            "bucket_reads": reads}
 
 
 def gather_update_check(ix: dict, device, peak: float) -> dict:
@@ -595,13 +607,16 @@ def gather_update_check(ix: dict, device, peak: float) -> dict:
                                                            known, **args), iters=3, warmup=1)
     # per lane: context (12 B), counter (4 B), "known" flag (1 B); per owned
     # lane its Bloom row (8 B); 8 B read and written per counter and map
-    # value updated.  Every lane's centre: canonical form, ASCII and hash,
-    # and 23 as in K1.
+    # value updated; a 32-byte sector per bucket of the shard's range the
+    # probe reads.  Every lane's centre: canonical form, ASCII and hash, and
+    # 23 as in K1.
     n_own = int(owned.shape[0])
-    b_ms, b_by = bound(LANES * 17 + n_own * 8 + (n_bf + n_map) * 8,
+    cand, reads = bucket_reads(ctx, None, kmap_keys, ix["n_buckets"], n_local=nbps)
+    b_ms, b_by = bound(LANES * 17 + n_own * 8 + (n_bf + n_map) * 8 + reads * 32,
                        LANES * (canonical_packed_ops(K) + ascii_ops(K) + xxh3_ops(K) + 23), peak)
     log(f"K5 == plain on shard 0 of {SHARDS} ({n_bf} counters, {n_map} map values updated; "
-        f"{n_own} of {LANES} lanes own their Bloom word); K5 {ms:.4f} ms (bound {b_ms:.4f} ms, "
+        f"{n_own} of {LANES} lanes own their Bloom word; {cand} lanes probe the shard's "
+        f"buckets, {reads} bucket reads); K5 {ms:.4f} ms (bound {b_ms:.4f} ms, "
         f"{b_by}; {b_ms / ms:.1%} of the bound), torch's gather of the owned lanes' rows "
         f"{gather_ms:.4f} ms, plain {plain_ms:.4f} ms per {LANES} gathered lanes")
     return {"name": "gather_update", "route": "cuda",
@@ -609,7 +624,7 @@ def gather_update_check(ix: dict, device, peak: float) -> dict:
             "replaces": "malva_tpu/parallel/sharded_index.py:141 (XLA, no Pallas counterpart)",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None, "lanes": LANES, "owned_lanes": n_own,
-            "gather_ms": gather_ms}
+            "gather_ms": gather_ms, "candidates": cand, "bucket_reads": reads}
 
 
 def sorted_rows(overflow, tally, wc: int):
@@ -768,6 +783,74 @@ def route_cases(device) -> int:
     return n_cases
 
 
+def bucket_reads(ctx, bf_rows, kmap_keys, n_buckets: int, n_local: int | None = None):
+    """(candidates, bucket reads) of the exact-map probe in K4's and K5's
+    tails over lanes of packed contexts ``ctx`` (lanes.cuh probe_buckets:
+    bucket b1, then b2 unless the key lies in b1).  K4 (``n_local`` None):
+    a candidate is a lane whose Bloom word lies in ``bf_rows`` (the shard's
+    [word, rank | mini-filter << 28] rows from word 0) with its mini-filter
+    bit set.  K5: a lane with a bucket in the shard's first ``n_local``
+    buckets, and a bucket past them is not read."""
+    import torch
+
+    from malva_tpu_torch.index.device import RANK_BITS
+    from malva_tpu_torch.index.kmap_table import bucket_pair, probe_bucket_table
+    from malva_tpu_torch.ops.bloom import lanes
+    from malva_tpu_torch.ops.packed import canonical_center, decode_byte_cols
+    from malva_tpu_torch.ops.xxh3 import xxh3_64_cols, xxh3_mod_size
+
+    can = canonical_center([lanes(ctx[:, j]) for j in range(ctx.shape[1])], K, REF_K)
+    c_hi, c_lo = xxh3_64_cols(decode_byte_cols(can, K))
+    b1, b2 = bucket_pair(c_hi, c_lo, n_buckets)
+    slot, found = probe_bucket_table(kmap_keys, n_buckets, (K + 15) // 16, can, c_hi, c_lo)
+    if n_local is None:
+        bw = xxh3_mod_size(c_hi, c_lo, SIZE_BITS)[0]
+        own = bw < bf_rows.shape[0]
+        aux = lanes(bf_rows[torch.where(own, bw, 0), 1])
+        cand = own & (((aux >> RANK_BITS) >> ((c_hi >> 28) & 3)) & 1).bool()
+        in1 = in2 = torch.ones_like(cand)
+    else:
+        in1, in2 = b1 < n_local, b2 < n_local
+        cand = in1 | in2
+    in_b1 = found & (slot // 4 == b1)
+    return int(cand.sum()), int((cand & in1).sum() + (cand & in2 & ~in_b1).sum())
+
+
+def hop_buffers(D: int, w: int, ovf_rows: int, device):
+    """Zeroed buffers of a hop on D virtual shards: each shard's received
+    blocks (D of w words), the blocks by source (views of them), overflow
+    lists of ovf_rows rows and tallies."""
+    import torch
+
+    wc = (REF_K + 15) // 16
+    recv = [torch.zeros(D * w, dtype=torch.int32, device=device) for _ in range(D)]
+    out = [[recv[d][s * w : (s + 1) * w] for d in range(D)] for s in range(D)]
+    ovf = [torch.zeros(ovf_rows * (wc + 1), dtype=torch.int32, device=device) for _ in range(D)]
+    tally = [torch.zeros(1 + 2 * D, dtype=torch.int64, device=device) for _ in range(D)]
+    return recv, out, ovf, tally
+
+
+def route_hops(slices, hx, ix, fns, D: int, wps: int, cap: int, device):
+    """The routed step's two partitions on D virtual shards: K6 (fns[0])
+    on each source slice, K7 (fns[1]) on each owner over the hop-1 blocks
+    written for it; each hop's ``hop_buffers``."""
+    import torch
+
+    from malva_tpu_torch.ops.kernels import HOP1_COLS, HOP2_COLS, slot_words
+
+    wc, n = (REF_K + 15) // 16, slices[0][0].shape[0]
+    one = hop_buffers(D, slot_words(cap, wc, HOP1_COLS), n, device)
+    two = hop_buffers(D, slot_words(cap, wc, HOP2_COLS), n, device)
+    for s, (c, cnt) in enumerate(slices):
+        fns[0](hx[s], c, cnt, one[1][s], one[2][s], one[3][s], size_bits=SIZE_BITS, wps=wps,
+               cap=cap)
+    for d in range(D):
+        fns[1](one[0][d], ix["ctx_words"][d * wps : (d + 1) * wps], two[1][d], two[2][d],
+               two[3][d], wc=wc, cap_in=cap, cap=cap)
+    torch.cuda.synchronize()
+    return one, two
+
+
 def route_check(ix: dict, device, peak: float, parent=None) -> list[dict]:
     """The routed step's partitions on SHARDS virtual shards of the card,
     over LANES lanes of the synthetic -b 1 index (a quarter centred on
@@ -776,8 +859,13 @@ def route_check(ix: dict, device, peak: float, parent=None) -> list[dict]:
     shard 0 over the hop-2 blocks the owners wrote for it.  Each kernel
     writes into zeroed buffers beside its plain version on the same
     inputs; the slot blocks, their headers, the tallies and the overflow
-    lists (sorted) must be bit-identical, and K4's state too.  Timed with
-    CUDA events: K6 on source 0, K7 and K4 on shard 0."""
+    lists (sorted) must be bit-identical, and K4's state too.  The slot
+    entry again on the hop-2 blocks of a mix like the run's (2^16 of the
+    LANES lanes centred on map keys, as K1's check: a few percent of
+    tails), through the kernels' hops.  Timed with CUDA events: K6 on
+    source 0, K7 and K4's slot entry on shard 0, each slot mix beside
+    torch's gather of its live rows' Bloom rows; with a parent checkout's
+    library, the four kernels of both in turns (``parent_ab``)."""
     import torch
 
     from malva_tpu_torch.ops import kernels
@@ -788,37 +876,25 @@ def route_check(ix: dict, device, peak: float, parent=None) -> list[dict]:
     D, wc = SHARDS, (REF_K + 15) // 16
     wps = SIZE_BITS // 32 // D
     rows, _, kmap_keys, table, n_counts, mine = shard0(ix, device)
-    ctx, counters = planted_contexts(ix["keys"][mine], LANES, LANES // 4, device)
-    perm = torch.randperm(LANES, device=device, generator=torch.Generator(device=device)
-                          .manual_seed(7))
-    ctx, counters = ctx[perm].contiguous(), counters[perm].contiguous()
     n = LANES // D
     cap = capacity(n, D)
     w1, w2 = slot_words(cap, wc, HOP1_COLS), slot_words(cap, wc, HOP2_COLS)
-    ovf_cap = n
 
-    def buffers(w):
-        recv = [torch.zeros(D * w, dtype=torch.int32, device=device) for _ in range(D)]
-        out = [[recv[d][s * w : (s + 1) * w] for d in range(D)] for s in range(D)]
-        ovf = [torch.zeros(ovf_cap * (wc + 1), dtype=torch.int32, device=device)
-               for _ in range(D)]
-        tally = [torch.zeros(1 + 2 * D, dtype=torch.int64, device=device) for _ in range(D)]
-        return recv, out, ovf, tally
+    def mix(n_plant: int):
+        ctx, counters = planted_contexts(ix["keys"][mine], LANES, n_plant, device)
+        perm = torch.randperm(LANES, device=device, generator=torch.Generator(device=device)
+                              .manual_seed(7))
+        ctx, counters = ctx[perm].contiguous(), counters[perm].contiguous()
+        slices = [(ctx[s * n : (s + 1) * n], counters[s * n : (s + 1) * n]) for s in range(D)]
+        return slices, [kernels.callstep_hash_words(c, K, REF_K, True) for c, _ in slices]
 
-    slices = [(ctx[s * n : (s + 1) * n], counters[s * n : (s + 1) * n]) for s in range(D)]
-    hx = [kernels.callstep_hash_words(c, K, REF_K, True) for c, _ in slices]
-    got, want = {}, {}
-    for name, fn in (("kernel", (kernels.route_pack, kernels.route_probe)),
-                     ("plain", (kernels.route_pack_plain, kernels.route_probe_plain))):
-        one, two = buffers(w1), buffers(w2)
-        for s, (c, cnt) in enumerate(slices):
-            fn[0](hx[s], c, cnt, one[1][s], one[2][s], one[3][s], size_bits=SIZE_BITS, wps=wps,
-                  cap=cap)
-        for d in range(D):
-            fn[1](one[0][d], ix["ctx_words"][d * wps : (d + 1) * wps], two[1][d], two[2][d],
-                  two[3][d], wc=wc, cap_in=cap, cap=cap)
-        torch.cuda.synchronize()
-        (got if name == "kernel" else want).update(one=one, two=two)
+    slices, hx = mix(LANES // 4)
+    got = dict(zip(("one", "two"), route_hops(slices, hx, ix, (kernels.route_pack,
+                                                               kernels.route_probe), D, wps, cap,
+                                              device)))
+    want = dict(zip(("one", "two"), route_hops(slices, hx, ix, (kernels.route_pack_plain,
+                                                                kernels.route_probe_plain), D,
+                                               wps, cap, device)))
     errs = []
     for hop in ("one", "two"):
         g, w = got[hop], want[hop]
@@ -837,28 +913,61 @@ def route_check(ix: dict, device, peak: float, parent=None) -> list[dict]:
         f"source 0 sent {sent1} rows in hop 1, shard 0 received {hop1_live}, and {hop2_live} "
         f"in hop 2; {spilled} rows spilled to the overflow lists")
 
-    # K4's slot entry on shard 0 over the hop-2 blocks the owners wrote for it
+    # K4's slot entry on shard 0 over the hop-2 blocks written for it: the
+    # planted mix above, and a mix like the run's through the kernels' hops
     args = dict(n_blocks=D, cap=cap, k=K, ref_k=REF_K, size_bits=SIZE_BITS,
                 n_buckets=table.n_buckets, word_base=0, counts_len=n_counts, minifilter=True)
-    slots = got["two"][0][0]
-    st_k = torch.zeros(n_counts + table.n_buckets * 4, dtype=torch.int32, device=device)
-    st_p = torch.zeros_like(st_k)
-    kernels.shard_update_slots(rows, kmap_keys, st_k, slots, **args)
-    kernels.shard_update_slots_plain(rows, kmap_keys, st_p, slots, **args)
-    torch.cuda.synchronize()
-    err4 = max_abs_err([st_k], [st_p])
-    n_bf, n_map = int((st_k[:n_counts] != 0).sum()), int((st_k[n_counts:] != 0).sum())
-    if not n_bf or not n_map:
-        raise AssertionError("K4 slot check touched no counter or no map value")
+    run_slices, run_hx = mix(LANES // 32)  # 2^16 of 2^21, as K1's check
+    run_two = route_hops(run_slices, run_hx, ix, (kernels.route_pack, kernels.route_probe), D,
+                         wps, cap, device)[1]
+    del run_slices, run_hx
+    state = torch.zeros(n_counts + table.n_buckets * 4, dtype=torch.int32, device=device)
+    mixes, err4 = {}, 0
+    for label, slots in (("planted", got["two"][0][0]), ("run_like", run_two[0][0])):
+        st_k, st_p = torch.zeros_like(state), torch.zeros_like(state)
+        kernels.shard_update_slots(rows, kmap_keys, st_k, slots, **args)
+        kernels.shard_update_slots_plain(rows, kmap_keys, st_p, slots, **args)
+        torch.cuda.synchronize()
+        err4 = max(err4, max_abs_err([st_k], [st_p]))
+        n_bf, n_map = int((st_k[:n_counts] != 0).sum()), int((st_k[n_counts:] != 0).sum())
+        if not n_bf or not n_map:
+            raise AssertionError(f"K4 slot check ({label}) touched no counter or no map value")
+        ms = cuda_ms(lambda: kernels.shard_update_slots(rows, kmap_keys, state, slots, **args),
+                     iters=20)
+        # the random reads alone: torch's gather of the Bloom rows the slot
+        # entry reads, those of its live rows' centres
+        live = torch.cat([kernels.slot_rows(b, cap, wc, HOP2_COLS) for b in slots.view(D, w2)])
+        c_hi, c_lo = kernels.callstep_hash(live[:, :wc].contiguous(), K, REF_K, False)[:2]
+        read = xxh3_mod_size(c_hi, c_lo, SIZE_BITS)[0]
+        if int((read >= wps).sum()):
+            raise AssertionError("K4 slot check: a hop-2 row of shard 0 has another shard's word")
+        gather = cuda_ms(lambda: rows.index_select(0, read), iters=20)
+        cand, reads = bucket_reads(live[:, :wc].contiguous(), rows, kmap_keys, table.n_buckets)
+        n_live = int(live.shape[0])
+        # per live row: context, counter, known (20 B) and the Bloom row
+        # (8 B); 8 B read and written per counter and map value updated; a
+        # 32-byte sector per bucket the probe reads; K4's per-lane hashing
+        b4 = bound(n_live * 28 + (n_bf + n_map) * 8 + reads * 32,
+                   n_live * (canonical_packed_ops(K) + ascii_ops(K) + xxh3_ops(K) + 23), peak)
+        plain = (cuda_ms(lambda: kernels.shard_update_slots_plain(rows, kmap_keys, state, slots,
+                                                                  **args), iters=3, warmup=1)
+                 if label == "planted" else None)
+        mixes[label] = {"ms": ms, "plain_ms": plain, "bound_ms": b4[0], "bound_by": b4[1],
+                        "share_of_bound": b4[0] / ms, "rows_live": n_live, "candidates": cand,
+                        "bucket_reads": reads, "gather_ms": gather, "over_gather": ms / gather}
+        log(f"K4 slots == plain, {label} mix: {n_live} live rows of {D * cap}, {cand} probe "
+            f"candidates, {reads} bucket reads; {ms:.4f} ms (bound {b4[0]:.4f} ms, {b4[1]}; "
+            f"{b4[0] / ms:.1%} of the bound), torch's gather of the same Bloom rows "
+            f"{gather:.4f} ms ({ms / gather:.3f}x)")
+        del live, c_hi, c_lo, read, st_k, st_p
 
-    # timing, into fresh buffers (the tallies and lists only grow), each
-    # kernel on a scratch of its own
-    scratch1, scratch2 = buffers(w1), buffers(w2)
-    state = torch.zeros_like(st_k)
+    # K6 and K7 timed into fresh buffers (the tallies and lists only grow),
+    # each on a scratch of its own
+    fresh1, fresh2 = hop_buffers(D, w1, n, device), hop_buffers(D, w2, n, device)
     c0, n0 = slices[0]
     cw0 = ix["ctx_words"][:wps]
-    a6 = (hx[0], c0, n0, scratch1[1][0], scratch1[2][0], scratch1[3][0])
-    a7 = (got["one"][0][0], cw0, scratch2[1][0], scratch2[2][0], scratch2[3][0])
+    a6 = (hx[0], c0, n0, fresh1[1][0], fresh1[2][0], fresh1[3][0])
+    a7 = (got["one"][0][0], cw0, fresh2[1][0], fresh2[2][0], fresh2[3][0])
     k6 = dict(size_bits=SIZE_BITS, wps=wps, cap=cap)
     k7 = dict(wc=wc, cap_in=cap, cap=cap)
     sc6, sc7 = kernels.route_scratch(device, D), kernels.route_scratch(device, D)
@@ -872,42 +981,30 @@ def route_check(ix: dict, device, peak: float, parent=None) -> list[dict]:
     lcw &= (1 << 18) - 1
     ms7_near = cuda_ms(lambda: kernels.route_probe(near, *a7[1:], **k7, scratch=sc7), iters=20)
     plain7 = cuda_ms(lambda: kernels.route_probe_plain(*a7, **k7), iters=3, warmup=1)
-    ab = route_ab(parent, a6, k6, a7, k7, device) if parent is not None else None
-    ms4 = cuda_ms(lambda: kernels.shard_update_slots(rows, kmap_keys, state, slots, **args),
-                  iters=20)
-    # the random reads alone: torch's gather of the Bloom rows the slot
-    # entry reads, those of its live rows' centres
-    live = torch.cat([kernels.slot_rows(b, cap, wc, HOP2_COLS) for b in slots.view(D, w2)])
-    c_hi, c_lo = kernels.callstep_hash(live[:, :wc].contiguous(), K, REF_K, False)[:2]
-    read = xxh3_mod_size(c_hi, c_lo, SIZE_BITS)[0]
-    if int((read >= wps).sum()):
-        raise AssertionError("K4 slot check: a hop-2 row of shard 0 has another shard's word")
-    gather4 = cuda_ms(lambda: rows.index_select(0, read), iters=20)
-    del live, c_hi, c_lo
-    plain4 = cuda_ms(lambda: kernels.shard_update_slots_plain(rows, kmap_keys, state, slots,
-                                                              **args), iters=3, warmup=1)
+    # the slot entry over D empty blocks: what a launch costs with no row
+    empty = torch.zeros_like(run_two[0][0])
+    empty_ms = cuda_ms(lambda: kernels.shard_update_slots(rows, kmap_keys, state, empty, **args),
+                       iters=20)
+    log(f"K4 slots over {D} empty blocks (a launch with no row): {empty_ms:.4f} ms")
+    ab = None
+    if parent is not None:
+        slots = {"planted": got["two"][0][0], "run_like": run_two[0][0], "empty": empty}
+        ab = parent_ab(parent, route_turns(a6, k6, a7, k7, slots, rows, kmap_keys, state, args,
+                                           device))
     # K6 per lane: its four hash words, context (12 B) and counter (4 B);
     # per row sent, the row (28 B).  K7 per live row received: the row
-    # (28 B), its context word (4 B), the hop-2 row written (20 B).  K4's
-    # slot entry per live row: context, counter, known (20 B) and the Bloom
-    # row (8 B), 8 B read and written per counter and map value updated,
-    # and K4's per-lane hashing.
+    # (28 B), its context word (4 B), the hop-2 row written (20 B).
     b6 = bound(n * 32 + sent1 * 28, 0, peak)
     b7 = bound(hop1_live * (28 + 4 + 20), 0, peak)
-    b4 = bound(hop2_live * 28 + (n_bf + n_map) * 8,
-               hop2_live * (canonical_packed_ops(K) + ascii_ops(K) + xxh3_ops(K) + 23), peak)
-    for name, ms, b in (("K6", ms6, b6), ("K7", ms7, b7), ("K4 slots", ms4, b4)):
+    for name, ms, b in (("K6", ms6, b6), ("K7", ms7, b7)):
         log(f"{name} {ms:.4f} ms (bound {b[0]:.4f} ms, {b[1]}; {b[0] / ms:.1%} of the bound)")
-    log(f"plain versions: K6 {plain6:.4f} ms, K7 {plain7:.4f} ms, K4 slots {plain4:.4f} ms; "
-        f"K7 with its context-filter reads inside 1 MiB {ms7_near:.4f} ms; torch's gather of "
-        f"the Bloom rows K4's slot entry reads {gather4:.4f} ms")
-    if ab:
-        for name, t in ab.items():
-            log(f"{name} in turns with the parent's, ms: parent {t['parent']}, this "
-                f"{t['change']}")
+    log(f"plain versions: K6 {plain6:.4f} ms, K7 {plain7:.4f} ms, K4 slots "
+        f"{mixes['planted']['plain_ms']:.4f} ms; K7 with its context-filter reads inside 1 MiB "
+        f"{ms7_near:.4f} ms")
     n_cases = route_cases(device)
     src = "malva_tpu_torch/csrc/route.cu"
     common = {"route": "cuda", "library_ms": None, "cap": cap, "shards": D}
+    planted = mixes["planted"]
     return [
         {"name": "route_pack", "source": src,
          "replaces": "malva_tpu/parallel/sharded_index.py:330 (pack_dests, XLA, no Pallas "
@@ -922,59 +1019,102 @@ def route_check(ix: dict, device, peak: float, parent=None) -> list[dict]:
          "parent_ab_ms": ab and ab["route_probe"], **common},
         {"name": "shard_update_slots", "source": "malva_tpu_torch/csrc/shard_step.cu",
          "replaces": "malva_tpu/parallel/sharded_index.py:398 (XLA, no Pallas counterpart; "
-                     "K4's slot entry)", "max_abs_err": err4, "ms": ms4, "plain_ms": plain4,
-         "bound_ms": b4[0], "bound_by": b4[1], "lanes": D * cap, "rows_live": hop2_live,
-         "gather_ms": gather4, **common}]
+                     "K4's slot entry)", "max_abs_err": err4, "ms": planted["ms"],
+         "plain_ms": planted["plain_ms"], "bound_ms": planted["bound_ms"],
+         "bound_by": planted["bound_by"], "lanes": D * cap, "rows_live": planted["rows_live"],
+         "gather_ms": planted["gather_ms"], "mixes": mixes, "empty_blocks_ms": empty_ms,
+         "parent_ab_ms": ab and {m: ab[f"shard_update_slots {m}"] for m in (*mixes, "empty")},
+         **common}]
 
 
-def route_ab(parent, a6: tuple, k6: dict, a7: tuple, k7: dict, device) -> dict:
-    """K6 and K7 of this checkout and of ``parent`` (another checkout's
-    kernel library, ``--parent``) through their C entry points on the same
-    inputs and buffers, each on its own scratch, in turns: parent, this,
-    this, parent, twice.  {kernel: {"parent": [ms, ...], "change": [...]}}."""
+def route_turns(a6, k6, a7, k7, slots: dict, rows, kmap_keys, state, args, device) -> dict:
+    """K6, K7 and K4's slot entry (at each mix of ``slots``) through their C
+    entry points, for ``parent_ab``: {name: fn(lib, scratch)}; the same
+    inputs and buffers for both libraries, whose signatures these kernels
+    keep."""
     import torch
 
-    from malva_tpu_torch.ops import _build, kernels
+    from malva_tpu_torch.ops import kernels
 
-    lib = _build.library()
-    parent.malva_route_pack.argtypes = lib.malva_route_pack.argtypes
-    parent.malva_route_probe.argtypes = lib.malva_route_probe.argtypes
-    D = len(a6[3])
-    scratch = {lib: kernels.route_scratch(device, D),
-               parent: torch.zeros(parent.malva_route_max_tiles() * D, dtype=torch.int32,
-                                   device=device)}
     stream = torch.cuda.current_stream().cuda_stream
     hx, ctx, cnt, blocks6, ovf6, tally6 = a6
     recv, cw, blocks7, ovf7, tally7 = a7
+    D = len(blocks6)
     ptr6, ptr7 = kernels._pointers(blocks6), kernels._pointers(blocks7)
     wc = ctx.shape[1]
 
-    def pack(l):
-        err = l.malva_route_pack(hx.data_ptr(), ctx.data_ptr(), cnt.data_ptr(), ctx.shape[0], wc,
-                                 k6["size_bits"], k6["wps"], D, ptr6, k6["cap"], ovf6.data_ptr(),
-                                 ovf6.numel() // (wc + 1), tally6.data_ptr(),
-                                 scratch[l].data_ptr(), stream)
-        assert err == 0, err
+    def pack(lib, scratch):
+        return lib.malva_route_pack(hx.data_ptr(), ctx.data_ptr(), cnt.data_ptr(), ctx.shape[0],
+                                    wc, k6["size_bits"], k6["wps"], D, ptr6, k6["cap"],
+                                    ovf6.data_ptr(), ovf6.numel() // (wc + 1), tally6.data_ptr(),
+                                    scratch.data_ptr(), stream)
 
-    def probe(l):
-        err = l.malva_route_probe(recv.data_ptr(), k7["cap_in"], wc, cw.data_ptr(), D, ptr7,
-                                  k7["cap"], ovf7.data_ptr(), ovf7.numel() // (wc + 1),
-                                  tally7.data_ptr(), scratch[l].data_ptr(), stream)
-        assert err == 0, err
+    def probe(lib, scratch):
+        return lib.malva_route_probe(recv.data_ptr(), k7["cap_in"], wc, cw.data_ptr(), D, ptr7,
+                                     k7["cap"], ovf7.data_ptr(), ovf7.numel() // (wc + 1),
+                                     tally7.data_ptr(), scratch.data_ptr(), stream)
 
+    def slot_entry(blocks):
+        def fn(lib, scratch):
+            return lib.malva_shard_update_slots(
+                blocks.data_ptr(), args["n_blocks"], args["cap"], wc, K, REF_K, rows.data_ptr(),
+                0, rows.shape[0], kmap_keys.data_ptr(), state.data_ptr(), args["counts_len"],
+                args["n_buckets"], SIZE_BITS, 1, None, None, stream)
+        return fn
+
+    return {"route_pack": pack, "route_probe": probe,
+            **{f"shard_update_slots {m}": slot_entry(b) for m, b in slots.items()}}
+
+
+def parent_ab(parent, fns: dict) -> dict:
+    """Each kernel of ``fns`` ({name: fn(lib, scratch) -> CUDA error}) of
+    this checkout's library and of ``parent`` (another checkout's,
+    ``--parent``), on the same inputs and buffers, each library on a
+    scratch of its own, in turns: parent, this, this, parent, twice.
+    {name: {"parent": [ms, ...], "change": [...]}}."""
+    import ctypes
+
+    import torch
+
+    from malva_tpu_torch.ops import _build
+
+    lib = _build.library()
+    for name in ("malva_route_pack", "malva_route_probe", "malva_shard_update_slots",
+                 "malva_scan_set"):
+        getattr(parent, name).argtypes = getattr(lib, name).argtypes
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    # a K8 of two launches (an earlier version) takes a buffer of codes, int64 a position
+    parent.malva_scan_pack.argtypes = ([p, i64, i, i, p, i64, p, i64, i, i, p, i64, p, i64, p, p,
+                                        p] if k8_takes_codes(parent)
+                                       else lib.malva_scan_pack.argtypes)
+    parent.malva_route_scratch_words.argtypes = [i]
+    parent.malva_route_scratch_words.restype = i64
+    scratch = {l: torch.zeros(l.malva_route_scratch_words(16), dtype=torch.int64, device="cuda")
+               for l in (lib, parent)}
     out = {}
-    for name, fn in (("route_pack", pack), ("route_probe", probe)):
+    for name, fn in fns.items():
         t = out[name] = {"parent": [], "change": []}
+
+        def call(l):
+            err = fn(l, scratch[l])
+            if err:
+                raise RuntimeError(f"{name} ({'parent' if l is parent else 'this'}): CUDA error "
+                                   f"{err}")
+
         for l in (parent, lib, lib, parent) * 2:
-            t["parent" if l is parent else "change"].append(cuda_ms(lambda: fn(l), iters=20))
+            t["parent" if l is parent else "change"].append(cuda_ms(lambda: call(l), iters=20))
+        if any(x.any() for x in scratch.values()):
+            raise AssertionError(f"{name}: a launch did not leave its scratch zeroed")
+        log(f"{name} in turns with the parent's, ms: parent {t['parent']}, this {t['change']}")
     return out
 
 
 SCAN_ALONE = 1 << 28  # positions of the scan-alone contig
 SCAN_DESTS = (1, 3, 4, 16)
 SCAN_OWNERS = ("spread", "clumped", "one", "none")
-# codes of a case: its slot rows (None: a third of a uniform share, so that rows spill)
-SCAN_CASE_CODES = {1: 1, 2049: 2049, 1 << 22: None}
+# positions of a case: its slot rows (None: a third of a uniform share, so that rows spill)
+SCAN_CASE_POSITIONS = {1: 1, 2049: 2049, 1 << 22: None}
+SCAN_ALL_HITS = 1 << 22  # positions of the cases where every position hits
 
 
 def scan_rows(overflow, n: int, W: int):
@@ -989,29 +1129,64 @@ def scan_rows(overflow, n: int, W: int):
     return rows
 
 
-def scan_case(D: int, case: str, n: int, gen, device) -> int:
-    """K8's partition (its second launch, ``malva_scan_route``, called
-    through the library) on n codes whose hits go to owners as ``case``
-    says (a fifth of the positions miss; "none": every one), launched twice
-    on one scratch into fresh buffers, beside ``scan_partition_plain``: the
-    slot blocks, headers and tallies bit-identical, the overflow lists
-    equal as sorted rows, the scratch left zeroed.  Rows of one word at
-    D = 3, 4 and 16 (2^33 bits, 3 x 2^33 at D = 3), of two at D = 1.
-    Returns the rows spilled."""
+def kernel_launches(fn) -> int | None:
+    """Kernel launches on the card during fn(), from a torch.profiler
+    trace (its "kernel" events); None where the trace holds no device
+    activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return len(kernels) if kernels else None
+
+
+def scan_case(D: int, case: str, n: int, gen, device) -> tuple[int, int]:
+    """K8 (``scan_pack``, one launch) on one case, launched twice on one
+    scratch into fresh buffers, beside ``scan_pack_plain``: n positions of
+    random ACGT with an N run, whose hits go to owners as ``case`` says,
+    made through the alt words: each position's centre and context Bloom
+    indices (K2's hash-only mode), and alt words holding the centre bits of
+    the positions chosen to hit: a random four fifths ("spread"), most of
+    owner 0's and a tenth of the rest ("clumped"), all of the last owner's
+    ("one"), none, or every bit set ("all": every tile all hits).  Slot
+    blocks, headers and tallies bit-identical, the overflow lists equal as
+    sorted rows, the scratch left zeroed.  Rows of one word at D = 3, 4 and
+    16 (2^33 bits, 3 x 2^33 at D = 3), of two at D = 1.  Returns (rows
+    spilled, hits)."""
     import torch
 
-    from malva_tpu_torch.ops import _build, kernels
+    from malva_tpu_torch.ops import kernels
+    from malva_tpu_torch.ops.bloom import bloom_set
+    from malva_tpu_torch.ops.xxh3 import xxh3_mod_size
 
-    size_bits = 3 << 33 if D == 3 else SIZE_BITS
+    size_bits = 3 * SIZE_BITS if D == 3 else SIZE_BITS
     wps = size_bits // 32 // D
     W = kernels.scan_row_words(wps)
-    word = route_owners(gen, n, D, case, device) * wps + torch.randint(
-        0, wps, (n,), generator=gen, device=device)
-    codes = word * 32 + torch.randint(0, 32, (n,), generator=gen, device=device)
-    miss = torch.rand(n, generator=gen, device=device) < 0.2
-    codes[miss | (case == "none")] = -1
-    cap = SCAN_CASE_CODES[n] or max(1, n // (3 * D))
+    acgt = torch.tensor(list(b"ACGT"), dtype=torch.uint8, device=device)
+    seq = acgt[torch.randint(0, 4, (n + REF_K - 1,), generator=gen, device=device)]
+    seq[n // 3 : n // 3 + REF_K + 7] = ord("N")
+    c_hi, c_lo, x_hi, x_lo = kernels.window_hash(seq, n, K, REF_K)
+    cw, cb = xxh3_mod_size(c_hi, c_lo, size_bits)
+    owner = xxh3_mod_size(x_hi, x_lo, size_bits)[0] // wps
+    r = torch.rand(n, generator=gen, device=device)
+    bf = torch.full((size_bits // 32,), -1 if case == "all" else 0, dtype=torch.int32,
+                    device=device)
+    if case in ("spread", "clumped", "one"):
+        hit = {"spread": r < 0.8, "clumped": torch.where(owner == 0, r < 0.95, r < 0.1),
+               "one": owner == D - 1}[case]
+        bloom_set(bf, cw, cb, hit)
+    del c_hi, c_lo, x_hi, x_lo, cw, cb, owner, r
+    cap = SCAN_CASE_POSITIONS[n] or max(1, n // (3 * D))
     ovf_cap = n + 1
+    kw = dict(k=K, ref_k=REF_K, size_bits=size_bits, wps=wps, cap=cap)
 
     def buffers():
         return ([torch.zeros(kernels.scan_slot_words(cap, W), dtype=torch.int32, device=device)
@@ -1020,20 +1195,14 @@ def scan_case(D: int, case: str, n: int, gen, device) -> int:
                 torch.zeros(1 + D, dtype=torch.int64, device=device))
 
     want = buffers()
-    kernels.scan_partition_plain(codes, *want, wps=wps, cap=cap)
-    lib = _build.library()
+    kernels.scan_pack_plain(seq, n, bf, *want, **kw)
     scratch = kernels.route_scratch(device, D)
-    stream = torch.cuda.current_stream().cuda_stream
     spilled = int(want[2][0])
     for launch in (1, 2):
         got = buffers()
-        err = lib.malva_scan_route(codes.data_ptr(), n, wps, W, D, kernels._pointers(got[0]), cap,
-                                   got[1].data_ptr(), ovf_cap, got[2].data_ptr(),
-                                   scratch.data_ptr(), stream)
+        kernels.scan_pack(seq, n, bf, *got, scratch=scratch, **kw)
         torch.cuda.synchronize()
-        where = f"scan D={D} {case} {n} codes, cap {cap}, launch {launch}"
-        if err:
-            raise RuntimeError(f"{where}: CUDA error {err}")
+        where = f"K8 D={D} {case} {n} positions, cap {cap}, launch {launch}"
         try:
             max_abs_err(got[0] + [got[2]], want[0] + [want[2]])
         except AssertionError as e:
@@ -1042,28 +1211,32 @@ def scan_case(D: int, case: str, n: int, gen, device) -> int:
             raise AssertionError(f"{where}: the overflow list differs from the plain one")
         if scratch.any():
             raise AssertionError(f"{where}: the scratch was not left zeroed")
-    if case == "none" and int(want[2][1:].sum()):
-        raise AssertionError(f"scan D={D}: rows sent with no hit")
-    return spilled
+    hits = int(want[2][1:].sum()) + spilled
+    if (case == "none" and hits) or (case == "all" and hits != n):
+        raise AssertionError(f"K8 D={D} {case}: {hits} hits of {n} positions")
+    return spilled, hits
 
 
 def scan_cases(device) -> int:
-    """K8's partition against its plain version at D in SCAN_DESTS, owners
-    in SCAN_OWNERS, over the codes of SCAN_CASE_CODES; each case launched
-    twice on one scratch."""
+    """K8 against its plain version at D in SCAN_DESTS, owners in
+    SCAN_OWNERS, over the positions of SCAN_CASE_POSITIONS, and at each D
+    with every position a hit over 2^22 positions (2048 tiles of 2048
+    hits, more than the card holds at once, with slots that overflow);
+    each case launched twice on one scratch."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(11)
     t0 = time.perf_counter()
-    n_cases = spilled = 0
-    for D in SCAN_DESTS:
-        for case in SCAN_OWNERS:
-            for n in SCAN_CASE_CODES:
-                spilled += scan_case(D, case, n, gen, device)
-                n_cases += 1
-    log(f"K8's partition == plain in {n_cases} cases (D {SCAN_DESTS}, owners {SCAN_OWNERS}, "
-        f"codes {tuple(SCAN_CASE_CODES)}), each launched twice on one scratch, left zeroed; "
-        f"{spilled} rows spilled ({time.perf_counter() - t0:.6g} s)")
+    n_cases = spilled = hits = 0
+    cases = [(D, case, n) for D in SCAN_DESTS for case in SCAN_OWNERS for n in SCAN_CASE_POSITIONS]
+    cases += [(D, "all", SCAN_ALL_HITS) for D in SCAN_DESTS]
+    for D, case, n in cases:
+        got = scan_case(D, case, n, gen, device)
+        spilled, hits, n_cases = spilled + got[0], hits + got[1], n_cases + 1
+    log(f"K8 == plain in {n_cases} cases (D {SCAN_DESTS}, owners {SCAN_OWNERS} over positions "
+        f"{tuple(SCAN_CASE_POSITIONS)}, and every position a hit over 2^22 at each D), each "
+        f"launched twice on one scratch, left zeroed; {hits} hits, {spilled} rows spilled "
+        f"({time.perf_counter() - t0:.6g} s)")
     if not spilled:
         raise AssertionError("scan cases: no row spilled to an overflow list")
     return n_cases
@@ -1081,19 +1254,21 @@ def main_path_contig(n: int, seed: int) -> np.ndarray:
     return seq
 
 
-def scan_check(ix: dict, device, peak: float) -> list[dict]:
+def scan_check(ix: dict, device, peak: float, parent=None) -> list[dict]:
     """K8 and K9 at the sharded scan's shapes: one chunk of SHARDS x CHUNK
     positions of a contig shaped like the run's reference, on SHARDS
     virtual shards of the card over the synthetic -b 1 index's alt words,
     with the scan's slot capacity (``scan_capacity``): K8 (``scan_pack``)
-    on each shard's slice (its codes too) and K9 (``scan_set``) on each
-    owner over the blocks written for it, beside their plain versions on
-    the same inputs (bit-identical codes, blocks, tallies and context
-    words); then the K8 and K9 cases (``scan_cases``).  Timed with CUDA
-    events: K8 on slice 0, K9 on owner 0."""
+    on each shard's slice and K9 (``scan_set``) on each owner over the
+    blocks written for it, beside their plain versions on the same inputs
+    (bit-identical blocks, tallies and context words); K8's launches on
+    the card counted from a profiler trace; then the K8 cases
+    (``scan_cases``).  Timed with CUDA events: K8 on slice 0, K2's scan on
+    the same slice (the scan half of K8's work), K9 on owner 0; with a
+    parent checkout's library, its K8 and K9 in turns with this one's."""
     import torch
 
-    from malva_tpu_torch.ops import _build, kernels
+    from malva_tpu_torch.ops import kernels
     from malva_tpu_torch.parallel.sharded_index import scan_capacity
 
     D, n = SHARDS, CHUNK
@@ -1114,17 +1289,12 @@ def scan_check(ix: dict, device, peak: float) -> list[dict]:
         ctx = [torch.zeros(wps, dtype=torch.int32, device=device) for _ in range(D)]
         return recv, out, ovf, tally, ctx
 
-    codes = torch.empty(n, dtype=torch.int64, device=device)
     got, want = buffers(), buffers()
-    code_err = 0
     for s, seq in enumerate(slices):
-        kernels.scan_pack(seq, n, bf_words, got[1][s], got[2][s], got[3][s], codes=codes, **kw)
+        kernels.scan_pack(seq, n, bf_words, got[1][s], got[2][s], got[3][s], **kw)
         kernels.scan_pack_plain(seq, n, bf_words, want[1][s], want[2][s], want[3][s], **kw)
-        torch.cuda.synchronize()
-        plain_codes = kernels.scan_codes_plain(seq, n, bf_words, k=K, ref_k=REF_K,
-                                               size_bits=SIZE_BITS)
-        code_err = max(code_err, max_abs_err([codes], [plain_codes]))
-    err8 = max(code_err, max_abs_err(got[0] + got[3], want[0] + want[3]))
+    torch.cuda.synchronize()
+    err8 = max_abs_err(got[0] + got[3], want[0] + want[3])
     for d in range(D):
         kernels.scan_set(got[4][d], got[0][d], n_blocks=D, cap=cap, W=W)
         kernels.scan_set_plain(want[4][d], want[0][d], n_blocks=D, cap=cap, W=W)
@@ -1146,20 +1316,30 @@ def scan_check(ix: dict, device, peak: float) -> list[dict]:
     # timing, into fresh buffers (the tallies only grow)
     tb = buffers()
     sc = kernels.route_scratch(device, D)
-    ms8 = cuda_ms(lambda: kernels.scan_pack(slices[0], n, bf_words, tb[1][0], tb[2][0], tb[3][0],
-                                            codes=codes, scratch=sc, **kw), iters=20)
-    plain8 = cuda_ms(lambda: kernels.scan_pack_plain(slices[0], n, bf_words, tb[1][0], tb[2][0],
-                                                     tb[3][0], **kw), iters=3, warmup=1)
-    # K8's first launch alone (K2's codes mode), through the library: the
-    # rest of K8's time is its partition
-    lib, stream = _build.library(), torch.cuda.current_stream().cuda_stream
-    codes8 = cuda_ms(lambda: lib.malva_scan_codes(slices[0].data_ptr(), n, K, REF_K,
-                                                  bf_words.data_ptr(), SIZE_BITS,
-                                                  codes.data_ptr(), stream), iters=20)
+    pack0 = (slices[0], n, bf_words, tb[1][0], tb[2][0], tb[3][0])
+    launches = kernel_launches(lambda: kernels.scan_pack(*pack0, scratch=sc, **kw))
+    if launches not in (None, 1):
+        raise AssertionError(f"K8: {launches} kernel launches a slice, not one")
+    log(f"K8's kernel launches a slice (profiler trace): "
+        f"{'not measured' if launches is None else launches}")
+    ms8 = cuda_ms(lambda: kernels.scan_pack(*pack0, scratch=sc, **kw), iters=20)
+    plain8 = cuda_ms(lambda: kernels.scan_pack_plain(*pack0, **kw), iters=3, warmup=1)
+    # K2's scan on the same slice: the scan half of K8's work
+    scan_words = torch.zeros_like(bf_words)
+    scan_ms = cuda_ms(lambda: kernels.ref_scan(bf_words, scan_words, slices[0], n, k=K,
+                                               ref_k=REF_K, size_bits=SIZE_BITS), iters=20)
+    del scan_words
     ms9 = cuda_ms(lambda: kernels.scan_set(tb[4][0], got[0][0], n_blocks=D, cap=cap, W=W),
                   iters=20)
     plain9 = cuda_ms(lambda: kernels.scan_set_plain(tb[4][0], got[0][0], n_blocks=D, cap=cap,
                                                     W=W), iters=3, warmup=1)
+    ab = None
+    if parent is not None:
+        turns = scan_turns(pack0, kw, W, got[0][0], tb[4][0], device)
+        ab = parent_ab(parent, turns)
+        p_sc = torch.zeros(parent.malva_route_scratch_words(D), dtype=torch.int64, device=device)
+        ab["parent_launches"] = kernel_launches(lambda: turns["scan_pack"](parent, p_sc))
+        log(f"the parent's K8: {ab['parent_launches']} kernel launches a slice (profiler trace)")
     # K8: the slice's bytes with the halo, one 32-byte sector of alt words a
     # position, the slot rows written and the headers; K2's operations (the
     # centre per position, the window per hit).  K9: the rows read and one
@@ -1172,23 +1352,60 @@ def scan_check(ix: dict, device, peak: float) -> list[dict]:
     for name, ms, b, plain in (("K8", ms8, b8, plain8), ("K9", ms9, b9, plain9)):
         log(f"{name} {ms:.4f} ms (bound {b[0]:.4f} ms, {b[1]}; {b[0] / ms:.1%} of the bound), "
             f"plain {plain:.4f} ms")
-    log(f"K8's codes launch alone {codes8:.4f} ms, its partition the rest")
+    log(f"K2's scan on K8's slice {scan_ms:.4f} ms: K8's partition costs {ms8 - scan_ms:.4f} ms "
+        f"more")
     n_cases = scan_cases(device)
     common = {"route": "cuda", "library_ms": None, "cap": cap, "shards": D, "row_bytes": 4 * W}
     return [
-        {"name": "scan_pack", "source": "malva_tpu_torch/csrc/ref_scan.cu, "
-                                        "malva_tpu_torch/csrc/route.cu",
+        {"name": "scan_pack", "source": "malva_tpu_torch/csrc/ref_scan.cu",
          "replaces": "malva_tpu/ops/pallas_kernels.py:222 (pallas_call :273), K2's sharded "
                      "entry, with the hits' all-gather of "
                      "malva_tpu/parallel/sharded_index.py:567-569",
          "max_abs_err": err8, "ms": ms8, "plain_ms": plain8, "bound_ms": b8[0],
-         "bound_by": b8[1], "positions": n, "hits": hits0, "codes_ms": codes8, "cases": n_cases,
-         **common},
+         "bound_by": b8[1], "positions": n, "hits": hits0, "scan_half_ms": scan_ms,
+         "kernel_launches_a_slice": launches, "cases": n_cases,
+         "parent_ab_ms": ab and ab["scan_pack"],
+         "parent_launches_a_slice": ab and ab["parent_launches"], **common},
         {"name": "scan_set", "source": "malva_tpu_torch/csrc/ref_scan.cu",
          "replaces": "malva_tpu/parallel/sharded_index.py:570-572 (bloom_set on the owner, XLA, "
                      "no Pallas counterpart)",
          "max_abs_err": err9, "ms": ms9, "plain_ms": plain9, "bound_ms": b9[0],
-         "bound_by": b9[1], "rows_live": live0, **common}]
+         "bound_by": b9[1], "rows_live": live0, "parent_ab_ms": ab and ab["scan_set"],
+         **common}]
+
+
+def k8_takes_codes(lib) -> bool:
+    """Whether a kernel library's K8 is the earlier two launches (K2's
+    codes into a buffer it is given, then their partition)."""
+    return hasattr(lib, "malva_scan_codes")
+
+
+def scan_turns(pack0: tuple, kw: dict, W: int, recv, ctx_words, device) -> dict:
+    """K8 on ``pack0``'s slice and K9 on owner 0's received blocks through
+    their C entry points, for ``parent_ab``; a K8 of two launches gets a
+    buffer of codes of its own."""
+    import torch
+
+    from malva_tpu_torch.ops import kernels
+
+    seq, n, bf_words, blocks, ovf, tally = pack0
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = kernels._pointers(blocks)
+    codes = torch.empty(n, dtype=torch.int64, device=device)
+    D, ovf_cap = len(blocks), ovf.numel() // (W + 1)
+
+    def pack(lib, scratch):
+        head = (seq.data_ptr(), n, K, REF_K, bf_words.data_ptr(), kw["size_bits"])
+        tail = (kw["wps"], W, D, ptrs, kw["cap"], ovf.data_ptr(), ovf_cap, tally.data_ptr(),
+                scratch.data_ptr(), stream)
+        if k8_takes_codes(lib):
+            return lib.malva_scan_pack(*head, codes.data_ptr(), *tail)
+        return lib.malva_scan_pack(*head, *tail)
+
+    def scan_set(lib, scratch):
+        return lib.malva_scan_set(recv.data_ptr(), D, kw["cap"], W, ctx_words.data_ptr(), stream)
+
+    return {"scan_pack": pack, "scan_set": scan_set}
 
 
 def scan_alone(ix: dict) -> dict:
@@ -1244,6 +1461,114 @@ def scan_alone(ix: dict) -> dict:
         f"turns): "
         f"{json.dumps(walls)}; words equal; {lines[-1]}")
     return {"positions": SCAN_ALONE, "walls_s": walls, "sharded_lines": lines}
+
+
+# Run from a checkout's root with its path: the scan alone as scan_alone
+# runs it, on 4 virtual shards (a warm-up, then five timed scans, each
+# logging its sharded context scan line); prints the walls as JSON.
+SCAN_ALONE_RUN = r"""
+import json, sys, time, types
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+from malva_tpu_torch.bench import synthetic_index
+from malva_tpu_torch.ops.bloom import to_u32
+from malva_tpu_torch.parallel.sharded_index import build_context_sharded
+from malva_tpu_torch.utils.config import Config
+n, ref_k, k, bits, shards = (int(a) for a in sys.argv[2:7])
+ix = synthetic_index(torch.device("cuda", 0), bits.bit_length() - 1, 6, 1 << 20)
+words = to_u32(ix["bf_packed"][:, 0])
+rng = np.random.default_rng(12)
+contig = np.frombuffer(b"ACGT", dtype=np.uint8)[rng.integers(0, 4, n + ref_k - 1)]
+cfg = Config(k=k, ref_k=ref_k, bf_size=bits)
+walls = []
+for _ in range(6):
+    index = types.SimpleNamespace(bf=types.SimpleNamespace(words=words),
+                                  context_bf=types.SimpleNamespace(words=np.zeros_like(words)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    build_context_sharded(index, [contig], cfg, [torch.device("cuda", 0)] * shards)
+    walls.append(time.perf_counter() - t0)
+print(json.dumps({"walls_s": walls[1:], "bits_set": int(np.unpackbits(
+    index.context_bf.words.view(np.uint8)).sum())}))
+"""
+
+# Run from a checkout's root with its path and the chr-scale inputs:
+# build_index + call on 4 virtual shards of the card, as sharded_legs runs
+# them (the sharded call step's line goes to stderr).
+SHARDED_RUN = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from malva_tpu_torch import cli, pipeline
+from malva_tpu_torch.parallel.mesh import make_mesh
+k, ref_k, shards, fa, vcf, fq, out = sys.argv[2:9]
+cfg = cli._config(cli._parser().parse_args(["run", "--backend", "cuda", "-k", k, "-r", ref_k,
+                                            "-b", "1", "-f", "AF", fa, vcf, fq]))
+mesh = make_mesh(devices=[torch.device("cuda", 0)] * int(shards))
+index = pipeline.build_index(cfg, mesh=mesh)
+with open(out, "w") as f:
+    pipeline.call(cfg, index, f, mesh=mesh)
+"""
+
+SCAN_PARTS = re.compile(r"sharded context scan: .*?K8 ([0-9.e+-]+) ms, K9 [0-9.e+-]+ ms .*?"
+                        r"chunks ([0-9.e+-]+) s")
+STEP_LINE = re.compile(r"sharded call step \(routed\): \d+ distinct k-mers in (\d+) steps over "
+                       r"(\d+) shards.*?K4 ([0-9.e+-]+) ms \(launcher events\)")
+
+
+def checkout_turns(parent: str, script: str, argv: list[str], timeout: int) -> dict:
+    """``script`` run in its own process from the parent checkout and from
+    this one, in turns (parent, this, this, parent), each from its own
+    root with its own kernels (built at its first run):
+    {"parent": [(stdout, stderr), ...], "change": [...]}."""
+    out: dict = {"parent": [], "change": []}
+    for label, root in (("parent", parent), ("change", REPO), ("change", REPO),
+                        ("parent", parent)):
+        p = subprocess.run([sys.executable, "-c", script, root, *argv], cwd=root,
+                           capture_output=True, text=True, timeout=timeout)
+        if p.returncode != 0:
+            raise RuntimeError(f"{label}'s run failed (rc={p.returncode}):\n{p.stderr[-4000:]}")
+        out[label].append((p.stdout, p.stderr))
+    return out
+
+
+def parent_runs(parent: str, src: str, work: str, run_vcf: bytes) -> dict:
+    """With a parent checkout: the scan alone on SCAN_ALONE positions over
+    SHARDS virtual shards, and the chr-scale sharded run (its VCF equal to
+    the host run's), each from both checkouts in turns; the scan's walls
+    and K4's slot entry's mean time a launch on the run (its launcher
+    events over its launches: steps x shards)."""
+    t0 = time.perf_counter()
+    scans = checkout_turns(parent, SCAN_ALONE_RUN,
+                           [str(SCAN_ALONE), str(REF_K), str(K), str(SIZE_BITS), str(SHARDS)], 900)
+    walls = {k: [json.loads(o.strip().splitlines()[-1]) for o, _ in v] for k, v in scans.items()}
+    if len({w["bits_set"] for v in walls.values() for w in v}) != 1:
+        raise AssertionError(f"scan alone: the checkouts' context words differ: {walls}")
+    # each timed scan's chunks (the part the kernels run in) and K8's events
+    parts = {k: [[(float(m.group(2)), float(m.group(1))) for m in SCAN_PARTS.finditer(e)][1:]
+                 for _, e in v] for k, v in scans.items()}
+    log(f"scan alone, {SCAN_ALONE} positions on {SHARDS} virtual shards, parent and this in "
+        f"turns (s): {json.dumps({k: [w['walls_s'] for w in v] for k, v in walls.items()})}; "
+        f"(chunks s, K8 ms) of each: {json.dumps(parts)}")
+    fa, vcf, fq = stage(src, work, {n: n for n in ("synth.fa", "synth.vcf", "synth.fq")})
+    out = os.path.join(work, "ab.vcf")
+    runs = checkout_turns(parent, SHARDED_RUN, [str(K), str(REF_K), str(SHARDS), fa, vcf, fq, out],
+                          900)
+    per_launch: dict = {"parent": [], "change": []}
+    for label, got in runs.items():
+        for _, err in got:
+            m = STEP_LINE.search(err)
+            if m is None:
+                raise AssertionError(f"the {label}'s sharded run logged no routed step line")
+            steps, shards, ms = int(m.group(1)), int(m.group(2)), float(m.group(3))
+            per_launch[label].append(ms / (steps * shards))
+    if open(out, "rb").read() != run_vcf:
+        raise AssertionError("the last sharded run's VCF differs from the host run's")
+    log(f"K4's slot entry on the chr-scale sharded run, ms a launch (launcher events), parent "
+        f"and this in turns: {json.dumps(per_launch)} ({time.perf_counter() - t0:.6g} s)")
+    return {"scan_alone_s": {k: [w["walls_s"] for w in v] for k, v in walls.items()},
+            "scan_alone_chunks_s_k8_ms": parts, "slot_entry_ms_a_launch": per_launch}
 
 
 def event_timing_probe(ix: dict, device) -> dict:
@@ -1834,7 +2159,7 @@ def real_cards_leg(src: str, work: str, run_vcf: bytes, cards: int, visible: str
     return out
 
 
-def main_path_phase(cards: int, visible: str | None) -> dict:
+def main_path_phase(cards: int, visible: str | None, parent: str | None = None) -> dict:
     from malva_tpu_torch.graft_entry import dryrun_multichip
     from malva_tpu_torch.ops import kernels
     from malva_tpu_torch.utils import native
@@ -1931,6 +2256,7 @@ def main_path_phase(cards: int, visible: str | None) -> dict:
         upload_alone = sharded.pop("upload_alone")
         walls.update(sharded["walls"])
         legs.update(sharded["legs_s"])
+        ab = parent_runs(parent, src, os.path.join(tmp, "ab"), b) if parent else None
         dist = distributed_leg(src, os.path.join(tmp, "dist"), b)
         legs["run_distributed 2 processes"] = dist["wall_s"]
         t0 = time.perf_counter()
@@ -1951,7 +2277,7 @@ def main_path_phase(cards: int, visible: str | None) -> dict:
                 "host_phases": {"threads": native.threads(), **threads},
                 "batch_trace": trace, "sharded_call_step": sharded["call_step"],
                 "sharded_gather": sharded["gather"],
-                "distributed": dist, "real_cards": real, "legs_s": legs}
+                "distributed": dist, "real_cards": real, "legs_s": legs, "parent_runs": ab}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2050,7 +2376,9 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (no main-path run, no ok line)")
     ap.add_argument("--parent", default=None,
-                    help="another checkout: also time its K6 and K7 in turns with this one's")
+                    help="another checkout: also time its K4 slot entry, K6, K7, K8 and K9, "
+                         "and (without --kernels-only) its scan alone and sharded run, in turns "
+                         "with this one's")
     args = ap.parse_args()
     cards, visible = host_cards()
     import torch
@@ -2096,7 +2424,7 @@ def main() -> int:
     main = tools = None
     if not args.kernels_only:
         t0 = time.perf_counter()
-        main = main_path_phase(cards, visible)
+        main = main_path_phase(cards, visible, args.parent and str(Path(args.parent).resolve()))
         walls["main paths"] = time.perf_counter() - t0
         walls.update(main["legs_s"])
         tools = tools_phase()
@@ -2120,7 +2448,8 @@ def main() -> int:
                       "sharded_gather": main and main["sharded_gather"],
                       "scaling": tools and tools["scaling"],
                       "real_cards": main and main["real_cards"],
-                      "distributed": main and main["distributed"]}), flush=True)
+                      "distributed": main and main["distributed"],
+                      "parent_runs": main and main["parent_runs"]}), flush=True)
     if tools:
         print(json.dumps(tools["bench"]), flush=True)
     print(smi, flush=True)

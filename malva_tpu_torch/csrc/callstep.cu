@@ -76,7 +76,7 @@ __global__ void __launch_bounds__(kStepThreads, 4)
 // K1's policy (step.cuh): the launch holds every Bloom word; a lane's
 // context is known where the context filter has the bit of its XXH3.
 struct CallstepPolicy : ContiguousLanes, WholeMap {
-  static constexpr bool kLaneIndex = false;
+  static constexpr Carry kCarry = Carry::kNothing;
   const uint32_t* __restrict__ ctx_words;
 
   __device__ __forceinline__ bool live(uint64_t, uint64_t) const { return true; }

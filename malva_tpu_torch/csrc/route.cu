@@ -1,8 +1,7 @@
 // K6 and K7: the two partition kernels of the routed sharded call step, and
-// the launcher of the step's card-to-card copies.  K8 (scan_pack), the
-// sharded context scan's entry, ends in the same partition over K2's codes
-// (ScanLanes, below), and its chunk step, K8, the copies and K9
-// (ref_scan.cu), is one C call here too.
+// the launcher of the step's card-to-card copies.  The sharded context
+// scan's chunk step, K8 (scan_pack, whose tiles end in the same partition:
+// ref_scan.cu), the copies and K9, is one C call here too.
 //
 // No Pallas counterpart.  They replace pack_dests (malva_tpu/parallel/
 // sharded_index.py:326-347, a sort by owner into a (D * cap) slot matrix
@@ -22,8 +21,8 @@
 // does not depend on either order.
 //
 // Each kernel is one launch over tiles of kTileLanes lanes (route.cuh holds
-// the tile logic, which the g++ tests run).  A tile takes its index from a
-// ticket, so it waits only on tiles that started before it.  Its threads
+// the tile logic, which the g++ tests run; partition.cuh the look-back).  A
+// tile takes its index from a ticket, so it waits only on tiles that started before it.  Its threads
 // load their lanes' words (coalesced, every read in flight before any is
 // used; K7's random context-filter reads too) and rank them by
 // destination, warp by warp with ballots, then over the warps with one
@@ -38,8 +37,9 @@
 // The last tile writes every header (min(total, cap)) and adds it to the
 // tally; the tile that finishes last resets the scratch for the next
 // launch, so the scratch is zeroed once, when it is made.  K7's lanes are
-// the live rows of its input blocks, block after block, so no tile of its
-// launch holds only stale rows.
+// the live rows of its input blocks, block after block (route.cuh
+// lane_block, which K4's slot entry shares), so no tile of its launch holds
+// only stale rows.
 //
 // Bound: bytes.  K6 reads the hash planes, contexts and counters of its
 // lanes (16 + 4N + 4 bytes each) and writes one row of 4 (N + 4) bytes;
@@ -57,6 +57,7 @@
 #include <atomic>
 
 #include "launch.cuh"
+#include "partition.cuh"
 #include "route.cuh"
 
 using namespace malva;
@@ -66,102 +67,6 @@ namespace {
 static_assert(PackLanes::kSlotCols == kHop1Cols && ProbeLanes::kSlotCols == kHop2Cols,
               "the lanes' columns are the slot format's");
 static_assert(1 << kDestBits == kMaxDests, "a destination fits its bits");
-
-struct Blocks {
-  uint32_t* p[kMaxDests];  // the destinations' blocks
-
-  // p[d] by an unrolled select: an index at run time into a kernel
-  // parameter would copy the array to local memory.
-  __device__ __forceinline__ uint32_t* at(int d) const {
-    uint32_t* r = p[0];
-#pragma unroll
-    for (int j = 1; j < kMaxDests; ++j) r = j == d ? p[j] : r;
-    return r;
-  }
-};
-
-// A tile publishes a status with a relaxed store: the word carries its
-// count itself, and no reader reads anything else the tile wrote, so a
-// release would only wait for the tile's earlier memory operations.
-__device__ __forceinline__ void publish(unsigned long long* p, uint64_t status) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"((unsigned long long)status)
-               : "memory");
-}
-
-// A look-back step reads its window with relaxed loads, all in flight at
-// once.  Nothing it reads depends on another tile's other writes, so no
-// acquire is needed: each load would wait for the one before, and a fence
-// after them for the tile's context copies issued just before.
-__device__ __forceinline__ unsigned long long ld_relaxed(const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-// What warp 0 of a tile hands the block.
-struct TileShared {
-  uint32_t woff[kRouteWarps][kMaxDests];  // the warps' counts, then their staged offsets
-  DestRun run[kMaxDests];
-  uint32_t heads[kMaxDests];       // the rows of each input block, where it has a header
-  uint32_t start[kMaxDests + 1];   // the first lane of each
-  int64_t tile;
-  int last_done;
-};
-
-// Warp 0: the look-back for the tile's base per destination (lanes (j, e)
-// of route.cuh's window), its inclusive prefixes published, the rows of
-// each destination that go to the block and to the overflow list (one
-// atomic add a tile), and in the last tile each block's header and tally.
-__device__ void tile_bases(TileShared& sh, int64_t t, int64_t last, int D, const Blocks& out,
-                           int64_t cap, unsigned long long* __restrict__ tally, int tally_at,
-                           unsigned long long* __restrict__ status) {
-  const int lane = threadIdx.x & 31, lanes = dest_lanes(D), rows = 32 / lanes;
-  const int e = lane & (lanes - 1), j = lane / lanes;
-  uint32_t base = 0;
-  bool done = t == 0 || e >= D;
-  int64_t next = t - 1;  // the nearest tile not yet taken
-  while (__any_sync(~0u, !done)) {
-    uint64_t w[kLookBack];
-#pragma unroll
-    for (int k = 0; k < kLookBack; ++k) {
-      const int64_t at = next - j - rows * k;
-      w[k] = !done && at >= 0 ? ld_relaxed(status + at * D + e) : 0;
-    }
-    int stop = lane_stop(w, j, rows);
-    for (int m = lanes; m < 32; m *= 2) stop = min(stop, __shfl_xor_sync(~0u, stop, m));
-    uint32_t sum = lane_sum(w, j, rows, stop);
-    int found = lane_prefix_at(w, j, rows, stop);
-    for (int m = lanes; m < 32; m *= 2) {
-      sum += __shfl_xor_sync(~0u, sum, m);
-      found |= __shfl_xor_sync(~0u, found, m);
-    }
-    if (!done) {
-      base += sum;
-      next -= stop + found;
-      done = found;
-      if (stop + found == 0) __nanosleep(64);
-    }
-  }
-  DestRun& r = sh.run[lane & (kMaxDests - 1)];
-  if (lane < D) {  // lane e, row 0
-    if (t > 0) publish(status + t * D + lane, status_word(kStatusPrefix, base + r.tot));
-    set_base(r, base, cap);
-  }
-  __syncwarp();
-  const uint32_t all = __reduce_add_sync(~0u, lane < D ? r.over : 0u);
-  unsigned long long q0 = 0;
-  if (lane == 0 && all) q0 = atomicAdd(tally, (unsigned long long)all);
-  q0 = __shfl_sync(~0u, q0, 0);
-  if (lane < D) {
-    r.ovf_at = (int64_t)q0 + tot_before(sh.run, lane, true);
-    if (t == last) {
-      const int64_t total = (int64_t)r.base + r.tot;
-      const uint32_t rows_in = (uint32_t)(total < cap ? total : cap);
-      out.at(lane)[0] = rows_in;
-      atomicAdd(tally + tally_at + lane, (unsigned long long)rows_in);
-    }
-  }
-}
 
 // Tile t of a launch of K6 or K7 (Src), which holds `live` lanes that can
 // hold a row: rank, publish, look back, stage, write.
@@ -364,23 +269,24 @@ constexpr PlanName kPlanNames[] = {
 // kMaxDests columns, the blocks the shard writes for each owner.
 // ops/kernels.py reads each column's index by its name (malva_scan_plan_col).
 enum ScanCol {
-  kSDev, kSStream, kSSeq, kSNPos, kSBfWords, kSCodes, kSOvf, kSTally, kSScratch, kSRecv,
+  kSDev, kSStream, kSSeq, kSNPos, kSBfWords, kSOvf, kSTally, kSScratch, kSRecv,
   kSCtxWords, kSEvPack0, kSEvPack1, kSEvSet0, kSEvSet1, kSOut, kScanCols = kSOut + kMaxDests
 };
 
 constexpr PlanName kScanNames[] = {
-    {"dev", kSDev},         {"stream", kSStream},       {"seq", kSSeq},
-    {"n_pos", kSNPos},      {"bf_words", kSBfWords},    {"codes", kSCodes},
-    {"ovf", kSOvf},         {"tally", kSTally},         {"scratch", kSScratch},
-    {"recv", kSRecv},       {"ctx_words", kSCtxWords},  {"ev_pack0", kSEvPack0},
-    {"ev_pack1", kSEvPack1}, {"ev_set0", kSEvSet0},     {"ev_set1", kSEvSet1},
-    {"out", kSOut},         {"width", kScanCols},       {"max_dests", kMaxDests}};
+    {"dev", kSDev},          {"stream", kSStream},       {"seq", kSSeq},
+    {"n_pos", kSNPos},       {"bf_words", kSBfWords},    {"ovf", kSOvf},
+    {"tally", kSTally},      {"scratch", kSScratch},     {"recv", kSRecv},
+    {"ctx_words", kSCtxWords}, {"ev_pack0", kSEvPack0},  {"ev_pack1", kSEvPack1},
+    {"ev_set0", kSEvSet0},   {"ev_set1", kSEvSet1},      {"out", kSOut},
+    {"width", kScanCols},    {"max_dests", kMaxDests}};
 
 }  // namespace
 
 extern "C" {
 
-// K1's hash-only launcher (callstep.cu) and K4's slot entry (shard_step.cu).
+// K1's hash-only launcher (callstep.cu), K4's slot entry (shard_step.cu),
+// K8 and K9 (ref_scan.cu).
 int malva_callstep_hash(const void* ctx, int64_t B, int wc, int k, int ref_k, int with_ctx,
                         void* out, void* ev_start, void* ev_stop, void* stream);
 int malva_shard_update_slots(const void* slots, int64_t n_blocks, int64_t cap, int wc, int k,
@@ -398,9 +304,9 @@ int malva_route_copies(int D, const int* dev, void* const* compute, void* const*
                        void* const* guard, int n, const int* from, const int* to,
                        void* const* dst, void* const* src, int64_t bytes,
                        void* const* streams, void* const* copied);
-// K8's first launch and K9 (ref_scan.cu).
-int malva_scan_codes(const void* seq, int64_t n_pos, int k, int ref_k, const void* bf_words,
-                     int64_t size_bits, void* codes, void* stream);
+int malva_scan_pack(const void* seq, int64_t n_pos, int k, int ref_k, const void* bf_words,
+                    int64_t size_bits, int64_t wps, int W, int D, void* const* blocks, int64_t cap,
+                    void* ovf, int64_t ovf_cap, void* tally, void* scratch, void* stream);
 int malva_scan_set(const void* slots, int n_blocks, int64_t cap, int W, void* ctx_words,
                    void* stream);
 
@@ -425,10 +331,10 @@ int malva_slot_layout(int what) {
   return what == 0 ? (int)kSlotHead : what == 1 ? kHop1Cols : what == 2 ? kHop2Cols : -1;
 }
 
-// 8-byte words of the scratch of K6's and K7's launches with D
-// destinations ([ticket, tiles done, a status per tile and destination]),
-// made zeroed once and reset by each launch.  A launch of more than
-// kMaxTiles tiles is refused.
+// 8-byte words of the scratch of K6's, K7's and K8's launches with D
+// destinations ([ticket, tiles (K8: blocks) done, a status per tile and
+// destination]), made zeroed once and reset by each launch.  A launch of
+// more than kMaxTiles tiles is refused.
 int64_t malva_route_scratch_words(int D) { return kScratchHead + (int64_t)kMaxTiles * D; }
 
 // K6 over the B lanes of a source slice: `hx` K1 hash-only's planes (with
@@ -575,39 +481,6 @@ int malva_routed_step(int D, const int64_t* plan, int wc, int k, int ref_k, int 
   return e ? e : r;
 }
 
-// K8's partition alone (its second launch): the n codes (u64: a context's
-// Bloom index, or ~0 for no hit) into blocks[d] of each hit's owner d (cap
-// rows of W words each: the shard-local bit index), in position order, or
-// to the overflow list ([W planes | owner plane] of ovf_cap rows); the
-// tally gets the rows spilled at [0] and the rows sent to d at [1 + d].
-// `scratch`: malva_route_scratch_words(D) words, zeroed when made.
-int malva_scan_route(const void* codes, int64_t n, int64_t wps, int W, int D, void* const* blocks,
-                     int64_t cap, void* ovf, int64_t ovf_cap, void* tally, void* scratch,
-                     void* stream) {
-  if (wps < 1 || wps > UINT32_MAX || n < 0 || (W != 1 && W != 2) ||
-      (W == 1 && wps > (int64_t)1 << 27))
-    return (int)cudaErrorInvalidValue;
-  auto go = [&](auto src) {
-    return launch_route(src, D, blocks, cap, (uint32_t*)ovf, ovf_cap, (unsigned long long*)tally,
-                        1, scratch, (cudaStream_t)stream);
-  };
-  if (W == 1) return go(ScanLanes<1>{(const uint32_t*)codes, n, (uint32_t)wps, 0});
-  return go(ScanLanes<2>{(const uint32_t*)codes, n, (uint32_t)wps, 0});
-}
-
-// K8 (scan_pack), the sharded context scan's entry, over n_pos positions
-// of a shard's slice of the contig (`seq`, n_pos + ref_k - 1 bytes with the
-// halo): K2's codes mode writes each position's code into `codes` (n_pos
-// u64), then malva_scan_route partitions them.  Two launches.
-int malva_scan_pack(const void* seq, int64_t n_pos, int k, int ref_k, const void* bf_words,
-                    int64_t size_bits, void* codes, int64_t wps, int W, int D,
-                    void* const* blocks, int64_t cap, void* ovf, int64_t ovf_cap, void* tally,
-                    void* scratch, void* stream) {
-  const int e = malva_scan_codes(seq, n_pos, k, ref_k, bf_words, size_bits, codes, stream);
-  return e ? e : malva_scan_route(codes, n_pos, wps, W, D, blocks, cap, ovf, ovf_cap, tally,
-                                  scratch, stream);
-}
-
 // One chunk of the sharded context scan over the D shards of `plan`
 // (ScanCol), in one call: K8 on each shard's slice; the slot blocks' copies
 // between cards (malva_route_copies, where n pairs cross cards: produced,
@@ -637,7 +510,7 @@ int malva_sharded_scan_step(int D, const int64_t* plan, int k, int ref_k, int64_
     if (!e) e = record(s, kSEvPack0);
     if (!e)
       e = malva_scan_pack(ptr(s, kSSeq), at(s, kSNPos), k, ref_k, ptr(s, kSBfWords), size_bits,
-                          ptr(s, kSCodes), wps, W, D,
+                          wps, W, D,
                           (void* const*)(plan + (int64_t)s * kScanCols + kSOut), cap,
                           ptr(s, kSOvf), ovf_cap, ptr(s, kSTally), ptr(s, kSScratch),
                           compute[s]);

@@ -1,9 +1,11 @@
-// The tile logic of K6, K7 and K8's partition (route.cu), header-only and
-// __host__ __device__, so that a host build runs the same code (the g++ tests of
-// tests/test_torch_route_tiles.py emulate a launch with it, the warp
-// intrinsics done serially).  What stays in route.cu is what only a card
-// has: ballots and shuffles, shared memory, cp.async, atomics and the
-// statuses' 64-bit loads and stores.
+// The tile logic of K6 and K7 (route.cu), of K8's partition (ref_scan.cu's
+// pack mode) and the live-row map of K7 and K4's slot entry (shard_step.cu),
+// header-only and __host__ __device__, so that a host build runs the same
+// code (the g++ tests of tests/test_torch_route_tiles.py emulate a launch
+// with it, the warp intrinsics done serially).  What stays in the kernels'
+// sources and partition.cuh is what only a card has: ballots and shuffles,
+// shared memory, cp.async, atomics and the statuses' 64-bit loads and
+// stores.
 //
 // A launch cuts its lanes into tiles of kTileLanes.  A tile takes its index
 // from a ticket, ranks its lanes by destination, publishes its count per
@@ -214,7 +216,7 @@ MALVA_HD void write_run(uint32_t* dst, const uint32_t* src, int64_t n, int lane,
   for (int64_t q = head + 4 * quads + lane; q < n; q += width) dst[q] = src[q];
 }
 
-// -- the lanes of K6, K7 and K8 ------------------------------------------------
+// -- the lanes of K6 and K7 -----------------------------------------------------
 // A launch numbers its lanes in lane order from 0; tile t holds lanes
 // [t * kTileLanes, (t + 1) * kTileLanes), and the tiles past the last that
 // holds a lane do nothing (K7's lanes are the live rows alone, so the
@@ -237,6 +239,28 @@ MALVA_HD int64_t last_tile(int64_t lanes) { return lanes > 0 ? (lanes - 1) / kTi
 MALVA_HD int tile_live(int64_t lanes, int64_t t) {
   const int64_t n = lanes - t * kTileLanes;
   return n < 0 ? 0 : n < kTileLanes ? (int)n : kTileLanes;
+}
+
+// -- live rows, block after block (K7 and K4's slot entry) ------------------------
+// A launch over received slot blocks takes as its lanes only their live
+// rows: block b's first min(header, cap) rows are K7's lanes start[b] ..
+// start[b + 1] - 1, with start from block_starts over live_rows; K4's
+// slot entry cuts each block's rows into whole tiles, and block b's are
+// its tiles first_tile[b] .. first_tile[b + 1] - 1, by the same map.
+
+// The rows a block holds: its header's count, at most cap.
+MALVA_HD uint32_t live_rows(uint32_t head, int64_t cap) {
+  return (int64_t)head < cap ? head : (uint32_t)cap;
+}
+
+// The block that holds lane (or tile) i < start[D]: the number of blocks
+// after the first that start at i or before it (an empty block starts
+// where the next does, so it is passed over).
+MALVA_HD int lane_block(uint32_t i, const uint32_t* start, int D) {
+  int b = 0;
+#pragma unroll
+  for (int d = 1; d < kMaxDests; ++d) b += d < D && i >= start[d];
+  return b;
 }
 
 // K6's lanes: a source slice of B lanes.  Lane i (counter != 0) goes to
@@ -298,16 +322,13 @@ struct ProbeLanes {
 
   MALVA_HD int64_t tiles() const { return last_tile(D * cap_in) + 1; }
   MALVA_HD uint32_t head_rows(int d) const {
-    const uint32_t n = load_ro(in + d * block_words);
-    return n < cap_in ? n : (uint32_t)cap_in;
+    return live_rows(load_ro(in + d * block_words), cap_in);
   }
   MALVA_HD int64_t lanes(const uint32_t* start) const { return start[D]; }
   // Lane i's block's rows (past its header), and in *r its row there: the
   // number of blocks that start at i or before it, less one.
   MALVA_HD const uint32_t* row_of(uint32_t i, const uint32_t* start, uint32_t* r) const {
-    int b = 0;
-#pragma unroll
-    for (int d = 1; d < kMaxDests; ++d) b += d < D && i >= start[d];
+    const int b = lane_block(i, start, D);
     *r = i - start[b];
     return in + b * block_words + head;
   }
@@ -329,43 +350,59 @@ struct ProbeLanes {
   }
 };
 
-// K8's lanes: the positions of a chunk, each with K2's code (scan_tiles'
-// codes mode): the context's Bloom index where the position's centre hits
-// the alt filter, else ~0.  A hit goes to the owner of its context word
-// (cw / wps) as its shard-local bit index (index - d * wps * 32) in W
-// words, low word first (W = 1 where a shard's bits fit in 32).  A row
-// has no context words (N = 0); the overflow list keeps the owner beside
-// the W words, so that the owner can take it at the end.
+// K8's rows (ref_scan.cu's pack mode): a position whose centre hits the
+// alt filter has the code of its context's Bloom index (lo, hi).  It goes
+// to the owner of its context word (cw / wps) as its shard-local bit index
+// (index - d * wps * 32) in W words, low word first (W = 1 where a shard's
+// bits fit in 32); the overflow list keeps the owner beside the W words,
+// so that the owner can take it at the end.
 template <int W>
-struct ScanLanes {
-  static constexpr int kCols = W + 1, kSlotCols = W, kOvfCols = W + 1;
-  struct Raw {
-    uint32_t lo, hi;
-  };
-  const uint32_t* codes;  // (n,) u64 codes, as u32 pairs
-  int64_t n;
+struct ScanRows {
   uint32_t wps;
-  int N;                  // 0
 
-  MALVA_HD int64_t tiles() const { return last_tile(n) + 1; }
-  MALVA_HD uint32_t head_rows(int) const { return 0; }
-  MALVA_HD int64_t lanes(const uint32_t*) const { return n; }
-  MALVA_HD Raw fetch(int64_t i, const uint32_t*) const {
-    return {load_ro(codes + 2 * i), load_ro(codes + 2 * i + 1)};
-  }
-  MALVA_HD void fetch2(Raw&) const {}
-  MALVA_HD int dest(const Raw& r, int D) const {
-    if ((r.lo & r.hi) == ~0u) return D;
-    const uint32_t d = (uint32_t)(((uint64_t)r.hi << 32 | r.lo) >> 5) / wps;
+  MALVA_HD int dest(uint32_t lo, uint32_t hi, int D) const {
+    const uint32_t d = (uint32_t)(((uint64_t)hi << 32 | lo) >> 5) / wps;
     return d < (uint32_t)D ? (int)d : D;
   }
-  MALVA_HD void columns(const Raw& r, int d, uint32_t* col) const {
-    const uint64_t local = ((uint64_t)r.hi << 32 | r.lo) - (uint64_t)d * wps * 32;
+  MALVA_HD void columns(uint32_t lo, uint32_t hi, int d, uint32_t* col) const {
+    const uint64_t local = ((uint64_t)hi << 32 | lo) - (uint64_t)d * wps * 32;
     col[0] = (uint32_t)local;
     if (W == 2) col[1] = (uint32_t)(local >> 32);
     col[W] = (uint32_t)d;
   }
-  MALVA_HD const uint32_t* ctx_row(int64_t, const uint32_t*) const { return codes; }
 };
+
+// -- K8's tiles (ref_scan.cu's pack mode) -----------------------------------------
+// A tile of kTileLanes positions marks its hits in a bitmap (word w holds
+// positions 32 w .. 32 w + 31), so that each hit's rank among the tile's
+// hits is its place in position order: the hits of the words before its
+// own (`pre`, their exclusive prefix) and those below it in its word.
+MALVA_HD uint32_t hit_rank(const uint32_t* bm, const uint32_t* pre, int p) {
+  return pre[p >> 5] + popc32(bm[p >> 5] & ((1u << (p & 31)) - 1u));
+}
+
+// A hit's destination and its rank among the tile's hits of that
+// destination, in one word (rank < kTileLanes, destination <= kMaxDests).
+constexpr int kRankShift = 5;
+
+MALVA_HD uint32_t dest_rank(int d, uint32_t rank) { return (uint32_t)d | rank << kRankShift; }
+
+// The row of rank `rank` among a tile's rows for a destination (r from
+// the look-back: its base, the rows that go to the block and its place in
+// the overflow list): its W columns (ScanRows::columns) to row base + rank
+// of the block's planes (`rows`, past the header) where rank < r.slot,
+// else its W + 1 to row ovf_at + rank - r.slot of the overflow list, where
+// that has room.
+template <int W>
+MALVA_HD void place_row(const DestRun& r, uint32_t rank, const uint32_t* col, uint32_t* rows,
+                        int64_t cap, uint32_t* ovf, int64_t ovf_cap) {
+  if (rank < r.slot) {
+    for (int c = 0; c < W; ++c) rows[c * cap + r.base + rank] = col[c];
+    return;
+  }
+  const int64_t q = r.ovf_at + (rank - r.slot);
+  if (q < ovf_cap)
+    for (int c = 0; c <= W; ++c) ovf[c * ovf_cap + q] = col[c];
+}
 
 }  // namespace malva

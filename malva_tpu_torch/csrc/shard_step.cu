@@ -33,7 +33,8 @@
 // Both kernels are K1's (step.cuh step_body), each with its policy: the
 // row index is the word less the shard's first word, and the "known" flag
 // is read in the tail from the `known` array at the lane's index, which
-// the tail ring carries.  K4 takes only lanes whose Bloom word is the
+// the tail ring carries (K4's slot entry stages the flag with its row, and
+// the ring carries the flag itself: SlotPolicy below).  K4 takes only lanes whose Bloom word is the
 // shard's (the routing sends no other).  K5 takes every lane of the batch
 // and keeps live those whose Bloom word or one of whose buckets is the
 // shard's (about 1/S + 2/S of them); it gathers a row only for the first
@@ -45,6 +46,7 @@
 // adds commute, so the state is exact whatever the thread order.
 #include <cuda_runtime.h>
 
+#include "route.cuh"
 #include "step.cuh"
 
 using namespace malva;
@@ -68,7 +70,7 @@ struct ShardWords {
 // A lane's context is known where the step said so, in the `known` array at
 // the lane's index.
 struct KnownFlags {
-  static constexpr bool kLaneIndex = true;
+  static constexpr Carry kCarry = Carry::kLaneIndex;
   const uint8_t* __restrict__ known;
 
   template <int N>
@@ -85,61 +87,52 @@ struct ShardPolicy : ContiguousLanes, ShardWords, KnownFlags, WholeMap {
   __device__ __forceinline__ bool live(uint64_t idx, uint64_t) const { return owns(idx); }
 };
 
-// K4's slot entry (step.cuh): the lanes are the rows of the D hop-2 slot
-// blocks that route.cu's K7 wrote and the copies delivered, each block
-// [header (kSlotHead words: rows, 0, 0, 0) | contexts (cap x N) | counters
-// (cap) | known (cap)] (launch.cuh); lane i is row i % cap of block i /
-// cap, and a row at or past its block's count is staged with counter 0, so
-// it does nothing.  A tile within one block's rows is staged as
-// ContiguousLanes stages one; a tile that reaches past them, lane by lane.
-// No compaction pass.
+// K4's slot entry (step.cuh): the lanes are the live rows of the D hop-2
+// slot blocks that route.cu's K7 wrote and the copies delivered, block
+// after block, each block's rows cut into whole tiles of a warp, each
+// block [header (kSlotHead words: rows, 0, 0, 0) | contexts (cap x N) |
+// counters (cap) | known (cap)] (launch.cuh).  Each thread block reads the
+// D headers once into shared memory: the rows of each block and its
+// first tile (route.cuh live_rows and block_starts; `first_tile[D]`, the
+// launch's tiles), so that a warp's tile t lies in block lane_block(t) (as
+// a K7 lane lies in its block), at a row that is a multiple of the tile,
+// and is staged as one run of each plane, its contexts, counters and
+// "known" flags, by 16-byte cp.async copies (words where a block is not
+// aligned); a block's last tile stages its live rows alone, the lanes
+// past them staged with counter 0, so they do nothing.  The tail ring
+// carries the staged flag (in its `what`), so the tail reads nothing for
+// it.  No compaction pass, no dead row staged.
 struct SlotPolicy : ShardWords, WholeMap {
-  static constexpr bool kLaneIndex = true;
+  static constexpr Carry kCarry = Carry::kStagedFlag;
   const uint32_t* __restrict__ slots;
   int64_t cap;
+  const uint32_t* rows_in;     // in shared memory: each block's live rows
+  const uint32_t* first_tile;  // in shared memory: each block's first tile, [D] the tiles
+  int D;
 
-  template <int N>
-  __device__ __forceinline__ int64_t block_words() const {
-    return kSlotHead + cap * (N + kHop2Cols);
-  }
   __device__ __forceinline__ bool live(uint64_t idx, uint64_t) const { return owns(idx); }
   template <int N>
-  __device__ __forceinline__ void stage(uint32_t* dst, uint32_t* cnt, const uint32_t*,
-                                        const uint32_t*, int64_t first, int64_t B,
+  __device__ __forceinline__ void stage(uint32_t* dst, uint32_t* cnt, uint32_t* flg,
+                                        const uint32_t*, const uint32_t*, int64_t first, int64_t,
                                         int lane) const {
-    constexpr int W = Shape<N>::kTileWords, C = Shape<N>::kTileLanes;
-    const int64_t b = first / cap, r0 = first - b * cap;
-    const uint32_t* blk = slots + b * block_words<N>();
+    constexpr int C = Shape<N>::kTileLanes;
+    const uint32_t t = (uint32_t)(first / C);
+    const int b = lane_block(t, first_tile, D);
+    const uint32_t row = (t - first_tile[b]) * C, left = rows_in[b] - row;
+    const int n = left < (uint32_t)C ? (int)left : C;
+    const uint32_t* rows = slots + b * (kSlotHead + cap * (N + kHop2Cols)) + kSlotHead;
     __syncwarp();  // the warp is done with the slices
-    if (r0 + C <= (int64_t)__ldg(blk)) {
-      const uint32_t* src = blk + kSlotHead + r0 * N;
-      const uint32_t* csrc = blk + kSlotHead + cap * N + r0;
-      if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(csrc)) & 15) == 0) {
-        for (int q = lane; q < W / 4; q += 32) cp_async16(dst + 4 * q, src + 4 * q);
-        for (int q = lane; q < C / 4; q += 32) cp_async16(cnt + 4 * q, csrc + 4 * q);
-      } else {
-        for (int q = lane; q < W; q += 32) dst[q] = __ldg(src + q);
-        for (int q = lane; q < C; q += 32) cnt[q] = __ldg(csrc + q);
-      }
-    } else {
-      for (int q = lane; q < C; q += 32) {
-        const int64_t i = first + q;
-        const int64_t bb = i / cap, r = i - bb * cap;
-        const uint32_t* p = slots + bb * block_words<N>();
-        const bool on = i < B && r < (int64_t)__ldg(p);
-#pragma unroll
-        for (int j = 0; j < N; ++j) dst[q * N + j] = on ? __ldg(p + kSlotHead + r * N + j) : 0u;
-        cnt[q] = on ? __ldg(p + kSlotHead + cap * N + r) : 0u;
-      }
-    }
+    stage_run(dst, rows + (int64_t)row * N, n * N, lane);
+    stage_run(cnt, rows + cap * N + row, n, lane);
+    stage_run(flg, rows + cap * (N + 1) + row, n, lane);
+    for (int q = n + lane; q < C; q += 32) cnt[q] = 0u;
     cp_async_commit();
   }
   template <int N>
-  __device__ __forceinline__ uint32_t context_word(const uint32_t (&)[N], uint32_t lane, int,
+  __device__ __forceinline__ uint32_t context_word(const uint32_t (&)[N], uint32_t flag, int,
                                                    uint64_t, uint32_t& bit) const {
-    const int64_t b = (int64_t)lane / cap, r = (int64_t)lane - b * cap;
     bit = 0;
-    return __ldg(slots + b * block_words<N>() + kSlotHead + cap * (N + 1) + r);
+    return flag;
   }
 };
 
@@ -190,15 +183,30 @@ __global__ void __launch_bounds__(kStepThreads, Shape<N>::kMinBlocks)
                size_bits, 0);
 }
 
+// K4's slot entry over the D blocks `slots`: a persistent grid sized for
+// D * cap lanes, so that the launch needs no host read; the warps whose
+// tiles lie past the blocks' tiles return at once.
 template <int N>
 __global__ void __launch_bounds__(kStepThreads, Shape<N>::kMinBlocks)
-    shard_slots_kernel(const uint32_t* __restrict__ slots, int64_t cap, int64_t B, int k,
-                       int ref_k, const uint2* __restrict__ bf_packed, int64_t word_base,
-                       int64_t n_words, const uint32_t* __restrict__ kmap_keys,
-                       uint32_t* __restrict__ state, int64_t counts_len, uint64_t n_buckets,
-                       uint64_t size_bits, int minifilter) {
-  step_body<N>(SlotPolicy{{word_base, n_words}, {}, slots, cap}, nullptr, nullptr, B, k, ref_k,
-               bf_packed, kmap_keys, state, counts_len, n_buckets, size_bits, minifilter);
+    shard_slots_kernel(const uint32_t* __restrict__ slots, int D, int64_t cap, int k, int ref_k,
+                       const uint2* __restrict__ bf_packed, int64_t word_base, int64_t n_words,
+                       const uint32_t* __restrict__ kmap_keys, uint32_t* __restrict__ state,
+                       int64_t counts_len, uint64_t n_buckets, uint64_t size_bits,
+                       int minifilter) {
+  constexpr int C = Shape<N>::kTileLanes;
+  __shared__ uint32_t rows_in[kMaxDests], tiles[kMaxDests], first_tile[kMaxDests + 1];
+  if ((int)threadIdx.x < D) {
+    const uint32_t n =
+        live_rows(__ldg(slots + threadIdx.x * (kSlotHead + cap * (N + kHop2Cols))), cap);
+    rows_in[threadIdx.x] = n;
+    tiles[threadIdx.x] = (n + C - 1) / C;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) block_starts(tiles, D, first_tile);
+  __syncthreads();
+  step_body<N>(SlotPolicy{{word_base, n_words}, {}, slots, cap, rows_in, first_tile, D}, nullptr,
+               nullptr, (int64_t)first_tile[D] * C, k, ref_k, bf_packed, kmap_keys, state,
+               counts_len, n_buckets, size_bits, minifilter);
 }
 
 template <int N>
@@ -219,16 +227,16 @@ int launch_shard(const uint32_t* ctx, const uint32_t* counters, const uint8_t* k
 }
 
 template <int N>
-int launch_slots(const uint32_t* slots, int64_t cap, int64_t B, int k, int ref_k,
+int launch_slots(const uint32_t* slots, int D, int64_t cap, int k, int ref_k,
                  const uint2* bf_packed, int64_t word_base, int64_t n_words,
                  const uint32_t* kmap_keys, uint32_t* state, int64_t counts_len,
                  uint64_t n_buckets, uint64_t size_bits, int minifilter, void* ev_start,
                  void* ev_stop, cudaStream_t stream) {
   int grid = 0;
-  const int e = step_grid<N>(shard_slots_kernel<N>, B, &grid);
+  const int e = step_grid<N>(shard_slots_kernel<N>, D * cap, &grid);
   if (e != 0) return e;
   return launch_timed(ev_start, ev_stop, stream, [&](cudaStream_t s) {
-    shard_slots_kernel<N><<<grid, kStepThreads, 0, s>>>(slots, cap, B, k, ref_k, bf_packed,
+    shard_slots_kernel<N><<<grid, kStepThreads, 0, s>>>(slots, D, cap, k, ref_k, bf_packed,
                                                        word_base, n_words, kmap_keys, state,
                                                        counts_len, n_buckets, size_bits,
                                                        minifilter);
@@ -279,20 +287,20 @@ int malva_shard_update(const void* ctx, const void* counters, const void* known,
   }
 }
 
-// K4 over the n_blocks hop-2 slot blocks `slots` of cap rows each (the
-// lanes are the n_blocks * cap rows, < 2^32; see SlotPolicy).
+// K4 over the live rows of the n_blocks (1 to kMaxDests) hop-2 slot blocks
+// `slots` of cap rows each (n_blocks * cap < 2^32; see SlotPolicy).
 int malva_shard_update_slots(const void* slots, int64_t n_blocks, int64_t cap, int wc, int k,
                              int ref_k, const void* bf_packed, int64_t word_base, int64_t n_words,
                              const void* kmap_keys, void* state, int64_t counts_len,
                              int64_t n_buckets, int64_t size_bits, int minifilter,
                              void* ev_start, void* ev_stop, void* stream) {
-  const int64_t B = n_blocks * cap;
-  if (B <= 0) return launch_timed(ev_start, ev_stop, (cudaStream_t)stream, [](cudaStream_t) {});
-  if (B >= ((int64_t)1 << 32)) return (int)cudaErrorInvalidValue;
+  if (n_blocks < 1 || n_blocks > kMaxDests || cap < 1 || n_blocks * cap >= ((int64_t)1 << 32))
+    return (int)cudaErrorInvalidValue;
   switch (wc) {
 #define MALVA_K4_SLOTS(n)                                                                     \
   case n:                                                                                     \
-    return launch_slots<n>((const uint32_t*)slots, cap, B, k, ref_k, (const uint2*)bf_packed, \
+    return launch_slots<n>((const uint32_t*)slots, (int)n_blocks, cap, k, ref_k,              \
+                           (const uint2*)bf_packed,                                           \
                            word_base, n_words, (const uint32_t*)kmap_keys, (uint32_t*)state,  \
                            counts_len, (uint64_t)n_buckets, (uint64_t)size_bits, minifilter,  \
                            ev_start, ev_stop, (cudaStream_t)stream);

@@ -17,8 +17,9 @@
 // A policy says what the three steps do differently:
 //   * stage(...): how a warp's tile of lanes is copied into shared memory
 //     (K1, K4, K5: rows of contiguous context and counter arrays,
-//     ContiguousLanes; K4's slot entry: rows of the hop-2 slot blocks, with
-//     the rows past a block's count staged with counter 0, shard_step.cu);
+//     ContiguousLanes; K4's slot entry: the live rows of the hop-2 slot
+//     blocks, block after block, with their "context known" flags,
+//     shard_step.cu);
 //   * live(idx, c): whether the lane of centre hash c (Bloom index idx) has
 //     anything to do in this launch (K1: always; K4: its Bloom word is the
 //     shard's, other lanes are no-ops; K5: its Bloom word is the shard's or
@@ -33,11 +34,14 @@
 //     shard's", since K5's rows carry no mini-filter);
 //   * probe(keys, ...): the slot of the centre in the launch's bucket table
 //     (K1, K4: the whole table; K5: the shard's range of the global table);
-//   * context_word(w, lane, ...): in the tail, the word whose bit `bit` says
-//     that the lane's context is known (K1: the context filter's word at
-//     the XXH3 of the whole context; K4, K5: the flag that the step found
-//     before the launch, read from the `known` array at the lane's index,
-//     which the ring then carries: kLaneIndex).
+//   * kCarry: what the tail ring carries for a lane beside its context,
+//     counter and hashes (K1: nothing; K4, K5: its index in the launch;
+//     K4's slot entry: its staged flag);
+//   * context_word(w, carried, ...): in the tail, the word whose bit `bit`
+//     says that the lane's context is known (K1: the context filter's word
+//     at the XXH3 of the whole context; K4, K5: the flag that the step
+//     found before the launch, read from the `known` array at the lane's
+//     index; K4's slot entry: the flag itself, with no read).
 //
 // The design (the numbers are chip_smoke.py's, per 2^21 lanes):
 //
@@ -98,6 +102,9 @@ struct Shape {
   static constexpr int kMinBlocks = N <= 4 ? 6 : 1;
 };
 
+// What a tail ring entry carries for its lane (a policy's kCarry).
+enum class Carry { kNothing, kLaneIndex, kStagedFlag };
+
 // Starts the copy of the contexts (and, where `counters` is given, the
 // counters) of a warp's lanes first .. first + kTileLanes - 1 into its
 // slices: 16-byte cp.async copies where the tile is whole and aligned,
@@ -124,6 +131,23 @@ __device__ void stage_tile(uint32_t* dst, uint32_t* cnt, const uint32_t* __restr
   cp_async_commit();
 }
 
+// Starts the copy of n words from device memory to shared memory by a
+// warp, thread `lane` of it: 16-byte cp.async copies where the two share
+// their alignment mod 16 bytes (single words up to the boundary and past
+// the last whole quad), single words throughout where they do not.
+__device__ __forceinline__ void stage_run(uint32_t* dst, const uint32_t* __restrict__ src, int n,
+                                          int lane) {
+  int head = n, quads = 0;
+  if (((reinterpret_cast<uintptr_t>(dst) ^ reinterpret_cast<uintptr_t>(src)) & 15) == 0) {
+    head = (int)(-(reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+    head = head < n ? head : n;
+    quads = (n - head) >> 2;
+  }
+  for (int q = lane; q < head; q += 32) cp_async4(dst + q, src + q);
+  for (int q = lane; q < quads; q += 32) cp_async16(dst + head + 4 * q, src + head + 4 * q);
+  for (int q = head + 4 * quads + lane; q < n; q += 32) cp_async4(dst + q, src + q);
+}
+
 __device__ __forceinline__ void staged_wait() {
   cp_async_wait_all();
   __syncwarp();
@@ -133,9 +157,9 @@ __device__ __forceinline__ void staged_wait() {
 // contiguous arrays.
 struct ContiguousLanes {
   template <int N>
-  __device__ __forceinline__ void stage(uint32_t* dst, uint32_t* cnt, const uint32_t* ctx,
-                                        const uint32_t* counters, int64_t first, int64_t B,
-                                        int lane) const {
+  __device__ __forceinline__ void stage(uint32_t* dst, uint32_t* cnt, uint32_t*,
+                                        const uint32_t* ctx, const uint32_t* counters,
+                                        int64_t first, int64_t B, int lane) const {
     stage_tile<N>(dst, cnt, ctx, counters, first, B, lane);
   }
 };
@@ -177,34 +201,38 @@ __device__ __forceinline__ uint32_t centre_hashes(const P& p, const uint32_t* ti
 // ring of kRing entries in shared memory, one array per field, so that
 // the 32 lanes of a pass read distinct banks.  An entry holds what the
 // tail needs: the context, the counter, the centre hash, the counter
-// index (used when the Bloom bit is set), `what` (row_test's) and, where
-// the policy asks for it, the lane's index in the launch.
-template <int N, bool kLaneIndex>
+// index (used when the Bloom bit is set), `what` (row_test's) and what
+// the policy carries (kCarry): a lane index in a word of its own, a staged
+// flag in bit 2 of `what` (the ring's shared memory stays as K1's).
+template <int N, Carry kCarry>
 struct TailRing {
   static constexpr int kRing = 2 * Shape<N>::kTileLanes;  // a power of two
+  static constexpr bool kCarries = kCarry == Carry::kLaneIndex;
   uint32_t ctx[N][kRing];
   uint32_t cnt[kRing], h_hi[kRing], h_lo[kRing], cidx[kRing], what[kRing];
-  uint32_t lane[kLaneIndex ? kRing : 1];
+  uint32_t carried[kCarries ? kRing : 1];
 };
 
 // One pass over the n (<= 32) ring entries from `head` on, one a lane:
 // the context test's read, and the canonical centre and its two-bucket
 // probe, each read issued before any is used; then the atomics.
 template <int N, class P>
-__device__ __forceinline__ void run_tails(const P& p, const TailRing<N, P::kLaneIndex>& q,
+__device__ __forceinline__ void run_tails(const P& p, const TailRing<N, P::kCarry>& q,
                                           uint32_t head, int n, int lane, int k, int ref_k,
                                           const uint32_t* __restrict__ kmap_keys,
                                           uint32_t* __restrict__ state, int64_t counts_len,
                                           uint64_t n_buckets, uint64_t size_bits) {
   __syncwarp();  // the entries were written by other lanes
   if (lane >= n) return;
-  const uint32_t e = (head + lane) & (TailRing<N, P::kLaneIndex>::kRing - 1);
+  using Ring = TailRing<N, P::kCarry>;
+  const uint32_t e = (head + lane) & (Ring::kRing - 1);
   uint32_t w[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) w[j] = q.ctx[j][e];
   const uint32_t what = q.what[e], cnt = q.cnt[e];
+  const uint32_t carried = Ring::kCarries ? q.carried[Ring::kCarries ? e : 0] : what >> 2;
   uint32_t bit = 0, word = ~0u;  // the context counts as known where the Bloom bit is clear
-  if (what & 1u) word = p.context_word(w, q.lane[P::kLaneIndex ? e : 0], ref_k, size_bits, bit);
+  if (what & 1u) word = p.context_word(w, carried, ref_k, size_bits, bit);
   int64_t slot = -1;
   if (what & 2u) {
     uint32_t can[N];
@@ -240,10 +268,12 @@ __device__ __forceinline__ void step_body(const P& p, const uint32_t* __restrict
                                           uint64_t n_buckets, uint64_t size_bits,
                                           int minifilter) {
   using S = Shape<N>;
-  using Ring = TailRing<N, P::kLaneIndex>;
+  using Ring = TailRing<N, P::kCarry>;
   constexpr int L = S::kLanes, kRing = Ring::kRing;
+  constexpr bool kFlags = P::kCarry == Carry::kStagedFlag;
   __shared__ __align__(16) uint32_t tiles[kStepWarps][2][S::kTileWords];
   __shared__ __align__(16) uint32_t cnts[kStepWarps][2][S::kTileLanes];
+  __shared__ __align__(16) uint32_t flags[kStepWarps][2][kFlags ? S::kTileLanes : 1];
   __shared__ Ring rings[kStepWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   Ring& ring = rings[warp];
@@ -267,14 +297,15 @@ __device__ __forceinline__ void step_body(const P& p, const uint32_t* __restrict
   uint64_t c[L] = {};
   uint32_t live = 0, head = 0, n_queued = 0;
   if (t < n_tiles) {
-    p.template stage<N>(tiles[warp][0], cnts[warp][0], ctx, counters, t * S::kTileLanes, B, lane);
+    p.template stage<N>(tiles[warp][0], cnts[warp][0], flags[warp][0], ctx, counters,
+                        t * S::kTileLanes, B, lane);
     live = centre_hashes<N>(p, tiles[warp][0], cnts[warp][0], k, ref_k, size_bits, lane, c);
   }
   for (; t < n_tiles; b ^= 1) {
     const int64_t next = t + stride;
     if (next < n_tiles)
-      p.template stage<N>(tiles[warp][b ^ 1], cnts[warp][b ^ 1], ctx, counters,
-                          next * S::kTileLanes, B, lane);
+      p.template stage<N>(tiles[warp][b ^ 1], cnts[warp][b ^ 1], flags[warp][b ^ 1], ctx,
+                          counters, next * S::kTileLanes, B, lane);
     uint2 row[L];
 #pragma unroll
     for (int r = 0; r < L; ++r) {
@@ -311,8 +342,9 @@ __device__ __forceinline__ void step_body(const P& p, const uint32_t* __restrict
         ring.h_hi[e] = (uint32_t)(c[r] >> 32);
         ring.h_lo[e] = (uint32_t)c[r];
         ring.cidx[e] = rt.cidx;
-        ring.what[e] = what;
-        if constexpr (P::kLaneIndex) ring.lane[e] = (uint32_t)(t * S::kTileLanes + slot);
+        ring.what[e] = kFlags ? what | (uint32_t)(flags[warp][b][slot] != 0u) << 2 : what;
+        if constexpr (P::kCarry == Carry::kLaneIndex)
+          ring.carried[e] = (uint32_t)(t * S::kTileLanes + slot);
       }
       n_queued += __popc(go);
     }

@@ -28,7 +28,7 @@ from ..utils.build_dir import build_dir
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = build_dir("kernels")
 SOURCES = ("callstep.cu", "ref_scan.cu", "seq_count.cu", "shard_step.cu", "route.cu")
-HEADERS = ("xxh3.cuh", "lanes.cuh", "launch.cuh", "step.cuh", "route.cuh")
+HEADERS = ("xxh3.cuh", "lanes.cuh", "launch.cuh", "step.cuh", "route.cuh", "partition.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # --split-compile=0: nvcc optimizes and assembles the kernels of one source
 # side by side on every core, so that callstep.cu's 30 instantiations do
@@ -39,7 +39,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--split-compile=0", "-Xcompiler", "-f
 # the __global__ functions of SOURCES, as their mangled names contain them
 KERNELS = ("callstep_kernel", "callstep_hash_kernel", "ref_scan_kernel", "window_hash_kernel",
            "seq_pack_kernel", "shard_update_kernel", "gather_update_kernel", "shard_slots_kernel",
-           "route_kernel", "scan_codes_kernel", "scan_set_kernel")
+           "route_kernel", "scan_pack_kernel", "scan_set_kernel")
 
 _lib: ctypes.CDLL | None = None
 build_log = ""  # nvcc's output of the last build in this process (ptxas -v)
@@ -167,9 +167,7 @@ def library(fresh: bool = False) -> ctypes.CDLL:
         "malva_window_hash": [p, i64, i, i, p, p],
         "malva_ref_scan": [p, i64, i, i, p, p, i64, p],
         "malva_seq_pack": [p, i64, i, p, p, p],
-        "malva_scan_pack": [p, i64, i, i, p, i64, p, i64, i, i, p, i64, p, i64, p, p, p],
-        "malva_scan_codes": [p, i64, i, i, p, i64, p, p],
-        "malva_scan_route": [p, i64, i64, i, i, p, i64, p, i64, p, p, p],
+        "malva_scan_pack": [p, i64, i, i, p, i64, i64, i, i, p, i64, p, i64, p, p, p],
         "malva_scan_set": [p, i, i64, i, p, p],
         "malva_scan_plan_col": [ctypes.c_char_p],
         "malva_sharded_scan_step": [i, p, i, i, i64, i64, i, i64, i64, i, p, p, p, p, p, p, p, p,

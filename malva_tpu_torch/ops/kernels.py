@@ -65,13 +65,13 @@ of the slot entry alone.
 
 * K8 ``scan_pack`` and K9 ``scan_set`` are the sharded context scan's
   (``parallel/sharded_index.py``), K2's sharded entry: on each shard's
-  slice of a chunk, K8 runs K2's tile code in a third mode that writes
-  each position's code (the context's Bloom index where its centre hits
-  the alt filter, else -1), then partitions the hits by the owner of
-  their context word into fixed slot blocks with K6's tile logic (a third
-  lane policy, ``csrc/route.cuh`` ``ScanLanes``), each row the
-  shard-local bit index; K9 ORs the rows of the blocks an owner received
-  into its context words.  They replace the hit all-gather and
+  slice of a chunk, K8 is one launch of K2's tile code in a pack mode
+  whose tiles partition their hits (positions whose centre hits the alt
+  filter) by the owner of their context word into fixed slot blocks, in
+  position order, with K6's look-back (``csrc/ref_scan.cu``,
+  ``csrc/partition.cuh``, ``csrc/route.cuh``), each row the shard-local
+  bit index of the context; no per-position code is written.  K9 ORs the
+  rows of the blocks an owner received into its context words.  They replace the hit all-gather and
   ``bloom_set`` of ``malva_tpu/parallel/sharded_index.py:519-569``.
 
 ``callstep_hash`` / ``window_hash`` are the kernels' hash-only modes,
@@ -606,7 +606,8 @@ def shard_update_slots(bf_packed, kmap_keys, state, slots, *, n_blocks: int, cap
                        ref_k: int, size_bits: int, n_buckets: int, word_base: int,
                        counts_len: int, minifilter: bool, events=None) -> None:
     """K4's slot entry: same effect as :func:`shard_update_slots_plain`,
-    with no compaction of the slots."""
+    over the blocks' live rows alone, with no compaction pass and no host
+    read of the headers."""
     args = (bf_packed, kmap_keys, state, slots)
     kw = dict(n_blocks=n_blocks, cap=cap, k=k, ref_k=ref_k, size_bits=size_bits,
               n_buckets=n_buckets, word_base=word_base, counts_len=counts_len,
@@ -621,9 +622,10 @@ def shard_update_slots(bf_packed, kmap_keys, state, slots, *, n_blocks: int, cap
     if (slots.numel() != n_blocks * slot_words(cap, wc, HOP2_COLS)
             or bf_packed.dim() != 2 or bf_packed.shape[1] != 2
             or kmap_keys.shape != (n_buckets, SLOTS * ((k + 15) // 16))
-            or state.shape != (counts_len + n_buckets * SLOTS,) or n_blocks * cap >= 1 << 32):
+            or state.shape != (counts_len + n_buckets * SLOTS,) or n_blocks * cap >= 1 << 32
+            or not 1 <= n_blocks <= 16):
         raise ValueError("shard_update_slots: array shapes do not match k, ref_k, n_buckets, "
-                         "counts_len and the slot blocks (or 2^32 rows or more)")
+                         "counts_len and the slot blocks (1 to 16 blocks, under 2^32 rows)")
     route_layout()
     _launch("malva_shard_update_slots", state.device, slots.data_ptr(), n_blocks, cap, wc, k,
             ref_k, bf_packed.data_ptr(), word_base, bf_packed.shape[0], kmap_keys.data_ptr(),
@@ -792,9 +794,9 @@ def scan_slot_words(cap: int, W: int) -> int:
 
 
 def scan_codes_plain(seq, n_pos: int, bf_words, *, k: int, ref_k: int, size_bits: int):
-    """Plain codes of K8's first launch: for each of the first n_pos
-    windows of ``seq``, the Bloom index of its canonical window where its
-    canonical centre hits ``bf_words``, else -1 (int64)."""
+    """Plain codes of K8's scan half: for each of the first n_pos windows
+    of ``seq``, the Bloom index of its canonical window where its canonical
+    centre hits ``bf_words``, else -1 (int64)."""
     c_hi, c_lo, x_hi, x_lo = window_hash_plain(seq, n_pos, k, ref_k)
     bw, bb = xxh3_mod_size(c_hi, c_lo, size_bits)
     hit = ((lanes(bf_words[bw]) >> bb) & 1).bool()
@@ -803,7 +805,7 @@ def scan_codes_plain(seq, n_pos: int, bf_words, *, k: int, ref_k: int, size_bits
 
 
 def scan_partition_plain(codes, blocks, overflow, tally, *, wps: int, cap: int) -> None:
-    """Plain partition of K8 (``ScanLanes``): each hit (code >= 0) goes to
+    """Plain partition of K8 (``ScanRows``): each hit (code >= 0) goes to
     the owner of its context word, ``code // (32 * wps)``, as its
     shard-local bit index ``code - owner * 32 * wps`` in W words, into
     ``blocks[owner]`` (scan slot blocks of ``cap`` rows, updated in place
@@ -818,13 +820,10 @@ def scan_partition_plain(codes, blocks, overflow, tally, *, wps: int, cap: int) 
 
 
 def scan_pack_plain(seq, n_pos: int, bf_words, blocks, overflow, tally, *, k: int, ref_k: int,
-                    size_bits: int, wps: int, cap: int, codes=None) -> None:
-    """Plain K8: :func:`scan_codes_plain` (into ``codes`` too, where given),
-    then :func:`scan_partition_plain`."""
-    got = scan_codes_plain(seq, n_pos, bf_words, k=k, ref_k=ref_k, size_bits=size_bits)
-    if codes is not None:
-        codes[:n_pos] = got
-    scan_partition_plain(got, blocks, overflow, tally, wps=wps, cap=cap)
+                    size_bits: int, wps: int, cap: int) -> None:
+    """Plain K8: :func:`scan_codes_plain`, then :func:`scan_partition_plain`."""
+    codes = scan_codes_plain(seq, n_pos, bf_words, k=k, ref_k=ref_k, size_bits=size_bits)
+    scan_partition_plain(codes, blocks, overflow, tally, wps=wps, cap=cap)
 
 
 def _check_scan(blocks: list, cap: int, W: int, overflow, tally, device) -> None:
@@ -846,16 +845,15 @@ def _check_scan(blocks: list, cap: int, W: int, overflow, tally, device) -> None
 
 
 def scan_pack(seq, n_pos: int, bf_words, blocks, overflow, tally, *, k: int, ref_k: int,
-              size_bits: int, wps: int, cap: int, codes=None, scratch=None) -> None:
-    """K8: same effect as :func:`scan_pack_plain`, in one C call of two
-    launches (K2's codes mode into ``codes``, n_pos int64 made here when
-    None, then the partition on ``scratch``, :func:`route_scratch`'s);
-    ``codes`` ends holding :func:`scan_codes_plain`'s."""
+              size_bits: int, wps: int, cap: int, scratch=None) -> None:
+    """K8: same effect as :func:`scan_pack_plain`, in one kernel launch
+    that writes no per-position code (``csrc/ref_scan.cu``'s pack mode), on
+    ``scratch`` (:func:`route_scratch`'s, made here when None)."""
     if n_pos > 0:
         _check_seq(seq, n_pos, ref_k)
     if not _on_cuda(seq, bf_words, overflow, tally, *blocks):
         return scan_pack_plain(seq, n_pos, bf_words, blocks, overflow, tally, k=k, ref_k=ref_k,
-                               size_bits=size_bits, wps=wps, cap=cap, codes=codes)
+                               size_bits=size_bits, wps=wps, cap=cap)
     _check(seq, torch.uint8, "seq")
     _check(bf_words, torch.int32, "bf_words")
     _check_lengths(k, ref_k)
@@ -868,15 +866,11 @@ def scan_pack(seq, n_pos: int, bf_words, blocks, overflow, tally, *, k: int, ref
         raise ValueError(f"scan_pack: {n_pos} positions, more than one launch takes "
                          f"({ROUTE_MAX_LANES})")
     dev = seq.device
-    codes = torch.empty(max(1, n_pos), dtype=torch.int64, device=dev) if codes is None else codes
-    if codes.dtype != torch.int64 or codes.device != dev or codes.numel() < n_pos:
-        raise ValueError(f"scan_pack: codes must hold {n_pos} int64 on {dev}")
     scratch = route_scratch(dev, len(blocks)) if scratch is None else scratch
     route_layout()
     _launch("malva_scan_pack", dev, seq.data_ptr(), n_pos, k, ref_k, bf_words.data_ptr(),
-            size_bits, codes.data_ptr(), wps, W, len(blocks), _pointers(blocks), cap,
-            overflow.data_ptr(), overflow.numel() // (W + 1), tally.data_ptr(),
-            scratch.data_ptr())
+            size_bits, wps, W, len(blocks), _pointers(blocks), cap, overflow.data_ptr(),
+            overflow.numel() // (W + 1), tally.data_ptr(), scratch.data_ptr())
     LAUNCHES["scan_pack"] += 1
 
 
@@ -905,9 +899,9 @@ def scan_set(ctx_words, slots, *, n_blocks: int, cap: int, W: int) -> None:
     LAUNCHES["scan_set"] += 1
 
 
-SCAN_PLAN_NAMES = ("dev", "stream", "seq", "n_pos", "bf_words", "codes", "ovf", "tally",
-                   "scratch", "recv", "ctx_words", "ev_pack0", "ev_pack1", "ev_set0", "ev_set1",
-                   "out", "width", "max_dests")
+SCAN_PLAN_NAMES = ("dev", "stream", "seq", "n_pos", "bf_words", "ovf", "tally", "scratch", "recv",
+                   "ctx_words", "ev_pack0", "ev_pack1", "ev_set0", "ev_set1", "out", "width",
+                   "max_dests")
 _scan_layout = None  # (the library, its scan plan columns), once checked
 
 

@@ -952,9 +952,8 @@ class ScanRouter:
     device, the D slot blocks it receives (one per source, ``cap`` rows
     each, rows of W words: :func:`kernels.scan_row_words`) and, where an
     owner lies on another device, the blocks it sends there; its overflow
-    list (a slice's rows) and tally; on CUDA, K2's codes and K8's scratch
-    per card, the copy streams and events (:func:`copy_plan`) and the
-    step's plan.
+    list (a slice's rows) and tally; on CUDA, K8's scratch per card, the
+    copy streams and events (:func:`copy_plan`) and the step's plan.
 
     :meth:`step` scans positions ``[start, start + S * slice_rows)`` of one
     contig, slice s on shard s: K8 (``kernels.scan_pack``) hashes each
@@ -998,7 +997,6 @@ class ScanRouter:
         self.copies = self.plan = None
         if self.cuda:
             cards = cards_of(self.mesh)
-            self.codes = {d: torch.empty(slice_rows, dtype=torch.int64, device=d) for d in cards}
             self.scratch = {d: kernels.route_scratch(d, D) for d in cards}
             self._keep: list = []
             if self.pairs:
@@ -1026,10 +1024,9 @@ class ScanRouter:
                                  f"{self.wps}")
             row = plan[s]
             row[P["dev"]] = dev.index
-            for name, t in (("bf_words", self.bf_words[dev]), ("codes", self.codes[dev]),
-                            ("ovf", self.overflow[s]), ("tally", self.tally[s]),
-                            ("scratch", self.scratch[dev]), ("recv", self.recv[s]),
-                            ("ctx_words", self.ctx[s])):
+            for name, t in (("bf_words", self.bf_words[dev]), ("ovf", self.overflow[s]),
+                            ("tally", self.tally[s]), ("scratch", self.scratch[dev]),
+                            ("recv", self.recv[s]), ("ctx_words", self.ctx[s])):
                 row[P[name]] = t.data_ptr()
             row[P["out"] : P["out"] + self.D] = [b.data_ptr() for b in self.out[s]]
         return plan

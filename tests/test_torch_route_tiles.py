@@ -1,6 +1,8 @@
-"""K6's and K7's tile logic (malva_tpu_torch/csrc/route.cuh) built for the
-host with g++, against the kernels' plain versions, bit for bit (tolerance
-zero: destinations, ranks, rows and counts are integers).
+"""The partitions' tile logic (malva_tpu_torch/csrc/route.cuh) built for
+the host with g++, against the kernels' plain versions, bit for bit
+(tolerance zero: destinations, ranks, rows and counts are integers): K6's
+and K7's, K8's (ref_scan.cu's pack mode) and the live-row map that K7 and
+K4's slot entry share.
 
 A host harness emulates one launch of route.cu's kernel with the same
 functions: tiles take their tickets in order, each reads the input
@@ -11,7 +13,10 @@ before it (a warp's window, its lanes one after another), takes its place
 in the overflow list, writes its runs (the 32 lanes of a warp one after
 another) and, when it is the last to finish, resets the scratch.  Any
 order gives the same slots, headers and tallies; only the overflow list's
-order follows it.
+order follows it.  K8's launch is emulated the same way from each
+position's code (the scan half's output, which the kernel keeps in its
+tile): the tile's hit bitmap and ranks in position order, the ranks by
+owner 256 hits at a time, then the same look-back and each row placed.
 
 The plain versions are held against a numpy pack_dests by
 tests/test_torch_route.py.
@@ -68,6 +73,19 @@ static int look_back_window(const uint64_t* status, int D, int e, int64_t next, 
   }
   *done = found;
   return stop + found;
+}
+
+// Tile t's base for destination e: its look-back, window by window; false
+// where it met an unpublished status before an inclusive prefix.
+static bool tile_base(const uint64_t* status, int D, int e, int64_t t, uint32_t* base) {
+  bool done = t == 0;
+  int64_t next = t - 1;
+  while (!done) {
+    const int took = look_back_window(status, D, e, next, base, &done);
+    if (!took) return false;
+    next -= took;
+  }
+  return true;
 }
 
 // One launch over src's tiles; `order` seeds the order in which the tiles
@@ -154,13 +172,7 @@ static int emulate(const Src& src, int D, uint32_t* const* out, int64_t cap, uin
     const int64_t t = tl.t;
     for (int e = 0; e < D && !tl.idle; ++e) {
       uint32_t base = 0;
-      bool done = t == 0;
-      int64_t next = t - 1;
-      while (!done) {
-        const int took = look_back_window(status, D, e, next, &base, &done);
-        if (!took) return 2;
-        next -= took;
-      }
+      if (!tile_base(status, D, e, t, &base)) return 2;
       if (t > 0) status[t * D + e] = status_word(kStatusPrefix, base + tl.run[e].tot);
       set_base(tl.run[e], base, cap);
     }
@@ -206,14 +218,185 @@ extern "C" int emulate_probe(const uint32_t* in, int64_t cap_in, int wc,
   return emulate(src, D, out, cap, ovf, ovf_cap, tally, 1 + D, scratch, order, head);
 }
 
+// One launch of K8's partition (ref_scan.cu's pack mode) over n
+// positions' codes (int64 as u32 pairs: the context's Bloom index, or -1
+// for no hit): each tile, in ticket order, marks its hits in a bitmap as
+// its warps' ballots do (word g * 8 + w: positions g * 256 + w * 32 + lane),
+// ranks them in position order (hit_rank) from the warps' queues, puts
+// each hit's columns and owner at its rank, ranks them by owner 256 at a
+// time (each warp's ballots done serially, the warps' counts summed in
+// warp order) and publishes its counts; then, in the seeded order, each
+// looks back, takes its place in the overflow list and places its rows.
+// Each of the launch's blocks takes one tile here, and one ticket more.
+template <int W>
+static int emulate_pack(const uint32_t* codes, int64_t n, uint32_t wps, int D,
+                        uint32_t* const* out, int64_t cap, uint32_t* ovf, int64_t ovf_cap,
+                        uint64_t* tally, uint64_t* scratch, unsigned order, int head) {
+  constexpr int kWarps = kRouteWarps, kWords = kTileLanes / 32;
+  const int64_t n_tiles = last_tile(n) + 1, last = n_tiles - 1;
+  if (n_tiles > kMaxTiles) return 1;
+  const int bits = dest_bits(D);
+  const ScanRows<W> rows{wps};
+  uint64_t* status = scratch + kScratchHead;
+  struct Tile {
+    int64_t t;
+    uint32_t n;
+    DestRun run[kMaxDests];
+    std::vector<uint32_t> col, rk;
+  };
+  std::vector<Tile> tiles(n_tiles);
+  for (Tile& tl : tiles) {
+    const int64_t t = tl.t = (int64_t)scratch[0]++;
+    const int n_here = tile_live(n, t);
+    auto code = [&](int p, uint32_t* lo, uint32_t* hi) {
+      *lo = codes[2 * (t * kTileLanes + p)];
+      *hi = codes[2 * (t * kTileLanes + p) + 1];
+      return (*lo & *hi) != ~0u;
+    };
+    uint32_t bm[kWords] = {}, pre[kWords + 1] = {}, lo, hi;
+    for (int g = 0; g < kWords / kWarps; ++g)
+      for (int w = 0; w < kWarps; ++w)
+        for (int lane = 0; lane < 32; ++lane) {
+          const int p = g * kTileLanes / (kWords / kWarps) + w * 32 + lane;
+          if (p < n_here && code(p, &lo, &hi)) bm[g * kWarps + w] |= 1u << lane;
+        }
+    for (int q = 0; q < kWords; ++q) pre[q + 1] = pre[q] + popc32(bm[q]);
+    tl.n = pre[kWords];
+    tl.col.assign((size_t)W * kTileLanes, 0);
+    tl.rk.assign(kTileLanes, 0);
+    for (int w = 0; w < kWarps; ++w)  // each warp's queue: its positions, group after group
+      for (int g = 0; g < kWords / kWarps; ++g)
+        for (int lane = 0; lane < 32; ++lane) {
+          const int p = g * kTileLanes / (kWords / kWarps) + w * 32 + lane;
+          if (p >= n_here || !code(p, &lo, &hi)) continue;
+          const uint32_t at = hit_rank(bm, pre, p);
+          const int d = rows.dest(lo, hi, D);
+          uint32_t col[W + 1];
+          rows.columns(lo, hi, d, col);
+          for (int c = 0; c < W; ++c) tl.col[(size_t)c * kTileLanes + at] = col[c];
+          tl.rk[at] = (uint32_t)d;
+        }
+    for (int e = 0; e < kMaxDests; ++e) tl.run[e] = DestRun{};
+    for (uint32_t c0 = 0; c0 < tl.n; c0 += kRouteThreads) {
+      uint32_t woff[kWarps][kMaxDests] = {}, below[kRouteThreads] = {};
+      int dest[kRouteThreads];
+      for (int w = 0; w < kWarps; ++w) {
+        uint32_t valid = 0, ballot[kDestBits] = {};
+        for (int lane = 0; lane < 32; ++lane) {
+          const uint32_t j = c0 + w * 32 + lane;
+          const int d = dest[w * 32 + lane] = j < tl.n ? (int)tl.rk[j] : D;
+          valid |= (uint32_t)(d < D) << lane;
+          for (int b = 0; b < bits; ++b) ballot[b] |= (uint32_t)(d >> b & 1) << lane;
+        }
+        for (int lane = 0; lane < 32; ++lane)
+          below[w * 32 + lane] =
+              popc32(dest_mask(valid, ballot, bits, dest[w * 32 + lane]) & ((1u << lane) - 1u));
+        for (int e = 0; e < D; ++e) woff[w][e] = popc32(dest_mask(valid, ballot, bits, e));
+      }
+      for (int e = 0; e < D; ++e) {
+        uint32_t run = tl.run[e].tot;
+        for (int w = 0; w < kWarps; ++w) {
+          const uint32_t c = woff[w][e];
+          woff[w][e] = run;
+          run += c;
+        }
+        tl.run[e].tot = run;
+      }
+      for (int i = 0; i < kRouteThreads && c0 + i < tl.n; ++i)
+        if (dest[i] < D) tl.rk[c0 + i] = dest_rank(dest[i], woff[i / 32][dest[i]] + below[i]);
+    }
+    for (int e = 0; e < D; ++e)
+      status[t * D + e] = status_word(t == 0 ? kStatusPrefix : kStatusAggregate, tl.run[e].tot);
+  }
+  scratch[0] += n_tiles;  // each block's ticket past the last tile
+  std::vector<int64_t> turn(n_tiles);
+  std::iota(turn.begin(), turn.end(), 0);
+  if (order) std::shuffle(turn.begin(), turn.end(), std::mt19937(order));
+  for (int64_t k : turn) {
+    Tile& tl = tiles[k];
+    const int64_t t = tl.t;
+    for (int e = 0; e < D; ++e) {
+      uint32_t base = 0;
+      if (!tile_base(status, D, e, t, &base)) return 2;
+      if (t > 0) status[t * D + e] = status_word(kStatusPrefix, base + tl.run[e].tot);
+      set_base(tl.run[e], base, cap);
+    }
+    const uint64_t q0 = tally[0];
+    tally[0] += tot_before(tl.run, D, true);
+    for (int e = 0; e < D; ++e) {
+      DestRun& r = tl.run[e];
+      r.ovf_at = (int64_t)q0 + tot_before(tl.run, e, true);
+      if (t == last) {
+        const int64_t total = (int64_t)r.base + r.tot;
+        out[e][0] = (uint32_t)(total < cap ? total : cap);
+        tally[1 + e] += out[e][0];
+      }
+    }
+    for (uint32_t j = 0; j < tl.n; ++j) {
+      const uint32_t v = tl.rk[j];
+      const int d = (int)(v & ((1u << kRankShift) - 1u));
+      if (d >= D) continue;
+      uint32_t col[W + 1];
+      for (int c = 0; c < W; ++c) col[c] = tl.col[(size_t)c * kTileLanes + j];
+      col[W] = (uint32_t)d;
+      place_row<W>(tl.run[d], v >> kRankShift, col, out[d] + head, cap, ovf, ovf_cap);
+    }
+    if (++scratch[1] == (uint64_t)n_tiles) {
+      for (int64_t q = 0; q < n_tiles * D; ++q) status[q] = 0;
+      scratch[0] = scratch[1] = 0;
+    }
+  }
+  return 0;
+}
+
 extern "C" int emulate_scan(const uint32_t* codes, int64_t n, uint32_t wps, int W, int D,
                             uint32_t* const* out, int64_t cap, uint32_t* ovf, int64_t ovf_cap,
                             uint64_t* tally, uint64_t* scratch, unsigned order, int head) {
   if (W == 1)
-    return emulate(ScanLanes<1>{codes, n, wps, 0}, D, out, cap, ovf, ovf_cap, tally, 1, scratch,
-                   order, head);
-  return emulate(ScanLanes<2>{codes, n, wps, 0}, D, out, cap, ovf, ovf_cap, tally, 1, scratch,
-                 order, head);
+    return emulate_pack<1>(codes, n, wps, D, out, cap, ovf, ovf_cap, tally, scratch, order, head);
+  return emulate_pack<2>(codes, n, wps, D, out, cap, ovf, ovf_cap, tally, scratch, order, head);
+}
+
+// The live-row maps of D blocks of cap rows whose headers are `heads`.
+// K4's slot entry: each block's live rows cut into whole tiles of `tile`
+// lanes (its kernel's prologue and SlotPolicy::stage), the rows of each
+// tile, in tile order, into slot_b and slot_r; K7: each of the launch's
+// lanes, the live rows packed block after block, by ProbeLanes::row_of
+// into k7_b and k7_r.  Returns the live rows, or -1 where the slot entry
+// stages a row twice or a tile holds rows of two blocks.
+extern "C" int64_t live_maps(const uint32_t* heads_in, int D, int64_t cap, int tile,
+                             uint32_t* slot_b, uint32_t* slot_r, uint32_t* k7_b, uint32_t* k7_r) {
+  uint32_t rows_in[kMaxDests], tiles[kMaxDests], first_tile[kMaxDests + 1];
+  for (int d = 0; d < D; ++d) {
+    rows_in[d] = live_rows(heads_in[d], cap);
+    tiles[d] = (rows_in[d] + tile - 1) / tile;
+  }
+  block_starts(tiles, D, first_tile);
+  uint32_t at = 0;
+  for (uint32_t t = 0; t < first_tile[D]; ++t) {
+    const int b = lane_block(t, first_tile, D);
+    const uint32_t row = (t - first_tile[b]) * tile, left = rows_in[b] - row;
+    const uint32_t n = left < (uint32_t)tile ? left : (uint32_t)tile;
+    for (uint32_t i = 0; i < n; ++i, ++at) {
+      if (at > 0 && slot_b[at - 1] == (uint32_t)b && slot_r[at - 1] >= row + i) return -1;
+      slot_b[at] = (uint32_t)b;
+      slot_r[at] = row + i;
+    }
+  }
+  const int block_words = 1;  // K7's blocks: their headers alone
+  uint32_t start[kMaxDests + 1];
+  block_starts(rows_in, D, start);
+  std::vector<uint32_t> in(D * block_words);
+  for (int d = 0; d < D; ++d) in[d] = heads_in[d];
+  const ProbeLanes probe{in.data(), nullptr, cap, block_words, 0, 0, D};
+  for (uint32_t i = 0; i < start[D]; ++i) {
+    uint32_t r = 0;
+    k7_b[i] = (uint32_t)(probe.row_of(i, start, &r) - in.data()) / block_words;
+    k7_r[i] = r;
+  }
+  for (int d = 0; d < D; ++d)
+    if (probe.head_rows(d) != rows_in[d]) return -1;
+  return at == start[D] ? (int64_t)at : -1;
 }
 
 // One look-back step over `statuses` (n of them, nearest first: tile
@@ -250,6 +433,8 @@ def tiles_cxx(tmp_path_factory):
                                  ctypes.c_uint, i]
     lib.emulate_probe.argtypes = [p, i64, i, p, i, p, i64, p, i64, p, p, ctypes.c_uint, i, i]
     lib.emulate_scan.argtypes = [p, i64, u32, i, i, p, i64, p, i64, p, p, ctypes.c_uint, i]
+    lib.live_maps.argtypes = [p, i, i64, i, p, p, p, p]
+    lib.live_maps.restype = i64
     lib.look_back.argtypes = [p, i64, i, p, p]
     lib.write_words.argtypes = [p, p, i64, i]
     return lib
@@ -612,13 +797,17 @@ def test_write_run(tiles_cxx, n, shift):
     assert not dst[:at].any() and not dst[at + n :].any()
 
 
-def _scan_codes(rng, n, D, W):
-    """n positions' K2 codes (int64 Bloom indices; a fifth miss, -1) whose
-    context words go mostly to owner 0 (clumped), on shards of wps words:
-    2^15 (rows of one word) or 2^28 (a shard's bits past 2^32: two)."""
+def _scan_codes(rng, n, D, W, miss=0.2):
+    """n positions' codes from K8's scan half (int64 Bloom indices; a
+    share ``miss`` of them miss, -1, but none of the second tile, where
+    there is one, so that a tile holds kTileLanes hits) whose context words
+    go mostly to owner 0 (clumped), on shards of wps words: 2^15 (rows of
+    one word) or 2^28 (a shard's bits past 2^32: two)."""
     wps = 1 << 15 if W == 1 else 1 << 28
     word = owners(rng, n, D, "clumped") * wps + rng.integers(0, wps, n)
-    codes = np.where(rng.random(n) < 0.2, -1, word * 32 + rng.integers(0, 32, n))
+    lost = rng.random(n) < miss
+    lost[T : 2 * T] = False
+    codes = np.where(lost, -1, word * 32 + rng.integers(0, 32, n))
     return codes.astype(np.int64), wps
 
 
@@ -629,20 +818,12 @@ def _scan_ovf_rows(ovf, n, W, ovf_cap):
     return o[np.lexsort(o.T[::-1])]
 
 
-@pytest.mark.parametrize("W", [1, 2])
-@pytest.mark.parametrize("n", [0, 1, T - 1, T, 5 * T + 1])
-@pytest.mark.parametrize("D", [1, 2, 3, 8, 16])
-def test_scan_tiles_match_plain(tiles_cxx, D, n, W):
-    """K8's partition (ScanLanes, rows of W words) emulated from no
-    position to five tiles and a position, with a slot capacity of a
-    sixth of the positions and a list of a sixteenth, so that rows spill to
-    the overflow list and, past many tiles, out of it: the slot blocks,
-    headers and tallies equal scan_partition_plain's bit for bit, the list
-    holds the same rows, each with its owner, and the scratch is left
-    zeroed.  Every slot row is its hit's shard-local bit index."""
-    rng = np.random.default_rng(6000 + 100 * D + 10 * W + n % 97)
-    codes, wps = _scan_codes(rng, n, D, W)
-    cap, ovf_cap = max(1, n // 6), max(1, n // 16)
+def _check_scan(lib, D, n, W, codes, wps, cap, ovf_cap):
+    """K8's emulated launch over n positions' codes (two orders of the
+    look-backs) against scan_partition_plain: blocks, headers and tallies
+    bit for bit, the overflow list's rows (with their owners) as a multiset,
+    the scratch left zeroed, every slot row its hit's shard-local bit index
+    in position order.  Returns the rows spilled."""
     w = kernels.scan_slot_words(cap, W)
     want = ([torch.zeros(w, dtype=torch.int32) for _ in range(D)],
             torch.zeros(ovf_cap * (W + 1), dtype=torch.int32),
@@ -653,16 +834,14 @@ def test_scan_tiles_match_plain(tiles_cxx, D, n, W):
                                  roomy, torch.zeros(1 + D, dtype=torch.int64), wps=wps, cap=cap)
     spilled = int(want[2][0])
     every = Counter(map(tuple, _scan_ovf_rows(roomy.numpy(), spilled, W, n + 1)))
-    if n > T:
-        assert spilled > ovf_cap  # the list overflows
     for order in (0, 17 + D):
-        scratch = _scratch(tiles_cxx, D)
+        scratch = _scratch(lib, D)
         blocks = [np.zeros(w, np.uint32) for _ in range(D)]
         ovf = np.zeros(ovf_cap * (W + 1), np.uint32)
         tally = np.zeros(1 + D, np.uint64)
-        err = tiles_cxx.emulate_scan(codes.ctypes.data, n, wps, W, D, _pointers(blocks), cap,
-                                     ovf.ctypes.data, ovf_cap, tally.ctypes.data,
-                                     scratch.ctypes.data, order, SLOT_HEAD)
+        err = lib.emulate_scan(codes.ctypes.data, n, wps, W, D, _pointers(blocks), cap,
+                               ovf.ctypes.data, ovf_cap, tally.ctypes.data, scratch.ctypes.data,
+                               order, SLOT_HEAD)
         assert err == 0
         for got, b in zip(blocks, want[0]):
             np.testing.assert_array_equal(got.view(np.int32), b.numpy())
@@ -681,3 +860,79 @@ def test_scan_tiles_match_plain(tiles_cxx, D, n, W):
         local = rows[0] | (rows[1] << 32 if W == 2 else 0)
         mine = hits[hits // (32 * wps) == d]
         np.testing.assert_array_equal(local[:live], (mine - d * 32 * wps)[:cap])
+    return spilled
+
+
+@pytest.mark.parametrize("W", [1, 2])
+@pytest.mark.parametrize("n", [0, 1, T - 1, T, 5 * T + 1])
+@pytest.mark.parametrize("D", [1, 2, 3, 8, 16])
+def test_scan_tiles_match_plain(tiles_cxx, D, n, W):
+    """K8's fused partition (ScanRows, rows of W words) emulated from no
+    position to five tiles and a position (its second tile all hits), per
+    tile: the hit bitmap and ranks in position order, the ranks by owner,
+    the look-back; with a slot capacity of a sixth of the positions and a
+    list of a sixteenth, so that rows spill to the overflow list and, past
+    many tiles, out of it.  Equal to scan_partition_plain (_check_scan)."""
+    rng = np.random.default_rng(6000 + 100 * D + 10 * W + n % 97)
+    codes, wps = _scan_codes(rng, n, D, W)
+    spilled = _check_scan(tiles_cxx, D, n, W, codes, wps, max(1, n // 6), max(1, n // 16))
+    if n > T:
+        assert spilled > max(1, n // 16)  # the list overflows
+
+
+@pytest.mark.parametrize("D", [1, 4, 16])
+def test_scan_all_hit_tiles(tiles_cxx, D):
+    """Every position hits: three tiles of kTileLanes hits and a partial
+    one, each ranked 256 hits at a time, the slots full and the list
+    taking the rest (rows of one word; of two at D = 1)."""
+    rng = np.random.default_rng(6500 + D)
+    n, W = 3 * T + 77, 2 if D == 1 else 1
+    codes, wps = _scan_codes(rng, n, D, W, miss=0.0)
+    assert (codes >= 0).all()
+    spilled = _check_scan(tiles_cxx, D, n, W, codes, wps, n // (2 * D), n + 1)
+    assert spilled > 0
+
+
+def _heads(case, D, cap, rng):
+    """Headers of D slot blocks of cap rows for a live-row map case."""
+    if case == "none":
+        return np.zeros(D, np.int64)
+    if case == "empty":  # every other block empty
+        return np.where(np.arange(D) % 2 == 1, 0, rng.integers(1, cap + 1, D))
+    if case == "at_cap":
+        return np.full(D, cap)
+    if case == "past_cap":  # headers past cap count cap rows
+        return np.where(np.arange(D) % 2 == 0, cap + rng.integers(1, 1000, D), cap // 2)
+    return rng.integers(0, 40, D)  # short: a tile straddles two and three blocks
+
+
+@pytest.mark.parametrize("tile", [32, 64])
+@pytest.mark.parametrize("case", ["none", "empty", "at_cap", "past_cap", "short"])
+@pytest.mark.parametrize("D", [1, 4, 16])
+def test_live_row_map(tiles_cxx, D, case, tile):
+    """The live rows of D slot blocks as a launch's lanes (route.cuh
+    live_rows, block_starts and lane_block): K4's slot entry cuts each
+    block's rows into whole tiles of `tile` lanes (a warp's step tile: 64
+    lanes up to ref_k 128, 32 past it), so that no tile holds two blocks'
+    rows; K7 packs them block after block, so that its tiles straddle
+    blocks (two, and three at D = 16, in the short case).  Both maps give
+    every live row once, in block and row order: empty blocks, headers at
+    and past cap, short blocks, no live row at all."""
+    rng = np.random.default_rng(7000 + 10 * D + len(case) + tile)
+    cap = 50 if case == "short" else 3 * tile + 5
+    heads = _heads(case, D, cap, rng)
+    if case == "short" and D == 16:
+        heads[:4] = [40, 10, 5, 30]  # lanes 32-63 lie in blocks 0-3
+    live = np.minimum(heads, cap)
+    want_b = np.repeat(np.arange(D), live)
+    want_r = np.concatenate([np.arange(x) for x in live]) if live.sum() else np.zeros(0, int)
+    maps = [np.full(int(live.sum()) + 1, 0xFFFFFFFF, np.uint32) for _ in range(4)]
+    n = tiles_cxx.live_maps(_u32(heads).ctypes.data, D, cap, tile, *(m.ctypes.data for m in maps))
+    assert n == live.sum()
+    for got_b, got_r in (maps[:2], maps[2:]):
+        np.testing.assert_array_equal(got_b[:n], want_b)
+        np.testing.assert_array_equal(got_r[:n], want_r)
+        assert got_b[n] == 0xFFFFFFFF
+    if case == "short" and D > 1:  # K7's tiles across two blocks, and three at D = 16
+        spans = max(len(set(want_b[f : f + tile])) for f in range(0, n, tile))
+        assert spans >= (3 if D == 16 else 2)

@@ -26,8 +26,10 @@
    quarter centred on its map keys, beside torch's gather of its rows; K5
    on shard 0 of that index cut 4 ways by bucket range (rows without a
    mini-filter, the shard's range of the one global bucket table) over
-   2^21 gathered lanes, a quarter centred on map keys, with random merged
-   "known" flags, beside torch's gather of the owned lanes' rows; the
+   the K1 hash-only planes of 2^21 gathered lanes, a quarter centred on map
+   keys, with random merged "known" flags, beside torch's gathers of the
+   owned lanes' rows and of the probed buckets' first sectors, and with
+   its probe, its row gather and both left out (the split); the
    routed step's partitions on 4 virtual shards over 2^21 lanes of that
    index cut into 4 source slices: K6 (route_pack) on each slice, K7
    (route_probe) on each owner, K4's slot entry on shard 0 over the hop-2
@@ -41,13 +43,15 @@
    each case launched twice on one scratch, which each launch must leave
    zeroed (with ``--parent DIR``, the kernels of the checkout at DIR, built
    from its sources, are timed in turns with this one's on the same
-   inputs: K4's slot entry at both mixes, K6, K7, K8 and K9); the sharded
-   context scan's K8 (scan_pack, one launch: K2's tiles partition their
-   hits by owner into slot blocks) on each of 4 slices of 2^20 positions
-   of a reference-shaped contig, its launches counted from a profiler
-   trace, K2's scan timed on the same slice, and K9 (scan_set) on each
-   owner over the blocks written for it (blocks, tallies and context words
-   bit-identical), then K8 at D = 1, 3, 4 and 16 with hits spread,
+   inputs: K1, K4, K5, K4's slot entry at both mixes, K6, K7, K8 and K9);
+   the sharded context scan's K8 (scan_pack, one launch: K2's tiles
+   partition their hits by owner into slot blocks) on each of 4 slices of
+   2^20 positions of a reference-shaped contig, its launches counted from
+   a profiler trace, K2's scan timed on the same slice, and K9 (scan_set)
+   on each owner over the blocks written for it (blocks, tallies and
+   context words bit-identical), then K8 again on each slice with its
+   prologue setting those blocks (the same words), timed with and without
+   rows to set, then K8 at D = 1, 3, 4 and 16 with hits spread,
    clumped, on one owner and none, from 1 to 2^22 positions, and with
    every position a hit over 2^22, with slots that overflow, each case
    launched twice on one scratch; then the scan alone on a 2^28-position
@@ -101,9 +105,13 @@
    index upload of that chr-scale index alone, in its four parts.  Then
    ``python -m malva_tpu_torch.run_distributed`` in two processes (gloo)
    with the 5x reads split in two: rank 0's VCF equal to the host run's.
-   With ``--parent DIR``, the scan alone on 4 virtual shards and the
-   chr-scale sharded run from both checkouts, each in its own process, in
-   turns: the scan's walls and K4's slot entry's time a launch on the run.
+   The sharded run must launch K9 4 times (the last chunk's set; K8's
+   prologues set the rest).  With ``--parent DIR``, the scan alone on 4
+   virtual shards, the chr-scale sharded run with the all-gather call on
+   its index, and the scaling tool, from both checkouts, each in its own
+   process, in turns: the scan's walls and chunks, K4's slot entry's time
+   a launch on the run, the gather call's ms a batch with K1 hash-only's
+   and K5's ms a launch, and the tool's ms a batch.
    Then ``graft_entry.dryrun_multichip(4, [cuda:0] * 4)``.  On a host with
    two cards or more (``nvidia-smi -L``), the real-card leg: the chr-scale
    ``run --backend cuda`` with every card visible (the default route
@@ -367,6 +375,11 @@ def kernel_phase(device, parent=None) -> list[dict]:
                                                       ix["kmap_keys"], scratch, ctx, counters,
                                                       **args), iters=3, warmup=1)
     hash_ms = cuda_ms(lambda: kernels.callstep_hash(ctx, K, REF_K, False), iters=20)
+    ab1 = (parent_ab(parent, {"callstep": timed_turn(
+        "malva_callstep", ctx.data_ptr(), counters.data_ptr(), LANES, ctx.shape[1], K, REF_K,
+        ix["bf_packed"].data_ptr(), ix["ctx_words"].data_ptr(), ix["kmap_keys"].data_ptr(),
+        scratch.data_ptr(), ix["n_counts"], ix["n_buckets"], SIZE_BITS, 1)})["callstep"]
+           if parent is not None else None)
     # per lane: its packed context (12 B) and counter (4 B), its Bloom row
     # (word and rank, 8 B) and context word (4 B); 8 B read and written per
     # counter and map value updated.  Per lane the centre's canonical form,
@@ -384,7 +397,8 @@ def kernel_phase(device, parent=None) -> list[dict]:
                     "replaces": "malva_tpu/ops/pallas_kernels.py:125",
                     "max_abs_err": err1, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": None, "lanes": LANES,
-                    "bloom_hits": n_set, "hash_only_ms": hash_ms, "gather_ms": gather_ms})
+                    "bloom_hits": n_set, "hash_only_ms": hash_ms, "gather_ms": gather_ms,
+                    "parent_ab_ms": ab1})
     del st_k, st_p, scratch, ctx, counters
 
     # K2 on a 2^20-position chunk with N, lowercase and IUPAC bytes, then
@@ -396,8 +410,8 @@ def kernel_phase(device, parent=None) -> list[dict]:
                     "source": "malva_tpu_torch/csrc/ref_scan.cu",
                     "replaces": "malva_tpu/ops/pallas_kernels.py:222", "library_ms": None, **k2})
     del bf_words
-    k4 = shard_update_check(ix, device, peak)
-    k5 = gather_update_check(ix, device, peak)
+    k4 = shard_update_check(ix, device, peak, parent)
+    k5 = gather_update_check(ix, device, peak, parent)
     route = route_check(ix, device, peak, parent)
     scan = scan_check(ix, device, peak, parent)
     scan[0]["scan_alone"] = scan_alone(ix)
@@ -488,7 +502,7 @@ def shard0(ix: dict, device):
     return rows, rows_off, kmap_keys, table, n_counts, mine
 
 
-def shard_update_check(ix: dict, device, peak: float) -> dict:
+def shard_update_check(ix: dict, device, peak: float, parent=None) -> dict:
     """K4 against its plain version on shard 0 of the synthetic -b 1 index
     split SHARDS ways: the shard's [word, local rank] rows with the
     mini-filter of its own map keys in the rank's top bits (as
@@ -496,7 +510,8 @@ def shard_update_check(ix: dict, device, peak: float) -> dict:
     Bloom word it owns, and ROUTED lanes whose Bloom word it owns (the
     routing's guarantee), a quarter of them centred on its map keys, with
     random "context known" flags; then again with rows without the
-    mini-filter (every lane probes the map)."""
+    mini-filter (every lane probes the map); with a parent checkout's
+    library, its K4 and this one's in turns (with the mini-filter)."""
     import torch
 
     from malva_tpu_torch.ops import kernels
@@ -538,6 +553,11 @@ def shard_update_check(ix: dict, device, peak: float) -> dict:
         if minifilter:
             plain_ms = cuda_ms(lambda: kernels.shard_update_plain(
                 r, kmap_keys, scratch, ctx, counters, known, **args), iters=3, warmup=1)
+            ab = (parent_ab(parent, {"shard_update": timed_turn(
+                "malva_shard_update", ctx.data_ptr(), counters.data_ptr(), known.data_ptr(),
+                ROUTED, ctx.shape[1], K, REF_K, r.data_ptr(), 0, r.shape[0], kmap_keys.data_ptr(),
+                scratch.data_ptr(), n_counts, table.n_buckets, SIZE_BITS, 1)})["shard_update"]
+                  if parent is not None else None)
     if out[True]["n_bf"] != out[False]["n_bf"] or out[True]["n_map"] != out[False]["n_map"]:
         raise AssertionError(f"K4 with and without the mini-filter updated other counters {out}")
     on, ms = out[True], out[True]["ms"]
@@ -559,72 +579,158 @@ def shard_update_check(ix: dict, device, peak: float) -> dict:
             "max_abs_err": max(on["err"], out[False]["err"]), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "lanes": ROUTED,
             "gather_ms": gather_ms, "no_minifilter_ms": out[False]["ms"], "candidates": cand,
-            "bucket_reads": reads}
+            "bucket_reads": reads, "parent_ab_ms": ab}
 
 
-def gather_update_check(ix: dict, device, peak: float) -> dict:
+def gather_update_check(ix: dict, device, peak: float, parent=None) -> dict:
     """K5 against its plain version on shard 0 of the synthetic -b 1 index
     cut SHARDS ways as the all-gather design cuts it: the shard's [word,
     local rank] rows without a mini-filter and its contiguous range of the
     one global bucket table, over LANES lanes of a whole gathered batch (a
     quarter centred on map keys, so that a quarter of those have a bucket
-    in the range) with random merged "context known" flags."""
+    in the range) with random merged "context known" flags, from the
+    centre planes K1 hash-only leaves on the shard (timed beside it: the
+    step runs both).  Timed beside two yardsticks, torch's gathers of the
+    rows the owned lanes read and of the first 32-byte sector of each
+    bucket the probe reads, and split into parts: K5 with its probe left
+    out, with its row gather left out, and with both
+    (``malva_gather_update_split``); with a parent checkout's library, its
+    K5 (which hashes every lane itself where its library has no split
+    entry) and this one's in turns."""
+    import ctypes
+
     import torch
 
     from malva_tpu_torch.index.device import pack_bloom_rows
-    from malva_tpu_torch.ops import kernels
+    from malva_tpu_torch.ops import _build, kernels
+    from malva_tpu_torch.ops.bloom import lanes
     from malva_tpu_torch.ops.xxh3 import xxh3_mod_size
 
     wps, nbps = SIZE_BITS // 32 // SHARDS, ix["n_buckets"] // SHARDS
+    w_k = (K + 15) // 16
     none = torch.zeros(0, dtype=torch.int64, device=device)
     rows = pack_bloom_rows(ix["bf_packed"][:wps, 0].contiguous(), none, none)
     kmap_keys = ix["kmap_keys"][:nbps].contiguous()
     n_counts = int(rows[-1, 1]) + bin(int(rows[-1, 0]) & 0xFFFFFFFF).count("1")
     ctx, counters = planted_contexts(ix["keys"], LANES, LANES // 4, device)
-    c_hi, c_lo = kernels.callstep_hash_plain(ctx, K, REF_K, with_ctx=False)[:2]
-    words = xxh3_mod_size(c_hi, c_lo, SIZE_BITS)[0]
+    hx = kernels.callstep_hash_words(ctx, K, REF_K, True)
+    centre = hx[2:]
+    hash_ms = cuda_ms(lambda: kernels.callstep_hash_words(ctx, K, REF_K, True), iters=20)
+    words = xxh3_mod_size(lanes(centre[0]), lanes(centre[1]), SIZE_BITS)[0]
     owned = words[words < wps]
-    del c_hi, c_lo, words
-    # the random reads alone: torch's gather of the rows the owned lanes read
+    del words
+    # the random reads alone: torch's gathers of the rows the owned lanes
+    # read and of the first 32-byte sector of each bucket the probe reads
+    # (rows of four int64)
     gather_ms = cuda_ms(lambda: rows.index_select(0, owned), iters=20)
+    cand, reads, read = bucket_reads(ctx, None, kmap_keys, ix["n_buckets"], n_local=nbps,
+                                     buckets=True)
+    n_sec = kmap_keys.numel() // 8
+    sectors = kmap_keys.view(-1)[: 8 * n_sec].view(torch.int64).view(n_sec, 4)
+    first_sector = read * (4 * w_k) // 8
+    # torch's calls on these 32-byte rows took 0.62 ms on an H100, so the
+    # yardstick is the fastest of them and of one 8-byte word a sector
+    # (index_select of a plane: the same sectors, a quarter of the bytes)
+    words = kmap_keys.view(-1).view(torch.int64)
+    sector_ms = {"index_select": cuda_ms(lambda: sectors.index_select(0, first_sector), iters=20),
+                 "indexing": cuda_ms(lambda: sectors[first_sector], iters=20),
+                 "first_word": cuda_ms(lambda: words.index_select(0, 4 * first_sector),
+                                       iters=20)}
+    bucket_gather_ms = min(sector_ms.values())
+    del read, first_sector, words
     gen = torch.Generator(device=device).manual_seed(6)
     known = torch.rand(LANES, device=device, generator=gen) < 0.5
-    args = dict(k=K, ref_k=REF_K, size_bits=SIZE_BITS, n_buckets=ix["n_buckets"], word_base=0,
-                bucket_base=0, counts_len=n_counts)
+    args = dict(k=K, size_bits=SIZE_BITS, n_buckets=ix["n_buckets"], word_base=0, bucket_base=0,
+                counts_len=n_counts)
     st_k = torch.zeros(n_counts + nbps * 4, dtype=torch.int32, device=device)
     st_p = torch.zeros_like(st_k)
-    kernels.gather_update(rows, kmap_keys, st_k, ctx, counters, known, **args)
-    kernels.gather_update_plain(rows, kmap_keys, st_p, ctx, counters, known, **args)
+    kernels.gather_update(rows, kmap_keys, st_k, centre, counters, known, **args)
+    kernels.gather_update_plain(rows, kmap_keys, st_p, centre, counters, known, **args)
     torch.cuda.synchronize()
     err = max_abs_err([st_k], [st_p])
     n_bf, n_map = int((st_k[:n_counts] != 0).sum()), int((st_k[n_counts:] != 0).sum())
     if not n_bf or not n_map:
         raise AssertionError("K5 check touched no counter or no map value")
     scratch = torch.zeros_like(st_k)
-    ms = cuda_ms(lambda: kernels.gather_update(rows, kmap_keys, scratch, ctx, counters, known,
+    ms = cuda_ms(lambda: kernels.gather_update(rows, kmap_keys, scratch, centre, counters, known,
                                                **args), iters=20)
-    plain_ms = cuda_ms(lambda: kernels.gather_update_plain(rows, kmap_keys, scratch, ctx, counters,
-                                                           known, **args), iters=3, warmup=1)
-    # per lane: context (12 B), counter (4 B), "known" flag (1 B); per owned
-    # lane its Bloom row (8 B); 8 B read and written per counter and map
-    # value updated; a 32-byte sector per bucket of the shard's range the
-    # probe reads.  Every lane's centre: canonical form, ASCII and hash, and
-    # 23 as in K1.
+    plain_ms = cuda_ms(lambda: kernels.gather_update_plain(rows, kmap_keys, scratch, centre,
+                                                           counters, known, **args),
+                       iters=3, warmup=1)
+    # the split: the same launch with parts left out (bit 0 the probe, bit 1
+    # the row gather), on the same inputs
+    c_args = (centre.data_ptr(), counters.data_ptr(), known.data_ptr(), LANES, w_k,
+              rows.data_ptr(), 0, rows.shape[0], kmap_keys.data_ptr(), scratch.data_ptr(),
+              n_counts, ix["n_buckets"], 0, nbps, SIZE_BITS)
+    lib = _build.library()
+    split = {}
+    for label, skip in (("whole", 0), ("no probe", 1), ("no row gather", 2), ("neither", 3)):
+        split[label] = cuda_ms(lambda: c_call(lib, "malva_gather_update_split", *c_args, skip,
+                                              None, None), iters=20)
+    ab = None
+    if parent is not None:
+        # a K5 of step.cuh's template (no split entry) takes the packed
+        # contexts and hashes them itself
+        old = (ctx.data_ptr(), counters.data_ptr(), known.data_ptr(), LANES, ctx.shape[1], K,
+               REF_K, rows.data_ptr(), 0, rows.shape[0], kmap_keys.data_ptr(), scratch.data_ptr(),
+               n_counts, ix["n_buckets"], 0, nbps, SIZE_BITS)
+        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        hashes = not hasattr(parent, "malva_gather_update_split")
+        parent.malva_gather_update.argtypes = (
+            [p, p, p, i64, i, i, i, p, i64, i64, p, p, i64, i64, i64, i64, i64, p, p, p]
+            if hashes else lib.malva_gather_update.argtypes)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def k5(l, _):
+            a = old if l is parent and hashes else c_args
+            return l.malva_gather_update(*a, None, None, stream)
+
+        ab = parent_ab(parent, {"gather_update": k5})["gather_update"]
+    # per lane: its centre hash (8 B), counter (4 B) and "known" flag (1 B);
+    # per candidate its canonical centre (4 w_k B); per owned lane its Bloom
+    # row (8 B); 8 B read and written per counter and map value updated; a
+    # 32-byte sector per bucket of the shard's range the probe reads.  Per
+    # lane the Bloom index, the bucket pair and the ranges, ~23 as in K1.
     n_own = int(owned.shape[0])
-    cand, reads = bucket_reads(ctx, None, kmap_keys, ix["n_buckets"], n_local=nbps)
-    b_ms, b_by = bound(LANES * 17 + n_own * 8 + (n_bf + n_map) * 8 + reads * 32,
-                       LANES * (canonical_packed_ops(K) + ascii_ops(K) + xxh3_ops(K) + 23), peak)
+    b_ms, b_by = bound(LANES * 13 + cand * 4 * w_k + n_own * 8 + (n_bf + n_map) * 8 + reads * 32,
+                       LANES * 23, peak)
+    yard = gather_ms + bucket_gather_ms
     log(f"K5 == plain on shard 0 of {SHARDS} ({n_bf} counters, {n_map} map values updated; "
         f"{n_own} of {LANES} lanes own their Bloom word; {cand} lanes probe the shard's "
         f"buckets, {reads} bucket reads); K5 {ms:.4f} ms (bound {b_ms:.4f} ms, "
-        f"{b_by}; {b_ms / ms:.1%} of the bound), torch's gather of the owned lanes' rows "
-        f"{gather_ms:.4f} ms, plain {plain_ms:.4f} ms per {LANES} gathered lanes")
+        f"{b_by}; {b_ms / ms:.1%} of the bound), K1 hash-only before it {hash_ms:.4f} ms, "
+        f"torch's gather of the owned lanes' rows {gather_ms:.4f} ms, of the buckets' first "
+        f"sectors {bucket_gather_ms:.4f} ms ({json.dumps(sector_ms)}; K5 {ms / yard:.3f}x "
+        f"their sum), plain "
+        f"{plain_ms:.4f} ms per {LANES} gathered lanes; split, ms: {json.dumps(split)}")
     return {"name": "gather_update", "route": "cuda",
             "source": "malva_tpu_torch/csrc/shard_step.cu",
             "replaces": "malva_tpu/parallel/sharded_index.py:141 (XLA, no Pallas counterpart)",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None, "lanes": LANES, "owned_lanes": n_own,
-            "gather_ms": gather_ms, "candidates": cand, "bucket_reads": reads}
+            "hash_only_ms": hash_ms, "gather_ms": gather_ms,
+            "bucket_gather_ms": bucket_gather_ms, "bucket_gather_by_call_ms": sector_ms,
+            "over_gathers": ms / yard, "split_ms": split,
+            "candidates": cand, "bucket_reads": reads, "parent_ab_ms": ab}
+
+
+def c_call(lib, name: str, *args) -> None:
+    """The C entry point ``name`` of ``lib`` on the current stream; raises
+    on a CUDA error."""
+    import torch
+
+    err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def timed_turn(name: str, *args):
+    """A call-step launcher's C entry point ``name`` on ``args``, its
+    events null, for ``parent_ab``: fn(lib, scratch) -> CUDA error."""
+    import torch
+
+    stream = torch.cuda.current_stream().cuda_stream
+    return lambda lib, scratch: getattr(lib, name)(*args, None, None, stream)
 
 
 def sorted_rows(overflow, tally, wc: int):
@@ -783,14 +889,16 @@ def route_cases(device) -> int:
     return n_cases
 
 
-def bucket_reads(ctx, bf_rows, kmap_keys, n_buckets: int, n_local: int | None = None):
+def bucket_reads(ctx, bf_rows, kmap_keys, n_buckets: int, n_local: int | None = None,
+                 buckets: bool = False):
     """(candidates, bucket reads) of the exact-map probe in K4's and K5's
     tails over lanes of packed contexts ``ctx`` (lanes.cuh probe_buckets:
     bucket b1, then b2 unless the key lies in b1).  K4 (``n_local`` None):
     a candidate is a lane whose Bloom word lies in ``bf_rows`` (the shard's
     [word, rank | mini-filter << 28] rows from word 0) with its mini-filter
     bit set.  K5: a lane with a bucket in the shard's first ``n_local``
-    buckets, and a bucket past them is not read."""
+    buckets, and a bucket past them is not read.  With ``buckets``, also
+    the index of each bucket read (K5)."""
     import torch
 
     from malva_tpu_torch.index.device import RANK_BITS
@@ -813,7 +921,9 @@ def bucket_reads(ctx, bf_rows, kmap_keys, n_buckets: int, n_local: int | None = 
         in1, in2 = b1 < n_local, b2 < n_local
         cand = in1 | in2
     in_b1 = found & (slot // 4 == b1)
-    return int(cand.sum()), int((cand & in1).sum() + (cand & in2 & ~in_b1).sum())
+    read1, read2 = cand & in1, cand & in2 & ~in_b1
+    out = int(cand.sum()), int(read1.sum() + read2.sum())
+    return (*out, torch.cat([b1[read1], b2[read2]])) if buckets else out
 
 
 def hop_buffers(D: int, w: int, ovf_rows: int, device):
@@ -1079,14 +1189,16 @@ def parent_ab(parent, fns: dict) -> dict:
     from malva_tpu_torch.ops import _build
 
     lib = _build.library()
-    for name in ("malva_route_pack", "malva_route_probe", "malva_shard_update_slots",
-                 "malva_scan_set"):
+    for name in ("malva_callstep", "malva_shard_update", "malva_route_pack",
+                 "malva_route_probe", "malva_shard_update_slots", "malva_scan_set"):
         getattr(parent, name).argtypes = getattr(lib, name).argtypes
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    # a K8 of two launches (an earlier version) takes a buffer of codes, int64 a position
-    parent.malva_scan_pack.argtypes = ([p, i64, i, i, p, i64, p, i64, i, i, p, i64, p, i64, p, p,
-                                        p] if k8_takes_codes(parent)
-                                       else lib.malva_scan_pack.argtypes)
+    # a K8 of two launches (an earlier version) takes a buffer of codes, int64 a position;
+    # one without a prologue takes no blocks to set
+    parent.malva_scan_pack.argtypes = (
+        [p, i64, i, i, p, i64, p, i64, i, i, p, i64, p, i64, p, p, p] if k8_takes_codes(parent)
+        else lib.malva_scan_pack.argtypes if k8_sets(parent)
+        else [p, i64, i, i, p, i64, i64, i, i, p, i64, p, i64, p, p, p])
     parent.malva_route_scratch_words.argtypes = [i]
     parent.malva_route_scratch_words.restype = i64
     scratch = {l: torch.zeros(l.malva_route_scratch_words(16), dtype=torch.int64, device="cuda")
@@ -1261,11 +1373,14 @@ def scan_check(ix: dict, device, peak: float, parent=None) -> list[dict]:
     with the scan's slot capacity (``scan_capacity``): K8 (``scan_pack``)
     on each shard's slice and K9 (``scan_set``) on each owner over the
     blocks written for it, beside their plain versions on the same inputs
-    (bit-identical blocks, tallies and context words); K8's launches on
-    the card counted from a profiler trace; then the K8 cases
-    (``scan_cases``).  Timed with CUDA events: K8 on slice 0, K2's scan on
-    the same slice (the scan half of K8's work), K9 on owner 0; with a
-    parent checkout's library, its K8 and K9 in turns with this one's."""
+    (bit-identical blocks, tallies and context words), then K8 again on
+    each slice with its prologue setting the blocks that shard received
+    (the same words, blocks and tallies); K8's launches on the card
+    counted from a profiler trace; then the K8 cases (``scan_cases``).
+    Timed with CUDA events: K8 on slice 0 with no rows to set and with
+    owner 0's received rows to set, K2's scan on the same slice (the scan
+    half of K8's work), K9 on owner 0; with a parent checkout's library,
+    its K8 (no rows to set) and K9 in turns with this one's."""
     import torch
 
     from malva_tpu_torch.ops import kernels
@@ -1300,6 +1415,16 @@ def scan_check(ix: dict, device, peak: float, parent=None) -> list[dict]:
         kernels.scan_set_plain(want[4][d], want[0][d], n_blocks=D, cap=cap, W=W)
     torch.cuda.synchronize()
     err9 = max_abs_err(got[4], want[4])
+    # K8 again on each slice, its prologue setting the blocks each shard
+    # received above (as the sharded scan's next chunk does): the words K9
+    # set, and the same blocks and tallies
+    pro = buffers()
+    for s, seq in enumerate(slices):
+        kernels.scan_pack(seq, n, bf_words, pro[1][s], pro[2][s], pro[3][s],
+                          prior=(pro[4][s], got[0][s]), **kw)
+    torch.cuda.synchronize()
+    err9 = max(err9, max_abs_err(pro[4] + pro[0] + pro[3], want[4] + want[0] + want[3]))
+    del pro
     t = [x.to("cpu") for x in got[3]]
     hits0 = int(t[0][1:].sum())                 # rows slice 0 sent
     live0 = int(sum(x[1] for x in t))           # rows owner 0 received
@@ -1311,7 +1436,7 @@ def scan_check(ix: dict, device, peak: float, parent=None) -> list[dict]:
         raise AssertionError(f"K8 check: {spilled} rows spilled at the scan's capacity {cap}")
     log(f"K8/K9 == plain on {D} virtual shards ({n} positions a slice, cap {cap}, rows of "
         f"{4 * W} bytes): slice 0 sent {hits0} hits, owner 0 received {live0}; {n_set} context "
-        f"words set")
+        f"words set, by K9 and by K8's prologue alike")
 
     # timing, into fresh buffers (the tallies only grow)
     tb = buffers()
@@ -1323,6 +1448,9 @@ def scan_check(ix: dict, device, peak: float, parent=None) -> list[dict]:
     log(f"K8's kernel launches a slice (profiler trace): "
         f"{'not measured' if launches is None else launches}")
     ms8 = cuda_ms(lambda: kernels.scan_pack(*pack0, scratch=sc, **kw), iters=20)
+    # with rows to set: the slice again, its prologue setting owner 0's blocks
+    ms8_rows = cuda_ms(lambda: kernels.scan_pack(*pack0, scratch=sc, prior=(tb[4][0], got[0][0]),
+                                                 **kw), iters=20)
     plain8 = cuda_ms(lambda: kernels.scan_pack_plain(*pack0, **kw), iters=3, warmup=1)
     # K2's scan on the same slice: the scan half of K8's work
     scan_words = torch.zeros_like(bf_words)
@@ -1353,7 +1481,8 @@ def scan_check(ix: dict, device, peak: float, parent=None) -> list[dict]:
         log(f"{name} {ms:.4f} ms (bound {b[0]:.4f} ms, {b[1]}; {b[0] / ms:.1%} of the bound), "
             f"plain {plain:.4f} ms")
     log(f"K2's scan on K8's slice {scan_ms:.4f} ms: K8's partition costs {ms8 - scan_ms:.4f} ms "
-        f"more")
+        f"more; K8 with {live0} rows to set in its prologue {ms8_rows:.4f} ms, "
+        f"{ms8_rows - ms8:.4f} ms more than with none")
     n_cases = scan_cases(device)
     common = {"route": "cuda", "library_ms": None, "cap": cap, "shards": D, "row_bytes": 4 * W}
     return [
@@ -1363,6 +1492,7 @@ def scan_check(ix: dict, device, peak: float, parent=None) -> list[dict]:
                      "malva_tpu/parallel/sharded_index.py:567-569",
          "max_abs_err": err8, "ms": ms8, "plain_ms": plain8, "bound_ms": b8[0],
          "bound_by": b8[1], "positions": n, "hits": hits0, "scan_half_ms": scan_ms,
+         "with_rows_to_set_ms": ms8_rows, "rows_to_set": live0,
          "kernel_launches_a_slice": launches, "cases": n_cases,
          "parent_ab_ms": ab and ab["scan_pack"],
          "parent_launches_a_slice": ab and ab["parent_launches"], **common},
@@ -1378,6 +1508,15 @@ def k8_takes_codes(lib) -> bool:
     """Whether a kernel library's K8 is the earlier two launches (K2's
     codes into a buffer it is given, then their partition)."""
     return hasattr(lib, "malva_scan_codes")
+
+
+def k8_sets(lib) -> bool:
+    """Whether a kernel library's K8 takes a prologue's blocks to set (its
+    scan plan has the "set" column)."""
+    import ctypes
+
+    lib.malva_scan_plan_col.argtypes = [ctypes.c_char_p]
+    return lib.malva_scan_plan_col(b"set") >= 0
 
 
 def scan_turns(pack0: tuple, kw: dict, W: int, recv, ctx_words, device) -> dict:
@@ -1397,10 +1536,12 @@ def scan_turns(pack0: tuple, kw: dict, W: int, recv, ctx_words, device) -> dict:
     def pack(lib, scratch):
         head = (seq.data_ptr(), n, K, REF_K, bf_words.data_ptr(), kw["size_bits"])
         tail = (kw["wps"], W, D, ptrs, kw["cap"], ovf.data_ptr(), ovf_cap, tally.data_ptr(),
-                scratch.data_ptr(), stream)
+                scratch.data_ptr())
         if k8_takes_codes(lib):
-            return lib.malva_scan_pack(*head, codes.data_ptr(), *tail)
-        return lib.malva_scan_pack(*head, *tail)
+            return lib.malva_scan_pack(*head, codes.data_ptr(), *tail, stream)
+        if k8_sets(lib):  # no rows to set, as the parent's
+            return lib.malva_scan_pack(*head, *tail, None, None, stream)
+        return lib.malva_scan_pack(*head, *tail, stream)
 
     def scan_set(lib, scratch):
         return lib.malva_scan_set(recv.data_ptr(), D, kw["cap"], W, ctx_words.data_ptr(), stream)
@@ -1495,13 +1636,18 @@ print(json.dumps({"walls_s": walls[1:], "bits_set": int(np.unpackbits(
 
 # Run from a checkout's root with its path and the chr-scale inputs:
 # build_index + call on 4 virtual shards of the card, as sharded_legs runs
-# them (the sharded call step's line goes to stderr).
+# them (the sharded call step's line goes to stderr), then the all-gather
+# session over the reads counted again, as gather_leg runs it: its
+# counters must equal the routed session's; prints its apply's wall, steps
+# and launcher events as JSON.
 SHARDED_RUN = r"""
-import sys
+import json, sys, time
 sys.path.insert(0, sys.argv[1])
+import numpy as np
 import torch
 from malva_tpu_torch import cli, pipeline
 from malva_tpu_torch.parallel.mesh import make_mesh
+from malva_tpu_torch.parallel.sharded_index import apply_sample_counts_sharded
 k, ref_k, shards, fa, vcf, fq, out = sys.argv[2:9]
 cfg = cli._config(cli._parser().parse_args(["run", "--backend", "cuda", "-k", k, "-r", ref_k,
                                             "-b", "1", "-f", "AF", fa, vcf, fq]))
@@ -1509,6 +1655,26 @@ mesh = make_mesh(devices=[torch.device("cuda", 0)] * int(shards))
 index = pipeline.build_index(cfg, mesh=mesh)
 with open(out, "w") as f:
     pipeline.call(cfg, index, f, mesh=mesh)
+counts, kmers = index.bf.counts.copy(), dict(index.ref_bf.kmers)
+pipeline._reset_counters(index)
+contexts, counters = pipeline._sample_kmers(cfg, fq, mesh[0])
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+stats = apply_sample_counts_sharded(index, contexts, counters, cfg, mesh, routed=False)
+apply_s = time.perf_counter() - t0
+if not (np.array_equal(index.bf.counts, counts) and index.ref_bf.kmers == kmers):
+    raise SystemExit("the all-gather session's counters differ from the routed session's")
+print(json.dumps({"apply_s": apply_s, "steps": stats["steps"], "hash_ms": stats["hash_ms"],
+                  "kernel_ms": stats["kernel_ms"]}))
+"""
+
+# Run from a checkout's root with its path: the checkout's shard-scaling
+# tool with the given arguments (its JSON line on stdout).
+SCALING_RUN = r"""
+import runpy, sys
+sys.path.insert(0, sys.argv[1])
+sys.argv = ["scaling_mesh", *sys.argv[2:]]
+runpy.run_module("malva_tpu_torch.tools.scaling_mesh", run_name="__main__")
 """
 
 SCAN_PARTS = re.compile(r"sharded context scan: .*?K8 ([0-9.e+-]+) ms, K9 [0-9.e+-]+ ms .*?"
@@ -1535,10 +1701,13 @@ def checkout_turns(parent: str, script: str, argv: list[str], timeout: int) -> d
 
 def parent_runs(parent: str, src: str, work: str, run_vcf: bytes) -> dict:
     """With a parent checkout: the scan alone on SCAN_ALONE positions over
-    SHARDS virtual shards, and the chr-scale sharded run (its VCF equal to
-    the host run's), each from both checkouts in turns; the scan's walls
-    and K4's slot entry's mean time a launch on the run (its launcher
-    events over its launches: steps x shards)."""
+    SHARDS virtual shards, the chr-scale sharded run (its VCF equal to the
+    host run's) with the all-gather call on its index, and the
+    shard-scaling tool (2^33 bits, a LANES batch, D = 1, 2, SHARDS), each
+    from both checkouts in turns; the scan's walls, K4's slot entry's mean
+    time a launch on the run (its launcher events over its launches: steps
+    x shards), the gather call's ms a batch and its K1 hash-only and K5 ms
+    a launch, and the tool's ms a batch for each design and D."""
     t0 = time.perf_counter()
     scans = checkout_turns(parent, SCAN_ALONE_RUN,
                            [str(SCAN_ALONE), str(REF_K), str(K), str(SIZE_BITS), str(SHARDS)], 900)
@@ -1567,8 +1736,31 @@ def parent_runs(parent: str, src: str, work: str, run_vcf: bytes) -> dict:
         raise AssertionError("the last sharded run's VCF differs from the host run's")
     log(f"K4's slot entry on the chr-scale sharded run, ms a launch (launcher events), parent "
         f"and this in turns: {json.dumps(per_launch)} ({time.perf_counter() - t0:.6g} s)")
+    # the all-gather call on that run's index: ms a batch by the host clock,
+    # K1 hash-only's and K5's ms a launch by their launcher events
+    gather = {label: [] for label in runs}
+    for label, got in runs.items():
+        for o, _ in got:
+            g = json.loads(o.strip().splitlines()[-1])
+            launches = g["steps"] * SHARDS
+            gather[label].append({"ms_a_batch": g["apply_s"] * 1e3 / g["steps"],
+                                  "k1_hash_ms_a_launch": g["hash_ms"] / launches,
+                                  "k5_ms_a_launch": g["kernel_ms"] / launches})
+    log(f"the all-gather call on the chr-scale sharded run, parent and this in turns: "
+        f"{json.dumps(gather)}")
+    # the scaling tool's curves, each checkout's tool in its own process
+    t0 = time.perf_counter()
+    tools = checkout_turns(parent, SCALING_RUN, ["--log2-bits", "33", "--batch", str(LANES),
+                                                 "--shards", f"1,2,{SHARDS}"], 600)
+    curves = {label: [{f"{r['design']} D={r['shards']}": [r[m] for m in (
+        "ms_per_batch", "issue_ms_per_batch", "k1_ms_per_batch", "kernel_ms_per_batch")]
+                       for r in json.loads(o.strip().splitlines()[-1])["runs"]}
+                      for o, _ in got] for label, got in tools.items()}
+    log(f"the scaling tool, [ms, the host's issue ms, K1 hash-only ms, K4 or K5 ms] a batch, "
+        f"parent and this in turns: {json.dumps(curves)} ({time.perf_counter() - t0:.6g} s)")
     return {"scan_alone_s": {k: [w["walls_s"] for w in v] for k, v in walls.items()},
-            "scan_alone_chunks_s_k8_ms": parts, "slot_entry_ms_a_launch": per_launch}
+            "scan_alone_chunks_s_k8_ms": parts, "slot_entry_ms_a_launch": per_launch,
+            "gather_call": gather, "scaling_ms_a_batch": curves}
 
 
 def event_timing_probe(ix: dict, device) -> dict:
@@ -1965,6 +2157,9 @@ def sharded_legs(src: str, reads3: str, work: str, run_vcf: bytes, batch_vcfs: d
         raise AssertionError("the sharded run's VCF differs from the host run's")
     check_launches("sharded run", launches, ("callstep", "seq_pack") + SCAN_KERNELS
                    + ROUTED_KERNELS)
+    if launches["scan_set"] != SHARDS:  # the last chunk's set; K8's prologues set the rest
+        raise AssertionError(f"the sharded run launched K9 {launches['scan_set']} times, not "
+                             f"{SHARDS}")
     for line in ("sharded context scan", CHUNKS_READ_NOTHING, "sharded call step"):
         if line not in err:
             raise AssertionError(f"the sharded run logged no '{line}'")
@@ -2376,9 +2571,9 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (no main-path run, no ok line)")
     ap.add_argument("--parent", default=None,
-                    help="another checkout: also time its K4 slot entry, K6, K7, K8 and K9, "
-                         "and (without --kernels-only) its scan alone and sharded run, in turns "
-                         "with this one's")
+                    help="another checkout: also time its K1, K4, K5, K4 slot entry, K6, K7, K8 "
+                         "and K9, and (without --kernels-only) its scan alone, sharded run with "
+                         "the gather call and scaling tool, in turns with this one's")
     args = ap.parse_args()
     cards, visible = host_cards()
     import torch

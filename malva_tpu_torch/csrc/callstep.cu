@@ -10,7 +10,7 @@
 // and the two-bucket probe with an atomicAdd into the exact-map values.
 // The kernel is step.cuh's step_body with K1's policy (every Bloom word
 // is this launch's; a context is known where its XXH3's bit is set in the
-// context filter); K4 and K5 (shard_step.cu) are the same template.
+// context filter); K4 (shard_step.cu) is the same template.
 //
 // Bound: bytes.  Per lane the kernel must read its packed context and
 // counter (16 B at ref_k 43) and one random 8-byte row of a GiB-sized
@@ -75,11 +75,10 @@ __global__ void __launch_bounds__(kStepThreads, 4)
 
 // K1's policy (step.cuh): the launch holds every Bloom word; a lane's
 // context is known where the context filter has the bit of its XXH3.
-struct CallstepPolicy : ContiguousLanes, WholeMap {
+struct CallstepPolicy : ContiguousLanes {
   static constexpr Carry kCarry = Carry::kNothing;
   const uint32_t* __restrict__ ctx_words;
 
-  __device__ __forceinline__ bool live(uint64_t, uint64_t) const { return true; }
   __device__ __forceinline__ bool owns(uint64_t) const { return true; }
   __device__ __forceinline__ int64_t row(uint64_t idx) const { return (int64_t)(idx >> 5); }
   template <int N>
@@ -98,7 +97,7 @@ __global__ void __launch_bounds__(kStepThreads, Shape<N>::kMinBlocks)
                     const uint32_t* __restrict__ ctx_words, const uint32_t* __restrict__ kmap_keys,
                     uint32_t* __restrict__ state, int64_t counts_len, uint64_t n_buckets,
                     uint64_t size_bits, int minifilter) {
-  step_body<N>(CallstepPolicy{{}, {}, ctx_words}, ctx, counters, B, k, ref_k, bf_packed, kmap_keys, state,
+  step_body<N>(CallstepPolicy{{}, ctx_words}, ctx, counters, B, k, ref_k, bf_packed, kmap_keys, state,
                counts_len, n_buckets, size_bits, minifilter);
 }
 

@@ -21,7 +21,7 @@ constexpr int kSlots = 4;                    // exact-map bucket slots
 constexpr uint32_t kRankBits = 28;           // rank | mini-filter << 28
 constexpr uint32_t kRankMask = (1u << kRankBits) - 1;
 
-// -- packed 2-bit sequences in registers (K1, K4, K5) -----------------------
+// -- packed 2-bit sequences in registers (K1, K4) ---------------------------
 
 // a[q], or T{} for q outside 0..N-1, by an unrolled select.
 template <class T, int N>
@@ -150,7 +150,7 @@ struct PackedBases {
   }
 };
 
-// The per-lane front end of K1, K4 and K5: the canonical centre of a
+// The per-lane front end of K1 and K4: the canonical centre of a
 // packed context into `can`, and its XXH3.
 template <int N>
 MALVA_HD uint64_t centre_hash(const uint32_t (&ctx)[N], int k, int ref_k, uint32_t (&can)[N]) {
@@ -321,7 +321,7 @@ struct RollingKey {
   }
 };
 
-// -- the gathered Bloom row and the exact map (K1, K4, K5) --------------------
+// -- the gathered Bloom row and the exact map (K1, K4; K5: gather.cuh) ---------
 
 // What a lane's gathered [word, rank | mini-filter << kRankBits] row says
 // about its centre hash c: `what` bit 0, its Bloom bit is set; bit 1, it
@@ -352,32 +352,21 @@ MALVA_HD void bucket_pair(uint64_t h, uint64_t n_buckets, uint32_t (&b)[2]) {
   b[1] = ((lo * 0x9E3779B1u) ^ (hi * 0x85EBCA77u)) & mask;
 }
 
-// Whether one of the two buckets of h lies in buckets base .. base +
-// n_local - 1 of a table of n_buckets (K5: the shard's contiguous range).
-MALVA_HD bool bucket_in_range(uint64_t h, uint64_t n_buckets, uint64_t base, uint64_t n_local) {
-  uint32_t b[2];
-  bucket_pair(h, n_buckets, b);
-  return (uint64_t)b[0] - base < n_local || (uint64_t)b[1] - base < n_local;
-}
-
 // Flat exact-map slot of a canonical key held in N registers (w_k <= N
 // words used), or -1: bucket b1 then b2, low slot first (kmap_table.py
 // probe_bucket_table: first match wins).  A slot is w_k words at a
 // 4 w_k-byte stride, so it has no vector alignment; a bucket's 4 w_k word
 // loads are issued together, each on its own predicate, before any
-// compare.  `keys` may hold only buckets base .. base + n_local - 1 of the
-// n_buckets (K5's shard of one global table): a bucket outside that range
-// is skipped without a read, and the slot is relative to `base`.
+// compare (K1, K4; K5's probe of its shard's range of one global table
+// is gather.cuh probe_pair).
 template <int N>
 MALVA_HD int64_t probe_buckets(const uint32_t* keys, uint64_t n_buckets, int w_k,
-                               const uint32_t (&can)[N], uint64_t h, uint64_t base = 0,
-                               uint64_t n_local = ~0ull) {
+                               const uint32_t (&can)[N], uint64_t h) {
   uint32_t b[2];
   bucket_pair(h, n_buckets, b);
 #pragma unroll
   for (int t = 0; t < 2; ++t) {
-    const uint64_t lb = (uint64_t)b[t] - base;
-    if (lb >= n_local) continue;
+    const uint64_t lb = b[t];
     const uint32_t* bucket = keys + lb * kSlots * w_k;
     int hit = -1;
 #pragma unroll

@@ -73,8 +73,19 @@
 // slot blocks K8 wrote and the copies brought: one atomicOr a row, as the
 // scan's own.  K8 is bound like the scan, by the alt-filter read per
 // position (a 32-byte sector); the partition adds the rows' writes.  K9 is
-// bound by one 32-byte sector a row; at the main path's hit counts its
-// launch costs more than its work.
+// bound by one 32-byte sector a row; at the main path's hit counts (~16k
+// rows an owner a chunk) its launch costs more than its work, so the
+// sharded scan runs no launch of its own for it a chunk: K8's launch for
+// chunk i + 1 on an owner also sets the rows the owner received in chunk
+// i (its prologue's rows, set_rows below), and one K9 launch an owner sets
+// the last chunk's (route.cu malva_sharded_scan_step,
+// parallel/sharded_index.py ScanRouter).  The rows are dealt round the
+// grid's blocks, a few a block, and set by warps 1-7 while warp 0 looks
+// back over the tiles before the block's first tile, where they would
+// idle (set before the first tile, they cost 3.6 us a launch at 16k rows,
+// more than K9's launch; here 2.1-2.4 us: chip_smoke.py, NVIDIA H100 80GB
+// HBM3).  K8 keeps to 64 registers, so that four blocks fit an SM: at 66
+// a 2^20-position slice took 0.061 ms where it takes 0.048.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -115,6 +126,8 @@ struct PackArgs {
   uint32_t* ovf;                   // [W planes | owner plane] of ovf_cap rows
   unsigned long long* tally;       // [rows spilled, rows sent to each owner]
   unsigned long long* scratch;     // [ticket, blocks done, a status per tile and owner]
+  const uint32_t* set;             // the prologue's D received blocks of cap rows, or null
+  uint32_t* ctx_words;             // the shard's context words, where `set` is given
 };
 
 // ... and a tile's hits in shared memory, in position order (nothing in
@@ -135,11 +148,39 @@ struct PackShared<0> {};
 
 constexpr int kScanLook = 4;  // statuses a lane reads in a look-back step (one tile mostly)
 
+// The bit of row i of a scan slot block's rows (W planes of cap words: a
+// shard-local bit index, low word first) ORed into ctx_words.
+template <int W>
+__device__ __forceinline__ void set_row(const uint32_t* __restrict__ rows, int64_t cap, int64_t i,
+                                        uint32_t* __restrict__ ctx_words) {
+  uint64_t local = __ldg(rows + i);
+  if (W == 2) local |= (uint64_t)__ldg(rows + cap + i) << 32;
+  atomicOr(ctx_words + (local >> 5), 1u << (local & 31));
+}
+
+// K8's prologue rows: the live rows of the D blocks at pk.set set in
+// pk.ctx_words, row i of each block by the grid's block i mod gridDim.x,
+// so that each block sets a few, by its warps 1-7: setting thread t (tid -
+// 32) takes block t mod D's header, then its rows from the (t / D)-th on.
+template <int W>
+__device__ __forceinline__ void set_rows(const PackArgs& pk) {
+  const int t = (int)threadIdx.x - 32, per = (kThreads - 32) / pk.D;
+  if (t < 0 || t >= per * pk.D) return;
+  const uint32_t* blk = pk.set + (t % pk.D) * (kSlotHead + pk.cap * W);
+  const uint32_t head = __ldg(blk);
+  const int64_t rows = head < pk.cap ? head : pk.cap;
+  for (int64_t i = blockIdx.x + (int64_t)(t / pk.D) * gridDim.x; i < rows;
+       i += (int64_t)gridDim.x * per)
+    set_row<W>(blk + kSlotHead, pk.cap, i, pk.ctx_words);
+}
+
 // Pack mode, after the tile's hits are in place: their ranks by owner, the
-// tile's counts published, the look-back for its bases, the rows written.
+// tile's counts published, the look-back for its bases (warp 0; the other
+// warps meanwhile set the prologue's rows where `set` says so), the rows
+// written.
 template <int W>
 __device__ __forceinline__ void pack_tile(PackShared<W>& ps, int64_t t, int64_t last,
-                                          const PackArgs& pk) {
+                                          const PackArgs& pk, bool set) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, D = pk.D, bits = dest_bits(D);
   const uint32_t n = ps.pre[kTile / 32], lt = (1u << lane) - 1u;
   unsigned long long* status = pk.scratch + kScratchHead;
@@ -174,6 +215,8 @@ __device__ __forceinline__ void pack_tile(PackShared<W>& ps, int64_t t, int64_t 
               status_word(t == 0 ? kStatusPrefix : kStatusAggregate, ps.ts.run[lane].tot));
     __syncwarp();
     tile_bases<kScanLook>(ps.ts, t, last, D, pk.out, pk.cap, pk.tally, 1, status);
+  } else if (set) {
+    set_rows<W>(pk);
   }
   __syncthreads();
   for (uint32_t j = tid; j < n; j += kThreads) {  // each row to its place
@@ -210,7 +253,9 @@ __device__ void scan_tiles(const uint8_t* __restrict__ seq, int64_t n_pos, int k
   };
 
   int64_t tile = blockIdx.x;
+  bool set = false;  // the prologue's rows are still to set (pack mode)
   if constexpr (kMode == kPack) {
+    set = pk.set != nullptr;
     if (tid == 0) ps.ticket = (int64_t)atomicAdd(pk.scratch, 1ull);
     __syncthreads();
     tile = ps.ticket;
@@ -315,7 +360,8 @@ __device__ void scan_tiles(const uint8_t* __restrict__ seq, int64_t n_pos, int k
           ps.rk[at] = (uint32_t)d;
         }
         __syncthreads();
-        pack_tile<W>(ps, tile, n_tiles - 1, pk);
+        pack_tile<W>(ps, tile, n_tiles - 1, pk, set);
+        set = false;
       } else {
         // the warp's hits, every lane busy: the window's hash, one bit set
         __syncwarp();
@@ -331,6 +377,7 @@ __device__ void scan_tiles(const uint8_t* __restrict__ seq, int64_t n_pos, int k
   }
 
   if constexpr (kMode == kPack) {
+    if (set) set_rows<W>(pk);  // a block that took no tile
     // the block that finishes last resets the scratch: every look-back is
     // over, and no block takes another ticket
     __syncthreads();
@@ -361,7 +408,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int W>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
     scan_pack_kernel(const uint8_t* __restrict__ seq, int64_t n_pos, int k, int ref_k,
                      const uint32_t* __restrict__ bf_words, uint64_t size_bits, PackArgs pk) {
   scan_tiles<kPack, W>(seq, n_pos, k, ref_k, bf_words, nullptr, size_bits, nullptr, pk);
@@ -382,11 +429,8 @@ __global__ void __launch_bounds__(kSetThreads)
   const uint32_t head = __ldg(blk);
   const int64_t rows = head < cap ? head : cap;
   for (int64_t i = (int64_t)blockIdx.x * kSetThreads + threadIdx.x; i < rows;
-       i += (int64_t)gridDim.x * kSetThreads) {
-    uint64_t local = __ldg(blk + kSlotHead + i);
-    if (W == 2) local |= (uint64_t)__ldg(blk + kSlotHead + cap + i) << 32;
-    atomicOr(ctx_words + (local >> 5), 1u << (local & 31));
-  }
+       i += (int64_t)gridDim.x * kSetThreads)
+    set_row<W>(blk + kSlotHead, cap, i, ctx_words);
 }
 
 int64_t n_tiles(int64_t n_pos) { return (n_pos + kTile - 1) / kTile; }
@@ -413,13 +457,16 @@ int malva_window_hash(const void* seq, int64_t n_pos, int k, int ref_k, void* ou
 // list ([W planes | owner plane] of ovf_cap rows); the tally gets the rows
 // spilled at [0] and the rows sent to d at [1 + d].  `scratch`:
 // malva_route_scratch_words(D) words (route.cu), zeroed when made, left
-// zeroed.  One kernel launch.
+// zeroed.  Where `set` is not null, the launch also sets the live rows of
+// the D blocks of cap rows at `set` (the blocks this shard received in the
+// previous chunk, as K9 sets them) in `ctx_words`.  One kernel launch.
 int malva_scan_pack(const void* seq, int64_t n_pos, int k, int ref_k, const void* bf_words,
                     int64_t size_bits, int64_t wps, int W, int D, void* const* blocks, int64_t cap,
-                    void* ovf, int64_t ovf_cap, void* tally, void* scratch, void* stream) {
+                    void* ovf, int64_t ovf_cap, void* tally, void* scratch, const void* set,
+                    void* ctx_words, void* stream) {
   if (wps < 1 || wps > UINT32_MAX || n_pos < 0 || (W != 1 && W != 2) ||
       (W == 1 && wps > (int64_t)1 << 27) || D < 1 || D > kMaxDests || cap < 1 ||
-      last_tile(n_pos) + 1 > kMaxTiles)
+      last_tile(n_pos) + 1 > kMaxTiles || cap > UINT32_MAX || (set && !ctx_words))
     return (int)cudaErrorInvalidValue;
   PackArgs pk{};
   for (int d = 0; d < D; ++d) pk.out.p[d] = (uint32_t*)blocks[d];
@@ -430,6 +477,8 @@ int malva_scan_pack(const void* seq, int64_t n_pos, int k, int ref_k, const void
   pk.ovf = (uint32_t*)ovf;
   pk.tally = (unsigned long long*)tally;
   pk.scratch = (unsigned long long*)scratch;
+  pk.set = (const uint32_t*)set;
+  pk.ctx_words = (uint32_t*)ctx_words;
   auto go = [&](auto kernel) {
     int grid = 0;
     const int e = persistent_grid(kernel, kThreads, 0, last_tile(n_pos) + 1, &grid);

@@ -1,7 +1,8 @@
 // K6 and K7: the two partition kernels of the routed sharded call step, and
 // the launcher of the step's card-to-card copies.  The sharded context
-// scan's chunk step, K8 (scan_pack, whose tiles end in the same partition:
-// ref_scan.cu), the copies and K9, is one C call here too.
+// scan's chunk step, K8 (scan_pack, whose tiles end in the same partition,
+// and whose prologue sets the previous chunk's rows: ref_scan.cu) and the
+// copies, is one C call here too.
 //
 // No Pallas counterpart.  They replace pack_dests (malva_tpu/parallel/
 // sharded_index.py:326-347, a sort by owner into a (D * cap) slot matrix
@@ -264,29 +265,31 @@ constexpr PlanName kPlanNames[] = {
     {"max_dests", kMaxDests}};
 
 // The columns of a sharded scan step's plan (malva_sharded_scan_step): one
-// row of int64 per shard, filled once by the scan (its buffers) and each
-// chunk (its slice of the contig and the launchers' events); kOut begins
-// kMaxDests columns, the blocks the shard writes for each owner.
-// ops/kernels.py reads each column's index by its name (malva_scan_plan_col).
+// row of int64 per shard, filled once by the scan (its buffers: one plan for
+// each parity of the chunks, whose blocks are the receive buffers of that
+// parity) and each chunk (its slice of the contig and the launcher's
+// events); kSSet, the D blocks the shard received in the previous chunk
+// (the other parity), whose rows K8's prologue sets; kOut begins kMaxDests
+// columns, the blocks the shard writes for each owner.  ops/kernels.py
+// reads each column's index by its name (malva_scan_plan_col).
 enum ScanCol {
-  kSDev, kSStream, kSSeq, kSNPos, kSBfWords, kSOvf, kSTally, kSScratch, kSRecv,
-  kSCtxWords, kSEvPack0, kSEvPack1, kSEvSet0, kSEvSet1, kSOut, kScanCols = kSOut + kMaxDests
+  kSDev, kSStream, kSSeq, kSNPos, kSBfWords, kSOvf, kSTally, kSScratch, kSSet,
+  kSCtxWords, kSEvPack0, kSEvPack1, kSOut, kScanCols = kSOut + kMaxDests
 };
 
 constexpr PlanName kScanNames[] = {
     {"dev", kSDev},          {"stream", kSStream},       {"seq", kSSeq},
     {"n_pos", kSNPos},       {"bf_words", kSBfWords},    {"ovf", kSOvf},
-    {"tally", kSTally},      {"scratch", kSScratch},     {"recv", kSRecv},
+    {"tally", kSTally},      {"scratch", kSScratch},     {"set", kSSet},
     {"ctx_words", kSCtxWords}, {"ev_pack0", kSEvPack0},  {"ev_pack1", kSEvPack1},
-    {"ev_set0", kSEvSet0},   {"ev_set1", kSEvSet1},      {"out", kSOut},
-    {"width", kScanCols},    {"max_dests", kMaxDests}};
+    {"out", kSOut},          {"width", kScanCols},       {"max_dests", kMaxDests}};
 
 }  // namespace
 
 extern "C" {
 
 // K1's hash-only launcher (callstep.cu), K4's slot entry (shard_step.cu),
-// K8 and K9 (ref_scan.cu).
+// K8 (ref_scan.cu).
 int malva_callstep_hash(const void* ctx, int64_t B, int wc, int k, int ref_k, int with_ctx,
                         void* out, void* ev_start, void* ev_stop, void* stream);
 int malva_shard_update_slots(const void* slots, int64_t n_blocks, int64_t cap, int wc, int k,
@@ -306,9 +309,8 @@ int malva_route_copies(int D, const int* dev, void* const* compute, void* const*
                        void* const* streams, void* const* copied);
 int malva_scan_pack(const void* seq, int64_t n_pos, int k, int ref_k, const void* bf_words,
                     int64_t size_bits, int64_t wps, int W, int D, void* const* blocks, int64_t cap,
-                    void* ovf, int64_t ovf_cap, void* tally, void* scratch, void* stream);
-int malva_scan_set(const void* slots, int n_blocks, int64_t cap, int W, void* ctx_words,
-                   void* stream);
+                    void* ovf, int64_t ovf_cap, void* tally, void* scratch, const void* set,
+                    void* ctx_words, void* stream);
 
 // The plan column (PlanCol) of `name`, "width" for the row's width and
 // "max_dests" for the columns after kOut1 and kOut2; -1 for another name.
@@ -482,18 +484,27 @@ int malva_routed_step(int D, const int64_t* plan, int wc, int k, int ref_k, int 
 }
 
 // One chunk of the sharded context scan over the D shards of `plan`
-// (ScanCol), in one call: K8 on each shard's slice; the slot blocks' copies
-// between cards (malva_route_copies, where n pairs cross cards: produced,
-// copied as in the routed step, and done[d], recorded after K9 on d, as
-// the guard: a block is not written again before its owner has read it);
-// K9 on each owner over the D blocks it received.  Where a shard's
-// ev_pack0/1 and ev_set0/1 are not null, they are recorded around its K8
-// and its K9.  No host wait.  Returns the first CUDA error, or 0.
+// (ScanCol, the plan of this chunk's parity), in one call: K8 on each
+// shard's slice, whose prologue sets the rows the shard received in the
+// previous chunk (kSSet) in its context words; then the slot blocks'
+// copies between cards (malva_route_copies, where n pairs cross cards:
+// produced and copied as in the routed step).  The receive buffers are
+// two, by the parity of the chunk, so that this chunk's copies into an
+// owner never wait on the prologue that reads the previous chunk's rows:
+// done[d] is recorded after K8 on d here (its prologue read the other
+// parity's buffer), and guard[d], recorded so after the previous chunk's
+// K8 on d (whose prologue read this parity's buffer), gates the copies
+// into d, so that no block is overwritten before its owner has set its
+// rows.  The caller swaps guard and done from one chunk to the next; the
+// last chunk's rows are set by K9 (malva_scan_set) on each owner.  Where a
+// shard's ev_pack0/1 are not null, they are recorded around its K8.  No
+// host wait.  Returns the first CUDA error, or 0.
 int malva_sharded_scan_step(int D, const int64_t* plan, int k, int ref_k, int64_t size_bits,
                             int64_t wps, int W, int64_t cap, int64_t ovf_cap, int n,
                             const int* dev, const int* from, const int* to, void* const* streams,
-                            void* const* produced, void* const* done, void* const* copied,
-                            void* const* dst, void* const* src, int64_t bytes) {
+                            void* const* produced, void* const* guard, void* const* done,
+                            void* const* copied, void* const* dst, void* const* src,
+                            int64_t bytes) {
   if (D < 1 || D > kMaxDests) return (int)cudaErrorInvalidValue;
   auto at = [&](int s, int c) { return plan[(int64_t)s * kScanCols + c]; };
   auto ptr = [&](int s, int c) { return (void*)at(s, c); };
@@ -513,19 +524,13 @@ int malva_sharded_scan_step(int D, const int64_t* plan, int k, int ref_k, int64_
                           wps, W, D,
                           (void* const*)(plan + (int64_t)s * kScanCols + kSOut), cap,
                           ptr(s, kSOvf), ovf_cap, ptr(s, kSTally), ptr(s, kSScratch),
-                          compute[s]);
+                          ptr(s, kSSet), ptr(s, kSCtxWords), compute[s]);
     if (!e) e = record(s, kSEvPack1);
+    if (!e && n) e = (int)cudaEventRecord((cudaEvent_t)done[s], (cudaStream_t)compute[s]);
   }
   if (!e && n)
-    e = malva_route_copies(D, dev, compute, produced, done, n, from, to, dst, src, bytes, streams,
-                           copied);
-  for (int d = 0; d < D && !e; ++d) {
-    e = (int)cudaSetDevice((int)at(d, kSDev));
-    if (!e) e = record(d, kSEvSet0);
-    if (!e) e = malva_scan_set(ptr(d, kSRecv), D, cap, W, ptr(d, kSCtxWords), compute[d]);
-    if (!e) e = record(d, kSEvSet1);
-    if (!e && n) e = (int)cudaEventRecord((cudaEvent_t)done[d], (cudaStream_t)compute[d]);
-  }
+    e = malva_route_copies(D, dev, compute, produced, guard, n, from, to, dst, src, bytes,
+                           streams, copied);
   const int r = (int)cudaSetDevice(cur);
   return e ? e : r;
 }

@@ -1,7 +1,8 @@
-// The call-step kernel family: K1 (callstep.cu, the one-device step), K4
-// (shard_step.cu, the owner side of the routed sharded step) and K5
-// (shard_step.cu, the shard side of the all-gather sharded step) are one
-// template, step_body<N, Policy>, that differ only in their policy.
+// The call-step kernel family: K1 (callstep.cu, the one-device step) and
+// K4 (shard_step.cu, the owner side of the routed sharded step, with its
+// slot entry) are one template, step_body<N, Policy>, that differ only in
+// their policy.  (K5, the all-gather step's shard side, was a third policy
+// until its lanes came pre-hashed: shard_step.cu, gather.cuh.)
 //
 // Per lane: the canonical centre of the packed context and its XXH3, in
 // registers (lanes.cuh centre_hash); the gather of its 8-byte [word, rank
@@ -14,34 +15,25 @@
 // depend on thread order and is bit-exact with the plain versions
 // (ops/kernels.py).
 //
-// A policy says what the three steps do differently:
+// A policy says what the steps do differently:
 //   * stage(...): how a warp's tile of lanes is copied into shared memory
-//     (K1, K4, K5: rows of contiguous context and counter arrays,
+//     (K1, K4: rows of contiguous context and counter arrays,
 //     ContiguousLanes; K4's slot entry: the live rows of the hop-2 slot
 //     blocks, block after block, with their "context known" flags,
 //     shard_step.cu);
-//   * live(idx, c): whether the lane of centre hash c (Bloom index idx) has
-//     anything to do in this launch (K1: always; K4: its Bloom word is the
-//     shard's, other lanes are no-ops; K5: its Bloom word is the shard's or
-//     one of its two global buckets is);
-//   * owns(idx): whether the lane's Bloom word lies in the rows this launch
-//     holds, so that its row is gathered (K1: every word; K4 and K5: the
-//     shard's range; a K5 lane that is live without it gathers nothing);
-//   * row(idx): the row of Bloom index idx (K4, K5: less the shard's first
+//   * owns(idx): whether the lane of Bloom index idx has anything to do in
+//     this launch, its row being in the rows it holds (K1: every word; K4:
+//     the shard's range, other lanes are no-ops);
+//   * row(idx): the row of Bloom index idx (K4: less the shard's first
 //     word);
-//   * what(rt, c): the tail's `what` from row_test's (K1, K4: as it is; K5:
-//     bit 1, "may be in the exact map", is "a global bucket is the
-//     shard's", since K5's rows carry no mini-filter);
-//   * probe(keys, ...): the slot of the centre in the launch's bucket table
-//     (K1, K4: the whole table; K5: the shard's range of the global table);
 //   * kCarry: what the tail ring carries for a lane beside its context,
-//     counter and hashes (K1: nothing; K4, K5: its index in the launch;
-//     K4's slot entry: its staged flag);
+//     counter and hashes (K1: nothing; K4: its index in the launch; K4's
+//     slot entry: its staged flag);
 //   * context_word(w, carried, ...): in the tail, the word whose bit `bit`
 //     says that the lane's context is known (K1: the context filter's word
-//     at the XXH3 of the whole context; K4, K5: the flag that the step
-//     found before the launch, read from the `known` array at the lane's
-//     index; K4's slot entry: the flag itself, with no read).
+//     at the XXH3 of the whole context; K4: the flag that the step found
+//     before the launch, read from the `known` array at the lane's index;
+//     K4's slot entry: the flag itself, with no read).
 //
 // The design (the numbers are chip_smoke.py's, per 2^21 lanes):
 //
@@ -153,7 +145,7 @@ __device__ __forceinline__ void staged_wait() {
   __syncwarp();
 }
 
-// The staging of K1, K4 and K5: lane i's context and counter are row i of
+// The staging of K1 and K4: lane i's context and counter are row i of
 // contiguous arrays.
 struct ContiguousLanes {
   template <int N>
@@ -192,7 +184,7 @@ __device__ __forceinline__ uint32_t centre_hashes(const P& p, const uint32_t* ti
     staged_context(tile, r * 32 + lane, w);
     const uint64_t h = centre_hash(w, k, ref_k, can);
     put(c, r, h);
-    if (!p.live(bloom_index(h, size_bits), h)) live &= ~(1u << r);
+    if (!p.owns(bloom_index(h, size_bits))) live &= ~(1u << r);
   }
   return live;
 }
@@ -237,23 +229,12 @@ __device__ __forceinline__ void run_tails(const P& p, const TailRing<N, P::kCarr
   if (what & 2u) {
     uint32_t can[N];
     canonical_centre(w, k, ref_k, can);
-    slot = p.probe(kmap_keys, n_buckets, (k + 15) / 16, can,
-                   (uint64_t)q.h_hi[e] << 32 | q.h_lo[e]);
+    slot = probe_buckets(kmap_keys, n_buckets, (k + 15) / 16, can,
+                         (uint64_t)q.h_hi[e] << 32 | q.h_lo[e]);
   }
   if (!((word >> bit) & 1u)) atomicAdd(state + q.cidx[e], cnt);
   if (slot >= 0) atomicAdd(state + counts_len + slot, cnt);
 }
-
-// K1's and K4's exact map: the launch's whole bucket table, whose candidates
-// the row test finds (its mini-filter, where the rows carry one).
-struct WholeMap {
-  __device__ __forceinline__ uint32_t what(const RowTest& rt, uint64_t) const { return rt.what; }
-  template <int N>
-  __device__ __forceinline__ int64_t probe(const uint32_t* keys, uint64_t n_buckets, int w_k,
-                                           const uint32_t (&can)[N], uint64_t h) const {
-    return probe_buckets(keys, n_buckets, w_k, can, h);
-  }
-};
 
 // The step over B lanes of (B, N) packed contexts and (B,) counters, with
 // the (rows, 2) [word, rank | mini-filter << 28] rows `bf_packed`, the
@@ -310,8 +291,7 @@ __device__ __forceinline__ void step_body(const P& p, const uint32_t* __restrict
 #pragma unroll
     for (int r = 0; r < L; ++r) {
       const uint64_t idx = bloom_index(c[r], size_bits);
-      row[r] = (live >> r) & 1u && p.owns(idx) ? __ldg(bf_packed + p.row(idx))
-                                               : make_uint2(0, 0);
+      row[r] = (live >> r) & 1u ? __ldg(bf_packed + p.row(idx)) : make_uint2(0, 0);
     }
 
     for (; n_queued >= 32; head += 32, n_queued -= 32) tails(head, 32);
@@ -331,7 +311,7 @@ __device__ __forceinline__ void step_body(const P& p, const uint32_t* __restrict
 #pragma unroll
     for (int r = 0; r < L; ++r) {
       const RowTest rt = row_test(row[r].x, row[r].y, c[r], size_bits, minifilter, use_mf);
-      const uint32_t what = ((live >> r) & 1u) * p.what(rt, c[r]);
+      const uint32_t what = ((live >> r) & 1u) * rt.what;
       const unsigned go = __ballot_sync(0xFFFFFFFFu, what != 0);
       if (what) {
         const uint32_t e = (head + n_queued + __popc(go & ((1u << lane) - 1u))) & (kRing - 1);

@@ -28,7 +28,8 @@ from ..utils.build_dir import build_dir
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = build_dir("kernels")
 SOURCES = ("callstep.cu", "ref_scan.cu", "seq_count.cu", "shard_step.cu", "route.cu")
-HEADERS = ("xxh3.cuh", "lanes.cuh", "launch.cuh", "step.cuh", "route.cuh", "partition.cuh")
+HEADERS = ("xxh3.cuh", "lanes.cuh", "launch.cuh", "step.cuh", "route.cuh", "partition.cuh",
+           "gather.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # --split-compile=0: nvcc optimizes and assembles the kernels of one source
 # side by side on every core, so that callstep.cu's 30 instantiations do
@@ -152,8 +153,10 @@ def library(fresh: bool = False) -> ctypes.CDLL:
         "malva_callstep": [p, p, i64, i, i, i, p, p, p, p, i64, i64, i64, i, p, p, p],
         "malva_shard_update": [p, p, p, i64, i, i, i, p, i64, i64, p, p, i64, i64, i64, i, p, p,
                                p],
-        "malva_gather_update": [p, p, p, i64, i, i, i, p, i64, i64, p, p, i64, i64, i64, i64,
-                                i64, p, p, p],
+        "malva_gather_update": [p, p, p, i64, i, p, i64, i64, p, p, i64, i64, i64, i64, i64, p,
+                                p, p],
+        "malva_gather_update_split": [p, p, p, i64, i, p, i64, i64, p, p, i64, i64, i64, i64,
+                                      i64, i, p, p, p],
         "malva_shard_update_slots": [p, i64, i64, i, i, i, p, i64, i64, p, p, i64, i64, i64, i,
                                      p, p, p],
         "malva_route_pack": [p, p, p, i64, i, i64, i64, i, p, i64, p, i64, p, p, p],
@@ -167,11 +170,11 @@ def library(fresh: bool = False) -> ctypes.CDLL:
         "malva_window_hash": [p, i64, i, i, p, p],
         "malva_ref_scan": [p, i64, i, i, p, p, i64, p],
         "malva_seq_pack": [p, i64, i, p, p, p],
-        "malva_scan_pack": [p, i64, i, i, p, i64, i64, i, i, p, i64, p, i64, p, p, p],
+        "malva_scan_pack": [p, i64, i, i, p, i64, i64, i, i, p, i64, p, i64, p, p, p, p, p],
         "malva_scan_set": [p, i, i64, i, p, p],
         "malva_scan_plan_col": [ctypes.c_char_p],
         "malva_sharded_scan_step": [i, p, i, i, i64, i64, i, i64, i64, i, p, p, p, p, p, p, p, p,
-                                    p, i64],
+                                    p, p, i64],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

@@ -33,13 +33,14 @@ falls back.  ``LAUNCHES`` counts kernel launches per wrapper.
   with its own policy, and bound like K1: one row gather per lane, with
   the probe only for the few lanes the shard's mini-filter lets through.
 
-* K5 ``gather_update`` (``csrc/shard_step.cu``) has no Pallas counterpart:
-  it replaces the XLA body of the all-gather sharded step
-  (``malva_tpu/parallel/sharded_index.py:141-183``), run on every shard
-  over the whole gathered batch.  It is K1's template with a third policy:
-  a lane is live where its Bloom word or one of its global buckets is the
-  shard's, its row is gathered only for the first, and the probe skips a
-  bucket of another shard without reading it.
+* K5 ``gather_update`` (``csrc/shard_step.cu``, ``csrc/gather.cuh``) has
+  no Pallas counterpart: it replaces the XLA body of the all-gather
+  sharded step (``malva_tpu/parallel/sharded_index.py:141-183``), run on
+  every shard over the whole gathered batch.  It reads the centre hashes
+  and canonical centres that K1 hash-only already wrote on the shard, so
+  it hashes nothing: a warp's ballots queue the lanes whose Bloom word is
+  the shard's (a row to gather) and those with a bucket of the shard's (a
+  probe), and a pass issues both kinds of random reads together.
 
 K4 has a second entry, ``shard_update_slots`` (``csrc/shard_step.cu``,
 the routed step's path): its lanes are the rows of the hop-2 slot blocks,
@@ -71,8 +72,11 @@ of the slot entry alone.
   position order, with K6's look-back (``csrc/ref_scan.cu``,
   ``csrc/partition.cuh``, ``csrc/route.cuh``), each row the shard-local
   bit index of the context; no per-position code is written.  K9 ORs the
-  rows of the blocks an owner received into its context words.  They replace the hit all-gather and
-  ``bloom_set`` of ``malva_tpu/parallel/sharded_index.py:519-569``.
+  rows of the blocks an owner received into its context words.  In the
+  sharded scan K8's launch for a chunk does that first for the previous
+  chunk's blocks (its prologue, ``prior``), so K9 launches once an owner,
+  for the last chunk.  They replace the hit all-gather and ``bloom_set``
+  of ``malva_tpu/parallel/sharded_index.py:519-569``.
 
 ``callstep_hash`` / ``window_hash`` are the kernels' hash-only modes,
 which write exactly the TPU kernels' outputs so the card can check them
@@ -337,26 +341,29 @@ def shard_update(bf_packed, kmap_keys, state, ctx_packed, counters, known, *, k:
 # -- K5: shard side of the all-gather sharded call step -------------------------
 
 
-def gather_update_plain(bf_packed, kmap_keys, state, ctx_packed, counters, known, *, k: int,
-                        ref_k: int, size_bits: int, n_buckets: int, word_base: int,
-                        bucket_base: int, counts_len: int) -> None:
+def gather_update_plain(bf_packed, kmap_keys, state, centre, counters, known, *, k: int,
+                        size_bits: int, n_buckets: int, word_base: int, bucket_base: int,
+                        counts_len: int) -> None:
     """Plain K5 over one shard, updating ``state`` in place: the body of
     malva_tpu/parallel/sharded_index.py:128-185 (make_sharded_call_step).
 
-    ``bf_packed`` is the shard's (W/S, 2) [word, local rank] rows (no
-    mini-filter) for global words ``word_base ..``, ``kmap_keys`` its
+    ``centre`` is K1 hash-only's (2 + w_k, B) int32 planes of the gathered
+    batch, [c_hi, c_lo, can_0 .. can_{w_k-1}]: each lane's centre hash and
+    canonical centre (:func:`callstep_hash_words`'s planes past the context
+    hash).  ``bf_packed`` is the shard's (W/S, 2) [word, local rank] rows
+    (no mini-filter) for global words ``word_base ..``, ``kmap_keys`` its
     (nbps, SLOTS * w_k) slice of the global bucket table of ``n_buckets``,
     buckets ``bucket_base ..``, and ``state`` its ``[bf_counts (counts_len)
     | kmap_vals (nbps * SLOTS)]``.  Every lane of the gathered batch
-    (packed context, counter, ``known``: the context-filter flags OR-merged
-    over the shards) adds its counter to the rank counter of its centre's
-    Bloom bit when the word is this shard's, the bit is set and the context
-    is not known (JAX ``:152-163``), and to the exact-map slot of its
-    centre where one of its global buckets is this shard's and holds it,
-    gated neither by the bit nor by ``known`` (JAX ``:169-183``)."""
-    words = [lanes(ctx_packed[:, j]) for j in range(ctx_packed.shape[1])]
-    can = canonical_center(words, k, ref_k)
-    c_hi, c_lo = xxh3_64_cols(decode_byte_cols(can, k))
+    (counter, ``known``: the context-filter flags OR-merged over the
+    shards) adds its counter to the rank counter of its centre's Bloom bit
+    when the word is this shard's, the bit is set and the context is not
+    known (JAX ``:152-163``), and to the exact-map slot of its centre where
+    one of its global buckets is this shard's and holds it, gated neither
+    by the bit nor by ``known`` (JAX ``:169-183``)."""
+    w_k = (k + 15) // 16
+    c_hi, c_lo = lanes(centre[0]), lanes(centre[1])
+    can = [lanes(centre[2 + j]) for j in range(w_k)]
     bw, bb = xxh3_mod_size(c_hi, c_lo, size_bits)
     lw = bw - word_base
     mine = (lw >= 0) & (lw < bf_packed.shape[0])
@@ -365,39 +372,43 @@ def gather_update_plain(bf_packed, kmap_keys, state, ctx_packed, counters, known
     is_set = ((word >> bb) & 1).bool()
     cnt_idx = rank + popcount32(word & ((1 << bb) - 1))
     scatter_add_u32(state, cnt_idx, counters, mine & is_set & ~known)
-    slot, found = probe_bucket_table(kmap_keys, n_buckets, (k + 15) // 16, can, c_hi, c_lo,
+    slot, found = probe_bucket_table(kmap_keys, n_buckets, w_k, can, c_hi, c_lo,
                                      base=bucket_base)
     scatter_add_u32(state, counts_len + slot, counters, found)
 
 
-def gather_update(bf_packed, kmap_keys, state, ctx_packed, counters, known, *, k: int,
-                  ref_k: int, size_bits: int, n_buckets: int, word_base: int, bucket_base: int,
+def gather_update(bf_packed, kmap_keys, state, centre, counters, known, *, k: int,
+                  size_bits: int, n_buckets: int, word_base: int, bucket_base: int,
                   counts_len: int, events=None) -> None:
     """K5: the shard side of the all-gather step on one shard; same effect
-    as :func:`gather_update_plain`.  ``known`` is a bool tensor."""
-    args = (bf_packed, kmap_keys, state, ctx_packed, counters, known)
-    kw = dict(k=k, ref_k=ref_k, size_bits=size_bits, n_buckets=n_buckets, word_base=word_base,
+    as :func:`gather_update_plain`, over K1 hash-only's ``centre`` planes
+    (it hashes nothing).  ``known`` is a bool tensor."""
+    args = (bf_packed, kmap_keys, state, centre, counters, known)
+    kw = dict(k=k, size_bits=size_bits, n_buckets=n_buckets, word_base=word_base,
               bucket_base=bucket_base, counts_len=counts_len)
     if not _on_cuda(*args):
         return gather_update_plain(*args, **kw)
-    for t, name in zip(args[:5], ("bf_packed", "kmap_keys", "state", "ctx_packed", "counters")):
+    for t, name in zip(args[:5], ("bf_packed", "kmap_keys", "state", "centre", "counters")):
         _check(t, torch.int32, name)
     _check(known, torch.bool, "known")
-    _check_lengths(k, ref_k)
+    _check_lengths(k, k)
     check_bloom_size(size_bits)
-    B, wc = ctx_packed.shape
+    w_k = (k + 15) // 16
+    B = counters.shape[0]
     nbps = kmap_keys.shape[0]
-    if (wc != (ref_k + 15) // 16 or counters.shape != (B,) or known.shape != (B,)
+    if (centre.shape != (2 + w_k, B) or known.shape != (B,)
             or bf_packed.dim() != 2 or bf_packed.shape[1] != 2
-            or kmap_keys.shape != (nbps, SLOTS * ((k + 15) // 16))
+            or kmap_keys.shape != (nbps, SLOTS * w_k)
             or not 0 <= bucket_base <= n_buckets - nbps
             or state.shape != (counts_len + nbps * SLOTS,) or B >= 1 << 32):
-        raise ValueError("gather_update: array shapes do not match k, ref_k, n_buckets, "
-                         "bucket_base and counts_len (or 2^32 lanes or more)")
-    _launch("malva_gather_update", state.device, ctx_packed.data_ptr(), counters.data_ptr(),
-            known.data_ptr(), B, wc, k, ref_k, bf_packed.data_ptr(), word_base,
-            bf_packed.shape[0], kmap_keys.data_ptr(), state.data_ptr(), counts_len, n_buckets,
-            bucket_base, nbps, size_bits, events=events)
+        raise ValueError("gather_update: array shapes do not match k, n_buckets, bucket_base "
+                         "and counts_len (or 2^32 lanes or more)")
+    if kmap_keys.data_ptr() % 16:
+        raise ValueError("gather_update: the bucket table must be 16-byte aligned")
+    _launch("malva_gather_update", state.device, centre.data_ptr(), counters.data_ptr(),
+            known.data_ptr(), B, w_k, bf_packed.data_ptr(), word_base, bf_packed.shape[0],
+            kmap_keys.data_ptr(), state.data_ptr(), counts_len, n_buckets, bucket_base, nbps,
+            size_bits, events=events)
     LAUNCHES["gather_update"] += 1
 
 
@@ -845,13 +856,27 @@ def _check_scan(blocks: list, cap: int, W: int, overflow, tally, device) -> None
 
 
 def scan_pack(seq, n_pos: int, bf_words, blocks, overflow, tally, *, k: int, ref_k: int,
-              size_bits: int, wps: int, cap: int, scratch=None) -> None:
+              size_bits: int, wps: int, cap: int, scratch=None, prior=None) -> None:
     """K8: same effect as :func:`scan_pack_plain`, in one kernel launch
     that writes no per-position code (``csrc/ref_scan.cu``'s pack mode), on
-    ``scratch`` (:func:`route_scratch`'s, made here when None)."""
+    ``scratch`` (:func:`route_scratch`'s, made here when None).  With
+    ``prior``, a pair (ctx_words, slots) of this shard's context words and
+    the D scan slot blocks of ``cap`` rows it received in the previous
+    chunk, the launch also sets their live rows in ctx_words, as
+    :func:`scan_set` does (its prologue's rows)."""
     if n_pos > 0:
         _check_seq(seq, n_pos, ref_k)
-    if not _on_cuda(seq, bf_words, overflow, tally, *blocks):
+    W, D = scan_row_words(wps), len(blocks)
+    if prior is not None:
+        ctx_words, slots = prior
+        _check(ctx_words, torch.int32, "ctx_words")
+        _check(slots, torch.int32, "slots")
+        if slots.numel() != D * scan_slot_words(cap, W):
+            raise ValueError(f"scan_pack: the prior slots must be {D} blocks of {cap} rows of "
+                             f"{W} words")
+    if not _on_cuda(seq, bf_words, overflow, tally, *blocks, *(prior or ())):
+        if prior is not None:
+            scan_set_plain(*prior, n_blocks=D, cap=cap, W=W)
         return scan_pack_plain(seq, n_pos, bf_words, blocks, overflow, tally, k=k, ref_k=ref_k,
                                size_bits=size_bits, wps=wps, cap=cap)
     _check(seq, torch.uint8, "seq")
@@ -860,17 +885,19 @@ def scan_pack(seq, n_pos: int, bf_words, blocks, overflow, tally, *, k: int, ref
     check_bloom_size(size_bits)
     if bf_words.shape != (size_bits // 32,):
         raise ValueError("scan_pack: the alt words do not match size_bits")
-    W = scan_row_words(wps)
     _check_scan(blocks, cap, W, overflow, tally, seq.device)
+    if prior is not None and any(t.device != seq.device for t in prior):
+        raise ValueError(f"scan_pack: the prior's tensors must lie on {seq.device}")
     if n_pos > ROUTE_MAX_LANES:
         raise ValueError(f"scan_pack: {n_pos} positions, more than one launch takes "
                          f"({ROUTE_MAX_LANES})")
     dev = seq.device
     scratch = route_scratch(dev, len(blocks)) if scratch is None else scratch
     route_layout()
+    set_ptr, ctx_ptr = (prior[1].data_ptr(), prior[0].data_ptr()) if prior else (None, None)
     _launch("malva_scan_pack", dev, seq.data_ptr(), n_pos, k, ref_k, bf_words.data_ptr(),
-            size_bits, wps, W, len(blocks), _pointers(blocks), cap, overflow.data_ptr(),
-            overflow.numel() // (W + 1), tally.data_ptr(), scratch.data_ptr())
+            size_bits, wps, W, D, _pointers(blocks), cap, overflow.data_ptr(),
+            overflow.numel() // (W + 1), tally.data_ptr(), scratch.data_ptr(), set_ptr, ctx_ptr)
     LAUNCHES["scan_pack"] += 1
 
 
@@ -899,9 +926,8 @@ def scan_set(ctx_words, slots, *, n_blocks: int, cap: int, W: int) -> None:
     LAUNCHES["scan_set"] += 1
 
 
-SCAN_PLAN_NAMES = ("dev", "stream", "seq", "n_pos", "bf_words", "ovf", "tally", "scratch", "recv",
-                   "ctx_words", "ev_pack0", "ev_pack1", "ev_set0", "ev_set1", "out", "width",
-                   "max_dests")
+SCAN_PLAN_NAMES = ("dev", "stream", "seq", "n_pos", "bf_words", "ovf", "tally", "scratch", "set",
+                   "ctx_words", "ev_pack0", "ev_pack1", "out", "width", "max_dests")
 _scan_layout = None  # (the library, its scan plan columns), once checked
 
 
@@ -925,27 +951,27 @@ def scan_step(plan, *, k: int, ref_k: int, size_bits: int, wps: int, W: int, cap
               ovf_cap: int, copies: dict | None) -> None:
     """One chunk of the sharded context scan on CUDA in one C call
     (``csrc/route.cu malva_sharded_scan_step``): K8 on each shard of
-    ``plan`` (a (D, width) int64 numpy array, see :func:`scan_layout`), the
-    slot blocks' copies between cards, K9 on each owner.  ``copies`` holds
-    the ctypes arrays of the copies (``parallel/sharded_index.py
-    ScanRouter``), or None where no pair of shards crosses cards.  Counts
-    one launch of K8 and of K9 per shard."""
+    ``plan`` (a (D, width) int64 numpy array, see :func:`scan_layout`),
+    whose prologue sets the rows the shard received in the previous chunk,
+    then the slot blocks' copies between cards.  ``copies`` holds the
+    ctypes arrays of the copies, with the chunk's "guard" and "done" events
+    (``parallel/sharded_index.py ScanRouter``), or None where no pair of
+    shards crosses cards.  Counts one launch of K8 per shard."""
     import ctypes
 
     lib, cols = scan_layout()
     D, width = plan.shape[0], cols["width"]
     if plan.shape != (D, width) or plan.dtype != "int64" or not plan.flags.c_contiguous:
         raise ValueError(f"scan_step: the plan must be a contiguous ({D}, {width}) int64 array")
-    c = copies or dict.fromkeys(("dev", "from", "to", "streams", "produced", "done", "copied",
-                                 "dst", "src"))
+    c = copies or dict.fromkeys(("dev", "from", "to", "streams", "produced", "guard", "done",
+                                 "copied", "dst", "src"))
     err = lib.malva_sharded_scan_step(
         D, plan.ctypes.data_as(ctypes.c_void_p), k, ref_k, size_bits, wps, W, cap, ovf_cap,
-        c.get("n", 0), c["dev"], c["from"], c["to"], c["streams"], c["produced"], c["done"],
-        c["copied"], c["dst"], c["src"], c.get("bytes", 0))
+        c.get("n", 0), c["dev"], c["from"], c["to"], c["streams"], c["produced"], c["guard"],
+        c["done"], c["copied"], c["dst"], c["src"], c.get("bytes", 0))
     if err != 0:
         raise RuntimeError(f"malva_sharded_scan_step: CUDA launch failed with error {err}")
     LAUNCHES["scan_pack"] += D
-    LAUNCHES["scan_set"] += D
 
 
 # -- K3: sample counter front end --------------------------------------------

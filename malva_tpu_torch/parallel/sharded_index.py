@@ -49,9 +49,9 @@ that every device needs (the alt words and the contig bytes of the
 context scan) crosses to the first card and is copied from there card to
 card, with peer access on (:func:`enable_peer`).  The context scan's hits
 go to the owners of their context words as the routed step's lanes do:
-K8 packs them into fixed slot blocks, the blocks go card to card, and K9
-sets their bits on the owner (:class:`ScanRouter`), with no host read
-until the scan's end.
+K8 packs them into fixed slot blocks, the blocks go card to card, and the
+owner's K8 launch of the next chunk sets their bits (K9 after the last
+chunk) (:class:`ScanRouter`), with no host read until the scan's end.
 
 The all-gather design (JAX ``shard_index :54``, ``write_back :101``,
 ``make_sharded_call_step :110``), reached only with ``routed=False``
@@ -60,15 +60,16 @@ rank, counter and context arrays as the routed index does, but keeps ONE
 global bucket table (``min_buckets=S``), cut into S contiguous bucket
 ranges, and rows without a mini-filter (:class:`GatherIndex`).  Its step
 (:func:`gather_step`) copies every source slice to every shard; every
-shard hashes the whole batch (K1 hash-only: the design's O(B) work per
-shard) and tests the context words it owns; the flags are OR-merged
+shard hashes the whole batch once (K1 hash-only: the design's O(B) work
+per shard) and tests the context words it owns; the flags are OR-merged
 across the shards (JAX's ``psum > 0``) and the merged ``known`` goes to
 every shard, which applies the whole batch to its ranges with K5
-(``gather_update``).
+(``gather_update``) from the centre hashes K1 hash-only wrote.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import sys
@@ -457,8 +458,8 @@ def copy_plan(mesh, pairs: list, hops: list, keep: list) -> dict:
     ``recv[d][s * words:]``, sent from ``send[s][d * words:]``.  Per hop:
     the events each shard's compute stream records when its blocks are
     written ("produced") and each copy's ("copied"); "done", one event per
-    shard recorded here, is the scan's guard.  The torch streams and events
-    the handles belong to go into ``keep``."""
+    shard, recorded here once, for the scan (its guards).  The torch
+    streams and events the handles belong to go into ``keep``."""
     enable_peer(mesh)
 
     def arr(kind, values):
@@ -478,11 +479,10 @@ def copy_plan(mesh, pairs: list, hops: list, keep: list) -> dict:
     plan = {"dev": arr(ctypes.c_int, [d.index for d in mesh]), "n": len(pairs),
             "from": arr(ctypes.c_int, [s for s, _ in pairs]),
             "to": arr(ctypes.c_int, [d for _, d in pairs]),
-            "streams": arr(ctypes.c_void_p, [st.cuda_stream for st in streams]),
-            "done": events(mesh), "hops": []}
+            "streams": arr(ctypes.c_void_p, [st.cuda_stream for st in streams]), "hops": []}
     for recv, send, w in hops:
         plan["hops"].append({
-            "produced": events(mesh),
+            "produced": events(mesh), "done": events(mesh),
             "copied": events([mesh[s] for s, _ in pairs], streams),
             "dst": arr(ctypes.c_void_p, [recv[d][s * w:].data_ptr() for s, d in pairs]),
             "src": arr(ctypes.c_void_p, [send[s][d * w:].data_ptr() for s, d in pairs]),
@@ -800,22 +800,24 @@ def gather_step(gathered: GatherIndex, mesh, ctx: list, counters: list, stats: d
     # the all-gather: every shard gets a copy of every source slice
     full_ctx = [torch.cat([c.to(d, non_blocking=True) for c in ctx]) for d in mesh]
     full_cnt = [torch.cat([n.to(d, non_blocking=True) for n in counters]) for d in mesh]
-    # every shard hashes the whole batch (K1 hash-only) and tests the
-    # context words it owns; the flags are OR-merged across the shards
-    known = None
+    # every shard hashes the whole batch once (K1 hash-only: the context
+    # hash, the centre hash and the canonical centre) and tests the context
+    # words it owns; the flags are OR-merged across the shards
+    known, hx = None, []
     for d, (sh, c) in enumerate(zip(gathered.shards, full_ctx)):
         ev = step_events(events, "callstep_hash", mesh[d])
-        x_hi, x_lo = kernels.callstep_hash(c, k, ref_k, with_ctx=True, events=ev)[:2]
-        cw, cb = xxh3_mod_size(x_hi, x_lo, size_bits)
+        hx.append(kernels.callstep_hash_words(c, k, ref_k, True, events=ev))
+        cw, cb = xxh3_mod_size(lanes(hx[d][0]), lanes(hx[d][1]), size_bits)
         lcw = cw - d * wps
         mine = (lcw >= 0) & (lcw < wps)
         hit = mine & ((lanes(sh.ctx_words[torch.where(mine, lcw, 0)]) >> cb) & 1).bool()
         known = hit.to(mesh[0]) if known is None else known | hit.to(mesh[0])
-    # every shard applies the whole batch to its ranges (K5)
-    for d, (sh, c, n) in enumerate(zip(gathered.shards, full_ctx, full_cnt)):
-        stats["gathered_rows"][d] += c.shape[0]
-        kernels.gather_update(sh.bf_packed, sh.kmap_keys, sh.state, c, n, known.to(mesh[d]), k=k,
-                              ref_k=ref_k, size_bits=size_bits, n_buckets=gathered.n_buckets,
+    # every shard applies the whole batch to its ranges, from its centre
+    # planes (K5)
+    for d, (sh, h, n) in enumerate(zip(gathered.shards, hx, full_cnt)):
+        stats["gathered_rows"][d] += n.shape[0]
+        kernels.gather_update(sh.bf_packed, sh.kmap_keys, sh.state, h[2:], n, known.to(mesh[d]),
+                              k=k, size_bits=size_bits, n_buckets=gathered.n_buckets,
                               word_base=d * wps, bucket_base=d * nbps, counts_len=gathered.cmax,
                               events=step_events(events, "gather_update", mesh[d]))
 
@@ -949,24 +951,29 @@ def scan_capacity(slice_rows: int, n_shards: int) -> int:
 class ScanRouter:
     """The sharded context scan's step (JAX ``make_sharded_ref_scan :519``)
     and its buffers on the mesh, made once per scan: on each shard's
-    device, the D slot blocks it receives (one per source, ``cap`` rows
-    each, rows of W words: :func:`kernels.scan_row_words`) and, where an
-    owner lies on another device, the blocks it sends there; its overflow
-    list (a slice's rows) and tally; on CUDA, K8's scratch per card, the
-    copy streams and events (:func:`copy_plan`) and the step's plan.
+    device, two sets of the D slot blocks it receives (one block per
+    source, ``cap`` rows each, rows of W words:
+    :func:`kernels.scan_row_words`), one for the chunks of each parity,
+    and, where an owner lies on another device, the blocks it sends there;
+    its overflow list (a slice's rows) and tally; on CUDA, K8's scratch
+    per card, the copy streams and events (:func:`copy_plan`, a hop per
+    parity) and a step plan per parity.
 
     :meth:`step` scans positions ``[start, start + S * slice_rows)`` of one
-    contig, slice s on shard s: K8 (``kernels.scan_pack``) hashes each
-    position's windows (the ref_k - 1 halo read from the contig), probes
-    the alt words (one copy per device) and packs each hit, by the owner
-    of its context word, into that owner's slot block, in position order;
-    the blocks go card to card; K9 (``kernels.scan_set``) on each owner
-    sets their bits in its context words.  On CUDA that is one C call
-    (``kernels.scan_step``) and no host read.  A hit past ``cap`` goes to
-    the source's overflow list; :meth:`finish` reads the tallies once, at
-    the end, and sets the listed bits on their owners.  Setting a bit is
-    idempotent, so a scan whose lists overflowed is run again with slots of
-    a whole slice (:func:`build_context_sharded`), which cannot spill."""
+    contig, slice s on shard s: K8 (``kernels.scan_pack``) sets in shard
+    s's context words the rows it received in the previous chunk (the
+    other parity's blocks: its prologue's rows), and hashes each position's
+    windows (the ref_k - 1 halo read from the contig), probes the alt words
+    (one copy per device) and packs each hit, by the owner of its context
+    word, into that owner's slot block of this chunk's parity, in position
+    order; the blocks go card to card.  On CUDA that is one C call
+    (``kernels.scan_step``) and no host read.  :meth:`flush` sets the last
+    chunk's rows, K9 (``kernels.scan_set``) on each owner.  A hit past
+    ``cap`` goes to the source's overflow list; :meth:`finish` reads the
+    tallies once, at the end, and sets the listed bits on their owners.
+    Setting a bit is idempotent, so a scan whose lists overflowed is run
+    again with slots of a whole slice (:func:`build_context_sharded`), which
+    cannot spill."""
 
     def __init__(self, mesh, ctx: list, bf_words: dict, k: int, ref_k: int, size_bits: int,
                  slice_rows: int, cap: int | None = None):
@@ -986,28 +993,39 @@ class ScanRouter:
         def zeros(n, dev, dtype=torch.int32):
             return torch.zeros(n, dtype=dtype, device=dev)
 
-        self.recv = [zeros(D * w, dev) for dev in self.mesh]
+        # recv[p][d]: the blocks owner d receives in the chunks of parity p
+        self.recv = [[zeros(D * w, dev) for dev in self.mesh] for _ in range(2)]
         self.send = [zeros(D * w, dev) if any(cross[s]) else None
                      for s, dev in enumerate(self.mesh)]
-        self.out = [[self.send[s][d * w : (d + 1) * w] if cross[s][d]
-                     else self.recv[d][s * w : (s + 1) * w] for d in range(D)] for s in range(D)]
+        self.out = [[[self.send[s][d * w : (d + 1) * w] if cross[s][d]
+                      else recv[d][s * w : (s + 1) * w] for d in range(D)] for s in range(D)]
+                    for recv in self.recv]
         self.overflow = [zeros(self.ovf_cap * (self.W + 1), dev) for dev in self.mesh]
         self.tally = [zeros(1 + D, dev, torch.int64) for dev in self.mesh]
         self.slot_bytes = 4 * w * len(self.pairs)  # a chunk's copies
-        self.copies = self.plan = None
+        self.parity = 0  # of the next chunk
+        self.copies = self.plans = None
         if self.cuda:
             cards = cards_of(self.mesh)
             self.scratch = {d: kernels.route_scratch(d, D) for d in cards}
             self._keep: list = []
             if self.pairs:
-                self.copies = copy_plan(self.mesh, self.pairs,
-                                        [(self.recv, self.send, w)], self._keep)
-                self.copies.update(self.copies.pop("hops")[0])
-            self.plan = self._plan()
+                plan = copy_plan(self.mesh, self.pairs, [(r, self.send, w) for r in self.recv],
+                                 self._keep)
+                hops = plan.pop("hops")
+                # a chunk of parity p writes recv[p]: its copies wait for the
+                # event recorded after the K8 whose prologue last read recv[p]
+                # (hops[p]["done"], the previous chunk's), and the K8s here,
+                # which read recv[1 - p], record hops[1 - p]["done"]
+                self.copies = [{**plan, **hops[p], "guard": hops[p]["done"],
+                                "done": hops[1 - p]["done"]} for p in range(2)]
+            self.plans = [self._plan(p) for p in range(2)]
 
-    def _plan(self) -> np.ndarray:
-        """The scan step's plan for ``kernels.scan_step``: each shard's
-        device and buffers (columns from ``kernels.scan_layout``); the
+    def _plan(self, p: int) -> np.ndarray:
+        """The scan step's plan of the chunks of parity ``p`` for
+        ``kernels.scan_step``: each shard's device and buffers (columns from
+        ``kernels.scan_layout``), its blocks for each owner in ``recv[p]``
+        (or to send), the blocks its prologue sets in ``recv[1 - p]``; the
         slice, stream and events go in at each chunk."""
         P = self.P = kernels.scan_layout()[1]
         if self.D > P["max_dests"]:
@@ -1026,9 +1044,9 @@ class ScanRouter:
             row[P["dev"]] = dev.index
             for name, t in (("bf_words", self.bf_words[dev]), ("ovf", self.overflow[s]),
                             ("tally", self.tally[s]), ("scratch", self.scratch[dev]),
-                            ("recv", self.recv[s]), ("ctx_words", self.ctx[s])):
+                            ("set", self.recv[1 - p][s]), ("ctx_words", self.ctx[s])):
                 row[P[name]] = t.data_ptr()
-            row[P["out"] : P["out"] + self.D] = [b.data_ptr() for b in self.out[s]]
+            row[P["out"] : P["out"] + self.D] = [b.data_ptr() for b in self.out[p][s]]
         return plan
 
     def _slice(self, s: int, start: int, n_pos: int) -> tuple[int, int]:
@@ -1039,33 +1057,34 @@ class ScanRouter:
     def step(self, seqs: dict, start: int, n_pos: int, stats: dict,
              events: dict | None = None) -> None:
         """One chunk of the contig ``seqs[device]`` (a copy per device) of
-        ``n_pos`` positions, from ``start``; with ``events``, the K8 and K9
-        launches are timed (lists under "scan_pack" and "scan_set")."""
-        D, cap, ref_k = self.D, self.cap, self.ref_k
+        ``n_pos`` positions, from ``start``; with ``events``, the K8
+        launches are timed (a list under "scan_pack")."""
+        D, cap, ref_k, p = self.D, self.cap, self.ref_k, self.parity
         for s in range(D):
             stats["positions"] += self._slice(s, start, n_pos)[1]
         stats["slot_bytes"] += self.slot_bytes
-        if self.plan is not None:
-            return self._step_cuda(seqs, start, n_pos, events)
+        self.parity ^= 1
+        if self.plans is not None:
+            return self._step_cuda(p, seqs, start, n_pos, events)
         for s, dev in enumerate(self.mesh):
             p0, n = self._slice(s, start, n_pos)
             kernels.scan_pack(seqs[dev][p0 : p0 + n + ref_k - 1] if n else seqs[dev][:0], n,
-                              self.bf_words[dev], self.out[s], self.overflow[s], self.tally[s],
+                              self.bf_words[dev], self.out[p][s], self.overflow[s], self.tally[s],
                               k=self.k, ref_k=ref_k, size_bits=self.size_bits, wps=self.wps,
-                              cap=cap)
-        self._copy()
-        for d in range(D):
-            kernels.scan_set(self.ctx[d], self.recv[d], n_blocks=D, cap=cap, W=self.W)
+                              cap=cap, prior=(self.ctx[s], self.recv[1 - p][s]))
+        self._copy(p)
 
-    def _copy(self) -> None:
-        """Off CUDA, the blocks to their owners on other devices, by tensor
-        copies (on CUDA the step's C call copies)."""
+    def _copy(self, p: int) -> None:
+        """Off CUDA, the blocks of a chunk of parity ``p`` to their owners
+        on other devices, by tensor copies (on CUDA the step's C call
+        copies)."""
         w = self.words
         for s, d in self.pairs:
-            self.recv[d][s * w : (s + 1) * w].copy_(self.send[s][d * w : (d + 1) * w])
+            self.recv[p][d][s * w : (s + 1) * w].copy_(self.send[s][d * w : (d + 1) * w])
 
-    def _step_cuda(self, seqs: dict, start: int, n_pos: int, events: dict | None) -> None:
-        P, plan = self.P, self.plan
+    def _step_cuda(self, p: int, seqs: dict, start: int, n_pos: int,
+                   events: dict | None) -> None:
+        P, plan = self.P, self.plans[p]
         for s, dev in enumerate(self.mesh):
             p0, n = self._slice(s, start, n_pos)
             seq = seqs[dev]
@@ -1076,15 +1095,29 @@ class ScanRouter:
             stream = torch.cuda.current_stream(dev)
             plan[s, P["seq"]], plan[s, P["n_pos"]] = seq.data_ptr() + (p0 if n else 0), n
             plan[s, P["stream"]] = stream.cuda_stream
-            for col, kind in (("ev_pack0", "scan_pack"), ("ev_set0", "scan_set")):
-                ev = step_events(events, kind, dev)
-                if ev is not None:
-                    for e in ev:  # a torch event makes its CUDA event at its first record
-                        e.record(stream)
-                plan[s, P[col] : P[col] + 2] = [e.cuda_event for e in ev] if ev else 0
+            ev = step_events(events, "scan_pack", dev)
+            if ev is not None:
+                for e in ev:  # a torch event makes its CUDA event at its first record
+                    e.record(stream)
+            plan[s, P["ev_pack0"] : P["ev_pack0"] + 2] = [e.cuda_event for e in ev] if ev else 0
         kernels.scan_step(plan, k=self.k, ref_k=self.ref_k, size_bits=self.size_bits,
                           wps=self.wps, W=self.W, cap=self.cap, ovf_cap=self.ovf_cap,
-                          copies=self.copies)
+                          copies=self.copies and self.copies[p])
+
+    def flush(self, events: dict | None = None) -> None:
+        """The last chunk's rows set on their owners: K9 on each owner over
+        the blocks it received in that chunk (on its device's current
+        stream, after the chunk's copies); with ``events``, each launch is
+        timed (a list under "scan_set")."""
+        last = self.recv[1 - self.parity]
+        for d, dev in enumerate(self.mesh):
+            ev = step_events(events, "scan_set", dev)
+            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                if ev is not None:
+                    ev[0].record()
+                kernels.scan_set(self.ctx[d], last[d], n_blocks=self.D, cap=self.cap, W=self.W)
+                if ev is not None:
+                    ev[1].record()
 
     def finish(self, stats: dict) -> bool:
         """Read every card's tally once: add the slot rows each owner got
@@ -1175,6 +1208,7 @@ def build_context_sharded(index, refs_used: list[np.ndarray], cfg: Config, mesh,
                 stats["chunks"] += 1
             stats["host_reads_chunks"] += HOST_READS[0] - reads
             t = mark("chunks", t, sync=False)
+        router.flush(events)
         t = mark("chunks", t)
         if router.finish(stats):
             break

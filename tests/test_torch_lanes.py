@@ -1,6 +1,6 @@
-"""The per-lane math of K1, K2, K4 and K5 (malva_tpu_torch/csrc/lanes.cuh and
-xxh3.cuh) built for the host with g++, against the port's plain versions,
-bit for bit (tolerance zero: integer hashing and keys).
+"""The per-lane math of K1, K2, K4 and K5 (malva_tpu_torch/csrc/lanes.cuh,
+gather.cuh and xxh3.cuh) built for the host with g++, against the port's
+plain versions, bit for bit (tolerance zero: integer hashing and keys).
 
 The plain versions are held against the Pallas kernels in interpret mode
 by tests/test_torch_callstep.py and tests/test_torch_ref_scan.py."""
@@ -34,7 +34,7 @@ ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 HARNESS_CXX = r"""
 #include <string.h>
 #include <vector>
-#include "lanes.cuh"
+#include "gather.cuh"
 using namespace malva;
 
 #define CASES(F) F(1) F(2) F(3) F(4) F(5) F(6) F(7) F(8) F(9) F(10) F(11) F(12) F(13) F(14) F(15)
@@ -171,44 +171,46 @@ extern "C" void shard_lanes(const uint32_t* ctx, const uint32_t* cnt, const uint
   }
 }
 
-// K5 lane by lane: the centre hash; the shard's row where the lane's Bloom
-// word is the shard's (row_test without a mini-filter); the merged "known"
-// flag; the probe of the shard's range of the global bucket table where
-// one of the lane's buckets lies in it; adding into `state` in lane order.
-template <int N>
-static void gather_lanes_n(const uint32_t* ctx, const uint32_t* cnt, const uint8_t* known,
-                           int64_t B, int k, int ref_k, const uint32_t* rows, int64_t word_base,
-                           int64_t n_words, const uint32_t* keys, uint64_t n_buckets,
-                           uint64_t bucket_base, uint64_t n_local, uint32_t* state,
-                           int64_t counts_len, uint64_t size_bits) {
+// K5 lane by lane (gather.cuh): from K1 hash-only's centre planes, what
+// the lane does on the shard (gather_lane); where its Bloom word is the
+// shard's, its counter add (gather_counter with the merged "known" flag);
+// where a bucket is, both buckets loaded and probed (load_bucket,
+// probe_pair); adding into `state` in lane order.
+template <int WK>
+static void gather_lanes_n(const uint32_t* centre, const uint32_t* cnt, const uint8_t* known,
+                           int64_t B, const uint32_t* rows, int64_t word_base, int64_t n_words,
+                           const uint32_t* keys, uint64_t n_buckets, uint64_t bucket_base,
+                           uint64_t n_local, uint32_t* state, int64_t counts_len,
+                           uint64_t size_bits) {
   for (int64_t i = 0; i < B; ++i) {
     if (!cnt[i]) continue;
-    uint32_t w[N], can[N];
-    memcpy(w, ctx + i * N, sizeof w);
-    const uint64_t c = centre_hash(w, k, ref_k, can);
-    const int64_t lw = (int64_t)(bloom_index(c, size_bits) >> 5) - word_base;
-    const bool owned = lw >= 0 && lw < n_words;
-    const bool in_map = bucket_in_range(c, n_buckets, bucket_base, n_local);
-    if (!owned && !in_map) continue;
-    const RowTest t = row_test(owned ? rows[2 * lw] : 0u, owned ? rows[2 * lw + 1] : 0u, c,
-                               size_bits, false, false);
-    if ((t.what & 1u) && !known[i]) state[t.cidx] += cnt[i];
-    if (in_map) {
-      const int64_t slot = probe_buckets(keys, n_buckets, (k + 15) / 16, can, c, bucket_base,
-                                         n_local);
+    const uint64_t c = (uint64_t)centre[i] << 32 | centre[B + i];
+    const GatherLane g =
+        gather_lane(c, size_bits, word_base, n_words, n_buckets, bucket_base, n_local, 0);
+    if (g.owned) {
+      const int64_t at = gather_counter(rows[2 * (int64_t)g.row], rows[2 * (int64_t)g.row + 1],
+                                        g.bit | (uint32_t)(known[i] != 0) << 5);
+      if (at >= 0) state[at] += cnt[i];
+    }
+    if (g.cand) {
+      uint32_t can[WK], w[2][kSlots * WK];
+      for (int j = 0; j < WK; ++j) can[j] = centre[(2 + j) * B + i];
+      load_bucket<WK>(keys, g.lb[0], w[0]);
+      load_bucket<WK>(keys, g.lb[1], w[1]);
+      const int64_t slot = probe_pair<WK>(w, can, g.lb);
       if (slot >= 0) state[counts_len + slot] += cnt[i];
     }
   }
 }
 
-extern "C" void gather_lanes(const uint32_t* ctx, const uint32_t* cnt, const uint8_t* known,
-                             int64_t B, int wc, int k, int ref_k, const uint32_t* rows,
-                             int64_t word_base, int64_t n_words, const uint32_t* keys,
-                             uint64_t n_buckets, uint64_t bucket_base, uint64_t n_local,
-                             uint32_t* state, int64_t counts_len, uint64_t size_bits) {
-  switch (wc) {
-#define F(m) case m: gather_lanes_n<m>(ctx, cnt, known, B, k, ref_k, rows, word_base, n_words, \
-                                       keys, n_buckets, bucket_base, n_local, state, counts_len, \
+extern "C" void gather_lanes(const uint32_t* centre, const uint32_t* cnt, const uint8_t* known,
+                             int64_t B, int w_k, const uint32_t* rows, int64_t word_base,
+                             int64_t n_words, const uint32_t* keys, uint64_t n_buckets,
+                             uint64_t bucket_base, uint64_t n_local, uint32_t* state,
+                             int64_t counts_len, uint64_t size_bits) {
+  switch (w_k) {
+#define F(m) case m: gather_lanes_n<m>(centre, cnt, known, B, rows, word_base, n_words, keys, \
+                                       n_buckets, bucket_base, n_local, state, counts_len, \
                                        size_bits); \
                      break;
     CASES(F)
@@ -247,8 +249,7 @@ def lanes_cxx(tmp_path_factory):
     lib.shard_lanes.argtypes = [p, p, p, i64, i, i, i, p, i64, i64, p, ctypes.c_uint64, p, i64,
                                 ctypes.c_uint64, i]
     u64 = ctypes.c_uint64
-    lib.gather_lanes.argtypes = [p, p, p, i64, i, i, i, p, i64, i64, p, u64, u64, u64, p, i64,
-                                 u64]
+    lib.gather_lanes.argtypes = [p, p, p, i64, i, p, i64, i64, p, u64, u64, u64, p, i64, u64]
     return lib
 
 
@@ -454,11 +455,11 @@ def test_shard_lanes_match_plain(lanes_cxx, shard, minifilter):
 
 @pytest.mark.parametrize("shard", [0, 3])
 def test_gather_lanes_match_plain(lanes_cxx, shard):
-    """K5's per-lane path (lanes.cuh centre_hash, row_test without a
-    mini-filter, bucket_in_range and the register probe over the shard's
-    range of the global bucket table, with merged "known" flags) on one
-    shard of a 4-shard all-gather index, over every lane of the batch,
-    == gather_update_plain."""
+    """K5's per-lane path (gather.cuh: the lane's owned row and buckets in
+    the shard's range from its centre hash, the counter add with the
+    merged "known" flag, both buckets loaded then probed, bucket 1 first)
+    on one shard of a 4-shard all-gather index, over every lane of the
+    batch as K1 hash-only's planes, == gather_update_plain."""
     from malva_tpu_torch.ops.bloom import to_u32
     from malva_tpu_torch.parallel.sharded_index import shard_index
     from malva_tpu_torch.utils.config import Config
@@ -473,17 +474,19 @@ def test_gather_lanes_match_plain(lanes_cxx, shard):
     ctx = pack2bit_u32_np(contexts, 43)
     known = np.random.default_rng(shard).random(ctx.shape[0]) < 0.5
     wps, nbps = gathered.words_per_shard, gathered.buckets_per_shard
-    kw = dict(k=35, ref_k=43, size_bits=cfg.bf_size, n_buckets=gathered.n_buckets,
+    kw = dict(k=35, size_bits=cfg.bf_size, n_buckets=gathered.n_buckets,
               word_base=shard * wps, bucket_base=shard * nbps, counts_len=gathered.cmax)
+    centre = kernels.callstep_hash_words(from_u32(ctx, "cpu"), 35, 43, True)[2:]
     want = sh.state.clone()
-    kernels.gather_update_plain(sh.bf_packed, sh.kmap_keys, want, from_u32(ctx, "cpu"),
+    kernels.gather_update_plain(sh.bf_packed, sh.kmap_keys, want, centre,
                                 from_u32(counters, "cpu"), torch.from_numpy(known), **kw)
     got = to_u32(sh.state)
     rows_u32, keys_u32 = to_u32(sh.bf_packed), to_u32(sh.kmap_keys)
+    planes = np.ascontiguousarray(to_u32(centre))
     known_u8 = known.astype(np.uint8)
-    lanes_cxx.gather_lanes(ctx.ctypes.data, counters.ctypes.data, known_u8.ctypes.data,
-                           ctx.shape[0], ctx.shape[1], 35, 43, rows_u32.ctypes.data, shard * wps,
-                           wps, keys_u32.ctypes.data, gathered.n_buckets, shard * nbps, nbps,
+    lanes_cxx.gather_lanes(planes.ctypes.data, counters.ctypes.data, known_u8.ctypes.data,
+                           ctx.shape[0], 3, rows_u32.ctypes.data, shard * wps, wps,
+                           keys_u32.ctypes.data, gathered.n_buckets, shard * nbps, nbps,
                            got.ctypes.data, gathered.cmax, cfg.bf_size)
     np.testing.assert_array_equal(got, to_u32(want))
     assert got[: gathered.cmax].any() and got[gathered.cmax :].any()

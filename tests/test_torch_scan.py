@@ -47,15 +47,18 @@ def _partition_case(S, case):
     return dests
 
 
+@pytest.mark.parametrize("parity", [0, 1])
 @pytest.mark.parametrize("case", ["spread", "gaps", "one", "drop"])
 @pytest.mark.parametrize("S", [1, 2, 3, 8])
-def test_scan_partition_matches_numpy(S, case):
-    """K8's partition (plain) into a ScanRouter's slot blocks on a CPU mesh
-    of S shards, then the router's copies, against numpy: each owner
-    receives the hits sent to it, source after source, in position order;
-    a position with no hit goes nowhere; an empty source and an owner that
-    receives nothing give empty blocks; the tallies count the rows each
-    owner got; nothing is read to the host."""
+def test_scan_partition_matches_numpy(S, case, parity):
+    """K8's partition (plain) into a ScanRouter's slot blocks of either
+    parity (the receive buffers of the even and of the odd chunks) on a
+    CPU mesh of S shards, then the router's copies of that parity, against
+    numpy: each owner receives the hits sent to it, source after source, in
+    position order; a position with no hit goes nowhere; an empty source and
+    an owner that receives nothing give empty blocks; the other parity's
+    buffers stay empty; the tallies count the rows each owner got; nothing
+    is read to the host."""
     dests = _partition_case(S, case)
     size_bits = 32 * 24 * 1024  # 24 Ki words: shards of 1, 2, 3 and 8 of them
     router = ScanRouter([CPU] * S, [torch.zeros(24 * 1024 // S, dtype=torch.int32)] * S,
@@ -68,14 +71,15 @@ def test_scan_partition_matches_numpy(S, case):
         local = s * 64 + np.arange(dest.shape[0])
         codes = np.where(dest < S, dest * 32 * wps + local, -1)
         locals_.append(local)
-        kernels.scan_partition_plain(torch.from_numpy(codes), router.out[s], router.overflow[s],
-                                     router.tally[s], wps=wps, cap=router.cap)
-    router._copy()
+        kernels.scan_partition_plain(torch.from_numpy(codes), router.out[parity][s],
+                                     router.overflow[s], router.tally[s], wps=wps, cap=router.cap)
+    router._copy(parity)
     assert sharded_index.HOST_READS[0] == reads
     w = kernels.scan_slot_words(router.cap, W)
     for d in range(S):
+        assert not router.recv[1 - parity][d].any()
         got = torch.cat([kernels.slot_rows(b, router.cap, 0, W)
-                         for b in router.recv[d].view(S, w)])
+                         for b in router.recv[parity][d].view(S, w)])
         want = np.concatenate([loc[dst == d] for loc, dst in zip(locals_, dests)])
         np.testing.assert_array_equal(got[:, 0].numpy(), want)
         assert sum(int(t[1 + d]) for t in router.tally) == want.shape[0]
@@ -195,3 +199,117 @@ def test_scan_pack_and_set_plain_on_a_chunk():
         words = torch.zeros(wps, dtype=torch.int32)
         kernels.scan_set(words, b, n_blocks=1, cap=cap, W=1)
         np.testing.assert_array_equal(words.numpy(), want[d * wps : (d + 1) * wps].numpy())
+
+
+# (shards, chunks, case): how many chunks of S x DEFERRED_SLICE positions
+# the contig takes, and its hits: a few planted in every chunk; none in
+# the middle chunk; a run of hits in every chunk, more than the slots
+# hold (DEFERRED_SPILL_CAP rows), so that rows spill to the overflow lists
+DEFERRED = [(2, 1, "hits"), (2, 2, "hits"), (2, 3, "hits"), (4, 3, "hits"),
+            (2, 3, "no hit in the middle"), (2, 2, "spill"), (2, 3, "spill")]
+DEFERRED_SLICE = 96
+DEFERRED_SPILL_CAP = 4
+
+
+def _deferred_setup(S: int, chunks: int, case: str):
+    """(contig, host index, port index, JAX index) for a DEFERRED case, the
+    host scan done on the host index."""
+    cfg = _cfg()
+    rng = np.random.default_rng(100 * S + 10 * chunks + len(case))
+    span = S * DEFERRED_SLICE
+    n_pos = chunks * span - 17  # the last chunk short
+    ref = ACGT[rng.integers(0, 4, size=n_pos + cfg.ref_k - 1)]
+    windows = np.lib.stride_tricks.sliding_window_view(ref, cfg.ref_k)
+    at = []
+    for c in range(chunks):
+        if case == "no hit in the middle" and c == 1:
+            continue
+        first = c * span
+        if case == "spill":  # a run of 3 x cap hits on every slice
+            at += [first + s * DEFERRED_SLICE + j for s in range(S)
+                   for j in range(3 * DEFERRED_SPILL_CAP)]
+        else:
+            at += list(rng.integers(first, min(first + span, n_pos), 3))
+    keys = np.ascontiguousarray(windows[np.array(at), 4:39])
+    host_idx, port_idx, jax_idx = (_index(cfg, seed=S + chunks)[0] for _ in range(3))
+    for ix in (host_idx, port_idx, jax_idx):
+        ix.bf.add_keys(keys)
+    off = cfg.center_off
+    hits = host_idx.bf.test_keys(np.ascontiguousarray(windows[:, off : off + cfg.k]))
+    host_idx.context_bf.add_keys(np.ascontiguousarray(windows[hits]))
+    return ref, n_pos, host_idx, port_idx, jax_idx
+
+
+@pytest.mark.parametrize("S,chunks,case", DEFERRED)
+def test_deferred_set_matches_every_chunk_at_once_and_jax(S, chunks, case):
+    """The sharded scan sets each chunk's rows on their owners only as the
+    next chunk's K8 begins (its prologue, plain here) and the last chunk's
+    with one K9 an owner (``ScanRouter.flush``), the receive buffers
+    alternating by the chunk's parity.  After each chunk the context words
+    equal every earlier chunk's received rows set at once, and after the
+    flush every chunk's (an independent replay of the same plain partition,
+    no deferral); after the overflow lists (``finish``) they equal the host
+    scan's and JAX's ``build_context_sharded`` on the virtual CPU mesh,
+    over 1, 2 and 3 chunks, with a chunk of no hit, and with rows that
+    spill past ``cap``."""
+    from malva_tpu.parallel.mesh import make_mesh as jax_mesh
+    from malva_tpu.parallel.sharded_index import build_context_sharded as jax_scan
+
+    cfg = _cfg()
+    ref, n_pos, host_idx, port_idx, jax_idx = _deferred_setup(S, chunks, case)
+    cap = DEFERRED_SPILL_CAP if case == "spill" else None
+    wps = cfg.bf_size // 32 // S
+    start_words = port_idx.context_bf.words.copy()
+    ctx = [torch.from_numpy(start_words[s * wps : (s + 1) * wps].view(np.int32).copy())
+           for s in range(S)]
+    bf = torch.from_numpy(port_idx.bf.words.view(np.int32).copy())
+    router = ScanRouter([CPU] * S, ctx, {CPU: bf}, cfg.k, cfg.ref_k, cfg.bf_size,
+                        DEFERRED_SLICE, cap=cap)
+    W, cap = router.W, router.cap
+    seq = torch.from_numpy(ref)
+    # the replay: every chunk's blocks, as each owner receives them
+    want = [c.clone() for c in ctx]
+    stats = {"positions": 0, "slot_bytes": 0, "hits": [0] * S, "overflow_rows": 0,
+             "host_reads_end": 0}
+    for c in range(chunks):
+        start = c * S * DEFERRED_SLICE
+        assert router.parity == c % 2
+        router.step({CPU: seq}, start, n_pos, stats)
+        for d in range(S):
+            assert torch.equal(ctx[d], want[d]), f"chunk {c}: owner {d} before its prologue"
+        received = [[] for _ in range(S)]
+        for s in range(S):
+            p0, n = router._slice(s, start, n_pos)
+            blocks = [torch.zeros(kernels.scan_slot_words(cap, W), dtype=torch.int32)
+                      for _ in range(S)]
+            kernels.scan_pack_plain(seq[p0 : p0 + n + cfg.ref_k - 1], n, bf, blocks,
+                                    torch.zeros(max(1, n) * (W + 1), dtype=torch.int32),
+                                    torch.zeros(1 + S, dtype=torch.int64), k=cfg.k,
+                                    ref_k=cfg.ref_k, size_bits=cfg.bf_size, wps=wps, cap=cap)
+            for d in range(S):
+                received[d].append(blocks[d])
+        for d in range(S):  # the live rows (a reused buffer keeps stale rows past them)
+            got = router.recv[c % 2][d].view(S, -1)
+            for b, r in zip(got, received[d]):
+                assert torch.equal(kernels.slot_rows(b, cap, 0, W),
+                                   kernels.slot_rows(r, cap, 0, W)), f"chunk {c}: owner {d}"
+            kernels.scan_set_plain(want[d], torch.cat(received[d]), n_blocks=S, cap=cap, W=W)
+    router.flush()
+    for d in range(S):
+        assert torch.equal(ctx[d], want[d]), f"owner {d} after the flush"
+    assert router.finish(stats)
+    assert (stats["overflow_rows"] > 0) == (case == "spill")
+    port_words = np.concatenate([c.numpy().view(np.uint32) for c in ctx])
+    assert not np.array_equal(port_words, start_words)
+    np.testing.assert_array_equal(port_words, host_idx.context_bf.words)
+    # the same scan through the entry point, and JAX's on its CPU mesh
+    monkey = pytest.MonkeyPatch()
+    if case == "spill":
+        monkey.setattr(sharded_index, "scan_capacity", lambda rows, n_shards: DEFERRED_SPILL_CAP)
+    try:
+        build_context_sharded(port_idx, [ref], cfg, [CPU] * S, slice_chunk=DEFERRED_SLICE)
+    finally:
+        monkey.undo()
+    jax_scan(jax_idx, [ref], cfg, jax_mesh(S), slice_chunk=DEFERRED_SLICE)
+    np.testing.assert_array_equal(port_idx.context_bf.words, host_idx.context_bf.words)
+    np.testing.assert_array_equal(jax_idx.context_bf.words, host_idx.context_bf.words)

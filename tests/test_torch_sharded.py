@@ -425,6 +425,52 @@ def test_gather_step_matches_jax_and_host(n_shards):
         assert port_idx.ref_bf.kmers == other.ref_bf.kmers
 
 
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_gather_update_plain_matches_jax_across_shards(n_shards):
+    """K5's plain version, over the centre planes K1 hash-only leaves on
+    each shard (the port's all-gather step), equals JAX's
+    make_sharded_call_step on its CPU mesh and the host apply at D = 2 and
+    4, on lanes centred on map keys whose Bloom word is one shard's and a
+    bucket another's, and on keys whose two buckets fall on two shards
+    (neither set empty), among random lanes."""
+    from malva_tpu.parallel.mesh import make_mesh as jax_mesh
+    from malva_tpu.parallel.sharded_index import apply_sample_counts_sharded as jax_apply
+    from malva_tpu_torch.index.kmap_table import bucket_pair_np
+    from malva_tpu_torch.ops.xxh3 import xxh3_64
+    from malva_tpu_torch.parallel.sharded_index import shard_index
+
+    cfg = _cfg()
+    host_idx, keys = _index(cfg, seed=31)
+    jax_idx, _ = _index(cfg, seed=31)
+    port_idx, _ = _index(cfg, seed=31)
+    gathered = shard_index(port_idx, cfg, [CPU] * n_shards)
+    wps, nbps = gathered.words_per_shard, gathered.buckets_per_shard
+    ref = canonical(keys[1])
+    h = xxh3_64(ref)
+    owner = ((h % np.uint64(cfg.bf_size)) >> np.uint64(5)).astype(np.int64) // wps
+    b1, b2 = bucket_pair_np((h & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                            (h >> np.uint64(32)).astype(np.uint32), gathered.n_buckets)
+    s1, s2 = b1.astype(np.int64) // nbps, b2.astype(np.int64) // nbps
+    elsewhere, split = (owner != s1) & (owner != s2), s1 != s2
+    assert elsewhere.any() and split.any()
+    rng = np.random.default_rng(n_shards)
+    chosen = ref[elsewhere | split]
+    contexts = ALPHA[rng.integers(0, 4, size=(chosen.shape[0] + 500, 43))]
+    contexts[: chosen.shape[0], 4:39] = chosen
+    contexts = canonical(contexts)
+    counters = rng.integers(1, 255, size=contexts.shape[0]).astype(np.uint32)
+
+    apply_sample_counts(host_idx, contexts, counters, cfg)
+    jax_apply(jax_idx, contexts, counters, cfg, jax_mesh(n_shards), batch=512, routed=False)
+    apply_sample_counts_sharded(port_idx, contexts, counters, cfg, [CPU] * n_shards, batch=512,
+                                routed=False)
+    hit = [bytes(k) for k in chosen]
+    assert sum(1 for k in hit if host_idx.ref_bf.kmers.get(k)) > chosen.shape[0] // 2
+    for other in (jax_idx, host_idx):
+        np.testing.assert_array_equal(port_idx.bf.counts, np.asarray(other.bf.counts))
+        assert port_idx.ref_bf.kmers == other.ref_bf.kmers
+
+
 def _jax_gather_arrays(st, cfg) -> dict:
     arrays = {n: np.asarray(getattr(st, n)) for n in
               ("bf_packed", "bf_counts", "ctx_words", "kmap_keys", "kmap_vals")}
@@ -565,7 +611,8 @@ def test_gather_session_multistep_matches_routed():
 
 def test_gather_update_plain_one_shard_is_callstep():
     """At S = 1 one shard owns every word and every bucket: K5's plain
-    version equals K1's without the mini-filter, counters and map values."""
+    version, over K1 hash-only's centre planes, equals K1's without the
+    mini-filter, counters and map values."""
     from malva_tpu_torch.index.device import DeviceIndex
     from malva_tpu_torch.ops import kernels
     from malva_tpu_torch.ops.bloom import from_u32, lanes
@@ -586,13 +633,13 @@ def test_gather_update_plain_one_shard_is_callstep():
     kernels.callstep_plain(dev.bf_packed, dev.ctx_words, dev.kmap_keys, st_k1, ctx, cnt, k=35,
                            ref_k=43, size_bits=cfg.bf_size, n_buckets=dev.n_buckets,
                            minifilter=False)
-    x_hi, x_lo = kernels.callstep_hash_plain(ctx, 35, 43, with_ctx=True)[:2]
-    cw, cb = xxh3_mod_size(x_hi, x_lo, cfg.bf_size)
+    hx = kernels.callstep_hash_words(ctx, 35, 43, True)
+    cw, cb = xxh3_mod_size(lanes(hx[0]), lanes(hx[1]), cfg.bf_size)
     known = ((lanes(sh.ctx_words[cw]) >> cb) & 1).bool()
     st_k5 = sh.state.clone()
-    kernels.gather_update_plain(sh.bf_packed, sh.kmap_keys, st_k5, ctx, cnt, known, k=35,
-                                ref_k=43, size_bits=cfg.bf_size, n_buckets=one.n_buckets,
-                                word_base=0, bucket_base=0, counts_len=one.cmax)
+    kernels.gather_update_plain(sh.bf_packed, sh.kmap_keys, st_k5, hx[2:], cnt, known, k=35,
+                                size_bits=cfg.bf_size, n_buckets=one.n_buckets, word_base=0,
+                                bucket_base=0, counts_len=one.cmax)
     n = index.bf.counts.shape[0]
     assert one.cmax == n and to_u32(st_k1[:n]).any() and to_u32(st_k1[n:]).any()
     np.testing.assert_array_equal(to_u32(st_k5), to_u32(st_k1))
@@ -612,12 +659,11 @@ def test_gather_update_ignores_lanes_of_other_shards():
     sh = gathered.shards[3]
     before = sh.state.clone()
     # every lane looks like another shard's: no word and no bucket of the range
-    kernels.gather_update(sh.bf_packed, sh.kmap_keys, sh.state,
-                          from_u32(pack2bit_u32_np(contexts, 43), CPU), from_u32(counters, CPU),
-                          torch.zeros(1000, dtype=torch.bool), k=35, ref_k=43,
-                          size_bits=cfg.bf_size, n_buckets=gathered.n_buckets,
-                          word_base=1 << 20, bucket_base=gathered.n_buckets,
-                          counts_len=gathered.cmax)
+    hx = kernels.callstep_hash_words(from_u32(pack2bit_u32_np(contexts, 43), CPU), 35, 43, True)
+    kernels.gather_update(sh.bf_packed, sh.kmap_keys, sh.state, hx[2:], from_u32(counters, CPU),
+                          torch.zeros(1000, dtype=torch.bool), k=35, size_bits=cfg.bf_size,
+                          n_buckets=gathered.n_buckets, word_base=1 << 20,
+                          bucket_base=gathered.n_buckets, counts_len=gathered.cmax)
     assert torch.equal(before, sh.state)
 
 

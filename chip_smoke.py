@@ -126,11 +126,20 @@
 7. ``python -m malva_tpu_torch.tools.scaling_mesh`` at 2^33 bits and a
    2^21 batch, both designs at D = 1, 2, 4 virtual shards (each run must
    leave the same state), and ``python -m malva_tpu_torch.bench`` (wgs,
-   the single-thread C++ baseline), each in its own process.
+   the single-thread C++ baseline), each in its own process.  Then the
+   bounded-memory counting tool (``python -m
+   malva_tpu_torch.tools.demo_spill_wgs``) on ~0.3 Gbase of reads
+   (``tools/make_reads.py --genome-mbp 10 --coverage 30 --error 0.01
+   --seed 0``) with ``--device host`` and ``--device cuda``, each in its
+   own process: the same checksum, kept k-mers and windows, the cuda
+   route's split naming K3 and the sort, K3 launched once a piece.  Then
+   ``python -m malva_tpu_torch.tools.gather_vs_size``: 2^21 random rows
+   from tables of 1 MiB to 2 GiB, as 8-byte rows and 4-byte words.
 
 Any failure raises and the exit code is not 0.  The last lines are the
-phase walls, the bench's JSON line, the card's name and power limit, one
-JSON object of kernel results and the ``{"ok": true, ...}`` line.
+phase walls (with the spill demo's and the gather curve's results), the
+bench's JSON line, the card's name and power limit, one JSON object of
+kernel results and the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -164,6 +173,8 @@ SHARDS = 4                   # virtual shards of the one card
 ROUTED = 1 << 21             # K4: lanes routed to one shard
 MIN_RECORDS = 50000          # VCF records the chr-scale run must give
 SYNTH = ["--mbp", "10", "--variants", "100000", "--samples", "50", "--seed", "7"]
+# the spill demo's reads: 3M reads of 100 bases, 39 pieces of 2^23 positions
+DEMO_READS = ["--genome-mbp", "10", "--coverage", "30", "--error", "0.01", "--seed", "0"]
 K3_REF_KS = (15, 31, 32, 33, 43, 63, 64, 65, 96)  # K3's short ragged chunks
 K3_TILE = 8192               # csrc/seq_count.cu kTile
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
@@ -2477,23 +2488,69 @@ def main_path_phase(cards: int, visible: str | None, parent: str | None = None) 
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def module_json(argv: list[str], env: dict, timeout: int) -> dict:
+def module_lines(argv: list[str], env: dict, timeout: int) -> list[dict]:
     """Run ``python -m <module> ...`` from the checkout, its stderr passed
-    on; the JSON object of its last stdout line."""
+    on; the JSON objects of its stdout lines that hold one."""
     p = subprocess.run([sys.executable, "-m", *argv], cwd=REPO, env=dict(os.environ, **env),
                        stdout=subprocess.PIPE, text=True, timeout=timeout)
     if p.returncode != 0:
         raise RuntimeError(f"python -m {argv[0]} exited {p.returncode}")
-    return json.loads(p.stdout.strip().splitlines()[-1])
+    return [json.loads(ln) for ln in p.stdout.splitlines() if ln.startswith("{")]
+
+
+def module_json(argv: list[str], env: dict, timeout: int) -> dict:
+    """The JSON object of the module's last stdout line that holds one."""
+    return module_lines(argv, env, timeout)[-1]
+
+
+def spill_demo(legs: dict) -> dict:
+    """The bounded-memory counting tool on ~0.3 Gbase of reads
+    (``tools/make_reads.py`` DEMO_READS), ``--device host`` then ``--device
+    cuda``, each in its own process: the same checksum, kept distinct
+    k-mers, kept total and windows, the cuda route's split naming K3 and
+    the sort, and K3 launched once a piece.  Their peak RSS starts from
+    this process's (``ru_maxrss`` carries over the fork)."""
+    tmp = tempfile.mkdtemp(prefix="malva_demo_")
+    try:
+        reads = os.path.join(tmp, "reads.fq")
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, os.path.join(REPO, "tools", "make_reads.py"), reads,
+                        *DEMO_READS], check=True)
+        legs["spill demo reads"] = time.perf_counter() - t0
+        runs = {}
+        for device in ("host", "cuda"):
+            t0 = time.perf_counter()
+            runs[device] = module_json(["malva_tpu_torch.tools.demo_spill_wgs", reads, "--device",
+                                        device, "--spill", os.path.join(tmp, f"spill_{device}")],
+                                       {}, timeout=600)
+            legs[f"spill demo {device}"] = time.perf_counter() - t0
+            log(f"spill demo --device {device}: {json.dumps(runs[device])}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    host, cuda = runs["host"], runs["cuda"]
+    differ = [k for k in ("checksum", "kept_distinct", "kept_total", "windows")
+              if host[k] != cuda[k]]
+    if differ:
+        raise AssertionError(f"spill demo: the cuda and host routes differ in {differ}")
+    missing = {"k3_seq_pack_s", "sort_count_s"} - cuda["split_s"].keys()
+    if missing:
+        raise AssertionError(f"spill demo: the cuda route's split lacks {missing}")
+    if not 0 < cuda["pieces"] == cuda["seq_pack_launches"]:
+        raise AssertionError(f"spill demo: K3 launched {cuda['seq_pack_launches']} times for "
+                             f"{cuda['pieces']} pieces")
+    return runs
 
 
 def tools_phase() -> dict:
-    """The port's two measurement tools on the card: the shard-scaling
-    tool (both designs at D = 1, 2, 4 virtual shards, 2^33 bits, a 2^21
-    batch; it exits non-zero unless every run leaves the same state) and
-    the headline bench
-    (wgs mode: 2^33 bits, a 10M-key map, with the single-thread C++
-    baseline).  Each runs in its own process."""
+    """The port's measurement tools on the card, each in its own process:
+    the shard-scaling tool (both designs at D = 1, 2, 4 virtual shards,
+    2^33 bits, a 2^21 batch; it exits non-zero unless every run leaves the
+    same state), the headline bench (wgs mode: 2^33 bits, a 10M-key map,
+    with the single-thread C++ baseline), the bounded-memory counting tool
+    on both routes (``spill_demo``) and the gather curve (8-byte rows and
+    4-byte words at every size of ``gather_vs_size.LOG2_ROWS``)."""
+    from malva_tpu_torch.tools.gather_vs_size import LOG2_ROWS, ROUTES
+
     t0 = time.perf_counter()
     scaling = module_json(["malva_tpu_torch.tools.scaling_mesh", "--log2-bits", "33", "--batch",
                            str(LANES), "--shards", f"1,2,{SHARDS}"], {}, timeout=400)
@@ -2510,8 +2567,18 @@ def tools_phase() -> dict:
     if missing or not bench["value"] > 0 or not bench["baseline_single_thread"] > 0:
         raise AssertionError(f"bench: keys missing {missing} or no rate: {bench}")
     log(f"bench ({bench_s:.6g} s): {json.dumps(bench)}")
-    return {"scaling": scaling, "bench": bench, "legs_s": {"scaling tool": scaling_s,
-                                                           "bench": bench_s}}
+    legs = {"scaling tool": scaling_s, "bench": bench_s}
+    demo = spill_demo(legs)
+    t0 = time.perf_counter()
+    curve = module_lines(["malva_tpu_torch.tools.gather_vs_size"], {}, timeout=300)
+    legs["gather curve"] = time.perf_counter() - t0
+    if len(curve) != len(LOG2_ROWS) * len(ROUTES) or not all(r["ms_per_batch"] > 0
+                                                             for r in curve):
+        raise AssertionError(f"gather curve: {len(curve)} points, not "
+                             f"{len(LOG2_ROWS) * len(ROUTES)}, or a time not positive")
+    log(f"gather curve: {json.dumps(curve)}")
+    return {"scaling": scaling, "bench": bench, "spill_demo": demo, "gather_curve": curve,
+            "legs_s": legs}
 
 
 def ptxas_check(log_text: str) -> dict:
@@ -2642,6 +2709,8 @@ def main() -> int:
                       "sharded_call_step": main and main["sharded_call_step"],
                       "sharded_gather": main and main["sharded_gather"],
                       "scaling": tools and tools["scaling"],
+                      "spill_demo": tools and tools["spill_demo"],
+                      "gather_curve": tools and tools["gather_curve"],
                       "real_cards": main and main["real_cards"],
                       "distributed": main and main["distributed"],
                       "parent_runs": main and main["parent_runs"]}), flush=True)

@@ -228,16 +228,17 @@ def _host_chunk_runs(batches, ref_k: int, chunk_kmers: int, flush_each_batch: bo
 
 
 def iter_device_runs(batches, ref_k: int, chunk_kmers: int, device,
-                     flush_each_batch: bool = False):
+                     flush_each_batch: bool = False, stats=None):
     """Sorted distinct (keys_u64, counts) runs of the read batches, one
     per device piece of ``chunk_kmers`` windows.  A piece is cut short
     only at the end, or at a batch end with ``flush_each_batch``; else
     the windows past the last full piece carry over into the next block.
     After each batch it yields ``None``, everything before it flushed
-    when ``flush_each_batch`` is set, so a caller can commit there."""
+    when ``flush_each_batch`` is set, so a caller can commit there.  Each
+    piece's parts go to ``stats`` (``device_count.CountStats``) if given."""
     from .device_count import device_seq_sorted_counts, make_seq_sort_count_step
 
-    step = make_seq_sort_count_step(ref_k, chunk_kmers, device)
+    step = make_seq_sort_count_step(ref_k, chunk_kmers, device, stats)
     pending: list[bytes] = []
     pending_n = 0  # bytes, separators included
 

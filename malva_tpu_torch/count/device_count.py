@@ -11,10 +11,17 @@ cross back.  The TPU version ships the whole sorted chunk and its
 boundary mask to the host and compacts there; since the invalid rows are
 dropped here before the sort, its validity sort key and all-ones sentinel
 are not needed.
+
+``CountStats`` is an optional sink that says where a count's time goes
+(``tools/demo_spill_wgs.py``): each piece's upload, K3, sort-count and
+read-back, and the host parts of ``count/spill.py``.  Without one nothing
+is recorded and nothing waits.
 """
 
 from __future__ import annotations
 
+import time
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
@@ -47,13 +54,77 @@ def sort_count_rows(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return s[starts] ^ SIGN, ends - starts
 
 
+class CountStats:
+    """Seconds by part of a count, and its pieces.
+
+    Host parts add host-clock intervals (``timed``, ``timed_iter``).  A
+    device piece is cut by marks, each closing the part named by it: CUDA
+    events on a card, the host clock elsewhere.  ``end_piece`` waits for
+    the last event, which the piece's read-back has already waited for,
+    and adds the intervals between marks to their parts, and the piece's
+    host wall to ``pieces``.  The spill counter sets ``windows``,
+    ``segments`` and ``spill_bytes`` once it has counted."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+        self.pieces = 0
+        self.windows = self.segments = self.spill_bytes = 0
+        self._marks: list = []
+        self._piece_t0 = 0.0
+        self._device = torch.device("cpu")
+
+    def add(self, part: str, seconds: float) -> None:
+        self.seconds[part] = self.seconds.get(part, 0.0) + seconds
+
+    @contextmanager
+    def timed(self, part: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.add(part, time.perf_counter() - t0)
+
+    def timed_iter(self, part: str, items):
+        """``items``, with the time spent getting each added to ``part``."""
+        t0 = time.perf_counter()
+        for item in items:
+            self.add(part, time.perf_counter() - t0)
+            yield item
+            t0 = time.perf_counter()
+        self.add(part, time.perf_counter() - t0)
+
+    def begin_piece(self, device: torch.device) -> None:
+        self._piece_t0 = time.perf_counter()
+        self._marks, self._device = [], device
+        self.mark(None)
+
+    def mark(self, part: str | None) -> None:
+        if self._device.type == "cuda":
+            at = torch.cuda.Event(enable_timing=True)
+            at.record(torch.cuda.current_stream(self._device))
+        else:
+            at = time.perf_counter()
+        self._marks.append((part, at))
+
+    def end_piece(self) -> None:
+        last = self._marks[-1][1]
+        if isinstance(last, torch.cuda.Event):
+            last.synchronize()
+        for (_, a), (part, b) in zip(self._marks, self._marks[1:]):
+            self.add(part, a.elapsed_time(b) / 1e3 if isinstance(a, torch.cuda.Event) else b - a)
+        self.add("pieces", time.perf_counter() - self._piece_t0)
+        self.pieces += 1
+
+
 @dataclass(frozen=True)
 class SeqSortCountStep:
-    """The sort-count step for raw chunks of up to ``chunk`` windows."""
+    """The sort-count step for raw chunks of up to ``chunk`` windows;
+    with ``stats``, K3 and the sort-count are marked in it."""
 
     ref_k: int
     chunk: int
     device: torch.device
+    stats: CountStats | None = None
 
     def __call__(self, seq: torch.Tensor, n_pos: int) -> tuple[torch.Tensor, torch.Tensor]:
         """Distinct canonical keys of the valid windows among the first
@@ -61,11 +132,19 @@ class SeqSortCountStep:
         if n_pos > self.chunk:
             raise ValueError(f"{n_pos} windows exceed the step's chunk of {self.chunk}")
         keys, valid = kernels.seq_pack(seq, n_pos, self.ref_k)
-        return sort_count_rows(keys[valid])
+        self._mark("seq_pack")
+        out = sort_count_rows(keys[valid])
+        self._mark("sort_count")
+        return out
+
+    def _mark(self, part: str) -> None:
+        if self.stats is not None:
+            self.stats.mark(part)
 
 
-def make_seq_sort_count_step(ref_k: int, chunk: int, device) -> SeqSortCountStep:
-    return SeqSortCountStep(ref_k, chunk, torch.device(device))
+def make_seq_sort_count_step(ref_k: int, chunk: int, device,
+                             stats: CountStats | None = None) -> SeqSortCountStep:
+    return SeqSortCountStep(ref_k, chunk, torch.device(device), stats)
 
 
 def device_seq_sorted_counts(step: SeqSortCountStep,
@@ -80,6 +159,13 @@ def device_seq_sorted_counts(step: SeqSortCountStep,
     seq = np.ascontiguousarray(seq, dtype=np.uint8)
     if not seq.flags.writeable:  # torch.from_numpy takes writable arrays only
         seq = seq.copy()
+    if step.stats is not None:
+        step.stats.begin_piece(step.device)
     seq_t = torch.from_numpy(seq).to(step.device)
+    step._mark("upload")
     keys, counts = step(seq_t, n_pos)
-    return keys.cpu().numpy().view(np.uint64), counts.cpu().numpy()
+    out = keys.cpu().numpy().view(np.uint64), counts.cpu().numpy()
+    if step.stats is not None:
+        step.stats.mark("read_back")
+        step.stats.end_piece()
+    return out

@@ -40,6 +40,7 @@ from __future__ import annotations
 import json
 import os
 import sys
+from contextlib import nullcontext
 
 import numpy as np
 
@@ -213,7 +214,7 @@ class SpillStore:
 def count_reads_kmers_spill(reads_path: str, ref_k: int, spill_dir: str, ci: int = 2,
                             cs: int = 255, chunk_kmers: int = 1 << 23, n_buckets: int = 1024,
                             log=None, device=None, resume: bool = True,
-                            keep_spill: bool = False, produce_only: bool = False):
+                            keep_spill: bool = False, produce_only: bool = False, stats=None):
     """Bounded-memory version of counter.count_reads_kmers: an iterator of
     (keys_u64, counts_u32) batches, one per spill bucket, whose union is
     the in-RAM counter's result (order differs — bucket-major — which no
@@ -224,7 +225,11 @@ def count_reads_kmers_spill(reads_path: str, ref_k: int, spill_dir: str, ci: int
     done and returns None without merging: the producer half of the
     overlapped ``run`` (the consumer later resumes with the same spill_dir
     and skips straight to the merge).  Progress goes to ``log`` (stderr as
-    it is at the call)."""
+    it is at the call).  ``stats`` (``device_count.CountStats``), if given,
+    takes the time spent reading the reads (``read``), producing runs from
+    them (``produce``, the read and the pieces included), writing segments
+    (``spill_write``) and merging (``merge``), the device pieces' parts,
+    and the count's windows, segments and spill bytes."""
     log = sys.stderr if log is None else log
     store = SpillStore(spill_dir, n_buckets)
     manifest_path = os.path.join(spill_dir, "manifest.json")
@@ -256,9 +261,14 @@ def count_reads_kmers_spill(reads_path: str, ref_k: int, spill_dir: str, ci: int
 
     if not produced:
         batches = (b for i, b in enumerate(iter_read_batches(reads_path)) if i >= start_batch)
+        if stats is not None:
+            batches = stats.timed_iter("read", batches)
         runs = (_host_chunk_runs(batches, ref_k, chunk_kmers, flush_each_batch=True)
                 if device is None else
-                iter_device_runs(batches, ref_k, chunk_kmers, device, flush_each_batch=True))
+                iter_device_runs(batches, ref_k, chunk_kmers, device, flush_each_batch=True,
+                                 stats=stats))
+        if stats is not None:
+            runs = stats.timed_iter("produce", runs)
         batch_i = start_batch
         for run in runs:
             if run is None:  # batch boundary: everything flushed is committed
@@ -266,8 +276,13 @@ def count_reads_kmers_spill(reads_path: str, ref_k: int, spill_dir: str, ci: int
                 commit_manifest(batch_i)
             elif run[0].shape[0]:
                 total_windows += int(run[1].sum())
-                store.add_segment(*run)
+                with stats.timed("spill_write") if stats is not None else nullcontext():
+                    store.add_segment(*run)
         commit_manifest(batch_i, done=True)
+    if stats is not None:
+        stats.windows, stats.segments = total_windows, store.n_seg
+        stats.spill_bytes = sum(os.path.getsize(p) for i in range(store.n_seg)
+                                for p in store._seg_paths(i))
     where = "" if device is None else f" (sort-count on {device})"
     print(f"{TAG} {total_windows} k-mer occurrences in {store.n_seg} segments; merging "
           f"{n_buckets} buckets{where}", file=log)
@@ -276,7 +291,8 @@ def count_reads_kmers_spill(reads_path: str, ref_k: int, spill_dir: str, ci: int
 
     def merged():
         n_out = 0
-        for keys, cnts in store.iter_merged(ci, cs):
+        buckets = store.iter_merged(ci, cs)
+        for keys, cnts in buckets if stats is None else stats.timed_iter("merge", buckets):
             n_out += keys.shape[0]
             yield keys, cnts
         print(f"{TAG} {n_out} distinct k-mers past ci={ci}", file=log)

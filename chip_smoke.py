@@ -82,7 +82,11 @@
    with no host counting producer), and its logged call-step time must be
    under 10 ms; its index upload is logged in four parts (bucket table,
    mini-filter, copies, packing on the card), with the variant pass and
-   pass 2 beside the native library's thread count.  Then the cuda run
+   pass 2 beside the native library's thread count.  The host run must
+   count in its spill producer child; that child (``python -m
+   malva_tpu_torch.count.spill``, which refuses torch) then runs once
+   more on the same reads from a shell, and its last stderr line gives
+   its own peak memory and start-up.  Then the cuda run
    once more on a third copy with
    ``--spill-dir``: the device spill counter, the same kernels, and the
    host run's VCF.
@@ -132,7 +136,15 @@
    (``tools/make_reads.py --genome-mbp 10 --coverage 30 --error 0.01
    --seed 0``) with ``--device host`` and ``--device cuda``, each in its
    own process: the same checksum, kept k-mers and windows, the cuda
-   route's split naming K3 and the sort, K3 launched once a piece.  Then
+   route's split naming K3 and the sort, K3 launched once a piece, the
+   host route's peak memory at its set-up under 0.3 GB (it loads no
+   torch), and the cuda route's set-up split (torch's import, the
+   context, the kernels, the host library) beside the bare floor: the
+   peak of ``import torch`` and of ``import torch; torch.zeros(1,
+   device="cuda")``, each in a process of its own.  Every tool starts
+   from a shell, so that its peak memory is its own (VmHWM where the
+   kernel gives it, else ``ru_maxrss``, which a child of this process
+   would inherit).  Then
    ``python -m malva_tpu_torch.tools.gather_vs_size``: 2^21 random rows
    from tables of 1 MiB to 2 GiB, as 8-byte rows and 4-byte words.
 
@@ -173,6 +185,7 @@ SHARDS = 4                   # virtual shards of the one card
 ROUTED = 1 << 21             # K4: lanes routed to one shard
 MIN_RECORDS = 50000          # VCF records the chr-scale run must give
 SYNTH = ["--mbp", "10", "--variants", "100000", "--samples", "50", "--seed", "7"]
+HOST_SETUP_GB = 0.3          # the spill demo's host route's set-up peak RSS, below
 # the spill demo's reads: 3M reads of 100 bases, 39 pieces of 2^23 positions
 DEMO_READS = ["--genome-mbp", "10", "--coverage", "30", "--error", "0.01", "--seed", "0"]
 K3_REF_KS = (15, 31, 32, 33, 43, 63, 64, 65, 96)  # K3's short ragged chunks
@@ -266,7 +279,7 @@ def rolling_ops(n: int) -> int:
 def bloom_hits(hi, lo, words) -> int:
     """Lanes whose hash (hi, lo, int64 halves) has its bit set in the
     Bloom words (int32)."""
-    from malva_tpu_torch.ops.xxh3 import xxh3_mod_size
+    from malva_tpu_torch.ops.xxh3_torch import xxh3_mod_size
 
     word, bit = xxh3_mod_size(hi, lo, SIZE_BITS)
     return int(((words[word].long() >> bit) & 1).sum())
@@ -342,7 +355,7 @@ def kernel_phase(device, parent=None) -> list[dict]:
     import torch
 
     from malva_tpu_torch.ops import kernels
-    from malva_tpu_torch.ops.xxh3 import xxh3_mod_size
+    from malva_tpu_torch.ops.xxh3_torch import xxh3_mod_size
 
     results = []
     peak = issue_peak()
@@ -440,7 +453,7 @@ def ref_scan_check(seq, bf_words, peak: float) -> dict:
 
     from malva_tpu_torch.ops import kernels
     from malva_tpu_torch.ops.packed import popcount32
-    from malva_tpu_torch.ops.xxh3 import xxh3_mod_size
+    from malva_tpu_torch.ops.xxh3_torch import xxh3_mod_size
 
     c_hi, c_lo, *rest = kernels.window_hash(seq, CHUNK, K, REF_K)
     max_abs_err([c_hi, c_lo, *rest], kernels.window_hash_plain(seq, CHUNK, K, REF_K))
@@ -526,7 +539,7 @@ def shard_update_check(ix: dict, device, peak: float, parent=None) -> dict:
     import torch
 
     from malva_tpu_torch.ops import kernels
-    from malva_tpu_torch.ops.xxh3 import xxh3_mod_size
+    from malva_tpu_torch.ops.xxh3_torch import xxh3_mod_size
 
     wps = SIZE_BITS // 32 // SHARDS
     rows, rows_off, kmap_keys, table, n_counts, mine = shard0(ix, device)
@@ -615,7 +628,7 @@ def gather_update_check(ix: dict, device, peak: float, parent=None) -> dict:
     from malva_tpu_torch.index.device import pack_bloom_rows
     from malva_tpu_torch.ops import _build, kernels
     from malva_tpu_torch.ops.bloom import lanes
-    from malva_tpu_torch.ops.xxh3 import xxh3_mod_size
+    from malva_tpu_torch.ops.xxh3_torch import xxh3_mod_size
 
     wps, nbps = SIZE_BITS // 32 // SHARDS, ix["n_buckets"] // SHARDS
     w_k = (K + 15) // 16
@@ -780,7 +793,7 @@ def route_owners(gen, n: int, D: int, case: str, device):
 
 def route_hash(gen, word, size_bits: int):
     """(hi, lo) int64 XXH3 halves whose Bloom index has word ``word`` and
-    a random bit, under either of the index's size rules (ops/xxh3.py
+    a random bit, under either of the index's size rules (ops/xxh3_torch.py
     xxh3_mod_size)."""
     import torch
 
@@ -916,7 +929,7 @@ def bucket_reads(ctx, bf_rows, kmap_keys, n_buckets: int, n_local: int | None = 
     from malva_tpu_torch.index.kmap_table import bucket_pair, probe_bucket_table
     from malva_tpu_torch.ops.bloom import lanes
     from malva_tpu_torch.ops.packed import canonical_center, decode_byte_cols
-    from malva_tpu_torch.ops.xxh3 import xxh3_64_cols, xxh3_mod_size
+    from malva_tpu_torch.ops.xxh3_torch import xxh3_64_cols, xxh3_mod_size
 
     can = canonical_center([lanes(ctx[:, j]) for j in range(ctx.shape[1])], K, REF_K)
     c_hi, c_lo = xxh3_64_cols(decode_byte_cols(can, K))
@@ -991,7 +1004,7 @@ def route_check(ix: dict, device, peak: float, parent=None) -> list[dict]:
 
     from malva_tpu_torch.ops import kernels
     from malva_tpu_torch.ops.kernels import HOP1_COLS, HOP2_COLS, SLOT_HEAD, slot_words
-    from malva_tpu_torch.ops.xxh3 import xxh3_mod_size
+    from malva_tpu_torch.ops.xxh3_torch import xxh3_mod_size
     from malva_tpu_torch.parallel.sharded_index import capacity
 
     D, wc = SHARDS, (REF_K + 15) // 16
@@ -1288,7 +1301,7 @@ def scan_case(D: int, case: str, n: int, gen, device) -> tuple[int, int]:
 
     from malva_tpu_torch.ops import kernels
     from malva_tpu_torch.ops.bloom import bloom_set
-    from malva_tpu_torch.ops.xxh3 import xxh3_mod_size
+    from malva_tpu_torch.ops.xxh3_torch import xxh3_mod_size
 
     size_bits = 3 * SIZE_BITS if D == 3 else SIZE_BITS
     wps = size_bits // 32 // D
@@ -1778,7 +1791,11 @@ def event_timing_probe(ix: dict, device) -> dict:
     """K1 steps of 2^20 lanes timed by the CUDA events that K1's launcher
     records, with no other Python thread and with two threads spinning on
     the GIL: the busy mean must stay within 2x the quiet mean, since the
-    events sit around the launch inside one C call."""
+    events sit around the launch inside one C call, after a hold that keeps
+    the card from taking the start event before the kernel is queued
+    (csrc/launch.cuh).  Also the host's wall time of a step that is
+    synchronised at once, timed and untimed: what the hold and the events
+    cost a caller that waits for every step."""
     import threading
 
     import torch
@@ -1819,13 +1836,25 @@ def event_timing_probe(ix: dict, device) -> dict:
         for t in spinners:
             t.join()
     q, b = sum(quiet) / len(quiet), sum(busy) / len(busy)
+
+    def wall_ms(n: int, timed: bool) -> float:
+        t = time.perf_counter()
+        for _ in range(n):
+            kernels.callstep(ix["bf_packed"], ix["ctx_words"], ix["kmap_keys"], state, ctx,
+                             counters, events=timing_events(device) if timed else None, **args)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t) / n * 1e3
+
+    wall_ms(20, True)
+    wall = {"timed": wall_ms(200, True), "untimed": wall_ms(200, False)}
     log(f"K1 launcher events, 2^20 lanes: quiet mean {q:.6g} ms ({min(quiet):.6g}-"
         f"{max(quiet):.6g}), two spinning threads mean {b:.6g} ms ({min(busy):.6g}-"
-        f"{max(busy):.6g})")
+        f"{max(busy):.6g}); host wall of a synchronised step, timed {wall['timed']:.6g} ms, "
+        f"untimed {wall['untimed']:.6g} ms")
     if b > 2 * q:
         raise AssertionError(f"event-timed K1 under two busy threads {b} ms > 2x quiet {q} ms")
     return {"quiet_mean_ms": q, "busy_mean_ms": b, "quiet_max_ms": max(quiet),
-            "busy_max_ms": max(busy)}
+            "busy_max_ms": max(busy), "synced_step_wall_ms": wall}
 
 
 def read_chunk():
@@ -2053,6 +2082,24 @@ def batch_leg(backend: str, src: str, reads3: str, work: str,
     if sorted(vcfs) != ["synth.malva.vcf", "synth3x.malva.vcf"]:
         raise AssertionError(f"batch --backend {backend} wrote {sorted(vcfs)}")
     return vcfs, err, wall
+
+
+def producer_leg(reads: str, spill_dir: str) -> str:
+    """The host ``run``'s spill producer child on its reads, as ``run``
+    starts it (``python -m malva_tpu_torch.count.spill <reads> 43 <dir>``)
+    but from a shell, so that its peak memory is its own: its last stderr
+    line (peak RSS, start-up, count)."""
+    t0 = time.perf_counter()
+    p = from_shell([sys.executable, "-m", "malva_tpu_torch.count.spill", reads, str(REF_K),
+                    spill_dir], 300, cwd=REPO, stderr=subprocess.PIPE, text=True)
+    wall = time.perf_counter() - t0
+    shutil.rmtree(spill_dir, ignore_errors=True)
+    line = re.search(r"\[malva-tpu-torch/spill\] producer: (.*)", p.stderr or "")
+    if p.returncode != 0 or line is None:
+        raise AssertionError(f"the spill producer exited {p.returncode}: {p.stderr[-2000:]}")
+    log(f"spill producer child (no torch) on the chr reads: {line.group(1)}; {wall:.6g} s "
+        f"from the shell's start")
+    return line.group(1)
 
 
 def phase_walls(stderr: str) -> dict:
@@ -2400,6 +2447,9 @@ def main_path_phase(cards: int, visible: str | None, parent: str | None = None) 
         check_launches("cuda run", launches)
         if "counting overlapped" in err_cuda or "sort-count on cuda" not in err_cuda:
             raise AssertionError("the cuda run did not count the reads on the card")
+        if "counting overlapped" not in err_host:
+            raise AssertionError("the host run did not count in its spill producer child")
+        producer = producer_leg(os.path.join(src, "synth.fq"), os.path.join(tmp, "producer"))
 
         # the cuda run again, counting through a spill directory: the device
         # spill counter (one segment per piece, a manifest per read batch)
@@ -2479,7 +2529,7 @@ def main_path_phase(cards: int, visible: str | None, parent: str | None = None) 
                 "sharded_batch_launches": sharded["batch_launches"],
                 "gather_launches": sharded["gather_launches"], "records": n_rec,
                 "distinct_kmers": rows, "call_step_event_ms": ms, "walls": walls,
-                "upload": {"run cuda": upload, "alone": upload_alone},
+                "producer": producer, "upload": {"run cuda": upload, "alone": upload_alone},
                 "host_phases": {"threads": native.threads(), **threads},
                 "batch_trace": trace, "sharded_call_step": sharded["call_step"],
                 "sharded_gather": sharded["gather"],
@@ -2488,11 +2538,32 @@ def main_path_phase(cards: int, visible: str | None, parent: str | None = None) 
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# a command's argv, started by a shell that forks it: where the kernel
+# gives no VmHWM (gVisor, as on the card's machine) the tools read
+# ru_maxrss, which a child that this process vforks and execs would
+# inherit from it (this script's own peak, ~12 GB), and a shell's fork does not
+SHELL = ["sh", "-c", '"$@"; exit $?', "sh"]
+
+
+def from_shell(argv: list[str], timeout: int, **kw) -> subprocess.CompletedProcess:
+    """``subprocess.run`` of ``argv`` under ``SHELL``, in a session of its
+    own that is killed whole if the time runs out."""
+    p = subprocess.Popen(SHELL + argv, start_new_session=True, **kw)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, 9)
+        p.wait()
+        raise
+    return subprocess.CompletedProcess(p.args, p.returncode, out, err)
+
+
 def module_lines(argv: list[str], env: dict, timeout: int) -> list[dict]:
-    """Run ``python -m <module> ...`` from the checkout, its stderr passed
-    on; the JSON objects of its stdout lines that hold one."""
-    p = subprocess.run([sys.executable, "-m", *argv], cwd=REPO, env=dict(os.environ, **env),
-                       stdout=subprocess.PIPE, text=True, timeout=timeout)
+    """Run ``python -m <module> ...`` from the checkout, started by a
+    shell, its stderr passed on; the JSON objects of its stdout lines that
+    hold one."""
+    p = from_shell([sys.executable, "-m", *argv], timeout, cwd=REPO,
+                   env=dict(os.environ, **env), stdout=subprocess.PIPE, text=True)
     if p.returncode != 0:
         raise RuntimeError(f"python -m {argv[0]} exited {p.returncode}")
     return [json.loads(ln) for ln in p.stdout.splitlines() if ln.startswith("{")]
@@ -2503,13 +2574,39 @@ def module_json(argv: list[str], env: dict, timeout: int) -> dict:
     return module_lines(argv, env, timeout)[-1]
 
 
+# the peak memory of a bare process: torch's import, then the card's context too
+FLOOR = {"import_torch": "import torch",
+         "context": "import torch; torch.zeros(1, device='cuda')"}
+PEAK = ("from malva_tpu_torch.utils.timing import peak_rss_from, peak_rss_gb; "
+        "print(peak_rss_gb(), peak_rss_from())")
+
+
+def bare_floor() -> dict:
+    """For each of ``FLOOR``, a ``python -c`` process of its own, started
+    by a shell: its peak RSS in GB (``utils/timing.py peak_rss_gb``, read
+    after the code; the module is numpy-free and small), where it was read
+    from, and its wall in s (the interpreter's start included)."""
+    out = {}
+    for name, code in FLOOR.items():
+        t0 = time.perf_counter()
+        p = from_shell([sys.executable, "-c", f"{code}\n{PEAK}"], 120, cwd=REPO,
+                       stdout=subprocess.PIPE, text=True)
+        if p.returncode != 0:
+            raise RuntimeError(f"the bare floor's {name} exited {p.returncode}")
+        gb, src = p.stdout.split()[-2:]
+        out[name] = {"peak_rss_gb": float(gb), "from": src, "wall_s": time.perf_counter() - t0}
+    return out
+
+
 def spill_demo(legs: dict) -> dict:
     """The bounded-memory counting tool on ~0.3 Gbase of reads
     (``tools/make_reads.py`` DEMO_READS), ``--device host`` then ``--device
     cuda``, each in its own process: the same checksum, kept distinct
     k-mers, kept total and windows, the cuda route's split naming K3 and
-    the sort, and K3 launched once a piece.  Their peak RSS starts from
-    this process's (``ru_maxrss`` carries over the fork)."""
+    the sort, and K3 launched once a piece.  Each starts from a shell, so
+    its peak RSS is its own: the host route, which loads no torch, must
+    read under ``HOST_SETUP_GB`` at its set-up; the cuda route's set-up
+    split is logged beside the bare floor (``bare_floor``)."""
     tmp = tempfile.mkdtemp(prefix="malva_demo_")
     try:
         reads = os.path.join(tmp, "reads.fq")
@@ -2528,6 +2625,17 @@ def spill_demo(legs: dict) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     host, cuda = runs["host"], runs["cuda"]
+    floor = bare_floor()
+    runs["bare_floor"] = floor
+    log(f"spill demo set-up, peak RSS GB ({host['peak_rss_from']}): host route "
+        f"{host['peak_rss_setup_gb']} "
+        f"({json.dumps(host['rss_setup_split_gb'])}); cuda route {cuda['peak_rss_setup_gb']} "
+        f"({json.dumps(cuda['rss_setup_split_gb'])}); bare floor {json.dumps(floor)}; peaks: "
+        f"host {host['peak_rss_gb']} (count {host['peak_rss_count_gb']}), cuda "
+        f"{cuda['peak_rss_gb']} (count {cuda['peak_rss_count_gb']})")
+    if not host["peak_rss_setup_gb"] < HOST_SETUP_GB:
+        raise AssertionError(f"spill demo: the host route's set-up peaks at "
+                             f"{host['peak_rss_setup_gb']} GB, not under {HOST_SETUP_GB}")
     differ = [k for k in ("checksum", "kept_distinct", "kept_total", "windows")
               if host[k] != cuda[k]]
     if differ:

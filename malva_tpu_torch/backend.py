@@ -9,11 +9,12 @@ Bloom words, the work runs sharded over all of them (:func:`mesh_for`,
 the counterpart of ``malva_tpu/pipeline.py:937 _call_mesh``); where that
 route may be taken, :func:`start_cards` starts the cards' CUDA contexts
 in the background, as JAX starts all its devices with its backend.
+
+torch is imported only where a device may be taken (``malva_tpu``
+imports jax only there): the ``host`` backend never loads it.
 """
 
 from __future__ import annotations
-
-import torch
 
 from .ops.xxh3 import check_bloom_size
 from .utils.config import Config
@@ -33,6 +34,8 @@ def resolve(cfg: Config, work: int | None = None, floor: int = 0) -> str:
     """``host`` or ``cuda`` for ``cfg.backend`` and a work size."""
     if cfg.backend == "host":
         return "host"
+    import torch
+
     if cfg.backend == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("--backend cuda: no CUDA device is available")
@@ -47,15 +50,16 @@ def resolve(cfg: Config, work: int | None = None, floor: int = 0) -> str:
     return "cuda"
 
 
-def device_for(cfg: Config, work: int | None = None, floor: int = 0,
-               device=None) -> torch.device | None:
+def device_for(cfg: Config, work: int | None = None, floor: int = 0, device=None):
     """The torch device of the device path, or None for the host path.
     An explicit ``device`` runs the device path there whatever the backend
     (tests drive it on the CPU with the kernels' plain versions)."""
-    if device is not None:
-        check_bloom_size(cfg.bf_size)
-        return torch.device(device)
-    return torch.device("cuda") if resolve(cfg, work, floor) == "cuda" else None
+    if device is None and resolve(cfg, work, floor) != "cuda":
+        return None
+    import torch
+
+    check_bloom_size(cfg.bf_size)
+    return torch.device(device if device is not None else "cuda")
 
 
 def mesh_for(cfg: Config, work: int | None = None, floor: int = 0, mesh=None):
@@ -64,6 +68,8 @@ def mesh_for(cfg: Config, work: int | None = None, floor: int = 0, mesh=None):
     is present and their count divides the Bloom words.  An explicit
     ``mesh`` (a list of devices, which may repeat one) is taken as given,
     as ``device`` is by :func:`device_for`."""
+    if mesh is None and resolve(cfg, work, floor) != "cuda":
+        return None
     from .parallel.mesh import make_mesh
 
     if mesh is not None:
@@ -73,8 +79,6 @@ def mesh_for(cfg: Config, work: int | None = None, floor: int = 0, mesh=None):
             raise ValueError(f"{cfg.bf_size // 32} Bloom words do not split into "
                              f"{len(mesh)} shards")
         return mesh
-    if resolve(cfg, work, floor) != "cuda":
-        return None
     n = _mesh_cards(cfg)
     return make_mesh(n) if n else None
 
@@ -84,6 +88,8 @@ def _mesh_cards(cfg: Config) -> int:
     to ``cuda``: all of them, where there are several and their count
     divides the Bloom words; else 0.  Counted through NVML, which starts
     no card."""
+    import torch
+
     n = torch.cuda.device_count()
     return n if n > 1 and (cfg.bf_size // 32) % n == 0 else 0
 
@@ -104,14 +110,17 @@ def start_cards(cfg: Config, device=None, mesh=None):
     ``call_batch`` call this on entry, and a later call gets the running
     or finished start-up of the same cards."""
     global _startup
+    if mesh is None and (device is not None or cfg.backend == "host"
+                         or not _size_ok(cfg.bf_size)):
+        return None
+    import torch
+
     from .parallel.mesh import CardStartup, cards_of
 
     if mesh is not None:
         cards = cards_of(torch.device(d) for d in mesh)
-    elif device is None and cfg.backend != "host" and _size_ok(cfg.bf_size):
-        cards = [torch.device("cuda", i) for i in range(_mesh_cards(cfg))]
     else:
-        cards = []
+        cards = [torch.device("cuda", i) for i in range(_mesh_cards(cfg))]
     if len(cards) < 2 or cards[0].type != "cuda":
         return None
     if _startup is None or not set(cards) <= set(_startup.cards):

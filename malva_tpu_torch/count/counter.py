@@ -235,7 +235,7 @@ def iter_device_runs(batches, ref_k: int, chunk_kmers: int, device,
     the windows past the last full piece carry over into the next block.
     After each batch it yields ``None``, everything before it flushed
     when ``flush_each_batch`` is set, so a caller can commit there.  Each
-    piece's parts go to ``stats`` (``device_count.CountStats``) if given."""
+    piece's parts go to ``stats`` (``count/stats.py CountStats``) if given."""
     from .device_count import device_seq_sorted_counts, make_seq_sort_count_step
 
     step = make_seq_sort_count_step(ref_k, chunk_kmers, device, stats)

@@ -12,22 +12,21 @@ boundary mask to the host and compacts there; since the invalid rows are
 dropped here before the sort, its validity sort key and all-ones sentinel
 are not needed.
 
-``CountStats`` is an optional sink that says where a count's time goes
-(``tools/demo_spill_wgs.py``): each piece's upload, K3, sort-count and
-read-back, and the host parts of ``count/spill.py``.  Without one nothing
-is recorded and nothing waits.
+``CountStats`` (``count/stats.py``) is an optional sink that says where a
+count's time goes (``tools/demo_spill_wgs.py``): each piece's upload, K3,
+sort-count and read-back, and the host parts of ``count/spill.py``.
+Without one nothing is recorded and nothing waits.
 """
 
 from __future__ import annotations
 
-import time
-from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..ops import kernels
+from .stats import CountStats
 
 SIGN = -(1 << 63)  # the int64 sign bit: flipped, signed order is unsigned order
 
@@ -52,68 +51,6 @@ def sort_count_rows(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     starts = torch.nonzero(boundary).squeeze(1)
     ends = torch.cat([starts[1:], torch.tensor([n], device=s.device)])
     return s[starts] ^ SIGN, ends - starts
-
-
-class CountStats:
-    """Seconds by part of a count, and its pieces.
-
-    Host parts add host-clock intervals (``timed``, ``timed_iter``).  A
-    device piece is cut by marks, each closing the part named by it: CUDA
-    events on a card, the host clock elsewhere.  ``end_piece`` waits for
-    the last event, which the piece's read-back has already waited for,
-    and adds the intervals between marks to their parts, and the piece's
-    host wall to ``pieces``.  The spill counter sets ``windows``,
-    ``segments`` and ``spill_bytes`` once it has counted."""
-
-    def __init__(self):
-        self.seconds: dict[str, float] = {}
-        self.pieces = 0
-        self.windows = self.segments = self.spill_bytes = 0
-        self._marks: list = []
-        self._piece_t0 = 0.0
-        self._device = torch.device("cpu")
-
-    def add(self, part: str, seconds: float) -> None:
-        self.seconds[part] = self.seconds.get(part, 0.0) + seconds
-
-    @contextmanager
-    def timed(self, part: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.add(part, time.perf_counter() - t0)
-
-    def timed_iter(self, part: str, items):
-        """``items``, with the time spent getting each added to ``part``."""
-        t0 = time.perf_counter()
-        for item in items:
-            self.add(part, time.perf_counter() - t0)
-            yield item
-            t0 = time.perf_counter()
-        self.add(part, time.perf_counter() - t0)
-
-    def begin_piece(self, device: torch.device) -> None:
-        self._piece_t0 = time.perf_counter()
-        self._marks, self._device = [], device
-        self.mark(None)
-
-    def mark(self, part: str | None) -> None:
-        if self._device.type == "cuda":
-            at = torch.cuda.Event(enable_timing=True)
-            at.record(torch.cuda.current_stream(self._device))
-        else:
-            at = time.perf_counter()
-        self._marks.append((part, at))
-
-    def end_piece(self) -> None:
-        last = self._marks[-1][1]
-        if isinstance(last, torch.cuda.Event):
-            last.synchronize()
-        for (_, a), (part, b) in zip(self._marks, self._marks[1:]):
-            self.add(part, a.elapsed_time(b) / 1e3 if isinstance(a, torch.cuda.Event) else b - a)
-        self.add("pieces", time.perf_counter() - self._piece_t0)
-        self.pieces += 1
 
 
 @dataclass(frozen=True)

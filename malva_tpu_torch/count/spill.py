@@ -225,7 +225,7 @@ def count_reads_kmers_spill(reads_path: str, ref_k: int, spill_dir: str, ci: int
     done and returns None without merging: the producer half of the
     overlapped ``run`` (the consumer later resumes with the same spill_dir
     and skips straight to the merge).  Progress goes to ``log`` (stderr as
-    it is at the call).  ``stats`` (``device_count.CountStats``), if given,
+    it is at the call).  ``stats`` (``count/stats.py CountStats``), if given,
     takes the time spent reading the reads (``read``), producing runs from
     them (``produce``, the read and the pieces included), writing segments
     (``spill_write``) and merging (``merge``), the device pieces' parts,
@@ -302,11 +302,34 @@ def count_reads_kmers_spill(reads_path: str, ref_k: int, spill_dir: str, ci: int
     return merged()
 
 
+# what the producer child must not import: jax and the JAX package (the
+# port runs without both) and torch (the child counts on the host only;
+# torch would load the CUDA libraries and could touch the card the parent
+# holds, and its import alone costs seconds of the child's start-up)
+PRODUCER_REFUSES = ("jax", "malva_tpu", "torch")
+
+
+class _PortOnly:
+    """An import finder that refuses :data:`PRODUCER_REFUSES`."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in PRODUCER_REFUSES:
+            raise ImportError(f"the spill producer must not import {name}")
+        return None
+
+
 def _produce_main(argv: list[str]) -> int:
     """Producer child of the overlapped ``run``:
     ``python -m malva_tpu_torch.count.spill <reads> <ref_k> <spill_dir>``.
-    Counts and spills on the host only (no merge)."""
+    Counts and spills on the host only (no merge), numpy and the native
+    library only: it fails if a refused module is loaded already or is
+    imported later.  Its last stderr line gives its peak memory
+    (``utils/timing.py peak_rss_gb``), its start-up (the interpreter and
+    its imports, until counting begins) and its count's seconds."""
     import argparse
+    import time
+
+    from ..utils.timing import peak_rss_from, peak_rss_gb, process_age_s
 
     ap = argparse.ArgumentParser(prog="malva_tpu_torch.count.spill")
     ap.add_argument("reads")
@@ -314,21 +337,19 @@ def _produce_main(argv: list[str]) -> int:
     ap.add_argument("spill_dir")
     a = ap.parse_args(argv)
 
-    class _PortOnly:
-        """Refuses jax and the JAX package: the producer, like the rest of
-        the port, runs without either (and must not take the chip that
-        the parent process may hold)."""
-
-        def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "malva_tpu"):
-                raise ImportError(f"the spill producer must not import {name}")
-            return None
-
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in PRODUCER_REFUSES)
+    if loaded:
+        raise ImportError(f"the spill producer must not import {', '.join(loaded)}")
     sys.meta_path.insert(0, _PortOnly())
     from ..utils.native import tune_malloc
 
     tune_malloc()
+    startup = process_age_s()
+    t0 = time.perf_counter()
     count_reads_kmers_spill(a.reads, a.ref_k, a.spill_dir, produce_only=True)
+    print(f"{TAG} producer: peak RSS {peak_rss_gb():.6g} GB ({peak_rss_from()}), start-up "
+          f"{'?' if startup is None else f'{startup:.6g}'} s (interpreter and imports), "
+          f"count {time.perf_counter() - t0:.6g} s", file=sys.stderr)
     return 0
 
 

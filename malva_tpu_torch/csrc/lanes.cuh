@@ -266,7 +266,7 @@ MALVA_HD RollShape roll_shape(int ref_k) {
 // N = ceil(ref_k / 16) 32-bit words.  N is a template parameter, so every
 // array index below is a constant once the loops unroll and the state
 // lives in registers.  Base j of the window sits in word j / 16 at bits
-// 2 * (15 - j % 16) (the pack_2bit layout, malva_tpu_torch/ops/seq.py);
+// 2 * (15 - j % 16) (the pack2bit layout, malva_tpu_torch/ops/packed.py);
 // the reverse complement (3 - code, read backwards) in the same layout.
 // A push shifts the forward form left by one base and writes the new base
 // last, shifts the reverse complement right by one base and writes its

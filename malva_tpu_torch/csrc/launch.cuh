@@ -6,13 +6,20 @@
 // The timed launcher records an optional pair of CUDA events on the launch
 // stream just before and just after the kernel, inside one C call.  ctypes
 // releases the GIL for the whole call, so no other Python thread can hold
-// the host between the start event and the launch, and the time between the
-// two events is the kernel's device time.  Either event may be null (not
-// timed).  Returns the first CUDA error, or 0.
+// the host between the start event and the launch.  On a stream with no
+// work queued the device would still take the start event at once and then
+// wait for the host to push the kernel, so a timed launch first queues a
+// hold: a one-thread kernel that waits until the host has queued the stop
+// event (a word of pinned host memory), with a 10 ms time-out.  The time
+// between the two events is then the kernel's device time, however slow the
+// host is.  Either event may be null (not timed).  Returns the first CUDA
+// error, or 0.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace malva {
 
@@ -76,16 +83,65 @@ int persistent_grid(Kernel kernel, int threads, size_t smem, int64_t blocks, int
   return 0;
 }
 
+constexpr unsigned long long kHoldTimeoutNs = 10000000ull;
+
+// Waits until the host has released hold `seq` (the word at `flag` has
+// reached it, in wrapping order), or for kHoldTimeoutNs.
+static __global__ void hold_kernel(const volatile unsigned* flag, unsigned seq) {
+  unsigned long long t0, t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  while ((int)(*flag - seq) < 0) {
+    __nanosleep(256);
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    if (t - t0 > kHoldTimeoutNs) break;
+  }
+}
+
+// The pinned host word that releases the holds, mapped for every card, or
+// null where it cannot be allocated.
+static volatile unsigned* hold_flag() {
+  static volatile unsigned* const flag = [] {
+    void* p = nullptr;
+    if (cudaHostAlloc(&p, sizeof(unsigned), cudaHostAllocMapped | cudaHostAllocPortable) !=
+        cudaSuccess)
+      return (volatile unsigned*)nullptr;
+    *(volatile unsigned*)p = 0;
+    return (volatile unsigned*)p;
+  }();
+  return flag;
+}
+
+static std::atomic<unsigned> hold_seq{0};
+
+// Raises the word to `seq` unless a later hold has already been released.
+static void hold_release(volatile unsigned* flag, unsigned seq) {
+  unsigned* w = (unsigned*)flag;
+  unsigned cur = __atomic_load_n(w, __ATOMIC_ACQUIRE);
+  while ((int)(seq - cur) > 0 &&
+         !__atomic_compare_exchange_n(w, &cur, seq, false, __ATOMIC_RELEASE, __ATOMIC_ACQUIRE)) {
+  }
+}
+
 template <typename Launch>
 int launch_timed(void* start, void* stop, cudaStream_t stream, Launch launch) {
+  volatile unsigned* flag = nullptr;
+  unsigned seq = 0;
+  cudaError_t e = cudaSuccess;
   if (start) {
-    const cudaError_t e = cudaEventRecord((cudaEvent_t)start, stream);
-    if (e != cudaSuccess) return (int)e;
+    flag = hold_flag();
+    if (!flag) return (int)cudaErrorMemoryAllocation;
+    seq = hold_seq.fetch_add(1) + 1;
+    hold_kernel<<<1, 1, 0, stream>>>(flag, seq);
+    e = cudaGetLastError();
+    if (e == cudaSuccess) e = cudaEventRecord((cudaEvent_t)start, stream);
   }
-  launch(stream);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return stop ? (int)cudaEventRecord((cudaEvent_t)stop, stream) : 0;
+  if (e == cudaSuccess) {
+    launch(stream);
+    e = cudaGetLastError();
+  }
+  if (e == cudaSuccess && stop) e = cudaEventRecord((cudaEvent_t)stop, stream);
+  if (flag) hold_release(flag, seq);
+  return (int)e;
 }
 
 }  // namespace malva

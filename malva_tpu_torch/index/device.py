@@ -39,7 +39,7 @@ from .kmap_table import BucketTable
 
 
 def pack2bit_u32_np(kmers: np.ndarray, k: int) -> np.ndarray:
-    """Host mirror of the device layout (``ops.seq.pack2bit``): (N,
+    """Host mirror of the device layout (``ops.packed.pack2bit``): (N,
     ceil(k/16)) uint32, 16 bases per word, big-endian within the word."""
     table = np.full(256, 3, dtype=np.uint32)
     for i, ch in enumerate(b"ACGT"):

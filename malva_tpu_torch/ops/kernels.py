@@ -89,8 +89,9 @@ The call-step wrappers (``callstep``, ``callstep_hash``, ``shard_update``,
 ``gather_update``) take ``events=(start, stop)``, two
 ``torch.cuda.Event(enable_timing=True)``; the C launcher records them on
 the launch stream just before and after the kernel, inside the one ctypes
-call that holds no GIL, so their elapsed time is the kernel's device time
-(``csrc/launch.cuh``).
+call that holds no GIL, behind a hold that keeps the card from taking the
+start event before the kernel is queued, so their elapsed time is the
+kernel's device time (``csrc/launch.cuh``).
 """
 
 from __future__ import annotations
@@ -100,9 +101,10 @@ import torch
 from ..index.kmap_table import SLOTS, probe_bucket_table
 from . import _build
 from .bloom import M32, bloom_set, lanes, scatter_add_u32, storage
-from .packed import canonical_center, decode_byte_cols, popcount32
-from .seq import canonical_decision, complement
-from .xxh3 import check_bloom_size, xxh3_64_cols, xxh3_mod_size
+from .packed import (canonical_center, canonical_decision, complement, decode_byte_cols,
+                     popcount32)
+from .xxh3 import check_bloom_size
+from .xxh3_torch import xxh3_64_cols, xxh3_mod_size
 
 LAUNCHES = {"callstep": 0, "ref_scan": 0, "seq_pack": 0, "shard_update": 0, "gather_update": 0,
             "shard_update_slots": 0, "route_pack": 0, "route_probe": 0, "scan_pack": 0,

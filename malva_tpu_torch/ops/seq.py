@@ -1,10 +1,9 @@
 """Sequence byte ops: RCN complement, canonical k-mers, 2-bit packing.
 
-The host half is the port's copy of ``malva_tpu/ops/seq.py`` (numpy over
-``(N, K) uint8`` batches, with the native library where it loads).  The
-tensor half is the counterpart of ``malva_tpu.ops.seq.complement_jax`` /
-``canonical_jax`` (here :func:`canonical_tensor`) and
-``malva_tpu.ops.bloom_jax.pack2bit_jax``.
+The port's copy of ``malva_tpu/ops/seq.py``: numpy over ``(N, K) uint8``
+batches, with the native library where it loads, and no torch, so the
+host paths run without it.  The same ops on torch tensors are in
+``ops/packed.py``.
 
 The semantics are the reference's canonicalization (reference:
 bloom_filter.hpp:36-65, kmap.hpp:84-97), exactly:
@@ -19,15 +18,11 @@ bloom_filter.hpp:36-65, kmap.hpp:84-97), exactly:
   the terminated strings is equivalent to bytewise lexicographic
   comparison over the k bytes (first difference decides; the forward
   k-mer's byte at a position where the revcomp has NUL is always larger).
-
-A table lookup is cheap on a GPU, so on tensors it replaces the TPU's
-compare chain.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 # RCN complement table, extended to 256 entries (reference accesses only
 # 0..127; bytes >= 128 would index negatively through a signed char in the
@@ -80,7 +75,7 @@ def canonical(kmers: np.ndarray) -> np.ndarray:
 
     Matches BF::_canonical (bloom_filter.hpp:58-65): the reverse complement
     wins ties (strcmp == 0 keeps the computed revcomp, which then equals
-    the forward k-mer bytewise anyway).  :func:`canonical_tensor` is the
+    the forward k-mer bytewise anyway).  ``packed.canonical_tensor`` is the
     same on a torch tensor.
     """
     kmers = np.asarray(kmers, dtype=np.uint8)
@@ -167,50 +162,3 @@ def unpack_2bit(packed: np.ndarray, k: int) -> np.ndarray:
 def is_acgt(kmers: np.ndarray) -> np.ndarray:
     """Rowwise mask: True where every byte is one of A/C/G/T."""
     return (CODE_TABLE[kmers] != 255).all(axis=1)
-
-
-# ---------------------------------------------------------------------------
-# torch tensors (device path)
-# ---------------------------------------------------------------------------
-
-
-def complement(kmers: torch.Tensor) -> torch.Tensor:
-    """RCN complement of a uint8 tensor of any shape."""
-    table = torch.from_numpy(RCN_TABLE).to(kmers.device)
-    return table[kmers.to(torch.int64)]
-
-
-def canonical_decision(fwd_cols, rc_cols) -> torch.Tensor:
-    """Per lane: True where the forward form is strictly less than the
-    reverse complement (strcmp order; ties keep the reverse complement,
-    seq.canonical).  Both arguments are lists of equal-shape columns."""
-    less = torch.zeros(fwd_cols[0].shape, dtype=torch.bool, device=fwd_cols[0].device)
-    decided = torch.zeros_like(less)
-    for a, b in zip(fwd_cols, rc_cols):
-        less |= ~decided & (a < b)
-        decided |= a != b
-    return less
-
-
-def canonical_tensor(kmers: torch.Tensor) -> torch.Tensor:
-    """Canonical form of each row of an (N, K) uint8 tensor."""
-    rc = complement(kmers).flip(1)
-    k = kmers.shape[1]
-    keep = canonical_decision([kmers[:, j] for j in range(k)], [rc[:, j] for j in range(k)])
-    return torch.where(keep[:, None], kmers, rc)
-
-
-def pack2bit(kmers: torch.Tensor, k: int) -> torch.Tensor:
-    """Pack pure-ACGT (N, k) ASCII rows into (N, ceil(k/16)) int64 lanes
-    holding uint32 words: 16 bases a word, base 0 in the top bits, so
-    word-tuple order is ASCII order.  Non-ACGT bytes give arbitrary codes
-    (callers pack pure-ACGT rows only), as ``pack2bit_jax``."""
-    c2 = (kmers.to(torch.int64) >> 1) & 3
-    codes = c2 ^ (c2 >> 1)
-    cols = []
-    for w in range((k + 15) // 16):
-        acc = torch.zeros(kmers.shape[0], dtype=torch.int64, device=kmers.device)
-        for j in range(w * 16, min((w + 1) * 16, k)):
-            acc |= codes[:, j] << (2 * (15 - (j - w * 16)))
-        cols.append(acc)
-    return torch.stack(cols, dim=1)

@@ -96,7 +96,8 @@ from ..index.kmap_table import BucketTable
 from ..ops import _build, kernels
 from ..ops.bloom import lanes, to_u32
 from ..ops.packed import popcount32
-from ..ops.xxh3 import check_bloom_size, xxh3_64, xxh3_mod_size
+from ..ops.xxh3 import check_bloom_size, xxh3_64
+from ..ops.xxh3_torch import xxh3_mod_size
 from ..utils.config import Config
 from .mesh import cards_of
 

@@ -13,7 +13,10 @@ sort-count (K3, ``count/``) and the call step (K1) in :func:`call` and
 context scan and the call step run sharded over it
 (``parallel/sharded_index.py``: K2 hash-only, K1 hash-only and K4), as
 ``malva_tpu`` routes through ``_call_mesh``; the sample counting then
-runs on the mesh's first device.
+runs on the mesh's first device.  The device layers (``index/device.py``,
+``parallel/``) and torch are imported in the branches that take a device
+or a mesh, where ``malva_tpu`` imports its own and jax, so the ``host``
+backend runs without torch.
 """
 
 from __future__ import annotations
@@ -29,24 +32,10 @@ import numpy as np
 from .backend import device_for, mesh_for, start_cards
 from .count.counter import count_reads_kmers, load_kmc_dump
 from .index.bloom_filter import BF
-from .index.device import (
-    DeviceIndex,
-    apply_sample_counts_device,
-    apply_sample_counts_stream,
-    build_context_device,
-    log_step_rate,
-)
 from .index.kmap import KMAP
 from .io.fasta import load_reference
 from .io.vcf import cleaned_header, open_variant_reader
 from .models.genotype_host import format_variants, genotype_block
-from .parallel.sharded_index import (
-    apply_sample_counts_sharded_stream,
-    build_context_sharded,
-    log_sharded_step,
-    release,
-    shard_index_routed,
-)
 from .utils import native
 from .utils.config import Config
 from .utils.errors import InputError
@@ -858,9 +847,13 @@ def _log_stats(stats: dict | None) -> None:
     """Log a device call step's stats; after a sharded one, the mesh's
     device memory goes back to the cards first (``release``)."""
     if stats is not None and "shards" in stats:
+        from .parallel.sharded_index import log_sharded_step, release
+
         release(stats)
         log_sharded_step(stats)
     elif stats is not None:
+        from .index.device import log_step_rate
+
         log_step_rate(stats)
 
 
@@ -897,9 +890,13 @@ def build_index(cfg: Config, timer: PhaseTimer | None = None, device=None,
     m, dev = _route(cfg, total_ref, DEVICE_MIN_REF_POSITIONS, device, mesh, cards)
     refs_used = [refs[n] for n in used_names if n in refs and len(refs[n]) > 0]
     if m is not None:
+        from .parallel.sharded_index import build_context_sharded
+
         build_context_sharded(index, refs_used, cfg, m)
         timer.pelapsed(f"Reference BF creation complete (sharded over {len(m)} shards)")
     elif dev is not None:
+        from .index.device import build_context_device
+
         build_context_device(index, refs_used, cfg, dev)
         timer.pelapsed(f"Reference BF creation complete (device {dev})")
     else:
@@ -962,8 +959,12 @@ def call(cfg: Config, index: Index, out=None, timer: PhaseTimer | None = None,
         batches = count_reads_kmers_spill(cfg.sample_path, cfg.ref_k, cfg.spill_dir,
                                           device=m[0] if m is not None else dev)
         if m is not None:
+            from .parallel.sharded_index import apply_sample_counts_sharded_stream
+
             stats = apply_sample_counts_sharded_stream(index, _prefetch(batches), cfg, m)
         elif dev is not None:
+            from .index.device import apply_sample_counts_stream
+
             stats = apply_sample_counts_stream(index, _prefetch(batches), cfg, dev)
         else:
             for keys, cnts in _prefetch(batches):
@@ -978,9 +979,13 @@ def call(cfg: Config, index: Index, out=None, timer: PhaseTimer | None = None,
         timer.pelapsed("Sample k-mer counting")
         m, dev = _route(cfg, contexts.shape[0], DEVICE_MIN_KMERS, device, mesh, cards)
         if m is not None:
+            from .parallel.sharded_index import apply_sample_counts_sharded_stream
+
             with _held(gate):
                 stats = apply_sample_counts_sharded_stream(index, [(contexts, counts)], cfg, m)
         elif dev is not None:
+            from .index.device import apply_sample_counts_device
+
             with _held(gate):
                 stats = apply_sample_counts_device(index, contexts, counts, cfg, dev)
         else:
@@ -1028,8 +1033,12 @@ def _apply_kmc_stream(cfg: Config, index: Index, path: str, mesh, target,
     stats, or None on the host."""
     batches = _kmc_batches(cfg, path)
     if mesh is not None:
+        from .parallel.sharded_index import apply_sample_counts_sharded_stream
+
         return apply_sample_counts_sharded_stream(index, batches, cfg, mesh, sharded=sharded)
     if target is not None:
+        from .index.device import apply_sample_counts_stream
+
         return apply_sample_counts_stream(index, batches, cfg, target, dev=dev)
     for contexts, counts in batches:
         apply_sample_counts(index, contexts, counts, cfg)
@@ -1065,10 +1074,14 @@ def call_batch(cfg: Config, index: Index, sample_paths: list[str], outs: list,
             contexts, counts = _sample_kmers(cfg, sample_path, _count_device(device, mesh))
             m, target = _route(cfg, contexts.shape[0], DEVICE_MIN_KMERS, device, mesh, cards)
         if m is not None and sharded is None:
+            from .parallel.sharded_index import shard_index_routed
+
             sharded = shard_index_routed(index, cfg, m)
             print(f"[{TAG}] sharded index uploaded to {len(m)} shards once for "
                   f"{len(sample_paths)} samples", file=sys.stderr)
         if target is not None and dev is None:
+            from .index.device import DeviceIndex
+
             dev = DeviceIndex.from_host(index, cfg, target)
             print(f"[{TAG}] device index uploaded to {target} once for "
                   f"{len(sample_paths)} samples", file=sys.stderr)
@@ -1076,9 +1089,13 @@ def call_batch(cfg: Config, index: Index, sample_paths: list[str], outs: list,
             stats = _apply_kmc_stream(cfg, index, sample_path, m, target, dev=dev,
                                       sharded=sharded)
         elif m is not None:
+            from .parallel.sharded_index import apply_sample_counts_sharded_stream
+
             stats = apply_sample_counts_sharded_stream(index, [(contexts, counts)], cfg, m,
                                                        sharded=sharded)
         elif target is not None:
+            from .index.device import apply_sample_counts_device
+
             stats = apply_sample_counts_device(index, contexts, counts, cfg, target, dev=dev)
         else:
             stats = None

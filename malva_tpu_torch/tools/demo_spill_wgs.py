@@ -15,15 +15,20 @@ checksum and two ``[spill-demo]`` lines, through the port's
 A last JSON line gives the kept distinct k-mers, their total and the
 checksum (XOR over the merged stream of each word times
 0x9E3779B97F4A7C15, then the count: the JAX tool's, so the two compare on
-the same reads), the input and spill sizes, the wall (the native host
-library's build or load and, on a card, the kernels' and the card's
-context come before it, in ``setup_s``), the peak RSS at the end, after
-the set-up (``peak_rss_setup_gb``) and when the counting is done, before
-the merge (``peak_rss_count_gb``; ``ru_maxrss``, which on Linux starts
-from the parent's RSS at the fork, so start the tool from a small
-process such as a shell), the peak device memory on a card
-(``torch.cuda.max_memory_allocated``), and ``split_s``, where the wall
-went:
+the same reads), the input and spill sizes, the wall (torch's import
+where the route takes torch, the card's context and the kernels on a
+card, and the native host library's build or load come before it, in
+``setup_s``), the peak RSS at the end, after the set-up
+(``peak_rss_setup_gb``) and when the counting is done, before the merge
+(``peak_rss_count_gb``), and after each step of the set-up
+(``rss_setup_split_gb``: ``import_torch``, ``context``, ``kernels`` on
+the routes that take them, then ``host_library``), the peak device
+memory on a card (``torch.cuda.max_memory_allocated``), and ``split_s``,
+where the wall went.  Peak RSS is ``VmHWM``, which starts anew at exec,
+where the kernel gives it, else ``ru_maxrss`` (``peak_rss_from``;
+``utils/timing.py peak_rss_gb``): start the tool from a shell, as
+``ru_maxrss`` keeps the peak of a parent that exec'd into it.  The
+``host`` route imports no torch.  The split:
 
 - every route: ``host_read_s`` (reading and parsing the reads),
   ``spill_write_s`` (``SpillStore.add_segment``), ``merge_s``
@@ -33,7 +38,7 @@ went:
 - ``cuda`` and ``cpu``: ``chunk_assembly_s`` (the host's joins of reads
   into pieces) and, summed over the pieces, ``upload_s``,
   ``k3_seq_pack_s``, ``sort_count_s`` and ``read_back_s``, cut by CUDA
-  events recorded in the step (``device_count.CountStats``); a piece's
+  events recorded in the step (``count/stats.py CountStats``); a piece's
   host time outside its events is left unattributed.
 
 Make the reads with ``tools/make_reads.py`` (100 Mbp x 30 is the 3-Gbase
@@ -49,13 +54,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import resource
 import sys
 import tempfile
 import time
 
 import numpy as np
-import torch
 
 MIX = np.uint64(0x9E3779B97F4A7C15)
 # the device pieces' parts (CountStats marks) and their keys in split_s
@@ -73,7 +76,7 @@ def checksum(keys: np.ndarray, cnts: np.ndarray) -> np.uint64:
     return np.bitwise_xor.reduce(h) if h.size else np.uint64(0)
 
 
-def split_of(stats, wall_s: float, device: torch.device | None) -> dict:
+def split_of(stats, wall_s: float, device) -> dict:
     """The wall in parts (see the module's docstring); the parts are
     disjoint intervals of the wall, so they sum to at most ``wall_s``."""
     s = stats.seconds
@@ -101,50 +104,62 @@ def main(argv=None) -> int:
                     help="where the sort-count runs: cuda (default), host (native library) "
                          "or cpu (the plain K3 on torch's CPU, for the tests)")
     args = ap.parse_args(argv)
-    device = None if args.device == "host" else torch.device(args.device)
-    from ..count.device_count import CountStats
     from ..count.spill import count_reads_kmers_spill
-    from ..ops import _build, kernels
+    from ..count.stats import CountStats
     from ..utils import native
+    from ..utils.timing import peak_rss_from, peak_rss_gb
+
+    # before the wall, each with the peak RSS after it: torch's import and,
+    # on a card, its context and the kernels; the host library (built at
+    # first use)
+    t0 = time.perf_counter()
+    split_gb = {}
+    device = kernels = None
+    if args.device != "host":
+        import torch
+
+        split_gb["import_torch"] = peak_rss_gb()
+        device = torch.device(args.device)
+        from ..ops import _build, kernels
 
     if args.device == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit("demo_spill_wgs: no CUDA device; --device host counts on the host")
         device = torch.device("cuda", 0)
-    # before the wall: the host library (built at first use) and, on a
-    # card, the kernels and the card's context
-    t0 = time.perf_counter()
-    threads = native.threads()
-    if args.device == "cuda":
-        _build.library()
         torch.zeros(1, device=device)
+        split_gb["context"] = peak_rss_gb()
+        _build.library()
+        split_gb["kernels"] = peak_rss_gb()
+    threads = native.threads()
+    split_gb["host_library"] = rss_setup_gb = peak_rss_gb()
     setup_s = time.perf_counter() - t0
-    rss_setup_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
 
-    kernels.reset_launches()
+    if kernels is not None:
+        kernels.reset_launches()
     stats = CountStats()
     t0 = time.perf_counter()
     distinct = total = 0
     chk = np.uint64(0)
     merged = count_reads_kmers_spill(args.reads, args.ref_k, args.spill, ci=args.ci, cs=args.cs,
                                      device=device, stats=stats)
-    rss_count_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    rss_count_gb = peak_rss_gb()
     for keys, cnts in merged:
         distinct += keys.shape[0]
         total += int(cnts.sum())
         with stats.timed("checksum"):
             chk ^= checksum(keys, cnts)
     wall = time.perf_counter() - t0
-    rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    rss_gb = peak_rss_gb()
     print(f"[spill-demo] kept_distinct={distinct} kept_total={total} checksum={int(chk):016x}")
     print(f"[spill-demo] wall={wall:.0f}s peak_rss={rss_gb:.2f}GB")
     result = {"kept_distinct": distinct, "kept_total": total, "checksum": f"{int(chk):016x}",
               "reads_bytes": os.path.getsize(args.reads), "windows": stats.windows,
               "segments": stats.segments, "pieces": stats.pieces,
-              "seq_pack_launches": kernels.LAUNCHES["seq_pack"],
+              "seq_pack_launches": 0 if kernels is None else kernels.LAUNCHES["seq_pack"],
               "spill_bytes": stats.spill_bytes, "wall_s": wall, "setup_s": setup_s,
               "peak_rss_gb": rss_gb, "peak_rss_setup_gb": rss_setup_gb,
-              "peak_rss_count_gb": rss_count_gb}
+              "peak_rss_count_gb": rss_count_gb, "rss_setup_split_gb": split_gb,
+              "peak_rss_from": peak_rss_from()}
     if args.device == "cuda":
         result["peak_device_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
     result.update(device=(torch.cuda.get_device_name(device) if args.device == "cuda"

@@ -32,7 +32,7 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import hashlib
-import importlib.util
+import importlib.machinery
 import os
 import subprocess
 import sys
@@ -62,8 +62,11 @@ def _cpu_model() -> bytes:
 
 def torch_gomp() -> "Path | None":
     """The OpenMP runtime the installed torch package carries, found
-    without importing torch, or None."""
-    spec = importlib.util.find_spec("torch")
+    without importing torch, or None.  Looked up on ``sys.path`` past the
+    import finders, so a process that refuses torch's import (the spill
+    producer) still builds the library in the form the card's machine
+    needs."""
+    spec = importlib.machinery.PathFinder.find_spec("torch")
     if spec is None or not spec.submodule_search_locations:
         return None
     pkg = Path(next(iter(spec.submodule_search_locations)))

@@ -94,7 +94,7 @@ def owners(rng, n, D, case):
 
 def hash_words(rng, word, size_bits):
     """(hi, lo) XXH3 halves whose Bloom index has word ``word`` (and a
-    random bit), for either of the index's size rules (ops/xxh3.py
+    random bit), for either of the index's size rules (ops/xxh3_torch.py
     xxh3_mod_size)."""
     bit = rng.integers(0, 32, word.shape[0])
     if size_bits < 1 << 33:

@@ -176,7 +176,7 @@ def test_shard_update_plain_one_shard_is_callstep(minifilter):
     from malva_tpu_torch.index.device import DeviceIndex
     from malva_tpu_torch.ops import kernels
     from malva_tpu_torch.ops.bloom import from_u32, lanes, to_u32
-    from malva_tpu_torch.ops.xxh3 import xxh3_mod_size
+    from malva_tpu_torch.ops.xxh3_torch import xxh3_mod_size
 
     cfg = _cfg()
     index, keys = _index(cfg, seed=2)
@@ -616,7 +616,7 @@ def test_gather_update_plain_one_shard_is_callstep():
     from malva_tpu_torch.index.device import DeviceIndex
     from malva_tpu_torch.ops import kernels
     from malva_tpu_torch.ops.bloom import from_u32, lanes
-    from malva_tpu_torch.ops.xxh3 import xxh3_mod_size
+    from malva_tpu_torch.ops.xxh3_torch import xxh3_mod_size
     from malva_tpu_torch.parallel.sharded_index import shard_index
 
     cfg = _cfg()

@@ -7,8 +7,8 @@ import torch
 
 from malva_tpu.index.device import pack2bit_u32_np
 from malva_tpu.ops.xxh3 import xxh3_64
-from malva_tpu_torch.ops import packed, seq
-from malva_tpu_torch.ops import xxh3 as tx
+from malva_tpu_torch.ops import packed
+from malva_tpu_torch.ops import xxh3_torch as tx
 from malva_tpu_torch.ops.bloom import bloom_set, from_u32, lanes, storage, to_u32
 
 LENGTHS = [1, 2, 3, 4, 7, 8, 9, 16, 17, 35, 43, 64, 100, 128, 129, 200, 240]
@@ -68,9 +68,9 @@ def test_canonical_and_pack_match_host():
     rng = np.random.default_rng(7)
     alpha = np.frombuffer(b"ACGTNacgtnRYSWKM", dtype=np.uint8)
     rows = alpha[rng.integers(0, alpha.shape[0], size=(500, 43))]
-    np.testing.assert_array_equal(seq.canonical_tensor(torch.from_numpy(rows)).numpy(), canonical(rows))
+    np.testing.assert_array_equal(packed.canonical_tensor(torch.from_numpy(rows)).numpy(), canonical(rows))
     acgt = np.frombuffer(b"ACGT", dtype=np.uint8)[rng.integers(0, 4, size=(500, 43))]
-    got = seq.pack2bit(torch.from_numpy(acgt), 43).numpy().astype(np.uint32)
+    got = packed.pack2bit(torch.from_numpy(acgt), 43).numpy().astype(np.uint32)
     np.testing.assert_array_equal(got, pack2bit_u32_np(acgt, 43))
 
 

@@ -6,7 +6,10 @@ persistence and overlapped counting producer.  ``--backend`` takes
 malva_tpu_torch.count.spill``, host only) only where ``malva_tpu`` would,
 and not for reads that route to the card, which counts them inline after
 the index phase.  ``--profile-dir`` writes a ``torch.profiler`` trace of
-the command (CPU, and CUDA on a card) into that directory when it ends.
+the command (CPU, and CUDA on a card) into that directory when it ends,
+with each of the program's spans as a range on its host timeline.  Each
+command ends with one stderr line, ``[malva-tpu-torch/spans] <json>``:
+its spans and counters (``utils/timing.py PhaseTimer.spans_line``).
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from .pipeline import (
     save_index_async,
 )
 from .utils.config import Config
-from .utils.timing import PhaseTimer
+from .utils.timing import PhaseTimer, span
 
 
 def _parser(prog: str = TAG) -> argparse.ArgumentParser:
@@ -250,13 +253,15 @@ def _main(argv: list[str] | None, out) -> int:
     timer = PhaseTimer(TAG, out=sys.stderr)
     prof = _Profile(args.profile_dir) if args.profile_dir else None
     try:
-        rc = _dispatch(args, cfg, timer, out)
+        with timer.recording(profiling=prof is not None):
+            rc = _dispatch(args, cfg, timer, out)
     finally:
         if prof is not None:
             prof.stop()
     # the process's own end, so that a caller can split its exit (the
     # interpreter's and CUDA's teardown) from the last phase
     out.flush()
+    print(f"[{TAG}/spans] {timer.spans_line()}", file=sys.stderr)
     print(f"[{TAG}/metrics] main returned at {time.time():.6f} s (epoch); the process exits "
           f"after", file=sys.stderr, flush=True)
     return rc
@@ -286,7 +291,8 @@ def _dispatch(args, cfg: Config, timer: PhaseTimer, out) -> int:
             if not os.path.exists(path):
                 print(f"ERROR: index file {path} not found (run `index` first)", file=sys.stderr)
                 return 1
-            index = load_index(path)
+            with span("index.load"):
+                index = load_index(path)
         timer.pelapsed("Index loaded")
         call(cfg, index, out, timer)
         return 0
@@ -337,7 +343,8 @@ def _reusable_index(cfg: Config):
     ok, why = index_matches_config(path, cfg)
     if ok:
         print(f"[{TAG}] reusing index {path}", file=sys.stderr)
-        return load_index(path)
+        with span("index.load"):
+            return load_index(path)
     print(f"[{TAG}] existing index {path} was built with different options ({why}); "
           f"rebuilding", file=sys.stderr)
     return None

@@ -24,17 +24,25 @@ reads lowercase bases as uppercase, so the reads cross as they are.  The
 power-of-two step sizes of the TPU version (they bound XLA recompiles)
 and the checkpoint are not carried over: the first has no use under
 torch, and ``call`` does not take the second.
+
+Both loops record spans (``utils/timing.py``): ``count.read``, the read
+batches got and walked and the pieces' bytes joined; ``count.piece``,
+each piece's sort-count, on the device up to its read-back or on the
+host; and :func:`count_reads_kmers`'s ``count.merge``, the runs merged,
+the ``ci`` filter and the cap.
 """
 
 from __future__ import annotations
 
 import sys
+import time
 
 import numpy as np
 
 from ..io.fasta import iter_read_batches
 from ..ops.seq import CODE_TABLE, canonical, pack_2bit, unpack_2bit, upper
 from ..utils.errors import InputError
+from ..utils.timing import add_span, count, span
 
 SEP = b"\xff"  # read separator: any window across it is not pure ACGT
 
@@ -192,22 +200,25 @@ def _host_chunk_runs(batches, ref_k: int, chunk_kmers: int, flush_each_batch: bo
         nonlocal pending, pending_n
         if not pending:
             return
-        if native_reads:
-            from ..utils import native
+        with span("count.piece"):
+            if native_reads:
+                from ..utils import native
 
-            # fused native path: raw read bytes -> packed canonical keys
-            # (no (windows, k) byte matrix ever materializes); the packed
-            # buffer is disposable, so the sort consumes it in place and
-            # the run views die at the merge — no working/output copies
-            packed = native.read_kmers(pending, ref_k)
-            pending, pending_n = [], 0
-            out = native.sort_count_inplace(packed)
-            yield out if out is not None else _sorted_counts(packed)
-            return
-        block = np.concatenate(pending, axis=0)
-        pending, pending_n = [], 0
-        yield _sorted_counts(pack_2bit(canonical(block)))
+                # fused native path: raw read bytes -> packed canonical keys
+                # (no (windows, k) byte matrix ever materializes); the packed
+                # buffer is disposable, so the sort consumes it in place and
+                # the run views die at the merge — no working/output copies
+                packed = native.read_kmers(pending, ref_k)
+                pending, pending_n = [], 0
+                out = native.sort_count_inplace(packed)
+                out = out if out is not None else _sorted_counts(packed)
+            else:
+                block = np.concatenate(pending, axis=0)
+                pending, pending_n = [], 0
+                out = _sorted_counts(pack_2bit(canonical(block)))
+        yield out
 
+    t = time.monotonic()
     for batch in batches:
         for seq in batch:
             if native_reads:
@@ -220,10 +231,15 @@ def _host_chunk_runs(batches, ref_k: int, chunk_kmers: int, flush_each_batch: bo
                     pending.append(w)
                     pending_n += w.shape[0]
             if pending_n >= chunk_kmers:
+                add_span("count.read", t)
                 yield from flush()
+                t = time.monotonic()
+        add_span("count.read", t)
         if flush_each_batch:
             yield from flush()
         yield None
+        t = time.monotonic()
+    add_span("count.read", t)
     yield from flush()
 
 
@@ -244,25 +260,34 @@ def iter_device_runs(batches, ref_k: int, chunk_kmers: int, device,
 
     def flush(whole: bool):
         nonlocal pending, pending_n
-        block = bytearray().join(pending)  # writable: no copy on the way to torch
+        with span("count.read"):
+            block = bytearray().join(pending)  # writable: no copy on the way to torch
         n_pos = len(block) - ref_k + 1
         n_pieces = -(-n_pos // chunk_kmers) if whole else n_pos // chunk_kmers
         arr = np.frombuffer(block, dtype=np.uint8)
         for start in range(0, max(n_pieces, 0) * chunk_kmers, chunk_kmers):
-            yield device_seq_sorted_counts(step, arr[start : start + chunk_kmers + ref_k - 1])
+            with span("count.piece"):
+                run = device_seq_sorted_counts(step, arr[start : start + chunk_kmers + ref_k - 1])
+            yield run
         rest = b"" if whole else bytes(block[n_pieces * chunk_kmers :])
         pending, pending_n = ([rest], len(rest)) if rest else ([], 0)
 
+    t = time.monotonic()
     for batch in batches:
         for seq in batch:
             if len(seq) >= ref_k:
                 pending += (seq, SEP)
                 pending_n += len(seq) + 1
                 if pending_n - ref_k + 1 >= chunk_kmers:
+                    add_span("count.read", t)
                     yield from flush(whole=False)
+                    t = time.monotonic()
+        add_span("count.read", t)
         if flush_each_batch and pending:
             yield from flush(whole=True)
         yield None
+        t = time.monotonic()
+    add_span("count.read", t)
     if pending:
         yield from flush(whole=True)
 
@@ -285,11 +310,14 @@ def count_reads_kmers(reads_path: str, ref_k: int, ci: int = 2, cs: int = 255,
             else iter_device_runs(batches, ref_k, chunk_kmers, device))
     for run in runs:
         if run is not None:
-            acc_keys, acc_cnts = _merge_runs(acc_keys, acc_cnts, *run)
-    total_windows = int(acc_cnts.sum())
-    keep = acc_cnts >= ci
-    keys = acc_keys[keep]
-    counts = np.minimum(acc_cnts[keep], cs).astype(np.uint32)
+            with span("count.merge"):
+                acc_keys, acc_cnts = _merge_runs(acc_keys, acc_cnts, *run)
+    with span("count.merge"):
+        total_windows = int(acc_cnts.sum())
+        keep = acc_cnts >= ci
+        keys = acc_keys[keep]
+        counts = np.minimum(acc_cnts[keep], cs).astype(np.uint32)
+    count("count.windows", total_windows)
     where = "" if device is None else f" (sort-count on {device})"
     print(f"[malva-tpu-torch/count] {total_windows} k-mer occurrences, {acc_cnts.shape[0]} "
           f"distinct, {keys.shape[0]} past ci={ci}{where}", file=log)

@@ -39,7 +39,7 @@ from .models.genotype_host import format_variants, genotype_block
 from .utils import native
 from .utils.config import Config
 from .utils.errors import InputError
-from .utils.timing import PhaseTimer
+from .utils.timing import PhaseTimer, carried, count, span
 from .variants.blocks import VB
 from .variants.variant import Variant
 
@@ -159,12 +159,23 @@ def _unique_rows(mat: np.ndarray):
     return uniq.view(np.uint8).reshape(-1, L), inv
 
 
-def _extract_batch_flat(batch, cfg: Config) -> FlatExtract:
+def _extract_batch_flat(batch, cfg: Config, spans: str) -> FlatExtract:
     """[(variants, ref_bytes), ...] -> FlatExtract via the native engine
     (utils.native.extract_group), falling back to the per-block Python
-    path (blocks.VB.extract_kmers) with identical semantics."""
+    path (blocks.VB.extract_kmers) with identical semantics.  The GT
+    parse and the extraction are the spans ``<spans>.gt_parse`` and
+    ``<spans>.extract``; ``<spans>.batches`` and ``<spans>.records``
+    count the batch and its variants."""
     all_vars = [v for variants, _ in batch for v in variants]
-    _resolve_gts(all_vars)  # deferred GT parse, one native batch
+    count(f"{spans}.batches")
+    count(f"{spans}.records", len(all_vars))
+    with span(f"{spans}.gt_parse"):
+        _resolve_gts(all_vars)  # deferred GT parse, one native batch
+    with span(f"{spans}.extract"):
+        return _extract_flat(batch, cfg, all_vars)
+
+
+def _extract_flat(batch, cfg: Config, all_vars: list) -> FlatExtract:
     res = native.extract_group(batch, cfg.k, cfg.haploid)
     if res is not None:
         tgt_var, tgt_allele, tgt_nsig, sig_nk, kmer_len, bytes_u8 = res
@@ -211,38 +222,41 @@ def _iter_extract_batches(cfg: Config, refs, keep_absent: bool,
     passes), yields ``(batch_idx, FlatExtract)`` for owned batches ONLY:
     unowned batches skip the GT parse and extraction entirely (their
     deferred sources are dropped) — batch boundaries derive from the
-    cheap record scan alone, so every process sees identical numbering."""
-    ref_bytes_cache: dict[int, bytes] = {}
-    batch: list[tuple[list, bytes]] = []
-    nv = 0
-    bi = 0
+    cheap record scan alone, so every process sees identical numbering.
 
-    def emit(batch):
-        nonlocal bi
+    Each batch's record scan is the span ``<spans>.scan``, where
+    ``spans`` is ``pass2`` for the call phase's pass (``keep_absent``)
+    and ``variants`` for the index's."""
+    spans = "pass2" if keep_absent else "variants"
+    ref_bytes_cache: dict[int, bytes] = {}
+    blocks = _iter_blocks(cfg, refs, keep_absent, used_out, timer)
+    bi = 0
+    while True:
+        batch: list[tuple[list, bytes]] = []
+        nv = 0
+        with span(f"{spans}.scan"):
+            for vb, ref in blocks:
+                # NOTE: setdefault would re-run tobytes() (a full contig
+                # copy) on every block even on cache hits.
+                ref_bytes = b"" if ref is None else ref_bytes_cache.get(id(ref))
+                if ref_bytes is None:
+                    ref_bytes = ref_bytes_cache[id(ref)] = ref.tobytes()
+                batch.append((vb.variants, ref_bytes))  # vb.clear() rebinds
+                nv += len(vb.variants)
+                if nv >= EXTRACT_VARS:
+                    break
+        if not batch:
+            return
         b = bi
         bi += 1
         if owned is None:
-            yield _extract_batch_flat(batch, cfg)
+            yield _extract_batch_flat(batch, cfg, spans)
         elif owned(b):
-            yield b, _extract_batch_flat(batch, cfg)
+            yield b, _extract_batch_flat(batch, cfg, spans)
         else:
             for variants, _ in batch:
                 for v in variants:
                     v._gt_src = None  # release the raw records
-    for vb, ref in _iter_blocks(cfg, refs, keep_absent, used_out, timer):
-        # NOTE: setdefault would re-run tobytes() (a full contig copy)
-        # on every block even on cache hits.
-        ref_bytes = b"" if ref is None else ref_bytes_cache.get(id(ref))
-        if ref_bytes is None:
-            ref_bytes = ref_bytes_cache[id(ref)] = ref.tobytes()
-        batch.append((vb.variants, ref_bytes))  # vb.clear() rebinds
-        nv += len(vb.variants)
-        if nv >= EXTRACT_VARS:
-            yield from emit(batch)
-            batch = []
-            nv = 0
-    if batch:
-        yield from emit(batch)
 
 
 # Record batch size for the batched GT parse (native.parse_gt_batch,
@@ -680,7 +694,7 @@ def _weights_from_planes(qinfo: list, bf_plane: np.ndarray,
     return w_flat
 
 
-def _prefetch(it, depth: int = 2, gate=None):
+def _prefetch(it, spans: str, depth: int = 2, gate=None):
     """Run an iterator in a background thread with a bounded queue: the
     spill merge (disk reads + native sort/merge, GIL-released) overlaps
     the counter application (native scatter/search) instead of
@@ -691,7 +705,13 @@ def _prefetch(it, depth: int = 2, gate=None):
     its producer packs otherwise-idle cycles (extraction never reads the
     counter planes, only `_set_coverages_flat` on the consumer side
     does).  With a ``gate`` (a ``threading.Event``) the worker makes its
-    next item only while the gate is set (see :func:`_held`)."""
+    next item only while the gate is set (see :func:`_held`).
+
+    The caller names the spans, one an item: the worker's
+    ``<spans>.put_wait`` (its put, which waits while the queue is full)
+    and ``<spans>.held`` (at the gate), the consumer's ``<spans>.wait``
+    (its get); the worker's spans are children of what the caller has
+    open."""
     import queue
 
     q: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -701,20 +721,23 @@ def _prefetch(it, depth: int = 2, gate=None):
     def worker():
         try:
             for x in it:
-                q.put(x)
+                with span(f"{spans}.put_wait"):
+                    q.put(x)
                 if gate is not None:
-                    gate.wait()
+                    with span(f"{spans}.held"):
+                        gate.wait()
         except BaseException as e:  # re-raised on the consumer side
             err.append(e)
         finally:
             q.put(done)
 
-    t = threading.Thread(target=worker, daemon=True)
+    t = threading.Thread(target=carried(worker), daemon=True)
     t.start()
 
     def gen():
         while True:
-            x = q.get()
+            with span(f"{spans}.wait"):
+                x = q.get()
             if x is done:
                 break
             yield x
@@ -786,13 +809,16 @@ def _genotype_and_emit(cfg: Config, index: Index, refs, out,
     # them.  ``batches`` may be a prefetch started earlier (call() hands
     # one over so extraction overlaps the counting phase too).
     if batches is None:
-        batches = _prefetch(_iter_pass2_batches(cfg, refs))
+        batches = _prefetch(_iter_pass2_batches(cfg, refs), "pass2")
     for flat in batches:
-        _set_coverages_flat(index, flat)
-        genotype_block(flat.all_vars, cfg.max_coverage, cfg.haploid,
-                       cfg.error_rate)
-        for line in format_variants(flat.all_vars, cfg.haploid, cfg.verbose):
-            out.write(line + "\n")
+        with span("pass2.coverage"):
+            _set_coverages_flat(index, flat)
+        with span("pass2.genotype"):
+            genotype_block(flat.all_vars, cfg.max_coverage, cfg.haploid,
+                           cfg.error_rate)
+        with span("pass2.format"):
+            for line in format_variants(flat.all_vars, cfg.haploid, cfg.verbose):
+                out.write(line + "\n")
         n += len(flat.all_vars)
     timer.pelapsed(f"VCF parsing and genotyping ({n} variants)")
 
@@ -947,7 +973,7 @@ def call(cfg: Config, index: Index, out=None, timer: PhaseTimer | None = None,
     pass2_depth = int(os.environ.get("MALVA_PASS2_PREFETCH", 8 if cfg.spill_dir else 32))
     gate = threading.Event()
     gate.set()
-    pass2 = _prefetch(_iter_pass2_batches(cfg, refs), depth=pass2_depth, gate=gate)
+    pass2 = _prefetch(_iter_pass2_batches(cfg, refs), "pass2", depth=pass2_depth, gate=gate)
     stats = None
     cards = start_cards(cfg, device, mesh)
 
@@ -961,13 +987,13 @@ def call(cfg: Config, index: Index, out=None, timer: PhaseTimer | None = None,
         if m is not None:
             from .parallel.sharded_index import apply_sample_counts_sharded_stream
 
-            stats = apply_sample_counts_sharded_stream(index, _prefetch(batches), cfg, m)
+            stats = apply_sample_counts_sharded_stream(index, _prefetch(batches, "spill"), cfg, m)
         elif dev is not None:
             from .index.device import apply_sample_counts_stream
 
-            stats = apply_sample_counts_stream(index, _prefetch(batches), cfg, dev)
+            stats = apply_sample_counts_stream(index, _prefetch(batches, "spill"), cfg, dev)
         else:
-            for keys, cnts in _prefetch(batches):
+            for keys, cnts in _prefetch(batches, "spill"):
                 apply_sample_counts(index, keys, cnts, cfg)
         timer.pelapsed("Sample k-mer counting + BF weights (spill)")
     elif cfg.from_kmc_dump or cfg.from_kmc_db:
@@ -1112,7 +1138,7 @@ def call_batch(cfg: Config, index: Index, sample_paths: list[str], outs: list,
     for out in outs:
         out.write(header)
     n = 0
-    for flat in _prefetch(_iter_pass2_batches(cfg, refs)):
+    for flat in _prefetch(_iter_pass2_batches(cfg, refs), "pass2"):
         qinfo = _flat_query_info(index, flat)  # resolve queries once
         for (bf_plane, kmap_plane), out in zip(planes, outs):
             for v in flat.all_vars:

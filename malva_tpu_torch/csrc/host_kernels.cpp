@@ -1799,124 +1799,827 @@ int64_t malva_extract_group(
 // gt_at.  Outputs: (n_rec, n_samples) int32 a1/a2 + uint8 phase,
 // ok[r] = 1, or 0 when that record needs the Python path (malformed /
 // ploidy > 64).
-extern "C" void malva_parse_gt_batch(
-    const uint8_t* bytes, const int64_t* rec_off, const int64_t* gt_at,
-    int64_t n_rec, int64_t n_samples, int32_t* a1, int32_t* a2, uint8_t* ph,
-    uint8_t* ok) {
+namespace {
+
+// One record of the batched parse: its decoded row into ra1/ra2/rp
+// (n_samples each), or false when the record needs the Python path.
+bool gt_row(const uint8_t* s, int64_t len, int64_t gt_at, int64_t n_samples,
+            std::vector<int32_t>& enc, int32_t* ra1, int32_t* ra2, uint8_t* rp) {
   const int32_t kVectorEnd = (int32_t)0x80000000;
+  // fixed-width fast paths (GT first in FORMAT, single-digit alleles):
+  // "a|b\t"*n — the overwhelmingly common cohort layout — and haploid
+  // "a\t"*n.  Byte-for-byte the same decode as the generic path below.
+  if (gt_at == 0 && len == 4 * n_samples - 1) {
+    bool good = true;
+    for (int64_t i = 0; i < n_samples && good; ++i) {
+      const uint8_t* p = s + 4 * i;
+      uint8_t d1 = p[0], sep = p[1], d2 = p[2];
+      good = ((d1 >= '0' && d1 <= '9') || d1 == '.') &&
+             (sep == '|' || sep == '/') &&
+             ((d2 >= '0' && d2 <= '9') || d2 == '.') &&
+             (i + 1 == n_samples || p[3] == '\t');
+    }
+    if (good) {
+      for (int64_t i = 0; i < n_samples; ++i) {
+        const uint8_t* p = s + 4 * i;
+        int32_t e1 = p[0] == '.' ? 0 : (int32_t)(p[0] - '0' + 1) << 1;
+        int32_t e2 = (p[2] == '.' ? 0 : (int32_t)(p[2] - '0' + 1) << 1) |
+                     (p[1] == '|');
+        int32_t v1 = (e1 >> 1) - 1;
+        ra1[i] = v1 > 0 ? v1 : 0;
+        int32_t v2 = (e2 >> 1) - 1;
+        ra2[i] = v2 > 0 ? v2 : 0;
+        rp[i] = (uint8_t)(e2 & 1);
+      }
+      return true;
+    }
+  }
+  if (gt_at == 0 && len == 2 * n_samples - 1) {
+    bool good = true;
+    for (int64_t i = 0; i < n_samples && good; ++i) {
+      uint8_t d = s[2 * i];
+      good = ((d >= '0' && d <= '9') || d == '.') &&
+             (i + 1 == n_samples || s[2 * i + 1] == '\t');
+    }
+    if (good) {  // ploidy 1: slot base+1 reads the NEXT sample's entry
+      for (int64_t i = 0; i < n_samples; ++i) {
+        uint8_t d = s[2 * i];
+        int32_t e1 = d == '.' ? 0 : (int32_t)(d - '0' + 1) << 1;
+        int32_t v1 = (e1 >> 1) - 1;
+        ra1[i] = v1 > 0 ? v1 : 0;
+        if (i + 1 < n_samples) {
+          uint8_t dn = s[2 * (i + 1)];
+          int32_t e2 = dn == '.' ? 0 : (int32_t)(dn - '0' + 1) << 1;
+          int32_t v2 = (e2 >> 1) - 1;
+          ra2[i] = v2 > 0 ? v2 : 0;
+          rp[i] = 0;  // next sample's first entry: phase bit 0
+        } else {
+          ra2[i] = ra1[i];  // VECTOR_END
+          rp[i] = 1;
+        }
+      }
+      return true;
+    }
+  }
+  for (int64_t cap = 8; cap <= 64; cap <<= 3) {  // -1 can be ploidy overflow
+    enc.resize((size_t)(n_samples * cap));
+    int64_t mp = malva_parse_gt(s, len, n_samples, gt_at, enc.data(), cap);
+    if (mp < 0) continue;
+    if (mp == 0) return false;  // no samples: Python path decides
+    for (int64_t i = 0; i < n_samples; ++i) {
+      int32_t first = enc[i * cap];
+      int32_t second;
+      if (mp >= 2) {
+        second = enc[i * cap + 1];
+      } else {
+        // upstream reads slot base+1 = next sample's first entry; the
+        // final sample's read is out of bounds there, defined as
+        // VECTOR_END here (variant.py:104-108)
+        second = (i + 1 < n_samples) ? enc[(i + 1) * cap] : kVectorEnd;
+      }
+      int32_t v1 = (first >> 1) - 1;
+      ra1[i] = v1 > 0 ? v1 : 0;
+      if (second == kVectorEnd) {
+        ra2[i] = ra1[i];
+        rp[i] = 1;
+      } else {
+        int32_t v2 = (second >> 1) - 1;
+        ra2[i] = v2 > 0 ? v2 : 0;
+        rp[i] = (uint8_t)(second & 1);
+      }
+    }
+    return true;
+  }
+  return false;
+}
+
+}  // namespace
+
+extern "C" {
+
+void malva_parse_gt_batch(const uint8_t* bytes, const int64_t* rec_off,
+                          const int64_t* gt_at, int64_t n_rec, int64_t n_samples,
+                          int32_t* a1, int32_t* a2, uint8_t* ph, uint8_t* ok) {
 #pragma omp parallel
   {
     std::vector<int32_t> enc;
 #pragma omp for schedule(dynamic, 16)
-    for (int64_t r = 0; r < n_rec; ++r) {
-      const uint8_t* s = bytes + rec_off[r];
-      int64_t len = rec_off[r + 1] - rec_off[r];
-      // fixed-width fast paths (GT first in FORMAT, single-digit
-      // alleles): "a|b\t"*n — the overwhelmingly common cohort layout —
-      // and haploid "a\t"*n.  Byte-for-byte the same decode as the
-      // generic path below.
-      if (gt_at[r] == 0 && len == 4 * n_samples - 1) {
-        bool good = true;
-        for (int64_t i = 0; i < n_samples && good; ++i) {
-          const uint8_t* p = s + 4 * i;
-          uint8_t d1 = p[0], sep = p[1], d2 = p[2];
-          good = ((d1 >= '0' && d1 <= '9') || d1 == '.') &&
-               (sep == '|' || sep == '/') &&
-               ((d2 >= '0' && d2 <= '9') || d2 == '.') &&
-               (i + 1 == n_samples || p[3] == '\t');
-        }
-        if (good) {
-          int32_t* ra1 = a1 + r * n_samples;
-          int32_t* ra2 = a2 + r * n_samples;
-          uint8_t* rp = ph + r * n_samples;
-          for (int64_t i = 0; i < n_samples; ++i) {
-            const uint8_t* p = s + 4 * i;
-            int32_t e1 = p[0] == '.' ? 0 : (int32_t)(p[0] - '0' + 1) << 1;
-            int32_t e2 = (p[2] == '.' ? 0 : (int32_t)(p[2] - '0' + 1) << 1) |
-                         (p[1] == '|');
-            int32_t v1 = (e1 >> 1) - 1;
-            ra1[i] = v1 > 0 ? v1 : 0;
-            int32_t v2 = (e2 >> 1) - 1;
-            ra2[i] = v2 > 0 ? v2 : 0;
-            rp[i] = (uint8_t)(e2 & 1);
-          }
-          ok[r] = 1;
-          continue;
-        }
+    for (int64_t r = 0; r < n_rec; ++r)
+      ok[r] = gt_row(bytes + rec_off[r], rec_off[r + 1] - rec_off[r], gt_at[r], n_samples,
+                     enc, a1 + r * n_samples, a2 + r * n_samples, ph + r * n_samples);
+  }
+}
+
+// The same over regions that lie anywhere in one buffer (the record
+// scanner's text, below): record r's region is base[off[r], off[r] + len[r]).
+void malva_parse_gt_spans(const uint8_t* base, const int64_t* off, const int64_t* len,
+                          const int64_t* gt_at, int64_t n_rec, int64_t n_samples,
+                          int32_t* a1, int32_t* a2, uint8_t* ph, uint8_t* ok) {
+#pragma omp parallel
+  {
+    std::vector<int32_t> enc;
+#pragma omp for schedule(dynamic, 16)
+    for (int64_t r = 0; r < n_rec; ++r)
+      ok[r] = gt_row(base + off[r], len[r], gt_at[r], n_samples, enc, a1 + r * n_samples,
+                     a2 + r * n_samples, ph + r * n_samples);
+  }
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// The VCF record scan of pass 2 and of the index's variant pass: one call
+// inflates the text, splits its records, parses their fixed columns and
+// groups the variants into blocks, up to one extraction batch, with the
+// GIL released and no Python object made on the way.  It mirrors
+// malva_tpu_torch/io/vcf.py VcfReader (the lines, the columns),
+// variants/variant.py Variant (the alleles, sizes, frequencies and flags)
+// and pipeline.py _iter_blocks (the block boundaries, the contig each
+// block's reference comes from and used_out's state machine, its quirk
+// included) exactly.
+//
+// What it leaves to Python: a record with a non-ASCII byte in a fixed
+// column, a POS, QUAL or frequency outside the plain decimal grammar, or
+// too few columns.  The scan hands such a record's line over (status 1);
+// Python parses it, raising the InputError the Python path raises, or
+// gives back what the grouping needs (malva_vcf_put), and the batch that
+// holds it goes whole to the Python path (``fallback``).  A batch's GT
+// regions and lines are offsets into the scanner's text, which stays in
+// place until the next malva_vcf_scan call.
+
+#if defined(MALVA_ZLIB)
+#include <zlib.h>
+#endif
+#include <cstdio>
+#include <cstdlib>
+#include <string>
+#include <unordered_map>
+
+namespace {
+
+// One batch as malva_vcf_scan leaves it (the layout of native.py's
+// _ScanView).  The arrays are the scanner's own, valid until its next call.
+struct ScanView {
+  int64_t status;  // 0: a batch (n_vars 0 at the end), 1: a line for Python, 2: stream error
+  int64_t n_vars, n_blocks, n_lines, n_used, n_names, fallback;
+  int64_t rec_off, rec_len;  // status 1: the line, in buf
+  const uint8_t* buf;
+  const int64_t *line_off, *line_len, *gt_off, *gt_len, *gt_at;
+  const int64_t *pos, *ref_size, *min_size, *max_size;
+  const uint8_t* present;
+  const float* qual;
+  const int32_t* name;
+  const int64_t *al_start, *al_off;
+  const uint8_t* al_bytes;
+  const float* freq;
+  const int64_t* id_off;
+  const uint8_t* id_bytes;
+  const int64_t* blk_off;
+  const int32_t* blk_name;
+  const int32_t* used;
+  const int64_t* name_off;
+  const uint8_t* name_bytes;
+};
+
+// One record's parse; its line and GT region are offsets into the text.
+struct Parsed {
+  int64_t line_off = 0, line_len = 0, gt_off = 0, gt_len = 0, gt_at = -1;
+  int64_t pos = 0, ref_size = 0, min_size = 0, max_size = 0, thresh = 0;
+  int32_t name = 0;
+  bool present = true, passing = false, from_py = false;
+  float qual = 0;
+  std::string alleles, id;
+  std::vector<int64_t> al_len;
+  std::vector<float> freqs;
+};
+
+inline bool is_digit(uint8_t c) { return c >= '0' && c <= '9'; }
+
+// POS as Python's int() reads its plain form, [+-]?[0-9]{1,18}; false for
+// anything else, which Python decides (a value or its InputError).
+bool parse_int(const uint8_t* s, int64_t n, int64_t* out) {
+  int64_t i = 0;
+  bool neg = false;
+  if (i < n && (s[i] == '+' || s[i] == '-')) neg = s[i++] == '-';
+  if (i == n || n - i > 18) return false;
+  int64_t v = 0;
+  for (; i < n; ++i) {
+    if (!is_digit(s[i])) return false;
+    v = v * 10 + (s[i] - '0');
+  }
+  *out = neg ? -v : v;
+  return true;
+}
+
+inline bool word_is(const uint8_t* s, int64_t n, const char* w) {
+  if (n != (int64_t)std::strlen(w)) return false;
+  for (int64_t i = 0; i < n; ++i)
+    if ((s[i] | 0x20) != w[i]) return false;
+  return true;
+}
+
+// A number as np.float32(token) reads it: Python's float(), correctly
+// rounded to double, then a cast; so strtod and a cast, never strtof.
+// 0: *out holds it; 1: Python's float() refuses the token; 2: the token
+// has whitespace, '_' or a byte outside printable ASCII, where Python's
+// grammar is wider than this one (Python decides).
+int parse_float(const uint8_t* s, int64_t n, double* out) {
+  for (int64_t i = 0; i < n; ++i)
+    if (s[i] <= 0x20 || s[i] >= 0x7f || s[i] == '_') return 2;
+  int64_t i = 0;
+  if (i < n && (s[i] == '+' || s[i] == '-')) ++i;
+  int64_t d0 = i;
+  while (i < n && is_digit(s[i])) ++i;
+  int64_t nd = i - d0;
+  if (i < n && s[i] == '.') {
+    int64_t f0 = ++i;
+    while (i < n && is_digit(s[i])) ++i;
+    nd += i - f0;
+  }
+  bool plain = nd > 0;
+  if (plain && i < n && (s[i] == 'e' || s[i] == 'E')) {
+    ++i;
+    if (i < n && (s[i] == '+' || s[i] == '-')) ++i;
+    int64_t e0 = i;
+    while (i < n && is_digit(s[i])) ++i;
+    plain = i > e0;
+  }
+  if (plain && i == n) {
+    char tmp[64];
+    if (n >= (int64_t)sizeof(tmp)) return 2;
+    std::memcpy(tmp, s, (size_t)n);
+    tmp[n] = 0;
+    *out = std::strtod(tmp, nullptr);
+    return 0;
+  }
+  double sign = 1.0;
+  if (n > 0 && (s[0] == '+' || s[0] == '-')) {
+    sign = s[0] == '-' ? -1.0 : 1.0;
+    ++s;
+    --n;
+  }
+  if (word_is(s, n, "inf") || word_is(s, n, "infinity")) {
+    *out = sign * HUGE_VAL;
+    return 0;
+  }
+  if (word_is(s, n, "nan")) {
+    *out = std::nan("");
+    return 0;
+  }
+  return 1;
+}
+
+// str.find over bytes, the empty needle included.
+int64_t find(const uint8_t* h, int64_t n, const std::string& k, int64_t from) {
+  int64_t m = (int64_t)k.size();
+  if (from > n) return -1;
+  if (m == 0) return from;
+  for (int64_t i = from; i + m <= n; ++i)
+    if (h[i] == (uint8_t)k[0] && std::memcmp(h + i, k.data(), (size_t)m) == 0) return i;
+  return -1;
+}
+
+inline char upper(uint8_t c) { return (char)((c >= 'a' && c <= 'z') ? c - 32 : c); }
+
+class VcfScan {
+ public:
+  VcfScan(FILE* f, bool gz, int64_t n_samples, std::string key, bool uniform, bool strip_chr,
+          bool keep_absent, int64_t k)
+      : f_(f), gz_(gz), n_samples_(n_samples), key_(std::move(key)), uniform_(uniform),
+        strip_chr_(strip_chr), keep_absent_(keep_absent), half_k_((k + 1) / 2) {
+#if defined(MALVA_ZLIB)
+    if (gz_) {
+      std::memset(&zs_, 0, sizeof(zs_));
+      zinit_ = inflateInit2(&zs_, 16 + MAX_WBITS) == Z_OK;
+      in_.resize(1 << 20);
+    }
+#endif
+    name_off_.push_back(0);
+  }
+  ~VcfScan() {
+#if defined(MALVA_ZLIB)
+    if (zinit_) inflateEnd(&zs_);
+#endif
+    std::fclose(f_);
+  }
+
+  // Past the header: every line up to the one that starts with #CHROM.
+  bool open() {
+#if defined(MALVA_ZLIB)
+    if (gz_ && !zinit_) return false;
+#else
+    if (gz_) return false;
+#endif
+    int64_t s, n;
+    while (next_line(&s, &n))
+      if (n >= 6 && std::memcmp(buf_.data() + s, "#CHROM", 6) == 0) return true;
+    return !err_;
+  }
+
+  void scan(int64_t max_vars, ScanView* v) {
+    if (returned_) start_batch();
+    for (;;) {
+      if (has_pushed_) {
+        has_pushed_ = false;
+        if (step(pushed_, max_vars)) return finish(v, 0);
+        continue;
       }
-      if (gt_at[r] == 0 && len == 2 * n_samples - 1) {
-        bool good = true;
-        for (int64_t i = 0; i < n_samples && good; ++i) {
-          uint8_t d = s[2 * i];
-          good = ((d >= '0' && d <= '9') || d == '.') &&
-               (i + 1 == n_samples || s[2 * i + 1] == '\t');
-        }
-        if (good) {  // ploidy 1: slot base+1 reads the NEXT sample's entry
-          int32_t* ra1 = a1 + r * n_samples;
-          int32_t* ra2 = a2 + r * n_samples;
-          uint8_t* rp = ph + r * n_samples;
-          for (int64_t i = 0; i < n_samples; ++i) {
-            uint8_t d = s[2 * i];
-            int32_t e1 = d == '.' ? 0 : (int32_t)(d - '0' + 1) << 1;
-            int32_t v1 = (e1 >> 1) - 1;
-            ra1[i] = v1 > 0 ? v1 : 0;
-            if (i + 1 < n_samples) {
-              uint8_t dn = s[2 * (i + 1)];
-              int32_t e2 = dn == '.' ? 0 : (int32_t)(dn - '0' + 1) << 1;
-              int32_t v2 = (e2 >> 1) - 1;
-              ra2[i] = v2 > 0 ? v2 : 0;
-              rp[i] = 0;  // next sample's first entry: phase bit 0
-            } else {
-              ra2[i] = ra1[i];  // VECTOR_END
-              rp[i] = 1;
-            }
-          }
-          ok[r] = 1;
-          continue;
-        }
+      int64_t s, n;
+      if (!next_line(&s, &n)) {
+        if (err_) return finish(v, 2);
+        if (block_open_ && !done_) flush();
+        done_ = true;
+        return finish(v, 0);
       }
-      int64_t mp = -1;
-      for (int64_t cap = 8; cap <= 64; cap <<= 3) {
-        enc.resize((size_t)(n_samples * cap));
-        mp = malva_parse_gt(s, len, n_samples, gt_at[r], enc.data(), cap);
-        if (mp >= 0) {
-          if (mp > 0 && mp <= cap) {
-            int32_t* ra1 = a1 + r * n_samples;
-            int32_t* ra2 = a2 + r * n_samples;
-            uint8_t* rp = ph + r * n_samples;
-            for (int64_t s = 0; s < n_samples; ++s) {
-              int32_t first = enc[s * cap];
-              int32_t second;
-              if (mp >= 2) {
-                second = enc[s * cap + 1];
-              } else {
-                // upstream reads slot base+1 = next sample's first entry;
-                // the final sample's read is out of bounds there, defined
-                // as VECTOR_END here (variant.py:104-108)
-                second = (s + 1 < n_samples) ? enc[(s + 1) * cap] : kVectorEnd;
-              }
-              int32_t v1 = (first >> 1) - 1;
-              ra1[s] = v1 > 0 ? v1 : 0;
-              if (second == kVectorEnd) {
-                ra2[s] = ra1[s];
-                rp[s] = 1;
-              } else {
-                int32_t v2 = (second >> 1) - 1;
-                ra2[s] = v2 > 0 ? v2 : 0;
-                rp[s] = (uint8_t)(second & 1);
-              }
-            }
-            ok[r] = 1;
-          } else {
-            ok[r] = 0;  // mp == 0 (no samples): Python path decides
+      if (n == 0) continue;
+      if (parse(s, n, cur_) != 0) {
+        rej_off_ = s;
+        rej_len_ = n;
+        return finish(v, 1);
+      }
+      if (step(cur_, max_vars)) return finish(v, 0);
+    }
+  }
+
+  // Python's reading of the line the scan handed over (status 1).
+  void put(const uint8_t* name, int64_t name_len, bool passing, int64_t pos, int64_t ref_size,
+           int64_t min_size) {
+    Parsed& p = pushed_;
+    p.line_off = rej_off_;
+    p.line_len = rej_len_;
+    p.gt_off = p.gt_len = 0;
+    p.gt_at = -1;
+    p.pos = pos;
+    p.ref_size = ref_size;
+    p.min_size = p.max_size = min_size;
+    p.thresh = pos + ref_size - min_size - 1 + half_k_;
+    p.name = intern(name, name_len);
+    p.present = true;
+    p.passing = passing;
+    p.from_py = true;
+    p.qual = 0;
+    p.alleles.clear();
+    p.id.clear();
+    p.al_len.clear();
+    p.freqs.clear();
+    has_pushed_ = true;
+  }
+
+ private:
+  // -- the text --------------------------------------------------------------
+  bool fill() {
+    if ((int64_t)buf_.size() - filled_ < (4 << 20))
+      buf_.resize(std::max<size_t>(buf_.size() * 2, (size_t)filled_ + (8 << 20)));
+    if (!gz_) {
+      size_t got = std::fread(buf_.data() + filled_, 1, buf_.size() - filled_, f_);
+      filled_ += (int64_t)got;
+      if (got == 0) {
+        if (std::ferror(f_)) return fail();
+        eof_ = true;
+      }
+      return true;
+    }
+#if defined(MALVA_ZLIB)
+    int64_t before = filled_;
+    while (filled_ == before && !eof_) {
+      if (zs_.avail_in == 0) {
+        size_t got = std::fread(in_.data(), 1, in_.size(), f_);
+        if (got == 0) {
+          if (std::ferror(f_) || !member_done_) return fail();  // a truncated member
+          eof_ = true;
+          break;
+        }
+        zs_.next_in = in_.data();
+        zs_.avail_in = (uInt)got;
+      }
+      if (member_done_) {  // between members: zero padding, then a header
+        while (zs_.avail_in && *zs_.next_in == 0) {
+          ++zs_.next_in;
+          --zs_.avail_in;
+        }
+        if (zs_.avail_in == 0) continue;
+        if (inflateReset(&zs_) != Z_OK) return fail();
+        member_done_ = false;
+      }
+      zs_.next_out = buf_.data() + filled_;
+      zs_.avail_out = (uInt)std::min<size_t>(buf_.size() - filled_, (size_t)1 << 30);
+      uInt room = zs_.avail_out;
+      int rc = inflate(&zs_, Z_NO_FLUSH);
+      filled_ += (int64_t)(room - zs_.avail_out);
+      if (rc == Z_STREAM_END) {
+        member_done_ = true;
+      } else if (rc != Z_OK && !(rc == Z_BUF_ERROR && zs_.avail_in == 0)) {
+        return fail();
+      }
+    }
+    return true;
+#else
+    return fail();
+#endif
+  }
+
+  bool fail() {
+    err_ = eof_ = true;
+    return false;
+  }
+
+  bool next_line(int64_t* s, int64_t* n) {
+    for (;;) {
+      const uint8_t* b = buf_.data();
+      const void* nl =
+          filled_ > pos_ ? std::memchr(b + pos_, '\n', (size_t)(filled_ - pos_)) : nullptr;
+      if (nl) {
+        *s = pos_;
+        *n = (const uint8_t*)nl - (b + pos_);
+        pos_ += *n + 1;
+        return true;
+      }
+      if (eof_) {
+        if (err_ || pos_ >= filled_) return false;
+        *s = pos_;
+        *n = filled_ - pos_;
+        pos_ = filled_;
+        return true;
+      }
+      if (!fill()) return false;
+    }
+  }
+
+  // -- one record --------------------------------------------------------------
+  int32_t intern(const uint8_t* s, int64_t n) {
+    if (last_intern_ >= 0) {
+      int64_t o = name_off_[last_intern_], m = name_off_[last_intern_ + 1] - o;
+      if (m == n && std::memcmp(name_bytes_.data() + o, s, (size_t)n) == 0) return last_intern_;
+    }
+    std::string key((const char*)s, (size_t)n);
+    auto it = names_.find(key);
+    if (it == names_.end()) {
+      it = names_.emplace(std::move(key), (int32_t)names_.size()).first;
+      name_bytes_.insert(name_bytes_.end(), s, s + n);
+      name_off_.push_back((int64_t)name_bytes_.size());
+    }
+    return last_intern_ = it->second;
+  }
+
+  // VcfReader's columns and Variant's fields of the line at [at, at + n):
+  // 0, or 1 where Python reads the line.
+  int parse(int64_t at, int64_t n, Parsed& p) {
+    const uint8_t* L = buf_.data() + at;
+    int64_t c[10], cl[10];  // line.split(b"\t", 9)
+    int nc = 0;
+    int64_t start = 0;
+    for (; nc < 9; ++nc) {
+      const void* t = std::memchr(L + start, '\t', (size_t)(n - start));
+      c[nc] = start;
+      if (!t) {
+        cl[nc++] = n - start;
+        break;
+      }
+      cl[nc] = (const uint8_t*)t - (L + start);
+      start += cl[nc] + 1;
+    }
+    if (nc == 9) {
+      c[9] = start;
+      cl[9] = n - start;
+      nc = 10;
+    }
+    if (nc < 8) return 1;  // too few columns: Python raises
+    for (int j = 0; j < std::min(nc, 9); ++j)
+      for (int64_t i = 0; i < cl[j]; ++i)
+        if (L[c[j] + i] >= 0x80) return 1;
+    p.line_off = at;
+    p.line_len = n;
+    p.from_py = false;
+    const uint8_t* chrom = L + c[0];
+    int64_t chrom_n = cl[0];
+    if (strip_chr_ && chrom_n >= 3 && std::memcmp(chrom, "chr", 3) == 0) {
+      chrom += 3;
+      chrom_n -= 3;
+    }
+    int64_t pos1;
+    if (!parse_int(L + c[1], cl[1], &pos1)) return 1;
+    p.pos = pos1 - 1;
+    p.id.assign((const char*)L + c[2], (size_t)cl[2]);
+    // REF, then the ALTs that are not symbolic, uppercased
+    p.alleles.clear();
+    p.al_len.clear();
+    for (int64_t i = 0; i < cl[3]; ++i) p.alleles.push_back(upper(L[c[3] + i]));
+    p.al_len.push_back(cl[3]);
+    const uint8_t* alt = L + c[4];
+    if (!(cl[4] == 1 && alt[0] == '.')) {
+      for (int64_t i = 0, a0 = 0; i <= cl[4]; ++i) {
+        if (i < cl[4] && alt[i] != ',') continue;
+        if (!(i > a0 && alt[a0] == '<')) {
+          for (int64_t j = a0; j < i; ++j) p.alleles.push_back(upper(alt[j]));
+          p.al_len.push_back(i - a0);
+        }
+        a0 = i + 1;
+      }
+    }
+    const uint8_t* q = L + c[5];
+    if (cl[5] == 0 || (cl[5] == 1 && q[0] == '.')) {
+      p.qual = std::nanf("");
+    } else {
+      double d;
+      if (parse_float(q, cl[5], &d) != 0) return 1;  // Python raises, or reads it
+      p.qual = (float)d;
+    }
+    int64_t n_alts = (int64_t)p.al_len.size() - 1;
+    bool has_alts = n_alts > 0;
+    p.ref_size = cl[3];
+    p.min_size = p.max_size = 0;
+    p.present = true;
+    p.gt_at = -1;
+    p.freqs.clear();
+    if (has_alts) {
+      int64_t mn = p.ref_size, mx = p.ref_size;
+      for (int64_t a = 1; a <= n_alts; ++a) {
+        mn = std::min(mn, p.al_len[a]);
+        mx = std::max(mx, p.al_len[a]);
+      }
+      p.min_size = mn;
+      p.max_size = mx;
+      if (uniform_) {
+        p.freqs.assign((size_t)n_alts + 1, 1.0f / (float)(n_alts + 1));
+      } else {
+        // VcfRecord.info_floats: the first segment that is the key or
+        // starts with "key="; values past the ALTs are read and dropped
+        p.freqs.assign((size_t)n_alts + 1, 0.0f);
+        const uint8_t* info = L + c[7];
+        int64_t in_n = cl[7], lk = (int64_t)key_.size();
+        for (int64_t k = find(info, in_n, key_, 0); k != -1; k = find(info, in_n, key_, k + 1)) {
+          if (k != 0 && info[k - 1] != ';') continue;
+          int64_t end = k + lk;
+          if (end == in_n || info[end] == ';') break;  // a flag: no values
+          if (info[end] != '=') continue;
+          int64_t t0 = end + 1, seg_end = t0;
+          while (seg_end < in_n && info[seg_end] != ';') ++seg_end;
+          for (int64_t i = t0, vi = 0; i <= seg_end; ++i) {
+            if (i < seg_end && info[i] != ',') continue;
+            double d;
+            int rc = parse_float(info + t0, i - t0, &d);
+            if (rc == 2) return 1;
+            if (vi < n_alts) p.freqs[(size_t)vi + 1] = rc == 0 ? (float)d : std::nanf("");
+            ++vi;
+            t0 = i + 1;
           }
           break;
         }
-        ok[r] = 0;
+        double sum = 0.0;  // accumulate(..., 0.0) runs in double
+        for (float x : p.freqs) sum += (double)x;
+        float r = (float)(1.0 - sum);
+        p.freqs[0] = r < 0 ? 0.0f : r;
+      }
+      p.present = !(p.freqs[0] == 1.0f);
+      if (p.present) {  // the GT subfield, or no GT data: has_alts flips off
+        int64_t gi = -1;
+        if (nc > 8 && n_samples_ > 0) {
+          const uint8_t* fm = L + c[8];
+          for (int64_t i = 0, f0 = 0, idx = 0; i <= cl[8]; ++i) {
+            if (i < cl[8] && fm[i] != ':') continue;
+            if (i - f0 == 2 && fm[f0] == 'G' && fm[f0 + 1] == 'T') {
+              gi = idx;
+              break;
+            }
+            ++idx;
+            f0 = i + 1;
+          }
+        }
+        if (gi < 0) {
+          has_alts = false;
+        } else {
+          p.gt_at = gi;
+          p.gt_off = nc > 9 ? at + c[9] : 0;
+          p.gt_len = nc > 9 ? cl[9] : 0;
+        }
       }
     }
+    p.name = intern(chrom, chrom_n);
+    p.passing = has_alts && (keep_absent_ || p.present);
+    p.thresh = p.pos + p.ref_size - p.min_size - 1 + half_k_;  // blocks.are_near
+    return 0;
   }
+
+  // -- the blocks (pipeline._iter_blocks) --------------------------------------
+  // true when the batch is full, p waiting for the next one.
+  bool step(Parsed& p, int64_t max_vars) {
+    ++n_lines_;
+    if (!have_first_) {
+      have_first_ = true;
+      last_name_ = p.name;
+      used_.push_back(p.name);
+    }
+    if (!p.passing) return false;
+    if (!block_open_) {
+      block_open_ = true;
+      append(p);
+      return false;
+    }
+    if (!(last_thresh_ >= p.pos) || last_name_ != p.name) {
+      flush();
+      if (last_name_ != p.name) {
+        last_name_ = p.name;
+        used_.push_back(p.name);
+      }
+      if (nv_ >= max_vars) {
+        std::swap(waiting_, p);
+        has_waiting_ = true;
+        return true;
+      }
+    }
+    append(p);
+    return false;
+  }
+
+  void flush() {
+    blk_off_.push_back(nv_);
+    blk_name_.push_back(last_name_);
+  }
+
+  void append(const Parsed& p) {
+    line_off_.push_back(p.line_off);
+    line_len_.push_back(p.line_len);
+    bool gt = p.present && p.gt_at >= 0;
+    gt_off_.push_back(gt ? p.gt_off : 0);
+    gt_len_.push_back(gt ? p.gt_len : 0);
+    gt_at_.push_back(gt ? p.gt_at : -1);
+    pos_col_.push_back(p.pos);
+    ref_size_.push_back(p.ref_size);
+    min_size_.push_back(p.min_size);
+    max_size_.push_back(p.max_size);
+    present_.push_back(p.present ? 1 : 0);
+    qual_.push_back(p.qual);
+    name_.push_back(p.name);
+    int64_t o = al_off_.back();
+    for (int64_t len : p.al_len) al_off_.push_back(o += len);
+    al_start_.push_back((int64_t)al_off_.size() - 1);
+    al_bytes_.insert(al_bytes_.end(), p.alleles.begin(), p.alleles.end());
+    freq_.insert(freq_.end(), p.freqs.begin(), p.freqs.end());
+    freq_.resize(al_off_.size() - 1, 0.0f);
+    id_bytes_.insert(id_bytes_.end(), p.id.begin(), p.id.end());
+    id_off_.push_back((int64_t)id_bytes_.size());
+    fallback_ = fallback_ || p.from_py;
+    last_thresh_ = p.thresh;
+    ++nv_;
+  }
+
+  // A new batch: the text before its first record goes, the columns empty.
+  void start_batch() {
+    returned_ = false;
+    int64_t keep = has_waiting_ ? waiting_.line_off : pos_;
+    if (keep > 0) {
+      std::memmove(buf_.data(), buf_.data() + keep, (size_t)(filled_ - keep));
+      filled_ -= keep;
+      pos_ -= keep;
+      if (has_waiting_) {
+        waiting_.line_off -= keep;
+        if (waiting_.gt_at >= 0) waiting_.gt_off -= keep;
+      }
+    }
+    for (auto* col : {&line_off_, &line_len_, &gt_off_, &gt_len_, &gt_at_, &pos_col_,
+                      &ref_size_, &min_size_, &max_size_, &id_off_, &al_start_, &al_off_,
+                      &blk_off_})
+      col->clear();
+    present_.clear();
+    al_bytes_.clear();
+    id_bytes_.clear();
+    qual_.clear();
+    freq_.clear();
+    name_.clear();
+    blk_name_.clear();
+    used_.clear();
+    al_start_.push_back(0);
+    al_off_.push_back(0);
+    id_off_.push_back(0);
+    blk_off_.push_back(0);
+    nv_ = 0;
+    fallback_ = false;
+    if (has_waiting_) {
+      has_waiting_ = false;
+      append(waiting_);
+    }
+  }
+
+  void finish(ScanView* v, int64_t status) {
+    v->status = status;
+    returned_ = status == 0;
+    v->n_vars = nv_;
+    v->n_blocks = (int64_t)blk_name_.size();
+    v->n_lines = n_lines_;
+    v->n_used = (int64_t)used_.size();
+    v->n_names = (int64_t)names_.size();
+    v->fallback = fallback_;
+    v->rec_off = rej_off_;
+    v->rec_len = rej_len_;
+    v->buf = buf_.data();
+    v->line_off = line_off_.data();
+    v->line_len = line_len_.data();
+    v->gt_off = gt_off_.data();
+    v->gt_len = gt_len_.data();
+    v->gt_at = gt_at_.data();
+    v->pos = pos_col_.data();
+    v->ref_size = ref_size_.data();
+    v->min_size = min_size_.data();
+    v->max_size = max_size_.data();
+    v->present = present_.data();
+    v->qual = qual_.data();
+    v->name = name_.data();
+    v->al_start = al_start_.data();
+    v->al_off = al_off_.data();
+    v->al_bytes = al_bytes_.data();
+    v->freq = freq_.data();
+    v->id_off = id_off_.data();
+    v->id_bytes = id_bytes_.data();
+    v->blk_off = blk_off_.data();
+    v->blk_name = blk_name_.data();
+    v->used = used_.data();
+    v->name_off = name_off_.data();
+    v->name_bytes = name_bytes_.data();
+  }
+
+  FILE* f_;
+  bool gz_, err_ = false, eof_ = false;
+#if defined(MALVA_ZLIB)
+  z_stream zs_;
+  bool zinit_ = false, member_done_ = false;
+#endif
+  std::vector<uint8_t> in_, buf_;
+  int64_t filled_ = 0, pos_ = 0;
+
+  int64_t n_samples_;
+  std::string key_;
+  bool uniform_, strip_chr_, keep_absent_;
+  int64_t half_k_;
+
+  Parsed cur_, waiting_, pushed_;
+  bool has_waiting_ = false, has_pushed_ = false, returned_ = true, done_ = false;
+  int64_t rej_off_ = 0, rej_len_ = 0;
+
+  int64_t n_lines_ = 0, last_thresh_ = 0, nv_ = 0;
+  bool have_first_ = false, block_open_ = false, fallback_ = false;
+  int32_t last_name_ = -1, last_intern_ = -1;
+
+  std::unordered_map<std::string, int32_t> names_;
+  std::vector<int64_t> name_off_;
+  std::vector<uint8_t> name_bytes_;
+
+  std::vector<int64_t> line_off_, line_len_, gt_off_, gt_len_, gt_at_, pos_col_, ref_size_,
+      min_size_, max_size_, id_off_, al_start_, al_off_, blk_off_;
+  std::vector<uint8_t> present_, al_bytes_, id_bytes_;
+  std::vector<float> qual_, freq_;
+  std::vector<int32_t> name_, blk_name_, used_;
+};
+
+}  // namespace
+
+extern "C" {
+
+// 1 where the library inflates gzip itself (built with zlib), else 0.
+int malva_has_zlib() {
+#if defined(MALVA_ZLIB)
+  return 1;
+#else
+  return 0;
+#endif
 }
+
+// A scanner over the VCF at path, past its header, or NULL where it
+// cannot take the file (unreadable, gzip without zlib, a stream that fails
+// in the header).  k is the blocks' k, keep_absent the call phase's rule
+// (pipeline._iter_blocks), n_samples the header's sample count.
+void* malva_vcf_open(const char* path, int64_t n_samples, const char* freq_key, int uniform,
+                     int strip_chr, int keep_absent, int64_t k) {
+  FILE* f = std::fopen(path, "rb");
+  if (!f) return nullptr;
+  unsigned char magic[2] = {0, 0};
+  bool gz = std::fread(magic, 1, 2, f) == 2 && magic[0] == 0x1f && magic[1] == 0x8b;
+  std::rewind(f);
+  auto* s = new VcfScan(f, gz, n_samples, freq_key, uniform != 0, strip_chr != 0,
+                        keep_absent != 0, k);
+  if (!s->open()) {
+    delete s;
+    return nullptr;
+  }
+  return s;
+}
+
+// The next batch: whole blocks until at least max_vars variants, or the
+// next line for Python (see ScanView).
+void malva_vcf_scan(void* h, int64_t max_vars, ScanView* out) {
+  static_cast<VcfScan*>(h)->scan(max_vars, out);
+}
+
+// Python's reading of the line the last scan handed over: its contig
+// (after strip_chr), whether it enters a block, its POS - 1, its REF's
+// length and its shortest allele's (0 without ALTs).
+void malva_vcf_put(void* h, const uint8_t* name, int64_t name_len, int passing, int64_t pos,
+                   int64_t ref_size, int64_t min_size) {
+  static_cast<VcfScan*>(h)->put(name, name_len, passing != 0, pos, ref_size, min_size);
+}
+
+void malva_vcf_close(void* h) { delete static_cast<VcfScan*>(h); }
+
+}  // extern "C"
 
 // ---------------------------------------------------------------------------
 // Build facts for the loader (malva_tpu_torch/utils/native.py): how many

@@ -298,31 +298,39 @@ class VcfReader:
             line = line.rstrip(b"\n")
             if not line:
                 continue
-            cols = line.split(b"\t", 9)
-            if len(cols) < 8:
-                # htslib rejects records with fewer than the 8 fixed
-                # columns ("Few fields"); a mid-record file truncation
-                # lands here
-                raise InputError(
-                    f"{self.path}: malformed/truncated VCF record "
-                    f"({len(cols)} of 8 required columns): "
-                    f"{line[:60].decode('utf-8', 'replace')!r}"
-                )
-            head = [c.decode("utf-8", "replace") for c in cols[:9]]
-            yield VcfRecord(
-                chrom=head[0],
-                pos0=_parse_pos(head[1], self.path, line),
-                idx=head[2],
-                ref=head[3],
-                alts_raw=head[4].split(",") if head[4] != "." else [],
-                qual_raw=head[5],
-                filt=head[6],
-                info=head[7] if len(head) > 7 else ".",
-                fmt=head[8] if len(head) > 8 else None,
-                samples_raw=cols[9] if len(cols) > 9 else b"",
-                n_samples=n,
-            )
+            yield parse_record(line, self.path, n)
         self._fh.close()
+
+    def close(self) -> None:
+        self._fh.close()
+
+
+def parse_record(line: bytes, path: str, n_samples: int) -> VcfRecord:
+    """One record from its line (no newline), as :class:`VcfReader` reads
+    it; the native record scanner hands the lines it leaves over here."""
+    cols = line.split(b"\t", 9)
+    if len(cols) < 8:
+        # htslib rejects records with fewer than the 8 fixed columns ("Few
+        # fields"); a mid-record file truncation lands here
+        raise InputError(
+            f"{path}: malformed/truncated VCF record "
+            f"({len(cols)} of 8 required columns): "
+            f"{line[:60].decode('utf-8', 'replace')!r}"
+        )
+    head = [c.decode("utf-8", "replace") for c in cols[:9]]
+    return VcfRecord(
+        chrom=head[0],
+        pos0=_parse_pos(head[1], path, line),
+        idx=head[2],
+        ref=head[3],
+        alts_raw=head[4].split(",") if head[4] != "." else [],
+        qual_raw=head[5],
+        filt=head[6],
+        info=head[7] if len(head) > 7 else ".",
+        fmt=head[8] if len(head) > 8 else None,
+        samples_raw=cols[9] if len(cols) > 9 else b"",
+        n_samples=n_samples,
+    )
 
 
 def _parse_pos(tok: str, path: str, line: bytes) -> int:

@@ -304,7 +304,7 @@ def build_index_distributed(cfg: Config, timer=None):
     my_keys: list = []
     for bi, flat in _iter_extract_batches(cfg, refs, keep_absent=False, used_out=used_names,
                                           owned=lambda b: b % H == pid):
-        n_vars += len(flat.all_vars)
+        n_vars += flat.n_vars
         lens, data = _batch_ref_keys(flat)
         if lens.shape[0]:
             my_keys.append((bi, lens, data))
@@ -466,17 +466,14 @@ def _genotype_and_emit_distributed(cfg: Config, index, refs, out, timer) -> None
     the header and the batches in order."""
     from ..io.vcf import cleaned_header, open_variant_reader
     from ..models.genotype_host import format_variants, genotype_block
-    from ..pipeline import (_EMPTY_BOOL, _EMPTY_I32, _iter_extract_batches,
-                            _set_coverages_flat)
+    from ..pipeline import _iter_extract_batches, _set_coverages_flat
 
     pid, H = world()
     blobs: list[tuple[int, bytes]] = []
     n = 0
     for bi, flat in _iter_extract_batches(cfg, refs, keep_absent=True,
                                           owned=lambda b: b % H == pid):
-        for v in flat.all_vars:  # the GT arrays were consumed by the extraction
-            v.gt_a1 = v.gt_a2 = _EMPTY_I32
-            v.phase = _EMPTY_BOOL
+        flat.drop_gts()  # the GT arrays were consumed by the extraction
         _set_coverages_flat(index, flat)
         genotype_block(flat.all_vars, cfg.max_coverage, cfg.haploid, cfg.error_rate)
         text = "".join(line + "\n"

@@ -34,14 +34,14 @@ from .count.counter import count_reads_kmers, load_kmc_dump
 from .index.bloom_filter import BF
 from .index.kmap import KMAP
 from .io.fasta import load_reference
-from .io.vcf import cleaned_header, open_variant_reader
+from .io.vcf import VcfReader, cleaned_header, open_variant_reader, parse_record
 from .models.genotype_host import format_variants, genotype_block
 from .utils import native
 from .utils.config import Config
 from .utils.errors import InputError
 from .utils.timing import PhaseTimer, carried, count, span
 from .variants.blocks import VB
-from .variants.variant import Variant
+from .variants.variant import EMPTY_BOOL, EMPTY_I32, Variant
 
 TAG = "malva-tpu-torch"
 
@@ -81,13 +81,15 @@ class FlatExtract:
     order-dependent, main.cpp:162-181); signature order within an allele
     is free (coverage is a max over signatures)."""
 
-    __slots__ = ("all_vars", "tgt_var", "tgt_allele", "tgt_nsig", "sig_nk",
+    __slots__ = ("_vars", "_cols", "n_vars", "tgt_var", "tgt_allele", "tgt_nsig", "sig_nk",
                  "kmer_len", "bytes", "_starts", "_per_kmer_ref", "_slot_of",
                  "_n_slots")
 
     def __init__(self, all_vars, tgt_var, tgt_allele, tgt_nsig, sig_nk,
-                 kmer_len, bytes_u8):
-        self.all_vars = all_vars
+                 kmer_len, bytes_u8, cols=None):
+        self._vars = all_vars
+        self._cols = cols
+        self.n_vars = cols.n_vars if all_vars is None else len(all_vars)
         self.tgt_var = tgt_var
         self.tgt_allele = tgt_allele
         self.tgt_nsig = tgt_nsig
@@ -95,6 +97,22 @@ class FlatExtract:
         self.kmer_len = kmer_len
         self.bytes = bytes_u8
         self._starts = None
+
+    @property
+    def all_vars(self) -> list:
+        """The batch's Variants; a scanned batch (``cols``) makes them at
+        the first read, on the thread that reads them (the consumer's)."""
+        if self._vars is None:
+            self._vars = self._cols.variants()
+            self._cols = None
+        return self._vars
+
+    def drop_gts(self) -> None:
+        """Release the variants' GT arrays, which only the extraction
+        reads (a scanned batch's variants never hold any)."""
+        for v in self._vars or ():
+            v.gt_a1 = v.gt_a2 = EMPTY_I32
+            v.phase = EMPTY_BOOL
 
     def _derive(self):
         if self._starts is not None:
@@ -165,10 +183,12 @@ def _extract_batch_flat(batch, cfg: Config, spans: str) -> FlatExtract:
     path (blocks.VB.extract_kmers) with identical semantics.  The GT
     parse and the extraction are the spans ``<spans>.gt_parse`` and
     ``<spans>.extract``; ``<spans>.batches`` and ``<spans>.records``
-    count the batch and its variants."""
+    count the batch and its variants, ``<spans>.fallback_records`` the
+    variants again (the Python path's)."""
     all_vars = [v for variants, _ in batch for v in variants]
     count(f"{spans}.batches")
     count(f"{spans}.records", len(all_vars))
+    count(f"{spans}.fallback_records", len(all_vars))
     with span(f"{spans}.gt_parse"):
         _resolve_gts(all_vars)  # deferred GT parse, one native batch
     with span(f"{spans}.extract"):
@@ -224,39 +244,164 @@ def _iter_extract_batches(cfg: Config, refs, keep_absent: bool,
     deferred sources are dropped) — batch boundaries derive from the
     cheap record scan alone, so every process sees identical numbering.
 
-    Each batch's record scan is the span ``<spans>.scan``, where
-    ``spans`` is ``pass2`` for the call phase's pass (``keep_absent``)
-    and ``variants`` for the index's."""
+    The record scan is the native scanner's (:func:`_scanned_batches`)
+    where it takes the file, else the Python path's
+    (:func:`_python_batches`).  Each batch's scan is the span
+    ``<spans>.scan``, where ``spans`` is ``pass2`` for the call phase's
+    pass (``keep_absent``) and ``variants`` for the index's."""
     spans = "pass2" if keep_absent else "variants"
-    ref_bytes_cache: dict[int, bytes] = {}
-    blocks = _iter_blocks(cfg, refs, keep_absent, used_out, timer)
+    reader = open_variant_reader(cfg.vcf_path, cfg.samples)
+    ctx = _GtCtx(reader)
+    scan = _open_scan(cfg, reader, ctx, keep_absent)
+    refs_of = _RefsOf(refs)
+    if scan is None:
+        batches = _python_batches(cfg, refs_of, reader, ctx, keep_absent, used_out, timer)
+    else:
+        batches = _scanned_batches(cfg, scan, ctx, keep_absent, used_out, timer)
     bi = 0
     while True:
-        batch: list[tuple[list, bytes]] = []
-        nv = 0
         with span(f"{spans}.scan"):
-            for vb, ref in blocks:
-                # NOTE: setdefault would re-run tobytes() (a full contig
-                # copy) on every block even on cache hits.
-                ref_bytes = b"" if ref is None else ref_bytes_cache.get(id(ref))
-                if ref_bytes is None:
-                    ref_bytes = ref_bytes_cache[id(ref)] = ref.tobytes()
-                batch.append((vb.variants, ref_bytes))  # vb.clear() rebinds
-                nv += len(vb.variants)
-                if nv >= EXTRACT_VARS:
-                    break
-        if not batch:
+            batch = next(batches, None)
+        if batch is None:
             return
         b = bi
         bi += 1
-        if owned is None:
-            yield _extract_batch_flat(batch, cfg, spans)
-        elif owned(b):
-            yield b, _extract_batch_flat(batch, cfg, spans)
-        else:
-            for variants, _ in batch:
+        python_path = isinstance(batch, list)
+        if owned is not None and not owned(b):
+            for variants, _ in batch if python_path else ():
                 for v in variants:
                     v._gt_src = None  # release the raw records
+            continue
+        if python_path:
+            flat = _extract_batch_flat(batch, cfg, spans)
+        else:
+            flat = _extract_scanned(batch, cfg, spans, ctx, refs_of)
+        yield flat if owned is None else (b, flat)
+
+
+class _RefsOf:
+    """Each contig's reference by name, as the extraction takes it: a
+    uint8 array (the native scanner's batches) or bytes (the Python
+    path's), made once a contig; None or b"" where the FASTA lacks it."""
+
+    def __init__(self, refs):
+        self.refs = refs
+        self._arrays: dict = {}
+        self._bytes: dict = {}
+
+    def array(self, name: str):
+        if name not in self._arrays:
+            ref = self.refs.get(name)
+            self._arrays[name] = (None if ref is None
+                                  else np.ascontiguousarray(ref, dtype=np.uint8))
+        return self._arrays[name]
+
+    def bytes(self, name: str) -> bytes:
+        if name not in self._bytes:
+            ref = self.refs.get(name)
+            # NOTE: one tobytes() (a full contig copy) a contig, not a block
+            self._bytes[name] = b"" if ref is None else ref.tobytes()
+        return self._bytes[name]
+
+
+def _open_scan(cfg: Config, reader, ctx, keep_absent: bool):
+    """The native record scanner over the VCF, or None where pass 2 takes
+    the Python path: BCF input, a ``--samples`` subset (``ctx.use_batch``
+    false: the ploidy-1 wrap-around reads the next SELECTED sample), no
+    library, or a file the library cannot take (gzip without zlib)."""
+    if not isinstance(reader, VcfReader) or not ctx.use_batch:
+        return None
+    scan = native.VcfScan.open(cfg.vcf_path, ctx.n_samples, cfg.freq_key, cfg.uniform,
+                               cfg.strip_chr, keep_absent, cfg.k)
+    if scan is not None:
+        reader.close()
+    return scan
+
+
+def _scanned_batches(cfg: Config, scan, ctx, keep_absent: bool, used_out, timer):
+    """Yield a ScanBatch (utils/native.py) per extraction batch, one
+    native call each; a line the scanner leaves over is read here, as
+    the Python path reads it (its InputError included), and given back."""
+    beat = 5000
+    try:
+        while True:
+            view = scan.scan(EXTRACT_VARS)
+            if view.status == 1:
+                v = _make_variant(parse_record(scan.line(), cfg.vcf_path, ctx.n_samples), cfg,
+                                  ctx)
+                scan.put(v.seq_name, v.has_alts and (keep_absent or v.is_present), v.ref_pos,
+                         v.ref_size, v.min_size)
+                continue
+            if view.status == 2:
+                _stream_failed(cfg.vcf_path)
+            while timer is not None and beat <= view.n_lines:
+                # progress heartbeat with rollback (main.cpp:317-321)
+                timer.pelapsed(f"Processed {beat} variants", rollback=True)
+                beat += 5000
+            batch = scan.batch()
+            if used_out is not None:
+                used_out.extend(batch.used)
+            if batch.n_vars == 0:
+                return
+            yield batch
+    finally:
+        scan.close()
+
+
+def _stream_failed(path: str) -> None:
+    """Raise what the Python path raises on a VCF stream the native
+    scanner could not inflate: gzip's own error, read again here."""
+    import gzip
+
+    with gzip.open(path, "rb") as f:
+        while f.read(1 << 24):
+            pass
+    raise InputError(f"{path}: the gzip stream could not be inflated")
+
+
+def _extract_scanned(sb, cfg: Config, spans: str, ctx, refs_of: _RefsOf) -> FlatExtract:
+    """A scanned batch -> FlatExtract: the GT parse over its regions in
+    the scanner's text, the extraction over its columns, and no Variant
+    until the consumer reads ``all_vars``.  A batch that holds a record
+    Python read, or whose GT parse rejects a record, goes whole to the
+    Python path (``<spans>.fallback_records``); else its variants count
+    under ``<spans>.native_records``."""
+    if not sb.fallback:
+        with span(f"{spans}.gt_parse"):
+            gts = native.parse_gt_spans(sb, ctx.n_samples)
+        if gts is not None:
+            count(f"{spans}.batches")
+            count(f"{spans}.records", sb.n_vars)
+            count(f"{spans}.native_records", sb.n_vars)
+            with span(f"{spans}.extract"):
+                refs = [refs_of.array(name) for name in sb.blk_name]
+                res = native.extract_scanned(sb, gts, refs, cfg.k, cfg.haploid)
+            return FlatExtract(None, *res, cols=sb)
+    with span(f"{spans}.scan"):
+        variants = [_make_variant(parse_record(sb.line(i), cfg.vcf_path, ctx.n_samples), cfg,
+                                  ctx) for i in range(sb.n_vars)]
+        off = sb.blk_off.tolist()
+        batch = [(variants[lo:hi], refs_of.bytes(name))
+                 for lo, hi, name in zip(off[:-1], off[1:], sb.blk_name)]
+    return _extract_batch_flat(batch, cfg, spans)
+
+
+def _python_batches(cfg: Config, refs_of: _RefsOf, reader, ctx, keep_absent: bool, used_out,
+                    timer):
+    """Yield [(variants, ref_bytes), ...] per extraction batch: whole
+    blocks of :func:`_iter_blocks` until EXTRACT_VARS variants."""
+    blocks = _iter_blocks(cfg, keep_absent, used_out, timer, reader, ctx)
+    while True:
+        batch: list[tuple[list, bytes]] = []
+        nv = 0
+        for vb, contig in blocks:
+            batch.append((vb.variants, refs_of.bytes(contig)))  # vb.clear() rebinds
+            nv += len(vb.variants)
+            if nv >= EXTRACT_VARS:
+                break
+        if not batch:
+            return
+        yield batch
 
 
 # Record batch size for the batched GT parse (native.parse_gt_batch,
@@ -319,41 +464,40 @@ def _resolve_gts(variants: list) -> None:
         v._gt_src = None
 
 
-def _iter_variants(cfg: Config, reader):
-    """Yield Variant per VCF record with the GT parse DEFERRED: each
-    variant carries a (ctx, record, gt_field_index) source and the
-    consuming extraction batch resolves them in one native batch
-    (_resolve_gts).  Everything block structure needs (positions, sizes,
-    has_alts/is_present from the cheap INFO parse) is materialized here."""
-    ctx = _GtCtx(reader)
+def _make_variant(rec, cfg: Config, ctx: _GtCtx) -> Variant:
+    """A record's Variant with the GT parse DEFERRED: the variant carries a
+    (ctx, record, gt_field_index) source and the consuming extraction
+    batch resolves them in one native batch (_resolve_gts).  Everything
+    block structure needs (positions, sizes, has_alts/is_present from the
+    cheap INFO parse) is materialized here."""
     selected = ctx.selected
-
-    for rec in reader:
-        if cfg.strip_chr and rec.chrom.startswith("chr"):
-            rec.chrom = rec.chrom[3:]
-        v = Variant(rec, selected, cfg.freq_key, cfg.uniform, skip_gt=True)
-        if v.has_alts and v.is_present:
-            fmt = getattr(rec, "fmt", None)  # BCF records decode GT inline
-            fmt_keys = fmt.split(":") if fmt is not None else []
-            if fmt is None or not len(selected) or "GT" not in fmt_keys:
-                # no GT data: genotypes_arrays returns None and has_alts
-                # flips False (variant.hpp:169-174) — that gates BLOCK
-                # structure, so it must resolve before blocks form
-                v._extract_genotypes(rec, selected)
-            else:
-                gt_at = fmt_keys.index("GT") if ctx.use_batch else -1
-                v._gt_src = (ctx, rec, gt_at)
-        yield v
+    if cfg.strip_chr and rec.chrom.startswith("chr"):
+        rec.chrom = rec.chrom[3:]
+    v = Variant(rec, selected, cfg.freq_key, cfg.uniform, skip_gt=True)
+    if v.has_alts and v.is_present:
+        fmt = getattr(rec, "fmt", None)  # BCF records decode GT inline
+        fmt_keys = fmt.split(":") if fmt is not None else []
+        if fmt is None or not len(selected) or "GT" not in fmt_keys:
+            # no GT data: genotypes_arrays returns None and has_alts
+            # flips False (variant.hpp:169-174) — that gates BLOCK
+            # structure, so it must resolve before blocks form
+            v._extract_genotypes(rec, selected)
+        else:
+            gt_at = fmt_keys.index("GT") if ctx.use_batch else -1
+            v._gt_src = (ctx, rec, gt_at)
+    return v
 
 
 def _iter_blocks(
     cfg: Config,
-    refs: dict[str, np.ndarray],
     keep_absent: bool,
     used_out: list[str] | None = None,
     timer: PhaseTimer | None = None,
+    reader=None,
+    ctx: _GtCtx | None = None,
 ):
-    """Yield (vb, reference_array_or_None) per flushed variant block.
+    """Yield (vb, contig) per flushed variant block: the contig whose
+    reference the block's extraction takes.
 
     keep_absent=False mirrors the index phase (skips !is_present records,
     main.cpp:332-333); True mirrors the call phase (main.cpp:539).
@@ -363,11 +507,13 @@ def _iter_blocks(
     whose single passing variant never triggers a flush is *not* recorded
     (upstream quirk, kept).
     """
-    reader = open_variant_reader(cfg.vcf_path, cfg.samples)
+    if reader is None:
+        reader = open_variant_reader(cfg.vcf_path, cfg.samples)
+    ctx = ctx or _GtCtx(reader)
     vb = VB(cfg.k, float(cfg.error_rate))
     last_seq_name = None
     i = 0
-    for v in _iter_variants(cfg, reader):
+    for v in (_make_variant(rec, cfg, ctx) for rec in reader):
         i += 1
         if timer is not None and i % 5000 == 0:
             # progress heartbeat with rollback (main.cpp:317-321)
@@ -382,7 +528,7 @@ def _iter_blocks(
             vb.add_variant(v)
             continue
         if not vb.is_near_to_last(v) or last_seq_name != v.seq_name:
-            yield vb, refs.get(last_seq_name)
+            yield vb, last_seq_name
             vb.clear()
             if last_seq_name != v.seq_name:
                 last_seq_name = v.seq_name
@@ -390,7 +536,7 @@ def _iter_blocks(
                     used_out.append(last_seq_name)
         vb.add_variant(v)
     if not vb.empty():
-        yield vb, refs.get(last_seq_name)
+        yield vb, last_seq_name
         vb.clear()
 
 
@@ -823,10 +969,6 @@ def _genotype_and_emit(cfg: Config, index: Index, refs, out,
     timer.pelapsed(f"VCF parsing and genotyping ({n} variants)")
 
 
-_EMPTY_I32 = np.zeros(0, dtype=np.int32)
-_EMPTY_BOOL = np.zeros(0, dtype=bool)
-
-
 def _iter_pass2_batches(cfg: Config, refs):
     """Yield call-phase FlatExtract batches with the GT arrays dropped.
 
@@ -837,9 +979,7 @@ def _iter_pass2_batches(cfg: Config, refs):
     ~22 KB per variant (reference streams pass 2 in O(block),
     main.cpp:517-579)."""
     for flat in _iter_extract_batches(cfg, refs, keep_absent=True):
-        for v in flat.all_vars:
-            v.gt_a1 = v.gt_a2 = _EMPTY_I32
-            v.phase = _EMPTY_BOOL
+        flat.drop_gts()
         yield flat
 
 
@@ -900,7 +1040,7 @@ def build_index(cfg: Config, timer: PhaseTimer | None = None, device=None,
     n_vars = 0
     for flat in _iter_extract_batches(cfg, refs, keep_absent=False,
                                       used_out=used_names, timer=timer):
-        n_vars += len(flat.all_vars)
+        n_vars += flat.n_vars
         for is_ref, _L, _idxs, mat in flat.length_groups():
             (ref_bf if is_ref else bf).add_keys(mat)
     timer.pelapsed(f"Processed variants ({n_vars} in blocks)")

@@ -19,9 +19,15 @@ these forms that builds and runs on more than one thread:
   runtime, torch's;
 * ``none``: without ``-fopenmp``; the loops run on one thread.
 
+Each form compiles with ``-DMALVA_ZLIB`` and links ``-lz`` where the
+compiler finds ``zlib.h`` and the library (a probe at build time): the
+VCF record scanner (``VcfScan``) then inflates gzip itself; without
+zlib it takes plain-text VCFs only, and pass 2 reads gzip on the Python
+path.
+
 The results do not depend on the thread count.  One stderr line says
-which form was built and on how many threads its loops run
-(``malva_threads()``).  If no library builds or loads, every caller falls
+which form was built, on how many threads its loops run
+(``malva_threads()``) and whether with zlib.  If no library builds or loads, every caller falls
 back to the pure Python implementation (results are identical either way,
 parity-tested) and one stderr line says so: it is several times slower
 at chromosome scale.
@@ -87,25 +93,43 @@ def _threads_of(so: Path, omp_threads: "str | None") -> int:
     return int(r.stdout) if r.returncode == 0 and r.stdout.strip().isdigit() else 0
 
 
-def _forms(cxx: str, out: Path) -> list:
-    """(form, note, commands) of each build form, in the order tried."""
-    def define(form: str) -> str:
-        return f'-DMALVA_BUILD_FORM="{form}"'
+_ZLIB_PROBE = "#include <zlib.h>\nint main() { return zlibVersion()[0] == 0; }\n"
 
+
+def _has_zlib(cxx: str, out: Path) -> bool:
+    """Whether ``cxx`` compiles against ``zlib.h`` and links ``-lz``: the
+    record scanner then inflates gzip itself (``malva_has_zlib``)."""
+    probe = out.with_suffix(".zlib")
+    try:
+        r = subprocess.run([cxx, "-x", "c++", "-", "-lz", "-o", str(probe)], input=_ZLIB_PROBE,
+                           capture_output=True, text=True, timeout=120)
+        return r.returncode == 0
+    finally:
+        probe.unlink(missing_ok=True)
+
+
+def _forms(cxx: str, out: Path, zlib: bool = False) -> list:
+    """(form, note, commands) of each build form, in the order tried; with
+    ``zlib``, each compiles with ``-DMALVA_ZLIB`` and links ``-lz``."""
+    def define(form: str) -> list:
+        return [f'-DMALVA_BUILD_FORM="{form}"', *(["-DMALVA_ZLIB"] if zlib else [])]
+
+    lz = ["-lz"] if zlib else []
     forms = [("a", "with OpenMP (-fopenmp)",
-              [[cxx, *CXXFLAGS, "-fopenmp", define("a"), "-shared", "-o", str(out),
-                str(SOURCE)]])]
+              [[cxx, *CXXFLAGS, "-fopenmp", *define("a"), "-shared", "-o", str(out),
+                str(SOURCE), *lz]])]
     gomp = torch_gomp()
     if gomp is not None:
         obj = out.with_suffix(".o")
         forms.append(("b", f"with OpenMP (-fopenmp, linked against torch's {gomp})",
-                      [[cxx, *CXXFLAGS, "-fopenmp", define("b"), "-c", "-o", str(obj),
+                      [[cxx, *CXXFLAGS, "-fopenmp", *define("b"), "-c", "-o", str(obj),
                         str(SOURCE)],
                        [cxx, "-shared", "-o", str(out), str(obj), str(gomp),
-                        f"-Wl,-rpath,{gomp.parent}"]]))
+                        f"-Wl,-rpath,{gomp.parent}", *lz]]))
     forms.append(("none", "without OpenMP (no OpenMP runtime for g++ here; its loops run on "
                           "one thread)",
-                  [[cxx, *CXXFLAGS, define("none"), "-shared", "-o", str(out), str(SOURCE)]]))
+                  [[cxx, *CXXFLAGS, *define("none"), "-shared", "-o", str(out), str(SOURCE),
+                    *lz]]))
     return forms
 
 
@@ -126,8 +150,10 @@ def _build() -> Path:
             return so
         tmp = so.with_suffix(f".tmp{os.getpid()}")
         err = ""
+        cxx = os.environ.get("CXX", "g++")
+        zlib = _has_zlib(cxx, tmp)
         try:
-            for form, note, cmds in _forms(os.environ.get("CXX", "g++"), tmp):
+            for form, note, cmds in _forms(cxx, tmp, zlib):
                 for cmd in cmds:
                     r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
                     if r.returncode != 0:
@@ -138,8 +164,8 @@ def _build() -> Path:
                         threads = _threads_of(tmp, None)
                         os.replace(tmp, so)
                         print(f"[malva-tpu-torch] native host library built {note}, form "
-                              f"{form}, {threads} thread{'s' * (threads != 1)}: {so}",
-                              file=sys.stderr)
+                              f"{form}, {threads} thread{'s' * (threads != 1)}, "
+                              f"{'with' if zlib else 'without'} zlib: {so}", file=sys.stderr)
                         return so
                     err = f"form {form} built but does not run on two threads"
         finally:
@@ -270,6 +296,27 @@ def load() -> "ctypes.CDLL | None":
             ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
             ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8),
         ]
+        lib.malva_parse_gt_spans.restype = None
+        lib.malva_parse_gt_spans.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8),
+        ]
+        lib.malva_has_zlib.restype = ctypes.c_int
+        lib.malva_has_zlib.argtypes = []
+        lib.malva_vcf_open.restype = ctypes.c_void_p
+        lib.malva_vcf_open.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p,
+                                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64]
+        lib.malva_vcf_scan.restype = None
+        lib.malva_vcf_scan.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                       ctypes.POINTER(_ScanView)]
+        lib.malva_vcf_put.restype = None
+        lib.malva_vcf_put.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64,
+                                      ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+                                      ctypes.c_int64]
+        lib.malva_vcf_close.restype = None
+        lib.malva_vcf_close.argtypes = [ctypes.c_void_p]
         lib.malva_extract_group.restype = ctypes.c_int64
         i32p = ctypes.POINTER(ctypes.c_int32)
         i64p_ = ctypes.POINTER(ctypes.c_int64)
@@ -779,16 +826,11 @@ def extract_group(blocks, k: int, haploid: bool):
         return None
     n_blocks = len(blocks)
     blk_off = np.zeros(n_blocks + 1, dtype=np.int64)
-    ref_ptrs = np.zeros(n_blocks, dtype=np.uint64)
-    ref_lens = np.zeros(n_blocks, dtype=np.int64)
-    keep_alive = []
+    refs = []
     all_vars = []
     for b, (variants, ref_bytes) in enumerate(blocks):
         blk_off[b + 1] = blk_off[b] + len(variants)
-        rv = np.frombuffer(ref_bytes, dtype=np.uint8) if ref_bytes else np.zeros(0, np.uint8)
-        keep_alive.append(rv)
-        ref_ptrs[b] = rv.ctypes.data if rv.size else 0
-        ref_lens[b] = rv.size
+        refs.append(np.frombuffer(ref_bytes, dtype=np.uint8) if ref_bytes else None)
         all_vars.extend(variants)
     nv = len(all_vars)
     pos = np.fromiter((v.ref_pos for v in all_vars), np.int64, nv)
@@ -809,8 +851,6 @@ def extract_group(blocks, k: int, haploid: bool):
     np.cumsum(np.fromiter((len(a) for a in al_list), np.int64, n_all),
               out=al_off[1:])
     al_bytes = np.frombuffer(b"".join(al_list), dtype=np.uint8)
-    if al_bytes.size == 0:
-        al_bytes = np.zeros(1, dtype=np.uint8)
 
     gt1 = np.zeros(nv, dtype=np.uint64)
     gt2 = np.zeros(nv, dtype=np.uint64)
@@ -843,7 +883,38 @@ def extract_group(blocks, k: int, haploid: bool):
         for i, v in enumerate(all_vars):
             if v.is_present and gt1[i] == 0:
                 return None
+    res = extract_arrays(blk_off, refs, pos, size, mins, present, al_start, al_off, al_bytes,
+                         (gt1, gt2, ph), n_ind, k, haploid)
+    if res is not None and res[0] >= 0:
+        _warn_oob_allele(all_vars[res[0]].seq_name, all_vars[res[0]].ref_pos)
+    return None if res is None else res[1]
 
+
+def extract_arrays(blk_off, refs, pos, size, mins, present, al_start, al_off, al_bytes,
+                   gt_ptrs, n_ind: int, k: int, haploid: bool):
+    """malva_extract_group over a batch given as arrays: ``blk_off`` the
+    blocks' variant offsets, ``refs`` each block's reference (a uint8
+    array, or None), the variants' positions, REF sizes, shortest allele
+    sizes and present flags, their alleles (``al_start`` into ``al_off``
+    into ``al_bytes``), and the addresses of each present variant's
+    ``n_ind`` GT values (a1 and a2 int32, phase bool; 0 where absent).
+    -> (the first variant with an allele index past its ALTs, or -1,
+    (tgt_var, tgt_allele, tgt_nsig, sig_nk, kmer_len, bytes_u8)), or
+    None without the library."""
+    lib = load()
+    if lib is None:
+        return None
+    n_blocks = len(refs)
+    ref_ptrs = np.zeros(n_blocks, dtype=np.uint64)
+    ref_lens = np.zeros(n_blocks, dtype=np.int64)
+    for b, rv in enumerate(refs):
+        if rv is not None and rv.size:
+            ref_ptrs[b] = rv.ctypes.data
+            ref_lens[b] = rv.size
+    if al_bytes.size == 0:
+        al_bytes = np.zeros(1, dtype=np.uint8)
+    gt1, gt2, ph = gt_ptrs
+    nv = pos.shape[0]
     cap_tgt = 4 * nv + 64
     cap_sig = 8 * nv + 64
     cap_kmer = 16 * nv + 64
@@ -873,25 +944,23 @@ def extract_group(blocks, k: int, haploid: bool):
             counts.ctypes.data_as(_I64P),
         )
         if rc == 0:
-            if counts[4] >= 0:
-                _warn_oob_allele(all_vars[int(counts[4])])
             nt, ns, nk, nb = (int(counts[0]), int(counts[1]), int(counts[2]),
                               int(counts[3]))
-            return (tgt_var[:nt], tgt_allele[:nt], tgt_nsig[:nt],
-                    sig_nk[:ns], kmer_len[:nk], out_bytes[:nb])
+            return int(counts[4]), (tgt_var[:nt], tgt_allele[:nt], tgt_nsig[:nt],
+                                    sig_nk[:ns], kmer_len[:nk], out_bytes[:nb])
         # counts are exact even on overflow: retry with exact capacities
         cap_tgt, cap_sig, cap_kmer, cap_bytes = (
             int(counts[0]), int(counts[1]), int(counts[2]), int(counts[3]))
     return None  # pragma: no cover - second pass has exact capacity
 
 
-def _warn_oob_allele(v) -> None:
+def _warn_oob_allele(seq_name: str, ref_pos: int) -> None:
     from ..variants import blocks as _blocks
 
     if not _blocks._warned_oob_allele:
         print(
             f"[malva-tpu] warning: GT allele index beyond ALT count at "
-            f"{v.seq_name}:{v.ref_pos + 1} (symbolic ALT dropped?); using REF",
+            f"{seq_name}:{ref_pos + 1} (symbolic ALT dropped?); using REF",
             file=sys.stderr,
         )
         _blocks._warned_oob_allele = True
@@ -924,6 +993,179 @@ def parse_gt_batch(regions: list, gt_ats: list, n_samples: int):
         ph.ctypes.data_as(_U8P), ok.ctypes.data_as(_U8P),
     )
     return a1, a2, ph, ok.astype(bool)
+
+
+class _ScanView(ctypes.Structure):
+    """csrc/host_kernels.cpp ScanView: one malva_vcf_scan result."""
+
+    _fields_ = [(n, ctypes.c_int64) for n in (
+        "status", "n_vars", "n_blocks", "n_lines", "n_used", "n_names", "fallback", "rec_off",
+        "rec_len")] + [(n, ctypes.c_void_p) for n in (
+            "buf", "line_off", "line_len", "gt_off", "gt_len", "gt_at", "pos", "ref_size",
+            "min_size", "max_size", "present", "qual", "name", "al_start", "al_off", "al_bytes",
+            "freq", "id_off", "id_bytes", "blk_off", "blk_name", "used", "name_off",
+            "name_bytes")]
+
+
+def _copy(addr, n: int, dtype) -> np.ndarray:
+    """A copy of the ``n`` values of ``dtype`` at ``addr``."""
+    dtype = np.dtype(dtype)
+    if n <= 0 or not addr:
+        return np.zeros(0, dtype=dtype)
+    return np.frombuffer((ctypes.c_char * (n * dtype.itemsize)).from_address(addr),
+                         dtype=dtype).copy()
+
+
+class ScanBatch:
+    """One extraction batch of the record scanner, as columns: the
+    variants that enter blocks, in file order (``variants/variant.py
+    from_columns`` makes their objects), the blocks' offsets and contigs,
+    and where each record's line and GT region lie in the scanner's text
+    (``line``, ``parse_gt_spans``; valid until its next scan).
+    ``fallback``: a record of the batch was read by Python."""
+
+    def __init__(self, view: _ScanView, names: list):
+        n, v = view.n_vars, view
+        self.n_vars = n
+        self.fallback = bool(v.fallback)
+        self.names = names
+        self.blk_off = _copy(v.blk_off, v.n_blocks + 1, np.int64)
+        self.blk_name = [names[i] for i in _copy(v.blk_name, v.n_blocks, np.int32).tolist()]
+        self.used = [names[i] for i in _copy(v.used, v.n_used, np.int32).tolist()]
+        self.pos = _copy(v.pos, n, np.int64)
+        self.ref_size = _copy(v.ref_size, n, np.int64)
+        self.min_size = _copy(v.min_size, n, np.int64)
+        self.max_size = _copy(v.max_size, n, np.int64)
+        self.present = _copy(v.present, n, np.uint8)
+        self.qual = _copy(v.qual, n, np.float32)
+        self.name = _copy(v.name, n, np.int32)
+        self.al_start = _copy(v.al_start, n + 1, np.int64)
+        n_al = int(self.al_start[-1]) if n else 0
+        self.al_off = _copy(v.al_off, n_al + 1, np.int64)
+        self.al_bytes = _copy(v.al_bytes, int(self.al_off[-1]) if n_al else 0, np.uint8)
+        self.freq = _copy(v.freq, n_al, np.float32)
+        self.id_off = _copy(v.id_off, n + 1, np.int64)
+        self.id_bytes = _copy(v.id_bytes, int(self.id_off[-1]) if n else 0, np.uint8).tobytes()
+        self.gt_off = _copy(v.gt_off, n, np.int64)
+        self.gt_len = _copy(v.gt_len, n, np.int64)
+        self.gt_at = _copy(v.gt_at, n, np.int64)
+        self.line_off = _copy(v.line_off, n, np.int64)
+        self.line_len = _copy(v.line_len, n, np.int64)
+        self.buf = v.buf
+
+    def line(self, i: int) -> bytes:
+        """Record ``i``'s line (until the scanner's next scan)."""
+        return ctypes.string_at(self.buf + int(self.line_off[i]), int(self.line_len[i]))
+
+    def variants(self) -> list:
+        from ..variants.variant import from_columns
+
+        return from_columns(self)
+
+
+class VcfScan:
+    """The library's record scanner over one VCF (``malva_vcf_open``):
+    ``scan`` runs one call, GIL released, and leaves its view; a status 0
+    view is a batch (``batch``), status 1 a line for Python (``line``,
+    then ``put``), status 2 a stream that failed."""
+
+    def __init__(self, lib, handle):
+        self._lib = lib
+        self._h = handle
+        self.view = _ScanView()
+        self._names: list = []
+
+    @classmethod
+    def open(cls, path: str, n_samples: int, freq_key: str, uniform: bool, strip_chr: bool,
+             keep_absent: bool, k: int) -> "VcfScan | None":
+        """The scanner, or None where the library cannot take the file."""
+        lib = load()
+        if lib is None:
+            return None
+        h = lib.malva_vcf_open(os.fsencode(path), n_samples, freq_key.encode(), int(uniform),
+                               int(strip_chr), int(keep_absent), k)
+        return cls(lib, h) if h else None
+
+    def scan(self, max_vars: int) -> _ScanView:
+        v = self.view
+        self._lib.malva_vcf_scan(self._h, max_vars, ctypes.byref(v))
+        if v.n_names > len(self._names):
+            off = _copy(v.name_off, v.n_names + 1, np.int64).tolist()
+            blob = ctypes.string_at(v.name_bytes, off[-1])
+            self._names.extend(blob[a:b].decode() for a, b in zip(off[len(self._names):-1],
+                                                                   off[len(self._names) + 1:]))
+        return v
+
+    def batch(self) -> ScanBatch:
+        return ScanBatch(self.view, self._names)
+
+    def line(self) -> bytes:
+        v = self.view
+        return ctypes.string_at(v.buf + v.rec_off, v.rec_len)
+
+    def put(self, seq_name: str, passing: bool, pos: int, ref_size: int, min_size: int) -> None:
+        name = seq_name.encode()
+        self._lib.malva_vcf_put(self._h, name, len(name), int(passing), pos, ref_size, min_size)
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.malva_vcf_close(self._h)
+            self._h = None
+
+
+def parse_gt_spans(sb: ScanBatch, n_samples: int):
+    """The batched GT parse (malva_parse_gt_batch's) over the GT regions of
+    a scanned batch's present variants, in place in the scanner's text ->
+    (rows (n_vars,) int64, -1 where a variant has none; a1, a2 (R, S)
+    int32; phase (R, S) bool), or None where the parse rejects a record
+    (the batch then takes the Python path)."""
+    lib = load()
+    need = np.flatnonzero(sb.gt_at >= 0)
+    rows = np.full(sb.n_vars, -1, dtype=np.int64)
+    rows[need] = np.arange(need.shape[0])
+    R = need.shape[0]
+    a1 = np.empty((R, n_samples), dtype=np.int32)
+    a2 = np.empty((R, n_samples), dtype=np.int32)
+    ph = np.empty((R, n_samples), dtype=np.bool_)
+    if R == 0:
+        return rows, a1, a2, ph
+    if n_samples == 0:
+        return None
+    ok = np.zeros(R, dtype=np.uint8)
+    off = np.ascontiguousarray(sb.gt_off[need])
+    ln = np.ascontiguousarray(sb.gt_len[need])
+    ga = np.ascontiguousarray(sb.gt_at[need])
+    lib.malva_parse_gt_spans(
+        sb.buf, off.ctypes.data_as(_I64P), ln.ctypes.data_as(_I64P), ga.ctypes.data_as(_I64P),
+        R, n_samples, a1.ctypes.data_as(_I32P), a2.ctypes.data_as(_I32P),
+        ph.ctypes.data_as(_U8P), ok.ctypes.data_as(_U8P),
+    )
+    return (rows, a1, a2, ph) if ok.all() else None
+
+
+def extract_scanned(sb: ScanBatch, gts, refs: list, k: int, haploid: bool):
+    """:func:`extract_arrays` over a scanned batch and its GT parse
+    (:func:`parse_gt_spans`); ``refs`` holds each block's reference."""
+    rows, a1, a2, ph = gts
+    has = rows >= 0
+    gt1 = np.zeros(sb.n_vars, dtype=np.uint64)
+    gt2 = np.zeros(sb.n_vars, dtype=np.uint64)
+    gph = np.zeros(sb.n_vars, dtype=np.uint64)
+    if has.any():
+        r = rows[has].astype(np.uint64)
+        S = np.uint64(a1.shape[1])
+        gt1[has] = np.uint64(a1.ctypes.data) + r * S * np.uint64(4)
+        gt2[has] = np.uint64(a2.ctypes.data) + r * S * np.uint64(4)
+        gph[has] = np.uint64(ph.ctypes.data) + r * S
+    res = extract_arrays(sb.blk_off, refs, sb.pos, sb.ref_size, sb.min_size, sb.present,
+                         sb.al_start, sb.al_off, sb.al_bytes, (gt1, gt2, gph),
+                         a1.shape[1] if has.any() else 0, k, haploid)
+    if res is None:
+        return None
+    oob, out = res
+    if oob >= 0:
+        _warn_oob_allele(sb.names[sb.name[oob]], int(sb.pos[oob]))
+    return out
 
 
 def sort_count_inplace(keys: np.ndarray):

@@ -157,3 +157,54 @@ class Variant:
 
     def add_genotype(self, geno: str, prob: float) -> None:
         self.computed_gts.append((geno, prob))
+
+
+# the GT arrays of a variant whose extraction is done (or never needs them)
+EMPTY_I32 = np.zeros(0, dtype=np.int32)
+EMPTY_BOOL = np.zeros(0, dtype=bool)
+
+
+def from_columns(cols) -> list:
+    """The Variants of a scanned batch (``utils/native.py ScanBatch``),
+    made in bulk from its columns, as :class:`Variant` makes them from
+    records: no record object, and no per-variant array (the GT arrays,
+    which only the extraction reads, are left empty)."""
+    n = cols.n_vars
+    names = cols.names
+    blob = cols.al_bytes.tobytes()
+    off = cols.al_off.tolist()
+    alleles = [blob[a:b] for a, b in zip(off[:-1], off[1:])]
+    freqs = list(cols.freq)  # np.float32 scalars, as Variant keeps them
+    quals = list(cols.qual)
+    ids = cols.id_bytes.decode()
+    id_off = cols.id_off.tolist()
+    starts = cols.al_start.tolist()
+    pos, ref_size = cols.pos.tolist(), cols.ref_size.tolist()
+    min_size, max_size = cols.min_size.tolist(), cols.max_size.tolist()
+    present, name = cols.present.tolist(), cols.name.tolist()
+    new = Variant.__new__
+    out = []
+    for i in range(n):
+        lo, hi = starts[i], starts[i + 1]
+        v = new(Variant)
+        v.seq_name = names[name[i]]
+        v.ref_pos = pos[i]
+        v.idx = ids[id_off[i]:id_off[i + 1]]
+        v.ref_sub = alleles[lo]
+        v.alts = alleles[lo + 1:hi]
+        v.ref_size = ref_size[i]
+        v.min_size = min_size[i]
+        v.max_size = max_size[i]
+        v.quality = quals[i]
+        v.filt = "PASS"
+        v.info = "."
+        v.gt_a1 = v.gt_a2 = EMPTY_I32
+        v.phase = EMPTY_BOOL
+        v.frequencies = freqs[lo:hi]
+        v.coverages = [0] * (hi - lo)
+        v.computed_gts = []
+        v.has_alts = True
+        v.is_present = bool(present[i])
+        v._gt_src = None
+        out.append(v)
+    return out

@@ -212,8 +212,12 @@ def test_call_host_records_every_span(tmp_path, capsys):
     assert line["counters"]["pass2.batches"] >= 1
     windows = int(re.search(r"count\] (\d+) k-mer occurrences", out.err).group(1))
     assert line["counters"]["count.windows"] == windows
-    producer = {r["thread"] for r in rows if r["name"] in {"pass2.scan", "pass2.extract"}}
+    producer = {r["thread"] for r in rows
+                if r["name"] in {"pass2.scan", "pass2.gt_parse", "pass2.extract"}}
     assert producer and threading.current_thread().name not in producer
+    counters = line["counters"]
+    assert (counters.get("pass2.native_records", 0) + counters.get("pass2.fallback_records", 0)
+            == counters["pass2.records"])
     load = _by_name(rows, "index.load")
     assert load["parent"] == _by_name(rows, "Index loaded")["id"]
 
@@ -338,7 +342,9 @@ print("OK")
 
 
 def test_flat_batches_count_every_variant():
-    """``pass2.records`` over the batches is the pass's variant count."""
+    """``pass2.records`` over the batches is the pass's variant count, and
+    ``native_records`` and ``fallback_records`` add up to it (and the
+    index's ``variants.*``)."""
     cfg = Config(fasta_path=os.path.join(D, "ref.fa"), vcf_path=os.path.join(D, "vars.vcf"),
                  sample_path=os.path.join(D, "reads.fa"), bf_size=1 << 20)
     from malva_tpu_torch.io.fasta import load_reference
@@ -348,7 +354,11 @@ def test_flat_batches_count_every_variant():
     with timer.recording():
         n = sum(len(f.all_vars) for f in tp._iter_extract_batches(cfg, refs, keep_absent=True))
         m = sum(len(f.all_vars) for f in tp._iter_extract_batches(cfg, refs, keep_absent=False))
-    assert timer.counters["pass2.records"] == n and timer.counters["variants.records"] == m
+    c = timer.counters
+    assert c["pass2.records"] == n and c["variants.records"] == m
+    for spans in ("pass2", "variants"):
+        assert (c.get(f"{spans}.native_records", 0) + c.get(f"{spans}.fallback_records", 0)
+                == c[f"{spans}.records"])
     names = {r["name"] for r in _rows(timer)}
     assert {"variants.scan", "variants.gt_parse", "variants.extract"} <= names
     assert np.all([r["end"] >= r["start"] for r in _rows(timer)])

@@ -26,17 +26,18 @@ def tiny_chr() -> tuple[dict, dict]:
 
 
 def tiny_haploid() -> tuple[dict, dict]:
-    """A haploid panel shaped like upstream MALVA's haploid example (56
-    columns, an AF key of its own, `-1`), at -b 1 with 3,000 records and
-    two donors at 40x: the reference's and the generator's haploid paths,
-    which no cell drives yet."""
-    cfg = {"name": "haploid-panel", "contig": "panel", "length_bp": 6000,
-           "records": 3000, "samples": 56, "ploidy": 1, "snp_share": 0.93,
-           "multiallelic_share": 0.05, "indel_max_len": 10, "af_from_columns": False,
-           "af_min": 1e-05, "flags": ["-1", "-k", "35", "-r", "43", "-b", "1", "-f", "AF", "-v"]}
-    wl = {"name": "haploid-panel.call-40x", "config": "haploid-panel", "job": "call",
-          "depth": 40, "read_length": 150, "error_rate": 0.001, "donors": 2,
-          "checked_samples": 2}
+    """The SARS-CoV-2 panel's configuration and its traffic (kept beside
+    the benchmark, not yet one of its cells), cut to a size a test run
+    holds: 6,000 bp with 3,000 records (the panel's density, a record per
+    2 bp, so blocks chain over the whole genome), 400 genomes of 48
+    lineages, two donors at 40x."""
+    from h100bench import run
+
+    cfg = run.load_json(run.HERE, "configs", "sarscov2-panel.json")
+    cfg.update({"length_bp": 6000, "records": 3000, "samples": 400})
+    cfg["lineages"] = dict(cfg["lineages"], n_lineages=48)
+    wl = run.load_json(run.HERE, "workloads", "sarscov2-panel.call-200x.json")
+    wl.update({"depth": 40, "donors": 2, "checked_samples": 2})
     return cfg, wl
 
 

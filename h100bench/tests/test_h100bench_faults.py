@@ -88,3 +88,19 @@ def test_index_fault_is_not_correct(chr_cell, monkeypatch, tmp_path):
     monkeypatch.setattr(p, "_index_state", dropped)
     res = _run_broken(chr_cell, monkeypatch, tmp_path)
     assert res["correct"] is False and res["checks"]["index_diff"]["value"] > 0
+
+
+def test_control_script_reads_the_four_bit_control(haploid_cell, capsys, monkeypatch, tmp_path):
+    """``control.py`` at a tiny size: the four-bit counts differ from the
+    reference's on every checked donor."""
+    import json
+
+    from h100bench import control
+
+    cfg, wl = haploid_cell
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    monkeypatch.setattr(run, "load_cell", lambda name: ({}, wl, cfg))
+    assert control.main(["--workload", wl["name"], "--seeds", "31"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["records"] == cfg["records"] and len(line["control_vcf_diff"]) == 2
+    assert min(line["control_vcf_diff"]) > check.LIMITS["vcf_diff"]

@@ -23,7 +23,7 @@ def test_xxh3_vectors():
 
 
 @pytest.mark.parametrize("cell,seed", [("chr_cell", 3), ("chr_cell", 2**35 + 17),
-                                       ("haploid_cell", 5)])
+                                       ("haploid_cell", 5), ("haploid_cell", 2**40 + 21)])
 def test_reference_agrees_with_the_host_route(cell, seed, request, tmp_path, monkeypatch):
     monkeypatch.setenv("TMPDIR", str(tmp_path))
     cfg, wl = request.getfixturevalue(cell)

@@ -1052,8 +1052,12 @@ void malva_bf_apply_hashed(const uint64_t* ctx_hash, const uint64_t* cen_hash,
 //   kmer_len + bytes (concatenated k-mer strings).
 // Returns 0, or -1 when any output capacity would be exceeded (caller
 // grows and retries).  out_counts[4] = first variant with an
-// out-of-range GT allele index (clamped to REF), or -1.
+// out-of-range GT allele index (clamped to REF), or -1; out_counts[5..7]
+// = the blocks extracted, the sum of their seconds on the threads that
+// ran them and the longest block's (the call's critical path), in
+// microseconds.
 
+#include <chrono>
 #include <string>
 #include <unordered_set>
 
@@ -1742,15 +1746,28 @@ int64_t malva_extract_group(
     int64_t cap_tgt, int32_t* out_sig_nk, int64_t cap_sig,
     int32_t* out_kmer_len, int64_t cap_kmer, uint8_t* out_bytes,
     int64_t cap_bytes, int64_t* out_counts) {
+  using Clock = std::chrono::steady_clock;
   std::vector<BlockOut> outs(n_blocks);
+  std::vector<int64_t> block_ns(n_blocks);
 #pragma omp parallel for schedule(dynamic)
   for (int64_t b = 0; b < n_blocks; ++b) {
+    const Clock::time_point t0 = Clock::now();
     BlockExtractor ex(pos, vsize, vmin, present, al_start, al_off, al_bytes,
                       gt1_ptrs, gt2_ptrs, ph_ptrs, blk_off[b], blk_off[b + 1],
                       (const uint8_t*)ref_ptrs[b], ref_lens[b], n_ind, k,
                       haploid != 0, outs[b]);
     ex.run();
+    block_ns[b] = std::chrono::duration_cast<std::chrono::nanoseconds>(
+                      Clock::now() - t0).count();
   }
+  int64_t busy_ns = 0, critical_ns = 0;
+  for (int64_t ns : block_ns) {
+    busy_ns += ns;
+    critical_ns = std::max(critical_ns, ns);
+  }
+  out_counts[5] = n_blocks;
+  out_counts[6] = busy_ns / 1000;
+  out_counts[7] = critical_ns / 1000;
   int64_t n_tgt = 0, n_sig = 0, n_kmer = 0, n_bytes = 0, oob = -1;
   for (const auto& o : outs) {
     n_tgt += (int64_t)o.tgt_var.size();

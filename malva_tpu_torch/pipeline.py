@@ -192,13 +192,27 @@ def _extract_batch_flat(batch, cfg: Config, spans: str) -> FlatExtract:
     with span(f"{spans}.gt_parse"):
         _resolve_gts(all_vars)  # deferred GT parse, one native batch
     with span(f"{spans}.extract"):
-        return _extract_flat(batch, cfg, all_vars)
+        return _extract_flat(batch, cfg, all_vars, spans)
 
 
-def _extract_flat(batch, cfg: Config, all_vars: list) -> FlatExtract:
+def _count_extraction(spans: str, stats: dict) -> None:
+    """Count a native extraction's blocks and their thread time:
+    ``<spans>.extract_blocks``, ``.extract_busy_us`` (the blocks'
+    microseconds on the threads that ran them), ``.extract_critical_us``
+    (the longest block's, the call's critical path) and
+    ``.extract_retries`` (calls made again, every block with them, with
+    the output capacities the first call found short).  Busy time over
+    the ``<spans>.extract`` span is how many of the library's threads the
+    extraction kept busy."""
+    for key, n in stats.items():
+        count(f"{spans}.extract_{key}", n)
+
+
+def _extract_flat(batch, cfg: Config, all_vars: list, spans: str) -> FlatExtract:
     res = native.extract_group(batch, cfg.k, cfg.haploid)
     if res is not None:
-        tgt_var, tgt_allele, tgt_nsig, sig_nk, kmer_len, bytes_u8 = res
+        (tgt_var, tgt_allele, tgt_nsig, sig_nk, kmer_len, bytes_u8), stats = res
+        _count_extraction(spans, stats)
         return FlatExtract(all_vars, tgt_var, tgt_allele, tgt_nsig, sig_nk,
                            kmer_len, bytes_u8)
     tgt_var: list[int] = []
@@ -375,8 +389,9 @@ def _extract_scanned(sb, cfg: Config, spans: str, ctx, refs_of: _RefsOf) -> Flat
             count(f"{spans}.native_records", sb.n_vars)
             with span(f"{spans}.extract"):
                 refs = [refs_of.array(name) for name in sb.blk_name]
-                res = native.extract_scanned(sb, gts, refs, cfg.k, cfg.haploid)
-            return FlatExtract(None, *res, cols=sb)
+                out, stats = native.extract_scanned(sb, gts, refs, cfg.k, cfg.haploid)
+            _count_extraction(spans, stats)
+            return FlatExtract(None, *out, cols=sb)
     with span(f"{spans}.scan"):
         variants = [_make_variant(parse_record(sb.line(i), cfg.vcf_path, ctx.n_samples), cfg,
                                   ctx) for i in range(sb.n_vars)]

@@ -818,9 +818,10 @@ def extract_group(blocks, k: int, haploid: bool):
     """Native signature extraction over a group of variant blocks (the
     full blocks.VB.extract_kmers, reference var_block.hpp:95-219, OpenMP
     across blocks).  ``blocks`` is [(variants, ref_bytes), ...]; returns
-    (tgt_var, tgt_allele, tgt_nsig, sig_nk, kmer_len, bytes_u8) with
-    tgt_var indexing the concatenated variant list, or None when the
-    library is unavailable / the group needs the Python path."""
+    ((tgt_var, tgt_allele, tgt_nsig, sig_nk, kmer_len, bytes_u8), stats)
+    with tgt_var indexing the concatenated variant list and ``stats``
+    :func:`extract_arrays`'s, or None when the library is unavailable /
+    the group needs the Python path."""
     lib = load()
     if lib is None or not blocks:
         return None
@@ -885,9 +886,12 @@ def extract_group(blocks, k: int, haploid: bool):
                 return None
     res = extract_arrays(blk_off, refs, pos, size, mins, present, al_start, al_off, al_bytes,
                          (gt1, gt2, ph), n_ind, k, haploid)
-    if res is not None and res[0] >= 0:
-        _warn_oob_allele(all_vars[res[0]].seq_name, all_vars[res[0]].ref_pos)
-    return None if res is None else res[1]
+    if res is None:
+        return None
+    oob, out, stats = res
+    if oob >= 0:
+        _warn_oob_allele(all_vars[oob].seq_name, all_vars[oob].ref_pos)
+    return out, stats
 
 
 def extract_arrays(blk_off, refs, pos, size, mins, present, al_start, al_off, al_bytes,
@@ -899,8 +903,12 @@ def extract_arrays(blk_off, refs, pos, size, mins, present, al_start, al_off, al
     into ``al_bytes``), and the addresses of each present variant's
     ``n_ind`` GT values (a1 and a2 int32, phase bool; 0 where absent).
     -> (the first variant with an allele index past its ALTs, or -1,
-    (tgt_var, tgt_allele, tgt_nsig, sig_nk, kmer_len, bytes_u8)), or
-    None without the library."""
+    (tgt_var, tgt_allele, tgt_nsig, sig_nk, kmer_len, bytes_u8), stats),
+    or None without the library.  ``stats``: the ``blocks`` extracted;
+    ``busy_us``, their microseconds on the threads that ran them, and
+    ``critical_us``, the longest block's, each summed over the native
+    calls; ``retries``, the calls made again with the exact capacities
+    that the first one found (a retry extracts every block again)."""
     lib = load()
     if lib is None:
         return None
@@ -919,8 +927,9 @@ def extract_arrays(blk_off, refs, pos, size, mins, present, al_start, al_off, al
     cap_sig = 8 * nv + 64
     cap_kmer = 16 * nv + 64
     cap_bytes = cap_kmer * (k + 1)
-    counts = np.zeros(5, dtype=np.int64)
-    for _ in range(2):
+    counts = np.zeros(8, dtype=np.int64)
+    stats = {"blocks": 0, "busy_us": 0, "critical_us": 0, "retries": 0}
+    for attempt in range(2):
         tgt_var = np.empty(cap_tgt, dtype=np.int32)
         tgt_allele = np.empty(cap_tgt, dtype=np.int32)
         tgt_nsig = np.empty(cap_tgt, dtype=np.int32)
@@ -943,11 +952,15 @@ def extract_arrays(blk_off, refs, pos, size, mins, present, al_start, al_off, al
             out_bytes.ctypes.data_as(_U8P), cap_bytes,
             counts.ctypes.data_as(_I64P),
         )
+        stats["blocks"] = int(counts[5])
+        stats["busy_us"] += int(counts[6])
+        stats["critical_us"] += int(counts[7])
+        stats["retries"] = attempt
         if rc == 0:
             nt, ns, nk, nb = (int(counts[0]), int(counts[1]), int(counts[2]),
                               int(counts[3]))
             return int(counts[4]), (tgt_var[:nt], tgt_allele[:nt], tgt_nsig[:nt],
-                                    sig_nk[:ns], kmer_len[:nk], out_bytes[:nb])
+                                    sig_nk[:ns], kmer_len[:nk], out_bytes[:nb]), stats
         # counts are exact even on overflow: retry with exact capacities
         cap_tgt, cap_sig, cap_kmer, cap_bytes = (
             int(counts[0]), int(counts[1]), int(counts[2]), int(counts[3]))
@@ -1145,7 +1158,8 @@ def parse_gt_spans(sb: ScanBatch, n_samples: int):
 
 def extract_scanned(sb: ScanBatch, gts, refs: list, k: int, haploid: bool):
     """:func:`extract_arrays` over a scanned batch and its GT parse
-    (:func:`parse_gt_spans`); ``refs`` holds each block's reference."""
+    (:func:`parse_gt_spans`); ``refs`` holds each block's reference.
+    -> (the six output arrays, stats), or None without the library."""
     rows, a1, a2, ph = gts
     has = rows >= 0
     gt1 = np.zeros(sb.n_vars, dtype=np.uint64)
@@ -1162,10 +1176,10 @@ def extract_scanned(sb: ScanBatch, gts, refs: list, k: int, haploid: bool):
                          a1.shape[1] if has.any() else 0, k, haploid)
     if res is None:
         return None
-    oob, out = res
+    oob, out, stats = res
     if oob >= 0:
         _warn_oob_allele(sb.names[sb.name[oob]], int(sb.pos[oob]))
-    return out
+    return out, stats
 
 
 def sort_count_inplace(keys: np.ndarray):

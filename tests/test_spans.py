@@ -6,7 +6,11 @@ by an exception, GC, the line), then ``call`` on the diploid data: the
 host route's spans and counters against its phases and golden VCF, the
 device route on CPU tensors (the upload's parts and bytes), the
 ``--profile-dir`` ranges, and the stderr lines the benchmark parses,
-which must read as before.
+which must read as before.  Last, the native extraction's block counters
+(``<pass>.extract_blocks``, ``_busy_us``, ``_critical_us``,
+``_retries``) on the benchmark generator's two deployments cut small: the
+SARS-CoV-2 panel, whose records chain into one block, and the
+1000 Genomes-shaped cohort, whose records fall into many.
 """
 
 import gc
@@ -362,3 +366,97 @@ def test_flat_batches_count_every_variant():
     names = {r["name"] for r in _rows(timer)}
     assert {"variants.scan", "variants.gt_parse", "variants.extract"} <= names
     assert np.all([r["end"] >= r["start"] for r in _rows(timer)])
+
+
+EXTRACT = ("blocks", "busy_us", "critical_us", "retries")
+
+
+def _deployment(tmp_path, name):
+    """A configuration of the benchmark's generator cut to a test's size:
+    the panel as ``h100bench/tests/conftest.py tiny_haploid`` cuts it
+    (6,000 bp, 3,000 records, 400 genomes of 48 lineages), the cohort to
+    4,000 bp at its 2,504 columns.  -> (Config, reference)."""
+    from h100bench.gen.cohort import freq_key, make_cohort
+    from malva_tpu_torch.io.fasta import load_reference
+
+    with open(os.path.join(REPO, "h100bench", "configs", f"{name}.json")) as f:
+        conf = json.load(f)
+    if name == "sarscov2-panel":
+        conf.update({"length_bp": 6000, "records": 3000, "samples": 400,
+                     "lineages": dict(conf["lineages"], n_lineages=48)})
+    else:
+        conf["length_bp"] = 4000
+    cohort = make_cohort(conf, 3230000001, str(tmp_path))
+    cfg = Config(fasta_path=cohort.fasta, vcf_path=cohort.vcf, sample_path=GOLDEN,
+                 bf_size=1 << 20, freq_key=freq_key(conf), haploid=cohort.ploidy == 1)
+    return cfg, load_reference(cfg.fasta_path, cfg.strip_chr)
+
+
+def _extract_passes(cfg, refs):
+    """Both passes' batches drawn whole under a recorder: its counters."""
+    timer = _timer()
+    with timer.recording():
+        for keep_absent in (True, False):
+            for _ in tp._iter_extract_batches(cfg, refs, keep_absent=keep_absent):
+                pass
+    return timer.counters
+
+
+def test_one_chained_block_counts_one_block_a_pass(tmp_path):
+    """The panel's records chain into one block: each pass extracts one
+    block on one thread, so its critical path is all of its busy time."""
+    c = _extract_passes(*_deployment(tmp_path, "sarscov2-panel"))
+    for spans in ("pass2", "variants"):
+        assert c[f"{spans}.native_records"] == c[f"{spans}.records"] == 3000
+        assert c[f"{spans}.extract_blocks"] == 1
+        assert c[f"{spans}.extract_critical_us"] == c[f"{spans}.extract_busy_us"] > 0
+        assert c[f"{spans}.extract_retries"] in (0, 1)
+
+
+def test_many_blocks_count_each_and_busy_bounds_critical(tmp_path):
+    c = _extract_passes(*_deployment(tmp_path, "chr20-1kgp3"))
+    for spans in ("pass2", "variants"):
+        assert c[f"{spans}.extract_blocks"] > 1
+        assert c[f"{spans}.extract_busy_us"] >= c[f"{spans}.extract_critical_us"] > 0
+        assert c[f"{spans}.extract_retries"] == 0
+
+
+def test_extract_counters_sum_over_batches(tmp_path, monkeypatch):
+    """Cut into batches of a few blocks, a pass counts every native
+    call's blocks, busy and critical time, and the blocks are the one
+    batch's."""
+    from malva_tpu_torch.utils import native
+
+    cfg, refs = _deployment(tmp_path, "chr20-1kgp3")
+    whole = _extract_passes(cfg, refs)
+    calls = []
+    extract_arrays = native.extract_arrays
+
+    def recorded(*args, **kw):
+        res = extract_arrays(*args, **kw)
+        calls.append(res[2])
+        return res
+
+    monkeypatch.setattr(native, "extract_arrays", recorded)
+    monkeypatch.setattr(tp, "EXTRACT_VARS", 16)
+    c = _extract_passes(cfg, refs)
+    assert c["pass2.batches"] > 1 and len(calls) == c["pass2.batches"] + c["variants.batches"]
+    for key in EXTRACT:
+        assert sum(call[key] for call in calls) == sum(
+            c[f"{spans}.extract_{key}"] for spans in ("pass2", "variants"))
+    for spans in ("pass2", "variants"):
+        assert c[f"{spans}.extract_blocks"] == whole[f"{spans}.extract_blocks"]
+        assert c[f"{spans}.extract_critical_us"] <= c[f"{spans}.extract_busy_us"]
+
+
+def test_python_extraction_counts_no_blocks(tmp_path, monkeypatch):
+    """The Python path's records are ``fallback_records``; where its
+    extraction is Python's too, no ``extract_*`` counter is written."""
+    from malva_tpu_torch.utils import native
+
+    monkeypatch.setattr(tp, "_open_scan", lambda *a: None)
+    monkeypatch.setattr(native, "extract_group", lambda *a: None)
+    c = _extract_passes(*_deployment(tmp_path, "sarscov2-panel"))
+    for spans in ("pass2", "variants"):
+        assert c[f"{spans}.fallback_records"] == c[f"{spans}.records"] == 3000
+        assert not [k for k in c if k.startswith(f"{spans}.extract_")]

@@ -1,9 +1,11 @@
 """The port's ``index`` and ``call`` with the native record scan, with the
 Python path, and malva_tpu's: the same VCF bytes and the same index.
 
-On the diploid fixture, a seeded haploid case and a cohort of the
+On the diploid fixture, a seeded haploid case, a cohort of the
 benchmark's generator (``h100bench/gen``) at 2,504 samples with its slice
-cut to a few thousand bases.  The native route counts every record under
+cut to a few thousand bases, and the generator's SARS-CoV-2 lineage panel
+cut to a test's size, whose records chain into one block.  The native
+route counts every record under
 ``native_records``; BCF input and a ``--samples`` subset take the Python
 path and count every record under ``fallback_records``.
 """
@@ -29,19 +31,22 @@ D = os.path.join(REPO, "tests", "data", "diploid")
 pytestmark = pytest.mark.skipif(native.load() is None, reason="no native host library")
 
 
-def _cohort(tmp_path):
+def _generated(tmp_path, name, cut, depth, seed):
+    """A deployment of the benchmark's generator, ``cut`` to a test's size,
+    and one donor's reads."""
     from h100bench.gen.cohort import freq_key, make_cohort
     from h100bench.gen.reads import make_donor, pick_donors
 
-    with open(os.path.join(REPO, "h100bench", "configs", "chr20-1kgp3.json")) as f:
+    with open(os.path.join(REPO, "h100bench", "configs", f"{name}.json")) as f:
         conf = json.load(f)
-    conf["length_bp"] = 4000
-    cohort = make_cohort(conf, 3180000001, str(tmp_path))
+    conf.update(cut)
+    cohort = make_cohort(conf, seed, str(tmp_path))
     rng = np.random.default_rng(7)
-    work = {"read_length": 150, "depth": 10, "error_rate": 0.001}
+    work = {"read_length": 150, "depth": depth, "error_rate": 0.001}
     reads = make_donor(cohort, pick_donors(cohort, 1, rng)[0], work, rng,
                        str(tmp_path / "donor.fq.gz")).path
-    return (cohort.fasta, cohort.vcf, reads), dict(freq_key=freq_key(conf), verbose=True)
+    return (cohort.fasta, cohort.vcf, reads), dict(
+        freq_key=freq_key(conf), verbose=True, haploid=cohort.ploidy == 1)
 
 
 def _case(name, tmp_path):
@@ -49,7 +54,15 @@ def _case(name, tmp_path):
         return tuple(os.path.join(D, n) for n in ("ref.fa", "vars.vcf", "reads.fa")), {}
     if name == "haploid":
         return gen_case(str(tmp_path), 402, haploid=True, n_samples=6), dict(haploid=True)
-    return _cohort(tmp_path)
+    if name == "lineage-panel":
+        # as h100bench/tests/conftest.py tiny_haploid cuts it: the panel's
+        # density (a record per 2 bp) over 6,000 bp, 400 genomes of 48 lineages
+        with open(os.path.join(REPO, "h100bench", "configs", "sarscov2-panel.json")) as f:
+            lineages = dict(json.load(f)["lineages"], n_lineages=48)
+        return _generated(tmp_path, "sarscov2-panel", {
+            "length_bp": 6000, "records": 3000, "samples": 400, "lineages": lineages},
+            40, 3220000001)
+    return _generated(tmp_path, "chr20-1kgp3", {"length_bp": 4000}, 10, 3180000001)
 
 
 def _port(cfg, tmp_path, tag, python_route, monkeypatch):
@@ -66,9 +79,10 @@ def _port(cfg, tmp_path, tag, python_route, monkeypatch):
     return out.getvalue(), dict(np.load(path)), timer.counters
 
 
-@pytest.mark.parametrize("case", ["diploid", "haploid", "cohort-2504"])
+@pytest.mark.parametrize("case", ["diploid", "haploid", "cohort-2504", "lineage-panel"])
 def test_native_scan_python_path_and_malva_tpu_agree(tmp_path, monkeypatch, case):
     (fa, vcf, reads), kw = _case(case, tmp_path)
+    assert kw.get("haploid", False) == (case in ("haploid", "lineage-panel"))
     args = dict(fasta_path=fa, vcf_path=vcf, sample_path=reads, bf_size=1 << 22, **kw)
     cfg = TConfig(**args)
     got, got_ix, counters = _port(cfg, tmp_path, "native", False, monkeypatch)
@@ -82,6 +96,8 @@ def test_native_scan_python_path_and_malva_tpu_agree(tmp_path, monkeypatch, case
         assert counters[f"{spans}.native_records"] == counters[f"{spans}.records"] > 0
         assert f"{spans}.fallback_records" not in counters
         assert fb[f"{spans}.fallback_records"] == fb[f"{spans}.records"]
+        if case == "lineage-panel":  # every record chains into one block
+            assert counters[f"{spans}.extract_blocks"] == fb[f"{spans}.extract_blocks"] == 1
     mcfg = MConfig(**args)
     m_index = mp.build_index(mcfg)
     m_path = str(tmp_path / "malva_tpu.npz")

@@ -1034,10 +1034,11 @@ void malva_bf_apply_hashed(const uint64_t* ctx_hash, const uint64_t* cen_hash,
 // Variant-block signature-extraction engine (the full extract_kmers of
 // malva_tpu_torch/variants/blocks.py, i.e. reference var_block.hpp:95-219 +
 // :436-786, over a GROUP of blocks in one call, OpenMP-parallel across
-// blocks).  Semantics mirror blocks.py exactly; ORDER of signatures
-// within an allele bucket is unspecified (the downstream coverage is a
-// max over signatures), but the k-mer order WITHIN a signature is fixed
-// (the integer incremental mean is order-dependent).
+// units of work, a unit for each kChunk variants of a block).  Semantics mirror
+// blocks.py exactly; ORDER of signatures within an allele bucket is
+// unspecified (the downstream coverage is a max over signatures), but the
+// k-mer order WITHIN a signature is fixed (the integer incremental mean
+// is order-dependent).
 //
 // Per-group flat inputs (see utils/native.py extract_group):
 //   blk_off[n_blocks+1]      variant index ranges per block
@@ -1049,13 +1050,17 @@ void malva_bf_apply_hashed(const uint64_t* ctx_hash, const uint64_t* cen_hash,
 //   gt1/gt2/ph ptrs          per-variant int32*/int32*/uint8* (0 if absent)
 // Flat outputs, grouped per (variant, allele_index) target:
 //   tgt_var/tgt_allele/tgt_nsig, sig_nk (k-mers per signature),
-//   kmer_len + bytes (concatenated k-mer strings).
-// Returns 0, or -1 when any output capacity would be exceeded (caller
-// grows and retries).  out_counts[4] = first variant with an
-// out-of-range GT allele index (clamped to REF), or -1; out_counts[5..7]
-// = the blocks extracted, the sum of their seconds on the threads that
-// ran them and the longest block's (the call's critical path), in
-// microseconds.
+//   kmer_len + bytes (concatenated k-mer strings), the units' outputs in
+//   block order, then chunk order.
+// malva_extract_group returns a handle that holds them; out_counts[0..3]
+// = their sizes, for the caller to allocate exactly and pass to
+// malva_extract_take, which copies them out and frees the handle
+// (malva_extract_free frees it unread).  out_counts[4] = first variant
+// with an out-of-range GT allele index (clamped to REF), or -1;
+// out_counts[5..8] = the blocks extracted, the sum of the units' seconds
+// on the threads that ran them, the longest block's wall (its first
+// unit's start to its last unit's end, with its serial set-up: the
+// call's critical path), in microseconds, and the units run.
 
 #include <chrono>
 #include <string>
@@ -1118,69 +1123,104 @@ inline void key_append(std::string& key, const uint8_t* p, int64_t n) {
   key.append((const char*)p, (size_t)n);
 }
 
+// Two-level window dedup (mirrors blocks.py extract_kmers CHUNK=64): the
+// genomes' rows are projected once per kChunk consecutive variants onto
+// the union of their combinations' columns, then per variant from that
+// much smaller matrix — without this, cohort-scale blocks (30k samples,
+// thousands of near variants) pay a full scan of the genomes per variant.
+// A chunk reads only its block's shared, read-only state and writes only
+// its own variants' outputs, so each chunk is a unit of work of its own.
+constexpr int64_t kChunk = 64;
+
+// A block's variants and the column of each present variant with GT
+// values among them (-1 for the others): built once a block and read by
+// every unit that extracts it.
+struct BlockVars {
+  int64_t v0 = 0;
+  std::vector<V> vs;
+  std::vector<int64_t> col_of;
+  int64_t ncols = 0;
+
+  void build(const int64_t* pos, const int64_t* vsize, const int64_t* vmin,
+             const uint8_t* present, const uint64_t* gt1, int64_t b0,
+             int64_t b1, int64_t n_ind) {
+    v0 = b0;
+    int64_t n = b1 - b0;
+    vs.resize(n);
+    col_of.assign(n, -1);
+    ncols = 0;
+    for (int64_t i = 0; i < n; ++i) {
+      vs[i] = V{pos[b0 + i], vsize[b0 + i], vmin[b0 + i], present[b0 + i]};
+      if (vs[i].present && n_ind > 0 && gt1[b0 + i]) col_of[i] = ncols++;
+    }
+  }
+};
+
 class BlockExtractor {
  public:
-  BlockExtractor(const int64_t* pos, const int64_t* vsize, const int64_t* vmin,
-                 const uint8_t* present, const int64_t* al_start,
+  BlockExtractor(const BlockVars& bv, const int64_t* al_start,
                  const int64_t* al_off, const uint8_t* al_bytes,
                  const uint64_t* gt1, const uint64_t* gt2, const uint64_t* ph,
-                 int64_t v0, int64_t v1, const uint8_t* ref, int64_t ref_len,
-                 int64_t n_ind, int64_t k, bool haploid, BlockOut& out)
-      : pos_(pos), vsize_(vsize), vmin_(vmin), present_(present),
-        al_start_(al_start), al_off_(al_off), al_bytes_(al_bytes),
-        gt1_(gt1), gt2_(gt2), ph_(ph), v0_(v0), v1_(v1), ref_(ref),
+                 const uint8_t* ref, int64_t ref_len, int64_t n_ind,
+                 int64_t k, bool haploid, BlockOut& out)
+      : al_start_(al_start), al_off_(al_off), al_bytes_(al_bytes),
+        gt1_(gt1), gt2_(gt2), ph_(ph), v0_(bv.v0), ref_(ref),
         ref_len_(ref_len), n_ind_(n_ind), k_(k), haploid_(haploid),
-        out_(out) {
-    int64_t n = v1 - v0;
-    vs_.resize(n);
-    for (int64_t i = 0; i < n; ++i)
-      vs_[i] = V{pos[v0 + i], vsize[v0 + i], vmin[v0 + i], present[v0 + i]};
+        out_(out), vs_(bv.vs), col_of_(bv.col_of) {
+    stride_ = haploid_ ? 1 : 3;
+    ncols_ = bv.ncols;
   }
 
-  void run() {
-    build_profiles();
-    // two-level window dedup (mirrors blocks.py extract_kmers CHUNK=64):
-    // project the block profile matrix once per CHUNK of consecutive
-    // variants onto the union of their combinations' columns, then per
-    // variant from that much smaller matrix — without this, cohort-scale
-    // blocks (30k samples, thousands of near variants) pay a full
-    // profile-matrix scan per variant.
-    const int64_t CHUNK = 64;
-    int64_t n = (int64_t)vs_.size();
+  // The kChunk variants from `base`, from the genomes' rows over their
+  // window's GT columns, deduplicated in genome order.  That is the rows,
+  // in the order, that projecting the block's deduplicated profiles would
+  // give: the first genome with a projected row is also the first with
+  // its whole profile.
+  void run_chunk(int64_t base) {
+    int64_t hi = std::min((int64_t)vs_.size(), base + kChunk);
     std::vector<int64_t> members;
     std::vector<std::vector<std::vector<int32_t>>> combs_of;
-    std::vector<int64_t> cwin, cpos(n, -1);
-    std::vector<char> in(n, 0);
-    for (int64_t base = 0; base < n; base += CHUNK) {
-      int64_t hi = std::min(n, base + CHUNK);
-      members.clear();
-      combs_of.clear();
-      for (int64_t i = base; i < hi; ++i) {
-        const V& v = vs_[i];
-        if (!v.present || v.pos < k_ || v.pos > ref_len_ - k_) continue;
-        members.push_back(i);
-        combs_of.emplace_back();
-        build_combs(i, combs_of.back());
-      }
-      if (members.empty()) continue;
-      std::fill(in.begin(), in.end(), 0);
-      for (const auto& cs : combs_of)
-        for (const auto& c : cs)
-          for (int32_t j : c) in[j] = 1;
-      cwin.clear();
-      for (int64_t j = 0; j < n; ++j)
-        if (in[j]) cwin.push_back(j);
-      cmat_.clear();
-      project_dedup(P_, width_, col_of_, cwin, cmat_);
-      std::fill(cpos.begin(), cpos.end(), -1);
-      for (size_t w = 0; w < cwin.size(); ++w) cpos[cwin[w]] = (int64_t)w;
-      int64_t cmat_width = (int64_t)cwin.size() * stride_;
-      for (size_t m = 0; m < members.size(); ++m)
-        extract_variant(members[m], combs_of[m], cmat_, cmat_width, cpos);
+    for (int64_t i = base; i < hi; ++i) {
+      const V& v = vs_[i];
+      if (!v.present || v.pos < k_ || v.pos > ref_len_ - k_) continue;
+      members.push_back(i);
+      combs_of.emplace_back();
+      build_combs(i, combs_of.back());
     }
+    if (members.empty()) return;
+    std::vector<int64_t> cwin;
+    int64_t lo = window_of(combs_of.data(), combs_of.size(), cwin);
+    project_gt(cwin, cmat_);
+    std::vector<int64_t> cpos(cwin.back() - lo + 1, -1);
+    for (size_t w = 0; w < cwin.size(); ++w) cpos[cwin[w] - lo] = (int64_t)w;
+    int64_t cmat_width = (int64_t)cwin.size() * stride_;
+    for (size_t m = 0; m < members.size(); ++m)
+      extract_variant(members[m], combs_of[m], cmat_, cmat_width, cpos.data(),
+                      lo);
   }
 
  private:
+  // The sorted union of the combinations' members into `window`; returns
+  // its first.  Marks only the span the members cover, not the block.
+  int64_t window_of(const std::vector<std::vector<int32_t>>* combs,
+                    size_t n_lists, std::vector<int64_t>& window) {
+    int64_t lo = INT64_MAX, top = -1;
+    for (size_t l = 0; l < n_lists; ++l)
+      for (const auto& c : combs[l])
+        for (int32_t j : c) {
+          lo = std::min<int64_t>(lo, j);
+          top = std::max<int64_t>(top, j);
+        }
+    in_.assign(top - lo + 1, 0);
+    for (size_t l = 0; l < n_lists; ++l)
+      for (const auto& c : combs[l])
+        for (int32_t j : c) in_[j - lo] = 1;
+    window.clear();
+    for (int64_t j = lo; j <= top; ++j)
+      if (in_[j - lo]) window.push_back(j);
+    return lo;
+  }
+
   int64_t n_alleles(int64_t gv) const {
     return al_start_[gv + 1] - al_start_[gv];
   }
@@ -1195,127 +1235,11 @@ class BlockExtractor {
     return StrView{al_bytes_ + s, e - s};
   }
 
-  // -- unique joint-genotype profiles over present variants --------------
-  // P_ is row-major: per row, per present variant: (a1, a2, phase) int32
-  // triples (diploid) or a single a1 (haploid).  col_of_[local idx] = the
-  // variant's group index in P_, or -1.
-  void build_profiles() {
-    int64_t n = (int64_t)vs_.size();
-    col_of_.assign(n, -1);
-    int64_t ncols = 0;
-    for (int64_t i = 0; i < n; ++i)
-      if (vs_[i].present && n_ind_ > 0 && gt1_[v0_ + i]) col_of_[i] = ncols++;
-    stride_ = haploid_ ? 1 : 3;
-    width_ = ncols * stride_;
-    if (ncols == 0 || n_ind_ == 0) return;
-    std::vector<const int32_t*> a1(ncols), a2(ncols);
-    std::vector<const uint8_t*> ph(ncols);
-    for (int64_t i = 0; i < n; ++i) {
-      if (col_of_[i] < 0) continue;
-      a1[col_of_[i]] = (const int32_t*)gt1_[v0_ + i];
-      a2[col_of_[i]] = (const int32_t*)gt2_[v0_ + i];
-      ph[col_of_[i]] = (const uint8_t*)ph_[v0_ + i];
-    }
-    P_.reserve((size_t)std::min<int64_t>(n_ind_, 1024) * width_);
-    if (ncols == 1) {
-      // single present variant (the dominant block shape on sparse
-      // cohort VCFs): allele indices are tiny, so a 13-bit bitmap
-      // ((a1<64)<<7 | (a2<64)<<1 | ph) replaces a hash-set insert per
-      // individual (2,504-sample cohorts insert ~250M times per 100k
-      // records otherwise); out-of-range values spill to a u64 set
-      uint64_t bm[128] = {0};
-      std::unordered_set<uint64_t> seen;
-      for (int64_t r = 0; r < n_ind_; ++r) {
-        int32_t x = a1[0][r];
-        int32_t y = haploid_ ? 0 : a2[0][r];
-        int32_t p = haploid_ ? 0 : (ph[0][r] ? 1 : 0);
-        bool fresh;
-        if ((uint32_t)x < 64 && (uint32_t)y < 64) {
-          uint32_t key = ((uint32_t)x << 7) | ((uint32_t)y << 1) | (uint32_t)p;
-          uint64_t bit = 1ULL << (key & 63);
-          fresh = !(bm[key >> 6] & bit);
-          bm[key >> 6] |= bit;
-        } else {
-          uint64_t key = ((uint64_t)(uint32_t)x << 33) |
-                         ((uint64_t)(uint32_t)y << 2) | (uint64_t)p;
-          fresh = seen.insert(key).second;
-        }
-        if (fresh) {
-          P_.push_back(x);
-          if (!haploid_) {
-            P_.push_back(y);
-            P_.push_back((int32_t)(ph[0][r] ? 1 : 0));
-          }
-        }
-      }
-      return;
-    }
-    if (ncols <= 3) {
-      // 2-3 present variants: rows pack into one u64 when every allele
-      // index is < 1024 (21 bits per variant) — integer-set dedup with
-      // a per-row fallback to the generic string set
-      std::unordered_set<uint64_t> seen;
-      std::unordered_set<std::string> spill;
-      std::vector<int32_t> row(width_);
-      for (int64_t r = 0; r < n_ind_; ++r) {
-        uint64_t key = 0;
-        bool small = true;
-        for (int64_t c = 0; c < ncols; ++c) {
-          int32_t x = a1[c][r];
-          int32_t y = haploid_ ? 0 : a2[c][r];
-          int32_t p = haploid_ ? 0 : (ph[c][r] ? 1 : 0);
-          if ((uint32_t)x >= 1024 || (uint32_t)y >= 1024) { small = false; break; }
-          key = (key << 21) | ((uint64_t)x << 11) | ((uint64_t)y << 1) |
-                (uint64_t)p;
-          if (haploid_) {
-            row[c] = x;
-          } else {
-            row[3 * c] = x;
-            row[3 * c + 1] = y;
-            row[3 * c + 2] = (int32_t)(ph[c][r] ? 1 : 0);
-          }
-        }
-        bool fresh;
-        if (small) {
-          fresh = seen.insert(key).second;
-        } else {
-          for (int64_t c = 0; c < ncols; ++c) {
-            if (haploid_) {
-              row[c] = a1[c][r];
-            } else {
-              row[3 * c] = a1[c][r];
-              row[3 * c + 1] = a2[c][r];
-              row[3 * c + 2] = (int32_t)ph[c][r];
-            }
-          }
-          std::string k2((const char*)row.data(), row.size() * 4);
-          fresh = spill.insert(std::move(k2)).second;
-        }
-        if (fresh) P_.insert(P_.end(), row.begin(), row.end());
-      }
-      return;
-    }
-    std::vector<int32_t> row(width_);
-    dedup_.reset(width_, n_ind_);
-    for (int64_t r = 0; r < n_ind_; ++r) {
-      for (int64_t c = 0; c < ncols; ++c) {
-        if (haploid_) {
-          row[c] = a1[c][r];
-        } else {
-          row[3 * c] = a1[c][r];
-          row[3 * c + 1] = a2[c][r];
-          row[3 * c + 2] = (int32_t)ph[c][r];
-        }
-      }
-      dedup_.insert(P_, row.data());
-    }
-  }
-
-  // project P_ (or another matrix) onto the given variant columns and
-  // deduplicate rows; cols are local variant indices (must have col_of_
-  // >= 0).  Output is row-major with the same per-variant stride.
+  // project a matrix onto the given variant columns and deduplicate rows; cols are local variant indices, local variant j's
+  // column in src is src_col[j - src_lo] (must be >= 0).  Output is
+  // row-major with the same per-variant stride.
   void project_dedup(const std::vector<int32_t>& src, int64_t src_width,
-                     const std::vector<int64_t>& src_cols_of_local,
+                     const int64_t* src_col, int64_t src_lo,
                      const std::vector<int64_t>& want_local,
                      std::vector<int32_t>& dst) {
     dst.clear();
@@ -1323,7 +1247,7 @@ class BlockExtractor {
     if (src_width == 0 || src.empty()) return;
     int64_t rows = (int64_t)src.size() / src_width;
     if (w == stride_) {  // single-variant projection: u64-key dedup
-      int64_t c = src_cols_of_local[want_local[0]] * stride_;
+      int64_t c = src_col[want_local[0] - src_lo] * stride_;
       std::unordered_set<uint64_t> seen;
       seen.reserve(64);
       for (int64_t r = 0; r < rows; ++r) {
@@ -1344,7 +1268,7 @@ class BlockExtractor {
     std::vector<int64_t> take;
     take.reserve(w);
     for (int64_t j : want_local) {
-      int64_t c = src_cols_of_local[j];
+      int64_t c = src_col[j - src_lo];
       for (int64_t s = 0; s < stride_; ++s) take.push_back(c * stride_ + s);
     }
     std::vector<int32_t> row(w);
@@ -1353,6 +1277,76 @@ class BlockExtractor {
       const int32_t* base = src.data() + r * src_width;
       for (int64_t j = 0; j < w; ++j) row[j] = base[take[j]];
       dedup_.insert(dst, row.data());
+    }
+  }
+
+  // The genomes' rows over the given variant columns, deduplicated in
+  // genome order (zeros for a variant without GT values).  Rows are
+  // gathered a tile of genomes at a time, each GT column read in runs.
+  void project_gt(const std::vector<int64_t>& want_local,
+                  std::vector<int32_t>& dst) {
+    dst.clear();
+    if (ncols_ == 0 || n_ind_ == 0) return;
+    const int64_t m = (int64_t)want_local.size(), w = m * stride_;
+    if (m == 1 && col_of_[want_local[0]] >= 0) {
+      // one column, the dominant window on sparse cohorts: allele indices
+      // are tiny, so a 13-bit bitmap ((a1<64)<<7 | (a2<64)<<1 | phase)
+      // replaces a row hash a genome; larger values go to a u64 set
+      const int64_t gv = v0_ + want_local[0];
+      const int32_t* a1 = (const int32_t*)gt1_[gv];
+      const int32_t* a2 = (const int32_t*)gt2_[gv];
+      const uint8_t* ph = (const uint8_t*)ph_[gv];
+      uint64_t bm[128] = {0};
+      std::unordered_set<uint64_t> seen;
+      for (int64_t r = 0; r < n_ind_; ++r) {
+        const int32_t x = a1[r], y = haploid_ ? 0 : a2[r];
+        const int32_t p = haploid_ ? 0 : (ph[r] ? 1 : 0);
+        bool fresh;
+        if ((uint32_t)x < 64 && (uint32_t)y < 64) {
+          const uint32_t key = ((uint32_t)x << 7) | ((uint32_t)y << 1) | (uint32_t)p;
+          const uint64_t bit = 1ULL << (key & 63);
+          fresh = !(bm[key >> 6] & bit);
+          bm[key >> 6] |= bit;
+        } else {
+          fresh = seen.insert(((uint64_t)(uint32_t)x << 33) |
+                              ((uint64_t)(uint32_t)y << 2) | (uint64_t)p).second;
+        }
+        if (!fresh) continue;
+        dst.push_back(x);
+        if (!haploid_) {
+          dst.push_back(y);
+          dst.push_back(p);
+        }
+      }
+      return;
+    }
+    const int64_t kTile = 256;
+    tile_.resize((size_t)(kTile * w));
+    dedup_.reset(w, n_ind_);  // a slot for every genome's row
+    for (int64_t r0 = 0; r0 < n_ind_; r0 += kTile) {
+      const int64_t rn = std::min(kTile, n_ind_ - r0);
+      for (int64_t c = 0; c < m; ++c) {
+        const int64_t gv = v0_ + want_local[c];
+        int32_t* out = tile_.data() + c * stride_;
+        if (col_of_[want_local[c]] < 0) {  // no GT values: zeros
+          for (int64_t t = 0; t < rn; ++t)
+            std::fill(out + t * w, out + t * w + stride_, 0);
+          continue;
+        }
+        const int32_t* a1 = (const int32_t*)gt1_[gv] + r0;
+        if (haploid_) {
+          for (int64_t t = 0; t < rn; ++t) out[t * w] = a1[t];
+          continue;
+        }
+        const int32_t* a2 = (const int32_t*)gt2_[gv] + r0;
+        const uint8_t* p = (const uint8_t*)ph_[gv] + r0;
+        for (int64_t t = 0; t < rn; ++t) {
+          out[t * w] = a1[t];
+          out[t * w + 1] = a2[t];
+          out[t * w + 2] = p[t] ? 1 : 0;
+        }
+      }
+      for (int64_t t = 0; t < rn; ++t) dedup_.insert(dst, tile_.data() + t * w);
     }
   }
 
@@ -1388,24 +1382,17 @@ class BlockExtractor {
   void extract_variant(int64_t i,
                        const std::vector<std::vector<int32_t>>& combs,
                        const std::vector<int32_t>& src, int64_t src_width,
-                       const std::vector<int64_t>& src_pos) {
+                       const int64_t* src_col, int64_t src_lo) {
     int64_t gv = v0_ + i;
 
     // window = sorted union of comb members; project the CHUNK matrix
-    std::vector<int64_t> window;
-    {
-      std::vector<char> in(vs_.size(), 0);
-      for (const auto& c : combs)
-        for (int32_t j : c) in[j] = 1;
-      for (int64_t j = 0; j < (int64_t)vs_.size(); ++j)
-        if (in[j]) window.push_back(j);
-    }
-    std::vector<int64_t> wpos_of(vs_.size(), -1);
-    for (int64_t w = 0; w < (int64_t)window.size(); ++w)
-      wpos_of[window[w]] = w;
+    int64_t wlo = window_of(&combs, 1, window_);
+    wpos_.assign(window_.back() - wlo + 1, -1);
+    for (int64_t w = 0; w < (int64_t)window_.size(); ++w)
+      wpos_[window_[w] - wlo] = w;
     wmat_.clear();
-    project_dedup(src, src_width, src_pos, window, wmat_);
-    int64_t wmat_width = (int64_t)window.size() * stride_;
+    project_dedup(src, src_width, src_col, src_lo, window_, wmat_);
+    int64_t wmat_width = (int64_t)window_.size() * stride_;
 
     // temp per-variant signature store, grouped per allele at the end
     var_bytes_.clear();
@@ -1425,7 +1412,7 @@ class BlockExtractor {
         const V& curr = vs_[comb[j]];
         gaps_.push_back({prev.pos + prev.size, curr.pos});
       }
-      build_aacs(comb, wpos_of, wmat_width);
+      build_aacs(comb, wpos_.data(), wlo, wmat_width);
       for (const auto& aac : aacs_list_) render_aac(gv, i, comb, aac);
     }
 
@@ -1436,14 +1423,14 @@ class BlockExtractor {
   // enumerate sample-consistent allele-index combinations for `comb`
   // (blocks.py _build_alleles_combs), then render+dedup the allele byte
   // tuples.  aacs_list_ holds per-tuple vectors of allele indices.
-  void build_aacs(const std::vector<int32_t>& comb,
-                  const std::vector<int64_t>& wpos_of, int64_t wmat_width) {
+  void build_aacs(const std::vector<int32_t>& comb, const int64_t* wpos,
+                  int64_t wlo, int64_t wmat_width) {
     aacs_list_.clear();
     idx_seen_.clear();
     int64_t R = wmat_width ? (int64_t)wmat_.size() / wmat_width : 0;
     size_t m = comb.size();
     if (m == 1) {
-      int64_t p = wpos_of[comb[0]];
+      int64_t p = wpos[comb[0] - wlo];
       std::unordered_set<int32_t> vals;
       for (int64_t r = 0; r < R; ++r) {
         const int32_t* row = wmat_.data() + r * wmat_width;
@@ -1459,7 +1446,7 @@ class BlockExtractor {
     }
     // project wmat onto comb columns + dedup
     std::vector<int64_t> comb_local(comb.begin(), comb.end());
-    // build a direct col map: wpos_of gives the window group index
+    // build a direct col map: wpos gives the window group index
     sub_.clear();
     {
       std::vector<int32_t> row(m * stride_);
@@ -1467,7 +1454,7 @@ class BlockExtractor {
       for (int64_t r = 0; r < R; ++r) {
         const int32_t* base = wmat_.data() + r * wmat_width;
         for (size_t j = 0; j < m; ++j) {
-          int64_t p = wpos_of[comb[j]];
+          int64_t p = wpos[comb[j] - wlo];
           for (int64_t s = 0; s < stride_; ++s)
             row[j * stride_ + s] = base[p * stride_ + s];
         }
@@ -1703,21 +1690,21 @@ class BlockExtractor {
     }
   }
 
-  const int64_t *pos_, *vsize_, *vmin_;
-  const uint8_t* present_;
   const int64_t *al_start_, *al_off_;
   const uint8_t* al_bytes_;
   const uint64_t *gt1_, *gt2_, *ph_;
-  int64_t v0_, v1_;
+  int64_t v0_;
   const uint8_t* ref_;
   int64_t ref_len_, n_ind_, k_;
   bool haploid_;
   BlockOut& out_;
 
-  std::vector<V> vs_;
-  std::vector<int64_t> col_of_;
-  int64_t stride_ = 3, width_ = 0;
-  std::vector<int32_t> P_, cmat_, wmat_, sub_;
+  const std::vector<V>& vs_;
+  const std::vector<int64_t>& col_of_;
+  int64_t stride_ = 3, ncols_ = 0;
+  std::vector<int32_t> cmat_, wmat_, sub_, tile_;
+  std::vector<int64_t> window_, wpos_;
+  std::vector<char> in_;
   std::vector<std::pair<int64_t, int64_t>> gaps_;
   std::vector<std::vector<int32_t>> aacs_list_;
   RowDedup dedup_;
@@ -1731,61 +1718,99 @@ class BlockExtractor {
   std::vector<int32_t> var_kmer_len_, var_sig_nk_, var_sig_allele_;
 };
 
+// The extraction's outputs, unit after unit, until the caller copies them.
+struct ExtractResult {
+  std::vector<BlockOut> outs;
+};
+
 }  // namespace
 
 extern "C" {
 
-int64_t malva_extract_group(
+void* malva_extract_group(
     int64_t n_blocks, const int64_t* blk_off, const uint64_t* ref_ptrs,
     const int64_t* ref_lens, const int64_t* pos, const int64_t* vsize,
     const int64_t* vmin, const uint8_t* present, const int64_t* al_start,
     const int64_t* al_off, const uint8_t* al_bytes, const uint64_t* gt1_ptrs,
     const uint64_t* gt2_ptrs, const uint64_t* ph_ptrs, int64_t n_ind,
-    int64_t k, int haploid,
-    int32_t* out_tgt_var, int32_t* out_tgt_allele, int32_t* out_tgt_nsig,
-    int64_t cap_tgt, int32_t* out_sig_nk, int64_t cap_sig,
-    int32_t* out_kmer_len, int64_t cap_kmer, uint8_t* out_bytes,
-    int64_t cap_bytes, int64_t* out_counts) {
+    int64_t k, int haploid, int64_t* out_counts) {
   using Clock = std::chrono::steady_clock;
-  std::vector<BlockOut> outs(n_blocks);
-  std::vector<int64_t> block_ns(n_blocks);
-#pragma omp parallel for schedule(dynamic)
+  auto ns_since = [](Clock::time_point t) {
+    return (int64_t)std::chrono::duration_cast<std::chrono::nanoseconds>(
+               Clock::now() - t).count();
+  };
+  // units: (block, first variant of its chunk); each block's variants
+  // are gathered here, once, for its units to share
+  std::vector<std::pair<int64_t, int64_t>> units;
+  std::vector<BlockVars> blocks(n_blocks);
+  std::vector<int64_t> prep_ns(n_blocks, 0);
+  const Clock::time_point t0 = Clock::now();
   for (int64_t b = 0; b < n_blocks; ++b) {
-    const Clock::time_point t0 = Clock::now();
-    BlockExtractor ex(pos, vsize, vmin, present, al_start, al_off, al_bytes,
-                      gt1_ptrs, gt2_ptrs, ph_ptrs, blk_off[b], blk_off[b + 1],
-                      (const uint8_t*)ref_ptrs[b], ref_lens[b], n_ind, k,
-                      haploid != 0, outs[b]);
-    ex.run();
-    block_ns[b] = std::chrono::duration_cast<std::chrono::nanoseconds>(
-                      Clock::now() - t0).count();
+    const Clock::time_point tb = Clock::now();
+    blocks[b].build(pos, vsize, vmin, present, gt1_ptrs, blk_off[b],
+                    blk_off[b + 1], n_ind);
+    prep_ns[b] = ns_since(tb);
+    for (int64_t base = 0; base < blk_off[b + 1] - blk_off[b]; base += kChunk)
+      units.emplace_back(b, base);
   }
-  int64_t busy_ns = 0, critical_ns = 0;
-  for (int64_t ns : block_ns) {
-    busy_ns += ns;
-    critical_ns = std::max(critical_ns, ns);
+  const int64_t n_units = (int64_t)units.size();
+  auto* res = new ExtractResult;
+  res->outs.resize(n_units);
+  std::vector<int64_t> u_start(n_units), u_end(n_units);
+#pragma omp parallel for schedule(dynamic)
+  for (int64_t u = 0; u < n_units; ++u) {
+    u_start[u] = ns_since(t0);
+    const int64_t b = units[u].first;
+    BlockExtractor(blocks[b], al_start, al_off, al_bytes, gt1_ptrs, gt2_ptrs,
+                   ph_ptrs, (const uint8_t*)ref_ptrs[b], ref_lens[b], n_ind, k,
+                   haploid != 0, res->outs[u]).run_chunk(units[u].second);
+    u_end[u] = ns_since(t0);
   }
-  out_counts[5] = n_blocks;
-  out_counts[6] = busy_ns / 1000;
-  out_counts[7] = critical_ns / 1000;
-  int64_t n_tgt = 0, n_sig = 0, n_kmer = 0, n_bytes = 0, oob = -1;
-  for (const auto& o : outs) {
+  // a block's wall: its set-up, then its first unit's start to its last
+  // unit's end; its out-of-range variant: its first unit's with one
+  std::vector<int64_t> first(n_blocks, INT64_MAX), last(n_blocks, 0);
+  std::vector<int64_t> blk_oob(n_blocks, -1);
+  int64_t busy_ns = 0;
+  for (int64_t b = 0; b < n_blocks; ++b) busy_ns += prep_ns[b];
+  int64_t n_tgt = 0, n_sig = 0, n_kmer = 0, n_bytes = 0;
+  for (int64_t u = 0; u < n_units; ++u) {
+    const int64_t b = units[u].first;
+    const BlockOut& o = res->outs[u];
+    busy_ns += u_end[u] - u_start[u];
+    first[b] = std::min(first[b], u_start[u]);
+    last[b] = std::max(last[b], u_end[u]);
+    if (blk_oob[b] < 0) blk_oob[b] = o.oob_var;
     n_tgt += (int64_t)o.tgt_var.size();
     n_sig += (int64_t)o.sig_nk.size();
     n_kmer += (int64_t)o.kmer_len.size();
     n_bytes += (int64_t)o.bytes.size();
-    if (o.oob_var >= 0 && (oob < 0 || o.oob_var < oob)) oob = o.oob_var;
+  }
+  int64_t critical_ns = 0, oob = -1;
+  for (int64_t b = 0; b < n_blocks; ++b) {
+    critical_ns = std::max(critical_ns, prep_ns[b] + last[b] - first[b]);
+    if (blk_oob[b] >= 0 && (oob < 0 || blk_oob[b] < oob)) oob = blk_oob[b];
   }
   out_counts[0] = n_tgt;
   out_counts[1] = n_sig;
   out_counts[2] = n_kmer;
   out_counts[3] = n_bytes;
   out_counts[4] = oob;
-  if (n_tgt > cap_tgt || n_sig > cap_sig || n_kmer > cap_kmer ||
-      n_bytes > cap_bytes)
-    return -1;
+  out_counts[5] = n_blocks;
+  out_counts[6] = busy_ns / 1000;
+  out_counts[7] = critical_ns / 1000;
+  out_counts[8] = n_units;
+  return res;
+}
+
+// Copies malva_extract_group's outputs into buffers of the sizes it
+// reported, in unit order, and frees its handle.
+void malva_extract_take(void* handle, int32_t* out_tgt_var,
+                        int32_t* out_tgt_allele, int32_t* out_tgt_nsig,
+                        int32_t* out_sig_nk, int32_t* out_kmer_len,
+                        uint8_t* out_bytes) {
+  auto* res = (ExtractResult*)handle;
   int64_t t = 0, s = 0, km = 0, by = 0;
-  for (const auto& o : outs) {
+  for (const auto& o : res->outs) {
     std::memcpy(out_tgt_var + t, o.tgt_var.data(), o.tgt_var.size() * 4);
     std::memcpy(out_tgt_allele + t, o.tgt_allele.data(), o.tgt_allele.size() * 4);
     std::memcpy(out_tgt_nsig + t, o.tgt_nsig.data(), o.tgt_nsig.size() * 4);
@@ -1797,8 +1822,10 @@ int64_t malva_extract_group(
     std::memcpy(out_bytes + by, o.bytes.data(), o.bytes.size());
     by += (int64_t)o.bytes.size();
   }
-  return 0;
+  delete res;
 }
+
+void malva_extract_free(void* handle) { delete (ExtractResult*)handle; }
 
 }  // extern "C"
 

@@ -64,8 +64,9 @@ DEVICE_MIN_READ_BYTES = int(os.environ.get("MALVA_DEVICE_MIN_READ_BYTES", 1 << 2
 
 # Extraction batch size (variants per native extract_group call): blocks
 # accumulate until this many variants, then one native call extracts the
-# whole batch (OpenMP across blocks) and the flat result feeds both
-# passes.  Bounds pass-2 GT-array retention to O(batch x samples).
+# whole batch (OpenMP across blocks and a long block's 64-variant
+# chunks) and the flat result feeds both passes.  Bounds pass-2 GT-array
+# retention to O(batch x samples).
 EXTRACT_VARS = int(os.environ.get("MALVA_EXTRACT_VARS", 4096))
 
 
@@ -197,12 +198,13 @@ def _extract_batch_flat(batch, cfg: Config, spans: str) -> FlatExtract:
 
 def _count_extraction(spans: str, stats: dict) -> None:
     """Count a native extraction's blocks and their thread time:
-    ``<spans>.extract_blocks``, ``.extract_busy_us`` (the blocks'
-    microseconds on the threads that ran them), ``.extract_critical_us``
-    (the longest block's, the call's critical path) and
-    ``.extract_retries`` (calls made again, every block with them, with
-    the output capacities the first call found short).  Busy time over
-    the ``<spans>.extract`` span is how many of the library's threads the
+    ``<spans>.extract_blocks``, ``.extract_units`` (the units of work
+    they ran as: one a block, or one for each 64 variants of a longer
+    block), ``.extract_busy_us`` (the units' microseconds on the threads
+    that ran them), ``.extract_critical_us`` (the longest block's wall,
+    first unit to last: the call's critical path) and
+    ``.extract_retries`` (0: no call is made again).  Busy time over the
+    ``<spans>.extract`` span is how many of the library's threads the
     extraction kept busy."""
     for key, n in stats.items():
         count(f"{spans}.extract_{key}", n)

@@ -317,7 +317,7 @@ def load() -> "ctypes.CDLL | None":
                                       ctypes.c_int64]
         lib.malva_vcf_close.restype = None
         lib.malva_vcf_close.argtypes = [ctypes.c_void_p]
-        lib.malva_extract_group.restype = ctypes.c_int64
+        lib.malva_extract_group.restype = ctypes.c_void_p
         i32p = ctypes.POINTER(ctypes.c_int32)
         i64p_ = ctypes.POINTER(ctypes.c_int64)
         lib.malva_extract_group.argtypes = [
@@ -326,12 +326,15 @@ def load() -> "ctypes.CDLL | None":
             i64p_, i64p_, u8p,                            # alleles
             u64p, u64p, u64p, ctypes.c_int64,             # gt ptrs, n_ind
             ctypes.c_int64, ctypes.c_int,                 # k, haploid
-            i32p, i32p, i32p, ctypes.c_int64,             # targets
-            i32p, ctypes.c_int64,                         # sig_nk
-            i32p, ctypes.c_int64,                         # kmer_len
-            u8p, ctypes.c_int64,                          # bytes
             i64p_,                                        # out_counts
         ]
+        lib.malva_extract_take.restype = None
+        lib.malva_extract_take.argtypes = [
+            ctypes.c_void_p, i32p, i32p, i32p,            # handle, targets
+            i32p, i32p, u8p,                              # sig_nk, kmer_len, bytes
+        ]
+        lib.malva_extract_free.restype = None
+        lib.malva_extract_free.argtypes = [ctypes.c_void_p]
         lib.malva_sort_count.restype = ctypes.c_int64
         lib.malva_sort_count.argtypes = [u64p, ctypes.c_int64, i64p]
         lib.malva_merge_runs.restype = ctypes.c_int64
@@ -817,11 +820,12 @@ _I32P = ctypes.POINTER(ctypes.c_int32)
 def extract_group(blocks, k: int, haploid: bool):
     """Native signature extraction over a group of variant blocks (the
     full blocks.VB.extract_kmers, reference var_block.hpp:95-219, OpenMP
-    across blocks).  ``blocks`` is [(variants, ref_bytes), ...]; returns
-    ((tgt_var, tgt_allele, tgt_nsig, sig_nk, kmer_len, bytes_u8), stats)
-    with tgt_var indexing the concatenated variant list and ``stats``
-    :func:`extract_arrays`'s, or None when the library is unavailable /
-    the group needs the Python path."""
+    across blocks and a long block's 64-variant chunks).  ``blocks`` is
+    [(variants, ref_bytes), ...]; returns ((tgt_var, tgt_allele, tgt_nsig,
+    sig_nk, kmer_len, bytes_u8), stats) with tgt_var indexing the
+    concatenated variant list and ``stats`` :func:`extract_arrays`'s, or
+    None when the library is unavailable / the group needs the Python
+    path."""
     lib = load()
     if lib is None or not blocks:
         return None
@@ -904,11 +908,13 @@ def extract_arrays(blk_off, refs, pos, size, mins, present, al_start, al_off, al
     ``n_ind`` GT values (a1 and a2 int32, phase bool; 0 where absent).
     -> (the first variant with an allele index past its ALTs, or -1,
     (tgt_var, tgt_allele, tgt_nsig, sig_nk, kmer_len, bytes_u8), stats),
-    or None without the library.  ``stats``: the ``blocks`` extracted;
-    ``busy_us``, their microseconds on the threads that ran them, and
-    ``critical_us``, the longest block's, each summed over the native
-    calls; ``retries``, the calls made again with the exact capacities
-    that the first one found (a retry extracts every block again)."""
+    or None without the library.  The library keeps its outputs until
+    they are copied into arrays of the sizes it reports, so every block
+    is extracted once.  ``stats``: the ``blocks`` extracted and the
+    ``units`` of work they ran as (a block of more than 64 variants is a
+    unit for each 64); ``busy_us``, the units' microseconds on the
+    threads that ran them, and ``critical_us``, the longest block's wall,
+    first unit to last; ``retries``, 0 (no call is made again)."""
     lib = load()
     if lib is None:
         return None
@@ -922,49 +928,35 @@ def extract_arrays(blk_off, refs, pos, size, mins, present, al_start, al_off, al
     if al_bytes.size == 0:
         al_bytes = np.zeros(1, dtype=np.uint8)
     gt1, gt2, ph = gt_ptrs
-    nv = pos.shape[0]
-    cap_tgt = 4 * nv + 64
-    cap_sig = 8 * nv + 64
-    cap_kmer = 16 * nv + 64
-    cap_bytes = cap_kmer * (k + 1)
-    counts = np.zeros(8, dtype=np.int64)
-    stats = {"blocks": 0, "busy_us": 0, "critical_us": 0, "retries": 0}
-    for attempt in range(2):
-        tgt_var = np.empty(cap_tgt, dtype=np.int32)
-        tgt_allele = np.empty(cap_tgt, dtype=np.int32)
-        tgt_nsig = np.empty(cap_tgt, dtype=np.int32)
-        sig_nk = np.empty(cap_sig, dtype=np.int32)
-        kmer_len = np.empty(cap_kmer, dtype=np.int32)
-        out_bytes = np.empty(max(cap_bytes, 1), dtype=np.uint8)
-        rc = lib.malva_extract_group(
-            n_blocks, blk_off.ctypes.data_as(_I64P),
-            ref_ptrs.ctypes.data_as(_U64P), ref_lens.ctypes.data_as(_I64P),
-            pos.ctypes.data_as(_I64P), size.ctypes.data_as(_I64P),
-            mins.ctypes.data_as(_I64P), present.ctypes.data_as(_U8P),
-            al_start.ctypes.data_as(_I64P), al_off.ctypes.data_as(_I64P),
-            al_bytes.ctypes.data_as(_U8P),
-            gt1.ctypes.data_as(_U64P), gt2.ctypes.data_as(_U64P),
-            ph.ctypes.data_as(_U64P), n_ind, k, 1 if haploid else 0,
-            tgt_var.ctypes.data_as(_I32P), tgt_allele.ctypes.data_as(_I32P),
-            tgt_nsig.ctypes.data_as(_I32P), cap_tgt,
-            sig_nk.ctypes.data_as(_I32P), cap_sig,
-            kmer_len.ctypes.data_as(_I32P), cap_kmer,
-            out_bytes.ctypes.data_as(_U8P), cap_bytes,
-            counts.ctypes.data_as(_I64P),
-        )
-        stats["blocks"] = int(counts[5])
-        stats["busy_us"] += int(counts[6])
-        stats["critical_us"] += int(counts[7])
-        stats["retries"] = attempt
-        if rc == 0:
-            nt, ns, nk, nb = (int(counts[0]), int(counts[1]), int(counts[2]),
-                              int(counts[3]))
-            return int(counts[4]), (tgt_var[:nt], tgt_allele[:nt], tgt_nsig[:nt],
-                                    sig_nk[:ns], kmer_len[:nk], out_bytes[:nb]), stats
-        # counts are exact even on overflow: retry with exact capacities
-        cap_tgt, cap_sig, cap_kmer, cap_bytes = (
-            int(counts[0]), int(counts[1]), int(counts[2]), int(counts[3]))
-    return None  # pragma: no cover - second pass has exact capacity
+    counts = np.zeros(9, dtype=np.int64)
+    handle = lib.malva_extract_group(
+        n_blocks, blk_off.ctypes.data_as(_I64P),
+        ref_ptrs.ctypes.data_as(_U64P), ref_lens.ctypes.data_as(_I64P),
+        pos.ctypes.data_as(_I64P), size.ctypes.data_as(_I64P),
+        mins.ctypes.data_as(_I64P), present.ctypes.data_as(_U8P),
+        al_start.ctypes.data_as(_I64P), al_off.ctypes.data_as(_I64P),
+        al_bytes.ctypes.data_as(_U8P),
+        gt1.ctypes.data_as(_U64P), gt2.ctypes.data_as(_U64P),
+        ph.ctypes.data_as(_U64P), n_ind, k, 1 if haploid else 0,
+        counts.ctypes.data_as(_I64P),
+    )
+    nt, ns, nk, nb = (int(c) for c in counts[:4])
+    try:  # the take frees the handle; anything raised before it frees it here
+        tgt_var, tgt_allele, tgt_nsig = (np.empty(nt, dtype=np.int32) for _ in range(3))
+        sig_nk = np.empty(ns, dtype=np.int32)
+        kmer_len = np.empty(nk, dtype=np.int32)
+        out_bytes = np.empty(nb, dtype=np.uint8)
+        ptrs = (tgt_var.ctypes.data_as(_I32P), tgt_allele.ctypes.data_as(_I32P),
+                tgt_nsig.ctypes.data_as(_I32P), sig_nk.ctypes.data_as(_I32P),
+                kmer_len.ctypes.data_as(_I32P), out_bytes.ctypes.data_as(_U8P))
+    except BaseException:
+        lib.malva_extract_free(handle)
+        raise
+    lib.malva_extract_take(handle, *ptrs)
+    out = (tgt_var, tgt_allele, tgt_nsig, sig_nk, kmer_len, out_bytes)
+    stats = {"blocks": int(counts[5]), "units": int(counts[8]), "busy_us": int(counts[6]),
+             "critical_us": int(counts[7]), "retries": 0}
+    return int(counts[4]), out, stats
 
 
 def _warn_oob_allele(seq_name: str, ref_pos: int) -> None:

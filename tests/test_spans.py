@@ -7,7 +7,7 @@ host route's spans and counters against its phases and golden VCF, the
 device route on CPU tensors (the upload's parts and bytes), the
 ``--profile-dir`` ranges, and the stderr lines the benchmark parses,
 which must read as before.  Last, the native extraction's block counters
-(``<pass>.extract_blocks``, ``_busy_us``, ``_critical_us``,
+(``<pass>.extract_blocks``, ``_units``, ``_busy_us``, ``_critical_us``,
 ``_retries``) on the benchmark generator's two deployments cut small: the
 SARS-CoV-2 panel, whose records chain into one block, and the
 1000 Genomes-shaped cohort, whose records fall into many.
@@ -368,7 +368,7 @@ def test_flat_batches_count_every_variant():
     assert np.all([r["end"] >= r["start"] for r in _rows(timer)])
 
 
-EXTRACT = ("blocks", "busy_us", "critical_us", "retries")
+EXTRACT = ("blocks", "units", "busy_us", "critical_us", "retries")
 
 
 def _deployment(tmp_path, name):
@@ -403,20 +403,24 @@ def _extract_passes(cfg, refs):
 
 
 def test_one_chained_block_counts_one_block_a_pass(tmp_path):
-    """The panel's records chain into one block: each pass extracts one
-    block on one thread, so its critical path is all of its busy time."""
+    """The panel's records chain into one block: each pass extracts it
+    once, as a unit of work for each 64 of its records, and its critical
+    path is the block's wall, first unit to last."""
     c = _extract_passes(*_deployment(tmp_path, "sarscov2-panel"))
     for spans in ("pass2", "variants"):
         assert c[f"{spans}.native_records"] == c[f"{spans}.records"] == 3000
         assert c[f"{spans}.extract_blocks"] == 1
-        assert c[f"{spans}.extract_critical_us"] == c[f"{spans}.extract_busy_us"] > 0
-        assert c[f"{spans}.extract_retries"] in (0, 1)
+        assert c[f"{spans}.extract_units"] == -(-3000 // 64)
+        assert c[f"{spans}.extract_retries"] == 0
+        assert c[f"{spans}.extract_busy_us"] >= c[f"{spans}.extract_critical_us"] > 0
 
 
 def test_many_blocks_count_each_and_busy_bounds_critical(tmp_path):
+    """The cohort's blocks are short: each runs whole, as one unit."""
     c = _extract_passes(*_deployment(tmp_path, "chr20-1kgp3"))
     for spans in ("pass2", "variants"):
         assert c[f"{spans}.extract_blocks"] > 1
+        assert c[f"{spans}.extract_units"] == c[f"{spans}.extract_blocks"]
         assert c[f"{spans}.extract_busy_us"] >= c[f"{spans}.extract_critical_us"] > 0
         assert c[f"{spans}.extract_retries"] == 0
 

@@ -112,56 +112,6 @@ void grow(const std::vector<V>& vs, int64_t center, int64_t k, int dir,
 
 extern "C" {
 
-// Computes the full combination list for `center` (left x right crossed
-// through the center — var_block.hpp:630-677).  Outputs flattened:
-//   out_idx:  concatenated variant indices of every comb
-//   out_off:  comb c spans out_idx[out_off[c] : out_off[c+1]]
-// Returns the number of combs, or -1 if the output capacity would be
-// exceeded (caller falls back).
-int64_t malva_combs(const int64_t* pos, const int64_t* size,
-                    const int64_t* min_size, const uint8_t* present,
-                    int64_t n, int64_t center, int64_t k,
-                    int32_t* out_idx, int64_t* out_off,
-                    int64_t max_idx, int64_t max_combs) {
-  std::vector<V> vs(n);
-  for (int64_t i = 0; i < n; ++i) vs[i] = V{pos[i], size[i], min_size[i], present[i]};
-
-  std::vector<std::vector<int32_t>> right, left;
-  grow(vs, center, k, +1, right);
-  grow(vs, center, k, -1, left);
-
-  int64_t n_combs = 0;
-  int64_t n_idx = 0;
-  auto emit = [&](const std::vector<int32_t>& lrev, const std::vector<int32_t>* rc) -> bool {
-    int64_t len = (int64_t)lrev.size() + 1 + (rc ? (int64_t)rc->size() : 0);
-    if (n_combs + 1 > max_combs || n_idx + len > max_idx) return false;
-    out_off[n_combs] = n_idx;
-    for (auto it = lrev.rbegin(); it != lrev.rend(); ++it) out_idx[n_idx++] = *it;
-    out_idx[n_idx++] = (int32_t)center;
-    if (rc)
-      for (int32_t v : *rc) out_idx[n_idx++] = v;
-    ++n_combs;
-    return true;
-  };
-
-  static const std::vector<int32_t> kEmpty;
-  if (left.empty() && right.empty()) {
-    if (!emit(kEmpty, nullptr)) return -1;
-  } else if (left.empty()) {
-    for (const auto& rc : right)
-      if (!emit(kEmpty, &rc)) return -1;
-  } else if (right.empty()) {
-    for (const auto& lc : left)
-      if (!emit(lc, nullptr)) return -1;
-  } else {
-    for (const auto& lc : left)
-      for (const auto& rc : right)
-        if (!emit(lc, &rc)) return -1;
-  }
-  out_off[n_combs] = n_idx;
-  return n_combs;
-}
-
 // GT parsing over a VCF record's sample region (the tab-joined columns
 // 10+).  Mirrors malva_tpu_torch/io/vcf.py::_encode_gt / _genotypes_flat_slow
 // exactly: htslib encoding ((allele+1)<<1 | phased-of-preceding-sep,
@@ -1040,7 +990,7 @@ void malva_bf_apply_hashed(const uint64_t* ctx_hash, const uint64_t* cen_hash,
 // k-mer order WITHIN a signature is fixed (the integer incremental mean
 // is order-dependent).
 //
-// Per-group flat inputs (see utils/native.py extract_group):
+// Per-group flat inputs (see utils/native.py extract_columns):
 //   blk_off[n_blocks+1]      variant index ranges per block
 //   ref_ptrs/ref_lens        per-block contig bytes
 //   pos/vsize/vmin/present   per-variant (global index)
@@ -1831,7 +1781,7 @@ void malva_extract_free(void* handle) { delete (ExtractResult*)handle; }
 
 // Batched GT parse + fused htslib decode over many records (OpenMP
 // across records).  Mirrors Variant._extract_genotypes
-// (malva_tpu_torch/variants/variant.py:93-115) composed with malva_parse_gt:
+// (malva_tpu_torch/variants/variant.py) composed with malva_parse_gt:
 //   a1 = max((first >> 1) - 1, 0)
 //   a2 = a1 where slot 1 is VECTOR_END (or, ploidy-1 records, where the
 //        NEXT sample's first entry is the wrap-around read upstream
@@ -1839,10 +1789,9 @@ void malva_extract_free(void* handle) { delete (ExtractResult*)handle; }
 //        with a sample subset must use the per-record path), else
 //        max((second >> 1) - 1, 0)
 //   phase = true at VECTOR_END, else slot 1's phase bit
-// Inputs: concatenated sample regions (rec_off offsets), per-record
-// gt_at.  Outputs: (n_rec, n_samples) int32 a1/a2 + uint8 phase,
-// ok[r] = 1, or 0 when that record needs the Python path (malformed /
-// ploidy > 64).
+// Inputs: each record's sample region and gt_at.  Outputs: (n_rec,
+// n_samples) int32 a1/a2 + uint8 phase, ok[r] = 1, or 0 when that
+// record needs the Python path (malformed / ploidy > 64).
 namespace {
 
 // One record of the batched parse: its decoded row into ra1/ra2/rp
@@ -1941,21 +1890,10 @@ bool gt_row(const uint8_t* s, int64_t len, int64_t gt_at, int64_t n_samples,
 
 extern "C" {
 
-void malva_parse_gt_batch(const uint8_t* bytes, const int64_t* rec_off,
-                          const int64_t* gt_at, int64_t n_rec, int64_t n_samples,
-                          int32_t* a1, int32_t* a2, uint8_t* ph, uint8_t* ok) {
-#pragma omp parallel
-  {
-    std::vector<int32_t> enc;
-#pragma omp for schedule(dynamic, 16)
-    for (int64_t r = 0; r < n_rec; ++r)
-      ok[r] = gt_row(bytes + rec_off[r], rec_off[r + 1] - rec_off[r], gt_at[r], n_samples,
-                     enc, a1 + r * n_samples, a2 + r * n_samples, ph + r * n_samples);
-  }
-}
-
-// The same over regions that lie anywhere in one buffer (the record
-// scanner's text, below): record r's region is base[off[r], off[r] + len[r]).
+// The batched GT parse of every record source (pipeline._gt_rows), over
+// regions that lie anywhere in one buffer (the record scanner's text,
+// below, or the Python path's records joined): record r's region is
+// base[off[r], off[r] + len[r]).
 void malva_parse_gt_spans(const uint8_t* base, const int64_t* off, const int64_t* len,
                           const int64_t* gt_at, int64_t n_rec, int64_t n_samples,
                           int32_t* a1, int32_t* a2, uint8_t* ph, uint8_t* ok) {

@@ -473,7 +473,6 @@ def _genotype_and_emit_distributed(cfg: Config, index, refs, out, timer) -> None
     n = 0
     for bi, flat in _iter_extract_batches(cfg, refs, keep_absent=True,
                                           owned=lambda b: b % H == pid):
-        flat.drop_gts()  # the GT arrays were consumed by the extraction
         _set_coverages_flat(index, flat)
         genotype_block(flat.all_vars, cfg.max_coverage, cfg.haploid, cfg.error_rate)
         text = "".join(line + "\n"

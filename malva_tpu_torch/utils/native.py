@@ -204,14 +204,6 @@ def load() -> "ctypes.CDLL | None":
         lib.malva_threads.argtypes = []
         lib.malva_build_form.restype = ctypes.c_char_p
         lib.malva_build_form.argtypes = []
-        lib.malva_combs.restype = ctypes.c_int64
-        lib.malva_combs.argtypes = [
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_uint8),
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64),
-            ctypes.c_int64, ctypes.c_int64,
-        ]
         lib.malva_bf_rank.restype = ctypes.c_uint64
         lib.malva_bf_rank.argtypes = [
             ctypes.POINTER(ctypes.c_uint32), ctypes.c_int64,
@@ -288,13 +280,6 @@ def load() -> "ctypes.CDLL | None":
         lib.malva_bf_apply_hashed.argtypes = [
             u64p, u64p, u32p, ctypes.c_int64,
             ctypes.c_uint64, u32p, ctypes.c_uint64, u32p, u32p, u32p,
-        ]
-        lib.malva_parse_gt_batch.restype = None
-        lib.malva_parse_gt_batch.argtypes = [
-            ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8),
         ]
         lib.malva_parse_gt_spans.restype = None
         lib.malva_parse_gt_spans.argtypes = [
@@ -761,141 +746,7 @@ def genotype_block_native(variants, max_cov: int, haploid: bool, error_rate,
     return True
 
 
-class CombsNative:
-    """Reusable buffers + call wrapper for malva_combs.  One instance is
-    shared across blocks (blocks.VB._native_engine); ``set_block`` caches
-    the per-block array pointers so the per-variant call does no ctypes
-    casts (data_as was ~1.5 s of pure overhead on a 70k-block VCF)."""
-
-    def __init__(self, lib):
-        self.lib = lib
-        self.cap_idx = 1 << 16
-        self.cap_combs = 1 << 12
-        self._alloc()
-        self._blk = None
-
-    def _alloc(self):
-        i64p = ctypes.POINTER(ctypes.c_int64)
-        self.out_idx = np.zeros(self.cap_idx, dtype=np.int32)
-        self.out_off = np.zeros(self.cap_combs + 1, dtype=np.int64)
-        self._out_idx_p = self.out_idx.ctypes.data_as(
-            ctypes.POINTER(ctypes.c_int32))
-        self._out_off_p = self.out_off.ctypes.data_as(i64p)
-
-    def set_block(self, pos, size, min_size, present):
-        """Pin one block's variant arrays (kept alive here) and cache
-        their pointers for the per-variant combs() calls."""
-        i64p = ctypes.POINTER(ctypes.c_int64)
-        self._blk = (pos, size, min_size, present)  # keep buffers alive
-        self._pos_p = pos.ctypes.data_as(i64p)
-        self._size_p = size.ctypes.data_as(i64p)
-        self._min_p = min_size.ctypes.data_as(i64p)
-        self._pres_p = present.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
-        self._n = len(pos)
-
-    def combs(self, center: int, k: int):
-        """Returns list[list[int]] of combinations for the set_block
-        arrays, or None on overflow (caller falls back to Python)."""
-        while True:
-            n = self.lib.malva_combs(
-                self._pos_p, self._size_p, self._min_p, self._pres_p,
-                self._n, center, k,
-                self._out_idx_p, self._out_off_p,
-                self.cap_idx, self.cap_combs,
-            )
-            if n >= 0:
-                off = self.out_off
-                idx = self.out_idx
-                return [idx[off[c] : off[c + 1]].tolist() for c in range(n)]
-            if self.cap_idx > 1 << 26:
-                return None  # genuinely explosive block: let Python handle
-            self.cap_idx <<= 2
-            self.cap_combs <<= 2
-            self._alloc()
-
-
 _I32P = ctypes.POINTER(ctypes.c_int32)
-
-
-def extract_group(blocks, k: int, haploid: bool):
-    """Native signature extraction over a group of variant blocks (the
-    full blocks.VB.extract_kmers, reference var_block.hpp:95-219, OpenMP
-    across blocks and a long block's 64-variant chunks).  ``blocks`` is
-    [(variants, ref_bytes), ...]; returns ((tgt_var, tgt_allele, tgt_nsig,
-    sig_nk, kmer_len, bytes_u8), stats) with tgt_var indexing the
-    concatenated variant list and ``stats`` :func:`extract_arrays`'s, or
-    None when the library is unavailable / the group needs the Python
-    path."""
-    lib = load()
-    if lib is None or not blocks:
-        return None
-    n_blocks = len(blocks)
-    blk_off = np.zeros(n_blocks + 1, dtype=np.int64)
-    refs = []
-    all_vars = []
-    for b, (variants, ref_bytes) in enumerate(blocks):
-        blk_off[b + 1] = blk_off[b] + len(variants)
-        refs.append(np.frombuffer(ref_bytes, dtype=np.uint8) if ref_bytes else None)
-        all_vars.extend(variants)
-    nv = len(all_vars)
-    pos = np.fromiter((v.ref_pos for v in all_vars), np.int64, nv)
-    size = np.fromiter((v.ref_size for v in all_vars), np.int64, nv)
-    mins = np.fromiter((v.min_size for v in all_vars), np.int64, nv)
-    present = np.fromiter((v.is_present for v in all_vars), np.uint8, nv)
-
-    al_list = []
-    na = np.empty(nv, dtype=np.int64)
-    for i, v in enumerate(all_vars):
-        al_list.append(v.ref_sub)
-        al_list.extend(v.alts)
-        na[i] = 1 + len(v.alts)
-    al_start = np.zeros(nv + 1, dtype=np.int64)
-    np.cumsum(na, out=al_start[1:])
-    n_all = int(al_start[-1])
-    al_off = np.zeros(n_all + 1, dtype=np.int64)
-    np.cumsum(np.fromiter((len(a) for a in al_list), np.int64, n_all),
-              out=al_off[1:])
-    al_bytes = np.frombuffer(b"".join(al_list), dtype=np.uint8)
-
-    gt1 = np.zeros(nv, dtype=np.uint64)
-    gt2 = np.zeros(nv, dtype=np.uint64)
-    ph = np.zeros(nv, dtype=np.uint64)
-    n_ind = -1
-    for i, v in enumerate(all_vars):
-        if not v.is_present:
-            continue
-        a1, a2, p = v.gt_a1, v.gt_a2, v.phase
-        if a1.shape[0] == 0:
-            continue
-        if (a1.dtype != np.int32 or a2.dtype != np.int32
-                or p.dtype != np.bool_ or not a1.flags.c_contiguous
-                or not a2.flags.c_contiguous or not p.flags.c_contiguous):
-            return None
-        if n_ind < 0:
-            n_ind = a1.shape[0]
-        elif a1.shape[0] != n_ind:
-            return None  # inconsistent sample counts: Python path
-        # __array_interface__ avoids building a ctypes view per array
-        # (~1us each; three per variant adds ~0.3s per 100k records)
-        gt1[i] = a1.__array_interface__["data"][0]
-        gt2[i] = a2.__array_interface__["data"][0]
-        ph[i] = p.__array_interface__["data"][0]
-    if n_ind < 0:
-        n_ind = 0
-    else:
-        # a present variant without GT arrays would KeyError in the
-        # Python path too; native treats it as absent — keep paths equal
-        for i, v in enumerate(all_vars):
-            if v.is_present and gt1[i] == 0:
-                return None
-    res = extract_arrays(blk_off, refs, pos, size, mins, present, al_start, al_off, al_bytes,
-                         (gt1, gt2, ph), n_ind, k, haploid)
-    if res is None:
-        return None
-    oob, out, stats = res
-    if oob >= 0:
-        _warn_oob_allele(all_vars[oob].seq_name, all_vars[oob].ref_pos)
-    return out, stats
 
 
 def extract_arrays(blk_off, refs, pos, size, mins, present, al_start, al_off, al_bytes,
@@ -914,7 +765,7 @@ def extract_arrays(blk_off, refs, pos, size, mins, present, al_start, al_off, al
     ``units`` of work they ran as (a block of more than 64 variants is a
     unit for each 64); ``busy_us``, the units' microseconds on the
     threads that ran them, and ``critical_us``, the longest block's wall,
-    first unit to last; ``retries``, 0 (no call is made again)."""
+    first unit to last."""
     lib = load()
     if lib is None:
         return None
@@ -955,7 +806,7 @@ def extract_arrays(blk_off, refs, pos, size, mins, present, al_start, al_off, al
     lib.malva_extract_take(handle, *ptrs)
     out = (tgt_var, tgt_allele, tgt_nsig, sig_nk, kmer_len, out_bytes)
     stats = {"blocks": int(counts[5]), "units": int(counts[8]), "busy_us": int(counts[6]),
-             "critical_us": int(counts[7]), "retries": 0}
+             "critical_us": int(counts[7])}
     return int(counts[4]), out, stats
 
 
@@ -969,35 +820,6 @@ def _warn_oob_allele(seq_name: str, ref_pos: int) -> None:
             file=sys.stderr,
         )
         _blocks._warned_oob_allele = True
-
-
-def parse_gt_batch(regions: list, gt_ats: list, n_samples: int):
-    """Batched GT parse + fused htslib decode over many records (OpenMP
-    across records).  -> (a1 (R,S) i32, a2 (R,S) i32, phase (R,S) bool,
-    ok (R,) bool) with per-record rows valid where ok; None when the
-    library is unavailable."""
-    lib = load()
-    if lib is None or n_samples == 0 or not regions:
-        return None
-    buf = np.frombuffer(b"".join(regions), dtype=np.uint8)
-    off = np.zeros(len(regions) + 1, dtype=np.int64)
-    np.cumsum(np.fromiter((len(r) for r in regions), np.int64, len(regions)),
-              out=off[1:])
-    ga = np.asarray(gt_ats, dtype=np.int64)
-    R = len(regions)
-    a1 = np.empty((R, n_samples), dtype=np.int32)
-    a2 = np.empty((R, n_samples), dtype=np.int32)
-    ph = np.empty((R, n_samples), dtype=np.bool_)
-    ok = np.zeros(R, dtype=np.uint8)
-    if buf.size == 0:
-        buf = np.zeros(1, dtype=np.uint8)
-    lib.malva_parse_gt_batch(
-        buf.ctypes.data_as(_U8P), off.ctypes.data_as(_I64P),
-        ga.ctypes.data_as(_I64P), R, n_samples,
-        a1.ctypes.data_as(_I32P), a2.ctypes.data_as(_I32P),
-        ph.ctypes.data_as(_U8P), ok.ctypes.data_as(_U8P),
-    )
-    return a1, a2, ph, ok.astype(bool)
 
 
 class _ScanView(ctypes.Structure):
@@ -1021,51 +843,72 @@ def _copy(addr, n: int, dtype) -> np.ndarray:
                          dtype=dtype).copy()
 
 
-class ScanBatch:
-    """One extraction batch of the record scanner, as columns: the
-    variants that enter blocks, in file order (``variants/variant.py
-    from_columns`` makes their objects), the blocks' offsets and contigs,
-    and where each record's line and GT region lie in the scanner's text
-    (``line``, ``parse_gt_spans``; valid until its next scan).
-    ``fallback``: a record of the batch was read by Python."""
+class Columns:
+    """One extraction batch, from either record source, as columns: the
+    variants that enter blocks, in file order, and the blocks.
 
-    def __init__(self, view: _ScanView, names: list):
-        n, v = view.n_vars, view
-        self.n_vars = n
-        self.fallback = bool(v.fallback)
+    ``blk_off`` holds the blocks' variant offsets and ``blk_name`` the
+    contig each block's reference comes from; a variant's contig is
+    ``names[name[i]]``, then its position, REF size, shortest and longest
+    allele sizes, present flag and QUAL (``pos``, ``ref_size``,
+    ``min_size``, ``max_size``, ``present``, ``qual``); its alleles, REF
+    first, are ``al_start`` into ``al_off`` into ``al_bytes``, with their
+    frequencies in ``freq``; its ID is ``id_off`` into ``id_bytes``.
+
+    The record scanner's batch (:meth:`from_view`) also says where each
+    record's line and GT region lie in the scanner's text (``line``;
+    ``gt_off``, ``gt_len`` and ``gt_at``, -1 where a variant has no GT
+    row), valid until its next scan, whether Python read one of its
+    records (``fallback``), and the contigs ``used_out`` gains with it
+    (``used``; the Python path's source adds them itself).  The Python path's batch
+    (``variants/variant.py to_columns``) keeps its Variants and each one's
+    GT source (``gt_src``: its record and the index of GT in its FORMAT,
+    -1 where Python decodes it; None where it has no GT row)."""
+
+    def __init__(self, names: list, variants: "list | None" = None, gt_src=None, **cols):
         self.names = names
-        self.blk_off = _copy(v.blk_off, v.n_blocks + 1, np.int64)
-        self.blk_name = [names[i] for i in _copy(v.blk_name, v.n_blocks, np.int32).tolist()]
-        self.used = [names[i] for i in _copy(v.used, v.n_used, np.int32).tolist()]
-        self.pos = _copy(v.pos, n, np.int64)
-        self.ref_size = _copy(v.ref_size, n, np.int64)
-        self.min_size = _copy(v.min_size, n, np.int64)
-        self.max_size = _copy(v.max_size, n, np.int64)
-        self.present = _copy(v.present, n, np.uint8)
-        self.qual = _copy(v.qual, n, np.float32)
-        self.name = _copy(v.name, n, np.int32)
-        self.al_start = _copy(v.al_start, n + 1, np.int64)
-        n_al = int(self.al_start[-1]) if n else 0
-        self.al_off = _copy(v.al_off, n_al + 1, np.int64)
-        self.al_bytes = _copy(v.al_bytes, int(self.al_off[-1]) if n_al else 0, np.uint8)
-        self.freq = _copy(v.freq, n_al, np.float32)
-        self.id_off = _copy(v.id_off, n + 1, np.int64)
-        self.id_bytes = _copy(v.id_bytes, int(self.id_off[-1]) if n else 0, np.uint8).tobytes()
-        self.gt_off = _copy(v.gt_off, n, np.int64)
-        self.gt_len = _copy(v.gt_len, n, np.int64)
-        self.gt_at = _copy(v.gt_at, n, np.int64)
-        self.line_off = _copy(v.line_off, n, np.int64)
-        self.line_len = _copy(v.line_len, n, np.int64)
-        self.buf = v.buf
+        self.scanned = variants is None
+        self._vars = variants
+        self.gt_src = gt_src
+        self.fallback = False
+        self.__dict__.update(cols)
+        self.n_vars = int(self.pos.shape[0])
+
+    @classmethod
+    def from_view(cls, v: _ScanView, names: list) -> "Columns":
+        n = v.n_vars
+        al_start = _copy(v.al_start, n + 1, np.int64)
+        n_al = int(al_start[-1]) if n else 0
+        al_off = _copy(v.al_off, n_al + 1, np.int64)
+        id_off = _copy(v.id_off, n + 1, np.int64)
+        return cls(
+            names, blk_off=_copy(v.blk_off, v.n_blocks + 1, np.int64),
+            blk_name=[names[i] for i in _copy(v.blk_name, v.n_blocks, np.int32).tolist()],
+            used=[names[i] for i in _copy(v.used, v.n_used, np.int32).tolist()],
+            pos=_copy(v.pos, n, np.int64), ref_size=_copy(v.ref_size, n, np.int64),
+            min_size=_copy(v.min_size, n, np.int64), max_size=_copy(v.max_size, n, np.int64),
+            present=_copy(v.present, n, np.uint8), qual=_copy(v.qual, n, np.float32),
+            name=_copy(v.name, n, np.int32), al_start=al_start, al_off=al_off,
+            al_bytes=_copy(v.al_bytes, int(al_off[-1]) if n_al else 0, np.uint8),
+            freq=_copy(v.freq, n_al, np.float32), id_off=id_off,
+            id_bytes=_copy(v.id_bytes, int(id_off[-1]) if n else 0, np.uint8).tobytes(),
+            gt_off=_copy(v.gt_off, n, np.int64), gt_len=_copy(v.gt_len, n, np.int64),
+            gt_at=_copy(v.gt_at, n, np.int64), line_off=_copy(v.line_off, n, np.int64),
+            line_len=_copy(v.line_len, n, np.int64), buf=v.buf, fallback=bool(v.fallback))
 
     def line(self, i: int) -> bytes:
-        """Record ``i``'s line (until the scanner's next scan)."""
+        """A scanned record ``i``'s line (until the scanner's next scan)."""
         return ctypes.string_at(self.buf + int(self.line_off[i]), int(self.line_len[i]))
 
     def variants(self) -> list:
-        from ..variants.variant import from_columns
+        """The batch's Variants: the Python path's own; a scanned batch's
+        made from its columns at the first call, on the thread that makes
+        it (the consumer's)."""
+        if self._vars is None:
+            from ..variants.variant import from_columns
 
-        return from_columns(self)
+            self._vars = from_columns(self)
+        return self._vars
 
 
 class VcfScan:
@@ -1101,8 +944,8 @@ class VcfScan:
                                                                    off[len(self._names) + 1:]))
         return v
 
-    def batch(self) -> ScanBatch:
-        return ScanBatch(self.view, self._names)
+    def batch(self) -> Columns:
+        return Columns.from_view(self.view, self._names)
 
     def line(self) -> bytes:
         v = self.view
@@ -1118,59 +961,59 @@ class VcfScan:
             self._h = None
 
 
-def parse_gt_spans(sb: ScanBatch, n_samples: int):
-    """The batched GT parse (malva_parse_gt_batch's) over the GT regions of
-    a scanned batch's present variants, in place in the scanner's text ->
-    (rows (n_vars,) int64, -1 where a variant has none; a1, a2 (R, S)
-    int32; phase (R, S) bool), or None where the parse rejects a record
-    (the batch then takes the Python path)."""
+def parse_gt_spans(base, off, ln, gt_at, n_samples: int):
+    """The batched GT parse (OpenMP across records) of record regions that
+    lie in one buffer: record r's sample columns are ``ln[r]`` bytes at
+    ``base + off[r]``, its GT the FORMAT key at ``gt_at[r]``; ``base`` is
+    an address (the scanner's text) or a uint8 array.  -> (a1, a2 (R, S)
+    int32, phase (R, S) bool, ok (R,) bool), record r's rows valid where
+    ``ok[r]``; None without the library."""
     lib = load()
-    need = np.flatnonzero(sb.gt_at >= 0)
-    rows = np.full(sb.n_vars, -1, dtype=np.int64)
-    rows[need] = np.arange(need.shape[0])
-    R = need.shape[0]
+    if lib is None:
+        return None
+    off, ln, gt_at = (np.ascontiguousarray(a, dtype=np.int64) for a in (off, ln, gt_at))
+    R = off.shape[0]
     a1 = np.empty((R, n_samples), dtype=np.int32)
     a2 = np.empty((R, n_samples), dtype=np.int32)
     ph = np.empty((R, n_samples), dtype=np.bool_)
-    if R == 0:
-        return rows, a1, a2, ph
-    if n_samples == 0:
-        return None
     ok = np.zeros(R, dtype=np.uint8)
-    off = np.ascontiguousarray(sb.gt_off[need])
-    ln = np.ascontiguousarray(sb.gt_len[need])
-    ga = np.ascontiguousarray(sb.gt_at[need])
-    lib.malva_parse_gt_spans(
-        sb.buf, off.ctypes.data_as(_I64P), ln.ctypes.data_as(_I64P), ga.ctypes.data_as(_I64P),
-        R, n_samples, a1.ctypes.data_as(_I32P), a2.ctypes.data_as(_I32P),
-        ph.ctypes.data_as(_U8P), ok.ctypes.data_as(_U8P),
-    )
-    return (rows, a1, a2, ph) if ok.all() else None
+    if R:
+        lib.malva_parse_gt_spans(
+            base if isinstance(base, int) else base.ctypes.data, off.ctypes.data_as(_I64P),
+            ln.ctypes.data_as(_I64P), gt_at.ctypes.data_as(_I64P), R, n_samples,
+            a1.ctypes.data_as(_I32P), a2.ctypes.data_as(_I32P), ph.ctypes.data_as(_U8P),
+            ok.ctypes.data_as(_U8P),
+        )
+    return a1, a2, ph, ok.astype(bool)
 
 
-def extract_scanned(sb: ScanBatch, gts, refs: list, k: int, haploid: bool):
-    """:func:`extract_arrays` over a scanned batch and its GT parse
-    (:func:`parse_gt_spans`); ``refs`` holds each block's reference.
-    -> (the six output arrays, stats), or None without the library."""
+def extract_columns(cols: Columns, gts, refs, k: int, haploid: bool):
+    """:func:`extract_arrays` over a batch and its GT step's ``gts``
+    (rows (n_vars,), -1 where a variant has no GT row; a1, a2, phase);
+    ``refs`` maps each block's contig to its reference as bytes.  -> (the
+    six output arrays, stats), or None without the library."""
     rows, a1, a2, ph = gts
     has = rows >= 0
-    gt1 = np.zeros(sb.n_vars, dtype=np.uint64)
-    gt2 = np.zeros(sb.n_vars, dtype=np.uint64)
-    gph = np.zeros(sb.n_vars, dtype=np.uint64)
+    gt1 = np.zeros(cols.n_vars, dtype=np.uint64)
+    gt2 = np.zeros(cols.n_vars, dtype=np.uint64)
+    gph = np.zeros(cols.n_vars, dtype=np.uint64)
     if has.any():
         r = rows[has].astype(np.uint64)
         S = np.uint64(a1.shape[1])
         gt1[has] = np.uint64(a1.ctypes.data) + r * S * np.uint64(4)
         gt2[has] = np.uint64(a2.ctypes.data) + r * S * np.uint64(4)
         gph[has] = np.uint64(ph.ctypes.data) + r * S
-    res = extract_arrays(sb.blk_off, refs, sb.pos, sb.ref_size, sb.min_size, sb.present,
-                         sb.al_start, sb.al_off, sb.al_bytes, (gt1, gt2, gph),
-                         a1.shape[1] if has.any() else 0, k, haploid)
+    views = {name: np.frombuffer(refs[name], dtype=np.uint8) if refs[name] else None
+             for name in set(cols.blk_name)}
+    res = extract_arrays(cols.blk_off, [views[name] for name in cols.blk_name], cols.pos,
+                         cols.ref_size, cols.min_size, cols.present, cols.al_start, cols.al_off,
+                         cols.al_bytes, (gt1, gt2, gph), a1.shape[1] if has.any() else 0, k,
+                         haploid)
     if res is None:
         return None
     oob, out, stats = res
     if oob >= 0:
-        _warn_oob_allele(sb.names[sb.name[oob]], int(sb.pos[oob]))
+        _warn_oob_allele(cols.names[cols.name[oob]], int(cols.pos[oob]))
     return out, stats
 
 

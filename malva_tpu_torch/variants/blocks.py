@@ -380,21 +380,6 @@ class VB:
             aacs.add(tuple(al(j, a) for j, a in zip(comb, t)))
         return aacs
 
-    _engine_cache: "object | None" = None
-    _engine_tried = False
-
-    def _native_engine(self):
-        # one engine per process: its scratch buffers (256 KB+) grow to the
-        # worst block seen and are reused — a fresh instance per block was
-        # ~2 s of allocations on a 70k-block chr-scale VCF
-        if not VB._engine_tried:
-            VB._engine_tried = True
-            from ..utils.native import CombsNative, load
-
-            lib = load()
-            VB._engine_cache = CombsNative(lib) if lib is not None else None
-        return VB._engine_cache
-
     # -- signature extraction (var_block.hpp:95-219) -----------------------
     def _extract_single(self, reference: bytes, haploid: bool) -> dict:
         """Single-variant block fast path — the dominant block shape on
@@ -425,14 +410,6 @@ class VB:
             return self._extract_single(reference, haploid)
         self._unique_profiles(haploid)
         self._atab: dict[int, list[bytes]] = {}
-        native = self._native_engine()
-        if native is not None:
-            native.set_block(
-                np.array([v.ref_pos for v in self.variants], np.int64),
-                np.array([v.ref_size for v in self.variants], np.int64),
-                np.array([v.min_size for v in self.variants], np.int64),
-                np.array([v.is_present for v in self.variants], np.uint8),
-            )
         kmers: dict[int, dict[int, list[list[bytes]]]] = {}
         n = len(self.variants)
         # Window dedup is two-level: once per CHUNK of consecutive variants
@@ -452,13 +429,9 @@ class VB:
                     or v.ref_pos > len(reference) - k
                 ):
                     continue
-                combs = None
-                if native is not None:
-                    combs = native.combs(v_index, k)
-                if combs is None:
-                    right_combs = self._grow_combs(v_index, +1)
-                    left_combs = self._grow_combs(v_index, -1)
-                    combs = self._combine_combs(left_combs, right_combs, v_index)
+                right_combs = self._grow_combs(v_index, +1)
+                left_combs = self._grow_combs(v_index, -1)
+                combs = self._combine_combs(left_combs, right_combs, v_index)
                 members.append(v_index)
                 combs_of[v_index] = combs
             if not members:

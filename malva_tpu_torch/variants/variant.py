@@ -3,8 +3,10 @@
 One VCF record becomes a Variant: uppercased REF/ALTs with symbolic
 ('<'-prefixed) alternates dropped, float32 allele-frequency priors with the
 reference-allele frequency computed as ``1 - sum(alt freqs)`` clamped at 0,
-per-selected-sample genotype pairs + phasing extracted htslib-style, and
-the ``has_alts`` / ``is_present`` gating flags.
+and the ``has_alts`` / ``is_present`` gating flags; its per-selected-sample
+genotype pairs + phasing, decoded htslib-style, are rows of the batch's GT
+step (``pipeline._gt_rows``), which the Variant holds only for the Python
+extraction.
 """
 
 from __future__ import annotations
@@ -22,16 +24,20 @@ def _bcf_gt_is_phased(enc: int) -> bool:
     return bool(enc & 1)
 
 
+# the GT arrays of a variant that holds none: only the Python extraction
+# reads them (pipeline._extract_python)
+EMPTY_I32 = np.zeros(0, dtype=np.int32)
+EMPTY_BOOL = np.zeros(0, dtype=bool)
+
+
 class Variant:
     __slots__ = (
         "seq_name", "ref_pos", "idx", "ref_sub", "alts", "quality", "filt",
         "info", "gt_a1", "gt_a2", "phase", "ref_size", "min_size", "max_size",
         "has_alts", "is_present", "frequencies", "coverages", "computed_gts",
-        "_gt_src",
     )
 
-    def __init__(self, rec: VcfRecord, selected: list[int], freq_key: str,
-                 uniform: bool, skip_gt: bool = False):
+    def __init__(self, rec: VcfRecord, freq_key: str, uniform: bool):
         self.seq_name: str = rec.chrom
         self.ref_pos: int = rec.pos0
         self.idx: str = rec.idx
@@ -45,13 +51,11 @@ class Variant:
         self.quality: np.float32 = rec.qual()
         self.filt: str = "PASS"  # reference hardcodes PASS (variant.hpp:91)
         self.info: str = "."
-        self.gt_a1 = np.zeros(0, dtype=np.int32)
-        self.gt_a2 = np.zeros(0, dtype=np.int32)
-        self.phase = np.zeros(0, dtype=bool)
+        self.gt_a1 = self.gt_a2 = EMPTY_I32  # set only for the Python extraction
+        self.phase = EMPTY_BOOL
         self.frequencies: list[np.float32] = []
         self.computed_gts: list[tuple[str, float]] = []
         self.min_size = self.max_size = 0
-        self._gt_src = None  # deferred GT parse source (pipeline._resolve_gts)
 
         # set_sizes (variant.hpp:108-124)
         self.has_alts = bool(self.alts)
@@ -67,11 +71,6 @@ class Variant:
             self.min_size = mn
             self.max_size = mx
             self._extract_frequencies(rec, freq_key, uniform)
-            if self.is_present and not skip_gt:
-                self._extract_genotypes(rec, selected)
-            # skip_gt: the caller batch-parses GT (pipeline._make_variants
-            # via native.parse_gt_batch) and assigns gt_a1/gt_a2/phase —
-            # or calls _extract_genotypes itself on the fallback path
 
     # -- frequencies (variant.hpp:126-156) --------------------------------
     def _extract_frequencies(self, rec: VcfRecord, freq_key: str, uniform: bool):
@@ -104,10 +103,12 @@ class Variant:
 
     # -- genotypes (variant.hpp:158-211) ----------------------------------
     def _extract_genotypes(self, rec: VcfRecord, selected: list[int]):
+        """(a1, a2, phase) over the selected samples, or None where the
+        record has no GT data, which clears ``has_alts``."""
         out = rec.genotypes_arrays(selected)
         if out is None:
             self.has_alts = False
-            return
+            return None
         enc, ploidy = out  # (n, ploidy) integer, htslib encoding
         first = enc[:, 0]
         if ploidy >= 2:
@@ -123,9 +124,7 @@ class Variant:
         a1 = np.maximum((first >> 1) - 1, 0)
         a2 = np.where(is_end, a1, np.maximum((second >> 1) - 1, 0))
         phased = np.where(is_end, True, (second & 1).astype(bool))
-        self.gt_a1 = a1.astype(np.int32, copy=False)
-        self.gt_a2 = a2.astype(np.int32, copy=False)
-        self.phase = phased
+        return a1.astype(np.int32, copy=False), a2.astype(np.int32, copy=False), phased
 
     @property
     def genotypes(self) -> list[tuple[int, int]]:
@@ -159,16 +158,11 @@ class Variant:
         self.computed_gts.append((geno, prob))
 
 
-# the GT arrays of a variant whose extraction is done (or never needs them)
-EMPTY_I32 = np.zeros(0, dtype=np.int32)
-EMPTY_BOOL = np.zeros(0, dtype=bool)
-
-
 def from_columns(cols) -> list:
-    """The Variants of a scanned batch (``utils/native.py ScanBatch``),
+    """The Variants of a scanned batch (``utils/native.py Columns``),
     made in bulk from its columns, as :class:`Variant` makes them from
     records: no record object, and no per-variant array (the GT arrays,
-    which only the extraction reads, are left empty)."""
+    which only the Python extraction reads, are left empty)."""
     n = cols.n_vars
     names = cols.names
     blob = cols.al_bytes.tobytes()
@@ -205,6 +199,44 @@ def from_columns(cols) -> list:
         v.computed_gts = []
         v.has_alts = True
         v.is_present = bool(present[i])
-        v._gt_src = None
         out.append(v)
     return out
+
+
+def _offsets(lengths, n: int) -> np.ndarray:
+    out = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.fromiter(lengths, np.int64, n), out=out[1:])
+    return out
+
+
+def to_columns(blocks: list):
+    """The Python path's batch as the record scanner's columns
+    (``utils/native.py Columns``): ``blocks`` holds each block's
+    variants, their GT sources and the contig its reference comes from.
+    The batch keeps both.  An ID's offsets count characters, as
+    :func:`from_columns` reads them (the scanner takes ASCII IDs only)."""
+    from ..utils.native import Columns
+
+    vs = [v for variants, _, _ in blocks for v in variants]
+    n = len(vs)
+    blk_name = [contig for _, _, contig in blocks]
+    names = list(dict.fromkeys([v.seq_name for v in vs] + blk_name))
+    name_at = {name: i for i, name in enumerate(names)}
+    alleles = [a for v in vs for a in (v.ref_sub, *v.alts)]
+    ids = [v.idx for v in vs]
+
+    def col(attr, dtype):
+        return np.fromiter((getattr(v, attr) for v in vs), dtype, n)
+
+    return Columns(
+        names, vs, [s for _, srcs, _ in blocks for s in srcs],
+        blk_off=_offsets((len(b) for b, _, _ in blocks), len(blocks)), blk_name=blk_name,
+        pos=col("ref_pos", np.int64), ref_size=col("ref_size", np.int64),
+        min_size=col("min_size", np.int64), max_size=col("max_size", np.int64),
+        present=col("is_present", np.uint8), qual=col("quality", np.float32),
+        name=np.fromiter((name_at[v.seq_name] for v in vs), np.int32, n),
+        al_start=_offsets((1 + len(v.alts) for v in vs), n),
+        al_off=_offsets(map(len, alleles), len(alleles)),
+        al_bytes=np.frombuffer(b"".join(alleles), dtype=np.uint8),
+        freq=np.array([f for v in vs for f in v.frequencies], dtype=np.float32),
+        id_off=_offsets(map(len, ids), n), id_bytes="".join(ids).encode())

@@ -261,17 +261,22 @@ def test_native_loader_builds_outside_the_checkout(tmp_path):
     assert res.stderr.count("native host library built") == 1
 
 
-def _port_run(tmp_path, name: str, inputs: list[str], threads: int) -> bytes:
+def _port_run(tmp_path, name: str, inputs: list[str], threads: int, flags=(),
+              library: bool = True) -> bytes:
     """``run --backend host`` of the port in a fresh process with
-    OMP_NUM_THREADS set -> the VCF bytes."""
+    OMP_NUM_THREADS set, and without the native library where not
+    ``library`` -> the VCF bytes."""
     env = dict(os.environ, OMP_NUM_THREADS=str(threads),
                PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     env.pop("MALVA_NO_NATIVE", None)
+    if not library:
+        env["MALVA_NO_NATIVE"] = "1"
     work = tmp_path / f"{name}-{threads}"
     work.mkdir()
     args = [shutil.copy(p, work / os.path.basename(p)) for p in inputs]
     res = subprocess.run([sys.executable, "-m", "malva_tpu_torch.cli", "run", "--backend", "host",
-                          "-b", "1", *map(str, args)], env=env, capture_output=True, timeout=600)
+                          "-b", "1", *flags, *map(str, args)], env=env, capture_output=True,
+                         timeout=600)
     assert res.returncode == 0, res.stderr[-2000:]
     return res.stdout
 
@@ -292,6 +297,28 @@ def test_host_run_does_not_depend_on_threads(tmp_path, case):
     assert one == four
     if case == "diploid":
         assert one == open(os.path.join(d, "golden.vcf"), "rb").read()
+
+
+@pytest.mark.parametrize("case", ["diploid", "haploid fuzz"])
+def test_host_run_without_the_library(tmp_path, case):
+    """``run --backend host`` without the native library (Python's GT
+    decode, extraction and combinations) gives the VCF bytes it gives with
+    it: the diploid fixture's golden VCF, and a seeded haploid fuzz
+    input's."""
+    if case == "diploid":
+        d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "diploid")
+        inputs = [os.path.join(d, n) for n in ("ref.fa", "vars.vcf", "reads.fa")]
+        flags = []
+        with open(os.path.join(d, "golden.vcf"), "rb") as f:
+            want = f.read()
+    else:
+        (tmp_path / "src").mkdir()
+        inputs = list(gen_case(str(tmp_path / "src"), 214, haploid=True))
+        flags = ["-1"]
+        want = _port_run(tmp_path, "library", inputs, 2, flags)
+    got = _port_run(tmp_path, "python", inputs, 2, flags, library=False)
+    assert got.count(b"\n") > 20
+    assert got == want
 
 
 def test_malva_threads_reports_the_count_given():

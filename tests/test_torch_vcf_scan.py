@@ -1,11 +1,12 @@
 """The native VCF record scanner (``csrc/host_kernels.cpp`` VcfScan,
 ``pipeline._scanned_batches``) against the Python path it stands in for.
 
-The same small VCFs, written here, go through both routes batch by batch:
-the variants' fields (positions, alleles, sizes, frequencies to the bit,
-``has_alts``, ``is_present``), the GT arrays, the block boundaries and the
-contig each block's reference comes from, ``used_out``, the extracted
-signatures and the batch numbering under ``owned``.  The VCFs come as plain
+The same small VCFs, written here, go through both record sources batch
+by batch: the batches' columns (the block boundaries and the contig each
+block's reference comes from, contigs, positions, sizes, present flags,
+alleles, frequencies and QUALs to the bit, IDs), their GT rows,
+``used_out``, the Variants' fields, the extracted signatures and the
+batch numbering under ``owned``.  The VCFs come as plain
 text, one gzip member and many members with zero padding between them, and
 cover symbolic and multi-allelic alternates, a missing ``-f`` key, ``.``
 and unparseable frequency tokens, frequencies at float32 rounding ties,
@@ -164,61 +165,49 @@ def _python_route(monkeypatch):
     monkeypatch.setattr(tp, "_open_scan", lambda *a: None)
 
 
-def _route_batches(cfg, refs, keep_absent, scanned: bool):
-    """Each batch of one route: its variants' fields, GT arrays (None for a
-    variant without), block sizes and block references; and used_out."""
+def _route_batches(cfg, keep_absent, scanned: bool):
+    """Each batch of one record source, its columns and GT rows; and
+    used_out."""
     reader = tp.open_variant_reader(cfg.vcf_path, cfg.samples)
     ctx = tp._GtCtx(reader)
     used: list = []
-    out = []
-    refs_of = tp._RefsOf(refs)
     if scanned:
         scan = tp._open_scan(cfg, reader, ctx, keep_absent)
         assert scan is not None
-        for sb in tp._scanned_batches(cfg, scan, ctx, keep_absent, used, None):
-            assert not sb.fallback
-            gts = native.parse_gt_spans(sb, ctx.n_samples)
-            assert gts is not None
-            rows, a1, a2, ph = gts
-            gt = [None if r < 0 else (a1[r], a2[r], ph[r]) for r in rows.tolist()]
-            off = sb.blk_off.tolist()
-            out.append((sb.variants(), gt, np.diff(off).tolist(),
-                        [refs_of.bytes(n) for n in sb.blk_name]))
+        batches = tp._scanned_batches(cfg, scan, ctx, keep_absent, used, None)
     else:
-        for batch in tp._python_batches(cfg, refs_of, reader, ctx, keep_absent, used, None):
-            vs = [v for variants, _ in batch for v in variants]
-            tp._resolve_gts(vs)
-            gt = [(v.gt_a1, v.gt_a2, v.phase) if v.is_present else None for v in vs]
-            out.append((vs, gt, [len(b) for b, _ in batch], [r for _, r in batch]))
+        batches = tp._python_batches(cfg, reader, ctx, keep_absent, used, None)
+    out = []
+    for cols in batches:  # the GT step before the scanner's next scan
+        assert cols.scanned == scanned and not cols.fallback
+        gts = tp._gt_rows(cols, ctx)
+        assert gts is not None
+        out.append((cols, gts))
     return out, used
 
 
+COLUMNS = ("blk_off", "blk_name", "pos", "ref_size", "min_size", "max_size", "present",
+           "al_start", "al_off", "al_bytes", "id_off", "id_bytes")
 FIELDS = ("seq_name", "ref_pos", "idx", "ref_sub", "alts", "ref_size", "min_size", "max_size",
           "has_alts", "is_present", "filt", "info", "coverages")
 
 
-def _f32(xs):
-    return [np.float32(x).tobytes() for x in xs]
-
-
-def _assert_same_batches(cfg, refs, keep_absent):
-    got, used_n = _route_batches(cfg, refs, keep_absent, scanned=True)
-    want, used_p = _route_batches(cfg, refs, keep_absent, scanned=False)
+def _assert_same_batches(cfg, keep_absent):
+    got, used_n = _route_batches(cfg, keep_absent, scanned=True)
+    want, used_p = _route_batches(cfg, keep_absent, scanned=False)
     assert used_n == used_p
     assert len(got) == len(want)
-    for (vn, gn, bn, rn), (vp, gp, bp, rp) in zip(got, want):
-        assert bn == bp and rn == rp
-        assert len(vn) == len(vp)
-        for x, y in zip(vn, vp):
-            assert [getattr(x, f) for f in FIELDS] == [getattr(y, f) for f in FIELDS]
-            assert _f32(x.frequencies) == _f32(y.frequencies)
-            assert _f32([x.quality]) == _f32([y.quality])
-        for a, b in zip(gn, gp):
-            assert (a is None) == (b is None)
-            if a is not None:
-                for u, w in zip(a, b):
-                    np.testing.assert_array_equal(u, w)
-    return sum(len(v) for v, *_ in got)
+    for (cn, gn), (cp, gp) in zip(got, want):
+        assert cn.n_vars == cp.n_vars
+        for f in COLUMNS:
+            np.testing.assert_array_equal(getattr(cn, f), getattr(cp, f), err_msg=f)
+        assert [cn.names[i] for i in cn.name] == [cp.names[i] for i in cp.name]
+        for f in ("freq", "qual"):  # to the bit
+            assert getattr(cn, f).tobytes() == getattr(cp, f).tobytes(), f
+        for u, w in zip(gn, gp):  # rows, a1, a2, phase
+            assert u.dtype == w.dtype
+            np.testing.assert_array_equal(u, w)
+    return sum(cols.n_vars for cols, _ in got)
 
 
 def _flats(cfg, refs, keep_absent, owned=None):
@@ -278,7 +267,7 @@ def test_scan_matches_python_path(tmp_path, monkeypatch, case, form):
     refs = load_reference(fa, cfg.strip_chr)
     monkeypatch.setattr(tp, "EXTRACT_VARS", 7)
     for keep_absent in (True, False):
-        n = _assert_same_batches(cfg, refs, keep_absent)
+        n = _assert_same_batches(cfg, keep_absent)
         assert n > 10 or (case == "missing -f key" and not keep_absent)  # all absent there
         cn, cp = _assert_same_flats(cfg, refs, keep_absent, monkeypatch)
         spans = "pass2" if keep_absent else "variants"
@@ -301,7 +290,7 @@ def test_used_out_quirk_and_absent_first_record(tmp_path, monkeypatch):
     cfg = _cfg(fa, vcf)
     refs = load_reference(fa)
     for keep_absent in (True, False):
-        _assert_same_batches(cfg, refs, keep_absent)
+        _assert_same_batches(cfg, keep_absent)
         _assert_same_flats(cfg, refs, keep_absent, monkeypatch)
     _, used, _ = _flats(cfg, refs, False)
     assert used[0] == "a"
@@ -319,9 +308,8 @@ def test_large_file_crosses_the_text_buffer(tmp_path, monkeypatch):
         fa, vcf = _write(tmp_path / form, contigs, recs, 1400, form)
         assert (os.path.getsize(vcf) > 8 << 20) == (form == "plain")
         cfg = _cfg(fa, vcf)
-        refs = load_reference(fa)
         monkeypatch.setattr(tp, "EXTRACT_VARS", 300)
-        assert _assert_same_batches(cfg, refs, True) > 1000
+        assert _assert_same_batches(cfg, True) > 1000
 
 
 def _one_bad(tmp_path, bad_line, n_samples=2):
@@ -425,3 +413,55 @@ def test_heartbeat_every_5000_records(tmp_path, monkeypatch):
         beats.append([ln.split("]")[0] for ln in timer.out.getvalue().splitlines()
                       if "Processed" in ln and "Execution Time" in ln])
     assert beats[0] == beats[1] == [f"[t/Processed {n} variants" for n in (5000, 10000)]
+
+
+def _bcf_or_subset(tmp_path, form):
+    """A seeded fuzz case as BCF, or as VCF under a ``--samples`` subset."""
+    from fuzz_gen import gen_case
+
+    fa, vcf, _ = gen_case(str(tmp_path), 403, n_samples=6)
+    if form == "bcf":
+        from malva_tpu_torch.io.bcf import write_bcf
+        from malva_tpu_torch.io.vcf import VcfReader
+
+        r = VcfReader(vcf)
+        vcf = str(tmp_path / "vars.bcf")
+        write_bcf(vcf, r.meta_lines, r.sample_names, list(r), freq_key="AF")
+        return _cfg(fa, vcf)
+    (tmp_path / "samples.txt").write_text("S1\nS4\nS2\n")
+    return _cfg(fa, vcf, samples=str(tmp_path / "samples.txt"))
+
+
+@pytest.mark.parametrize("case", [*CASES, "bcf", "samples subset"])
+def test_the_library_extracts_every_batch(tmp_path, monkeypatch, case):
+    """With the library loaded, every batch of either record source, BCF
+    and a ``--samples`` subset included, goes through the one native
+    extraction: ``VB.extract_kmers``, the extraction without the library,
+    is never called."""
+    from malva_tpu_torch.variants.blocks import VB
+
+    def refused(*a, **kw):
+        raise AssertionError("VB.extract_kmers called with the library loaded")
+
+    monkeypatch.setattr(VB, "extract_kmers", refused)
+    if case in CASES:
+        kw, names, n_samples, ckw = CASES[case]
+        rng = np.random.default_rng(zlib.crc32(f"{case}/extract".encode()))
+        contigs = _contigs(rng, names)
+        fa, vcf = _write(tmp_path / "v", contigs, _records(rng, contigs, 90, n_samples, **kw),
+                         n_samples, "gzip")
+        cfg = _cfg(fa, vcf, **ckw)
+    else:
+        cfg = _bcf_or_subset(tmp_path, case)
+    refs = load_reference(cfg.fasta_path, cfg.strip_chr)
+    monkeypatch.setattr(tp, "EXTRACT_VARS", 7)
+    for python in (False, True):
+        with monkeypatch.context() as m:
+            if python:
+                _python_route(m)
+            for keep_absent in (True, False):
+                _, _, c = _flats(cfg, refs, keep_absent)
+                spans = "pass2" if keep_absent else "variants"
+                if case != "missing -f key" or keep_absent:  # all absent there
+                    assert c[f"{spans}.records"] > 10
+                assert c.get(f"{spans}.extract_blocks", 0) > 0 or not c.get(f"{spans}.records")

@@ -11,7 +11,8 @@ flat outputs against the same block cut by hand and against malva_tpu's
 library, which extracts it whole.  The native
 route counts every record under
 ``native_records``; BCF input and a ``--samples`` subset take the Python
-path and count every record under ``fallback_records``.
+path, count every record under ``fallback_records`` and give malva_tpu's
+VCF.
 """
 
 import functools
@@ -137,11 +138,14 @@ def test_native_scan_python_path_and_malva_tpu_agree(tmp_path, monkeypatch, case
         np.testing.assert_array_equal(m_ix[k], got_ix[k])
 
 
-@pytest.mark.parametrize("form", ["bcf", "samples subset"])
+@pytest.mark.parametrize("form", ["bcf", "samples subset", "ploidy-1 samples subset"])
 def test_bcf_and_sample_subsets_take_the_python_path(tmp_path, form):
     """BCF input (found by sniffing) and a ``--samples`` subset scan on the
-    Python path: every record counts under ``fallback_records``."""
-    fa, vcf, reads = gen_case(str(tmp_path), 403, n_samples=6)
+    Python path: every record counts under ``fallback_records``, and the
+    VCF is malva_tpu's.  Ploidy-1 columns genotyped diploid read each
+    sample's second allele from the next selected sample (upstream's
+    wrap-around)."""
+    fa, vcf, reads = gen_case(str(tmp_path), 403, n_samples=6, haploid=form.startswith("ploidy-1"))
     extra = {}
     if form == "bcf":
         from malva_tpu_torch.io.bcf import write_bcf
@@ -152,8 +156,9 @@ def test_bcf_and_sample_subsets_take_the_python_path(tmp_path, form):
         write_bcf(vcf, r.meta_lines, r.sample_names, list(r), freq_key="AF")
     else:
         (tmp_path / "samples.txt").write_text("S1\nS4\nS2\n")
-        extra = dict(samples=str(tmp_path / "samples.txt"))
-    cfg = TConfig(fasta_path=fa, vcf_path=vcf, sample_path=reads, bf_size=1 << 22, **extra)
+        extra["samples"] = str(tmp_path / "samples.txt")
+    args = dict(fasta_path=fa, vcf_path=vcf, sample_path=reads, bf_size=1 << 22, **extra)
+    cfg = TConfig(**args)
     timer = PhaseTimer("t", out=io.StringIO())
     with timer.recording():
         index = tp.build_index(cfg, timer=timer)
@@ -164,6 +169,10 @@ def test_bcf_and_sample_subsets_take_the_python_path(tmp_path, form):
     for spans in ("pass2", "variants"):
         assert c[f"{spans}.fallback_records"] == c[f"{spans}.records"] > 0
         assert f"{spans}.native_records" not in c
+    mcfg = MConfig(**args)
+    want = io.StringIO()
+    mp.call(mcfg, mp.build_index(mcfg), want)
+    assert out.getvalue() == want.getvalue()
 
 
 def _run_variants(rng, ref: bytes, runs, n_ind: int):
@@ -187,17 +196,29 @@ def _run_variants(rng, ref: bytes, runs, n_ind: int):
                       .astype(np.int32) for _ in range(2))
             if rng.random() < 0.05:
                 a1[int(rng.integers(n_ind))] = n_al
+            sizes = [len(a) for a in (ref_sub, *alts)]
             out.append(SimpleNamespace(
-                seq_name="ctg", ref_pos=pos, ref_size=len(ref_sub),
-                min_size=min(len(a) for a in (ref_sub, *alts)),
+                seq_name="ctg", ref_pos=pos, idx=".", ref_size=len(ref_sub),
+                min_size=min(sizes), max_size=max(sizes), quality=np.float32("nan"),
                 is_present=bool(rng.random() > 0.05), ref_sub=ref_sub, alts=alts,
+                frequencies=[np.float32(1 / n_al)] * n_al,
                 gt_a1=a1, gt_a2=a2, phase=rng.random(n_ind) < 0.5))
     return out
 
 
 def _extract(monkeypatch, blocks, haploid):
-    """native.extract_group over ``blocks`` -> (its six arrays, the first
-    variant with an allele past its ALTs, its stats)."""
+    """The port's extraction (native.extract_columns) over ``blocks``,
+    [(variants, ref), ...], laid out as columns by the Python path's
+    builder, the present variants' GT arrays as rows -> (its six arrays,
+    the first variant with an allele past its ALTs, its stats)."""
+    from malva_tpu_torch.variants.variant import to_columns
+
+    cols = to_columns([(vs, [None] * len(vs), "ctg") for vs, _ in blocks])
+    present = [v for v in cols.variants() if v.is_present]
+    rows = np.full(cols.n_vars, -1, dtype=np.int64)
+    rows[cols.present.astype(bool)] = np.arange(len(present))
+    gts = (rows, *(np.stack([getattr(v, f) for v in present])
+                   for f in ("gt_a1", "gt_a2", "phase")))
     seen = []
     extract_arrays = native.extract_arrays
 
@@ -207,7 +228,7 @@ def _extract(monkeypatch, blocks, haploid):
 
     with monkeypatch.context() as m:
         m.setattr(native, "extract_arrays", recorded)
-        res = native.extract_group(blocks, 35, haploid)
+        res = native.extract_columns(cols, gts, {"ctg": blocks[0][1]}, 35, haploid)
     assert res is not None and len(seen) == 1
     oob, out, stats = seen[0]
     return out, oob, stats
@@ -236,7 +257,6 @@ def test_long_block_extracts_as_the_block_cut_at_64_by_hand(monkeypatch, haploid
         monkeypatch, [(vs[i:i + 64], ref) for i in range(0, len(vs), 64)], haploid)
     assert (got_stats["blocks"], got_stats["units"]) == (1, 4)
     assert (want_stats["blocks"], want_stats["units"]) == (4, 4)
-    assert got_stats["retries"] == want_stats["retries"] == 0
     assert got[0].size > 200
     _assert_same(got, want)
     assert got_oob == want_oob >= 0

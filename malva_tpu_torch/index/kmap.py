@@ -11,9 +11,13 @@ stores into ``int``).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 
-from ..ops.seq import canonical, is_acgt, pack_2bit, truncate_at_nul
+from ..ops.seq import canonical, is_acgt, pack_2bit, truncate_at_nul, unpack_2bit
+from ..utils import native
+from ..utils.timing import count
 
 
 def _keys(kmers: np.ndarray) -> list[bytes]:
@@ -21,11 +25,53 @@ def _keys(kmers: np.ndarray) -> list[bytes]:
     return [row.tobytes().rstrip(b"\x00") for row in ck]
 
 
+# get_counts copies every value once (np.fromiter, ~40 ns a key) where its
+# hits are at least 1/SNAPSHOT_HITS of the map's keys, else it reads each
+# hit's value by its key (~1 us a key in a map of a million keys)
+SNAPSHOT_HITS = 16
+
+
+class _KeyView(NamedTuple):
+    """The map's keys arranged for search.  ``k``: the keys' most common
+    length.  ``rows``: the pure-ACGT length-``k`` keys, 2-bit packed
+    (``pack_2bit``) and sorted by ``native.argsort_u64rows``
+    (lexicographic on the uint64 words, which is ASCII k-mer order), or
+    None without the native library or keys.  ``order``: each row's
+    position in the dict's insertion order.  ``rest``: every other key
+    (IUPAC bytes, NUL-truncated; all keys without the library) -> its
+    position.  ``n``: the key count it was built for."""
+
+    n: int
+    k: int
+    rows: "np.ndarray | None"
+    order: np.ndarray
+    rest: dict
+
+
+def _key_view(kmers: dict) -> _KeyView:
+    keys = list(kmers)
+    lens = np.fromiter(map(len, keys), np.int64, len(keys))
+    k = int(np.bincount(lens).argmax()) if keys else 0
+    searched = np.zeros(len(keys), dtype=bool)
+    rows, order = None, np.zeros(0, dtype=np.int64)
+    if keys and native.load() is not None:
+        full = np.flatnonzero(lens == k)
+        blob = b"".join(keys if full.shape[0] == len(keys) else [keys[i] for i in full.tolist()])
+        arr = np.frombuffer(blob, np.uint8).reshape(-1, k)
+        pure = is_acgt(arr)
+        packed = pack_2bit(arr[pure])
+        perm = native.argsort_u64rows(packed)
+        rows = np.ascontiguousarray(packed[perm])
+        order = full[pure][perm]
+        searched[order] = True
+    rest = {keys[i]: i for i in np.flatnonzero(~searched).tolist()}
+    return _KeyView(len(keys), k, rows, order, rest)
+
+
 class KMAP:
     def __init__(self):
         self._kmers: dict[bytes, int] = {}
-        self._fast: dict[int, np.ndarray] = {}  # probe width -> sorted void keys
-        self._slots: dict[bytes, int] | None = None  # key -> insertion index
+        self._view: _KeyView | None = None
 
     @property
     def kmers(self) -> dict:
@@ -33,115 +79,62 @@ class KMAP:
 
     @kmers.setter
     def kmers(self, d: dict) -> None:
-        # callers swap whole dicts in (batch planes, index load); the
-        # membership cache is keyed on the KEY SET and must not survive
+        # callers swap whole dicts in (batch planes, index load); the key
+        # view is of the KEY SET and must not survive
         self._kmers = d
-        self._fast.clear()
-        self._slots = None
+        self._view = None
 
-    def _fast_index(self, k: int):
-        """Sorted packed view of the pure-ACGT length-k keys, for a
-        vectorized membership test: a pure canonical probe of length k can
-        only ever equal one of these (NUL-truncated or IUPAC keys differ
-        in at least one byte).  Comparison order is the void view's
-        memcmp — internally consistent, which is all searchsorted needs.
+    def key_view(self) -> _KeyView:
+        """The sorted view of the keys (:class:`_KeyView`), built where
+        none is cached.  Guarded by the key COUNT: direct insertions into
+        the dict (index load loops) bypass the kmers setter; updates of
+        values keep the dict's order and the view.  It holds no values:
+        every query reads them anew."""
+        v = self._view
+        if v is None or v.n != len(self._kmers):
+            v = self._view = _key_view(self._kmers)
+        return v
 
-        Guarded by the key COUNT: direct insertions into the dict (e.g.
-        index load loops) bypass the kmers setter, and a stale cache
-        would silently drop counts — a len change always invalidates."""
-        if self._fast.get("_n") != len(self._kmers):
-            self._fast.clear()
-            self._fast["_n"] = len(self._kmers)
-        fi = self._fast.get(k)
-        if fi is None:
-            keys = [kb for kb in self.kmers if len(kb) == k]
-            if keys:
-                arr = np.frombuffer(b"".join(keys), np.uint8).reshape(-1, k)
-                ok = is_acgt(arr)
-                arr = arr[ok]
-            if keys and arr.shape[0]:
-                packed = np.ascontiguousarray(pack_2bit(arr))
-                voids = packed.view(f"V{packed.shape[1] * 8}").ravel()
-                voids = np.sort(voids)
-            else:
-                voids = np.zeros(0, dtype="V8")
-            fi = self._fast[k] = voids
-        return fi
-
-    def _match_mask(self, kmers: np.ndarray, ck: np.ndarray) -> "np.ndarray | None":
-        """Boolean mask of probes that CAN be map members (pure-ACGT probes
-        filtered by the packed membership test; non-pure probes pass
-        through as True and take the per-row path)."""
-        n, k = kmers.shape
-        if n < 1024:  # not worth the packing below this
-            return None
-        voids = self._fast_index(k)
-        pure = is_acgt(ck)
-        maybe = np.ones(n, dtype=bool)
+    def _positions(self, kmers: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """(canonical NUL-truncated probes, each one's key position in
+        insertion order or -1).  A probe whose truncated bytes are pure
+        ACGT of the view's length can only equal a row of the view (a
+        NUL-truncated key is shorter, an IUPAC key differs in a byte):
+        those take one native search (``kmap.packed_queries``); every
+        other probe a lookup in ``rest`` (``kmap.dict_queries``)."""
+        ck = truncate_at_nul(canonical(kmers))
+        n, w = ck.shape
+        pos = np.full(n, -1, dtype=np.int64)
+        v = self.key_view()
+        if v.rows is not None and w >= v.k:
+            head = ck[:, : v.k]
+            pure = is_acgt(head) & (ck[:, v.k :] == 0).all(axis=1)
+        else:
+            pure = np.zeros(n, dtype=bool)
         if pure.any():
-            packed = np.ascontiguousarray(pack_2bit(ck[pure]))
-            pv = packed.view(f"V{packed.shape[1] * 8}").ravel()
-            if voids.shape[0]:
-                pos = np.searchsorted(voids, pv)
-                pos_c = np.minimum(pos, voids.shape[0] - 1)
-                found = (pos < voids.shape[0]) & (voids[pos_c] == pv)
-            else:
-                found = np.zeros(pv.shape[0], dtype=bool)
-            maybe[pure] = found
-        return maybe
+            at = native.search_u64rows(v.rows, pack_2bit(head[pure]))
+            found = at >= 0
+            at[found] = v.order[at[found]]
+            pos[pure] = at
+        slow = np.flatnonzero(~pure).tolist()
+        for i in slow:
+            pos[i] = v.rest.get(ck[i].tobytes().rstrip(b"\x00"), -1)
+        count("kmap.packed_queries", n - len(slow))
+        count("kmap.dict_queries", len(slow))
+        return ck, pos
 
     def add_keys(self, kmers: np.ndarray) -> None:
-        self._fast.clear()
-        self._slots = None
+        self._view = None
         for key in _keys(kmers):
             self.kmers[key] = 0
 
     def increment_keys(self, kmers: np.ndarray, counters: np.ndarray) -> None:
         d = self.kmers
-        ck = truncate_at_nul(canonical(kmers))
-        maybe = self._match_mask(kmers, ck)
-        if maybe is not None:
-            if not maybe.any():
-                return
-            ck = ck[maybe]
-            counters = np.asarray(counters)[maybe]
-        for row, c in zip(ck, counters.tolist()):
+        ck, pos = self._positions(kmers)
+        hit = pos >= 0
+        for row, c in zip(ck[hit], np.asarray(counters)[hit].tolist()):
             key = row.tobytes().rstrip(b"\x00")
-            v = d.get(key)
-            if v is not None:
-                d[key] = (v + int(c)) & 0xFFFFFFFF
-
-    def _packed_index(self, k: int):
-        """Sorted packed view of the pure-ACGT length-k keys PLUS the key
-        objects in that order — the packed-probe increment path resolves
-        hits by native binary search and folds into the dict by position.
-        Row order is lexicographic on the uint64 words, which equals ASCII
-        k-mer order under pack_2bit's layout.  Guarded by key count like
-        :meth:`_fast_index`."""
-        from ..utils import native
-
-        if self._fast.get("_n") != len(self._kmers):
-            self._fast.clear()
-            self._fast["_n"] = len(self._kmers)
-        e = self._fast.get(("pk", k))
-        if e is None:
-            keys = [kb for kb in self.kmers if len(kb) == k]
-            if keys:
-                arr = np.frombuffer(b"".join(keys), np.uint8).reshape(-1, k)
-                ok = is_acgt(arr)
-                idx_ok = np.nonzero(ok)[0]
-                packed = np.ascontiguousarray(pack_2bit(arr[ok]))
-            if keys and packed.shape[0]:
-                perm = native.argsort_u64rows(packed)
-                if perm is None:
-                    return None
-                rows = np.ascontiguousarray(packed[perm])
-                korder = [keys[i] for i in idx_ok[perm].tolist()]
-            else:
-                rows = np.zeros((0, (k + 31) // 32), dtype=np.uint64)
-                korder = []
-            e = self._fast[("pk", k)] = (rows, korder)
-        return e
+            d[key] = (d[key] + int(c)) & 0xFFFFFFFF
 
     def increment_packed(self, probes: np.ndarray, counters: np.ndarray,
                          k: int) -> bool:
@@ -151,29 +144,26 @@ class KMAP:
         the ASCII path).  Exact: a pure-ACGT probe can only ever match a
         pure-ACGT length-k key (NUL-truncated keys are shorter, IUPAC keys
         differ in a byte), and the per-key fold wraps mod 2^32 exactly
-        like the per-store wrap (addition is associative mod 2^32)."""
-        from ..utils import native
-
-        pk = self._packed_index(k)
-        if pk is None:
+        like the per-store wrap (addition is associative mod 2^32).  The
+        keys it writes are the hit rows unpacked: a pure key's bytes."""
+        v = self.key_view()
+        if v.rows is None or v.k != k:
             return False
-        rows, korder = pk
-        if not korder or probes.shape[0] == 0:
+        count("kmap.packed_queries", probes.shape[0])
+        if not v.rows.shape[0] or probes.shape[0] == 0:
             return True
-        pos = native.search_u64rows(rows, probes)
-        if pos is None:
-            return False
-        hit = pos >= 0
+        at = native.search_u64rows(v.rows, probes)
+        hit = at >= 0
         if not hit.any():
             return True
-        agg = np.zeros(len(korder), dtype=np.uint32)
-        vals = np.asarray(counters, dtype=np.uint32)[hit]
-        if not native.scatter_add_u32(agg, pos[hit], vals):
-            np.add.at(agg, pos[hit], vals)
+        agg = np.zeros(v.rows.shape[0], dtype=np.uint32)
+        native.scatter_add_u32(agg, at[hit], np.asarray(counters, dtype=np.uint32)[hit])
+        rows = np.flatnonzero(agg)
+        keys = unpack_2bit(v.rows[rows], k).tobytes()
         d = self._kmers
-        for i in np.nonzero(agg)[0].tolist():
-            key = korder[i]
-            d[key] = (d[key] + int(agg[i])) & 0xFFFFFFFF
+        for j, add in enumerate(agg[rows].tolist()):
+            key = keys[j * k : (j + 1) * k]
+            d[key] = (d[key] + add) & 0xFFFFFFFF
         return True
 
     # -- batch counter planes ----------------------------------------------
@@ -191,33 +181,23 @@ class KMAP:
         of get_counts: canonicalization + membership resolved once, then
         any plane answers with ``plane[slot]`` (reinterpreted signed, as
         get_counts does)."""
-        if self._slots is None or len(self._slots) != len(self._kmers):
-            self._slots = {k: i for i, k in enumerate(self._kmers)}
-        sm = self._slots
-        found = np.zeros(len(kmers), dtype=bool)
-        out = np.zeros(len(kmers), dtype=np.int64)
-        ck = truncate_at_nul(canonical(kmers))
-        maybe = self._match_mask(kmers, ck)
-        rows = np.nonzero(maybe)[0] if maybe is not None else range(len(kmers))
-        for i in rows:
-            v = sm.get(ck[i].tobytes().rstrip(b"\x00"))
-            if v is not None:
-                found[i] = True
-                out[i] = v
-        return found, out
+        _, pos = self._positions(kmers)
+        found = pos >= 0
+        return found, np.where(found, pos, 0)
 
     def get_counts(self, kmers: np.ndarray) -> np.ndarray:
-        d = self.kmers
-        out = np.zeros(len(kmers), dtype=np.int64)
-        ck = truncate_at_nul(canonical(kmers))
-        maybe = self._match_mask(kmers, ck)
-        rows = np.nonzero(maybe)[0] if maybe is not None else range(len(kmers))
-        for i in rows:
-            key = ck[i].tobytes().rstrip(b"\x00")
-            v = d.get(key)
-            if v is not None:
-                # stored as uint32, read back as signed int (kmap.hpp:119-121)
-                out[i] = v - (1 << 32) if v >= (1 << 31) else v
+        ck, pos = self._positions(kmers)
+        hits = np.flatnonzero(pos >= 0)
+        out = np.zeros(len(pos), dtype=np.int64)
+        if hits.shape[0] * SNAPSHOT_HITS >= len(self._kmers):
+            vals = self.snapshot_values()[pos[hits]]
+        else:
+            d = self._kmers
+            vals = np.fromiter((d[ck[i].tobytes().rstrip(b"\x00")] for i in hits.tolist()),
+                               dtype=np.uint32, count=hits.shape[0])
+            count("kmap.dict_queries", hits.shape[0])
+        # stored as uint32, read back as signed int (kmap.hpp:119-121)
+        out[hits] = vals.view(np.int32)
         return out
 
     def __len__(self) -> int:

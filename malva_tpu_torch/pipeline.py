@@ -910,6 +910,10 @@ def _genotype_and_emit(cfg: Config, index: Index, refs, out,
     # one over so extraction overlaps the counting phase too).
     if batches is None:
         batches = _prefetch(_iter_extract_batches(cfg, refs, keep_absent=True), "pass2")
+    # the exact map's sorted key view, which coverage searches, is built
+    # while the producer makes the first batch
+    with span("pass2.kmap_view"):
+        index.ref_bf.key_view()
     for flat in batches:
         with span("pass2.coverage"):
             _set_coverages_flat(index, flat)

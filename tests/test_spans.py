@@ -226,6 +226,34 @@ def test_call_host_records_every_span(tmp_path, capsys):
     assert load["parent"] == _by_name(rows, "Index loaded")["id"]
 
 
+def test_call_host_searches_the_exact_map(tmp_path, capsys, monkeypatch):
+    """Coverage's exact-map queries take the native search: the sorted
+    key view is built on the consumer's thread (``pass2.kmap_view``)
+    before its first wait ends, and only the probes whose canonical form
+    is not pure ACGT (the data holds NUL-truncated ones) take the per-key
+    path."""
+    from malva_tpu_torch.index.kmap import KMAP
+    from malva_tpu_torch.ops.seq import canonical, is_acgt, truncate_at_nul
+
+    probes = []
+    get_counts = KMAP.get_counts
+    monkeypatch.setattr(KMAP, "get_counts",
+                        lambda self, kmers: probes.append(kmers) or get_counts(self, kmers))
+    out = _call_host(tmp_path, capsys)
+    with open(GOLDEN) as f:
+        assert out.out == f.read()
+    line = _spans_line(out.err)
+    rows = line["rows"]
+    view = _by_name(rows, "pass2.kmap_view")
+    first_wait = min((r for r in rows if r["name"] == "pass2.wait"), key=lambda r: r["start"])
+    assert view["thread"] == first_wait["thread"] == threading.current_thread().name
+    assert view["end"] <= first_wait["end"]
+    pure = np.concatenate([is_acgt(truncate_at_nul(canonical(p))) for p in probes])
+    counters = line["counters"]
+    assert counters["kmap.dict_queries"] == int((~pure).sum()) < 0.01 * pure.shape[0]
+    assert counters["kmap.packed_queries"] >= int(pure.sum()) > 0
+
+
 def test_stderr_lines_read_as_before(tmp_path, capsys):
     """The benchmark's patterns match the phase lines, and nothing of the
     spans line; every other line keeps its form."""
